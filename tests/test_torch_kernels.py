@@ -1,0 +1,146 @@
+"""The port's kernel entry points on the CPU: each plain PyTorch twin
+against the JAX Pallas kernel it replaces (interpret mode), and the rule
+that a kernel is never quietly replaced by its twin.
+
+The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
+each one against its twin there."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from wfl_asr_tpu.ops.pallas.conv_fused import fused_conv_chain as jax_chain
+from wfl_asr_tpu.ops.pallas.flash_attention import flash_attention as jax_fa
+from wfl_asr_tpu.ops.pallas.flash_attention_bwd import \
+    flash_attention_trainable as jax_fat
+from wfl_asr_tpu_torch.ops.kernels import _build, conv_fused, \
+    flash_attention, flash_attention_bwd, reset_launch_counts
+
+TOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _setup():
+    torch.set_num_threads(1)
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+def _qkv(rng, b, h, t, d):
+    return [rng.randn(b, h, t, d).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("d,t", [(16, 50), (32, 64)])
+def test_gated_attention_twin_matches_jax(d, t):
+    rng = np.random.RandomState(d + t)
+    b, h = 2, 3
+    q, k, v = _qkv(rng, b, h, t, d)
+    bias = rng.randn(h, t, t).astype(np.float32)
+    gate = (rng.rand(b, h, t) + 0.5).astype(np.float32)
+    kv_len = np.array([t, t - 17], np.int32)
+    ref = np.asarray(jax_fa(*map(jnp.asarray, (q, k, v, bias, gate)),
+                            kv_len=jnp.asarray(kv_len), block_q=16,
+                            block_k=128))
+    out = flash_attention.flash_attention(
+        *map(torch.from_numpy, (q, k, v, bias, gate)),
+        kv_len=torch.from_numpy(kv_len)).numpy()
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("kv", [None, (40, 9)])
+def test_masked_attention_twin_matches_jax(kv):
+    rng = np.random.RandomState(3)
+    b, h, t, d = 2, 2, 40, 32
+    q, k, v = _qkv(rng, b, h, t, d)
+    kv_len = None if kv is None else np.array(kv, np.int32)
+    ref = np.asarray(jax_fat(*map(jnp.asarray, (q, k, v)),
+                             None if kv_len is None else jnp.asarray(kv_len)))
+    out = flash_attention_bwd.flash_attention_trainable(
+        *map(torch.from_numpy, (q, k, v)),
+        None if kv_len is None else torch.from_numpy(kv_len)).numpy()
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("ks,t,has_norm", [
+    ((3, 3, 3), 64, True),        # WavLM layers 1-3 shape-alike + GroupNorm
+    ((3, 2, 2), 60, False),       # WavLM layers 4-6 shape-alike
+    ((2,), 33, False),
+])
+def test_conv_chain_twin_matches_jax(ks, t, has_norm):
+    rng = np.random.RandomState(sum(ks) + t)
+    b, c = 2, 16
+    x = (rng.randn(b, t, c) * 0.4).astype(np.float32)
+    ws = [(rng.randn(c, c, k) * (0.5 / np.sqrt(c * k))).astype(np.float32)
+          for k in ks]
+    norm = None
+    if has_norm:
+        norm = (rng.randn(b, c).astype(np.float32) * 0.1,
+                (1.0 + rng.rand(b, c)).astype(np.float32),
+                rng.randn(c).astype(np.float32),
+                rng.randn(c).astype(np.float32) * 0.1)
+    ref = np.asarray(jax_chain(
+        jnp.asarray(x), [jnp.asarray(w) for w in ws],
+        input_norm=None if norm is None else tuple(map(jnp.asarray, norm))))
+    out = conv_fused.fused_conv_chain(
+        torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
+        input_norm=None if norm is None else tuple(map(torch.from_numpy,
+                                                       norm))).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
+
+
+def test_twins_leave_launch_counts_at_zero():
+    """CPU tensors take the plain twin: no kernel launch is counted."""
+    reset_launch_counts()
+    x = torch.randn(1, 2, 8, 16)
+    flash_attention.flash_attention(x, x, x)
+    flash_attention_bwd.flash_attention_trainable(x, x, x)
+    conv_fused.fused_conv_chain(torch.randn(1, 20, 8),
+                                [torch.randn(8, 8, 3)])
+    assert flash_attention.launches == 0
+    assert flash_attention_bwd.launches == 0
+    assert not conv_fused.launches
+
+
+def test_asking_for_a_kernel_raises_without_cuda():
+    """The kernel path raises here (no CUDA toolkit, no device) instead of
+    falling back to the plain twin."""
+    x = torch.randn(1, 2, 8, 16)
+    with pytest.raises((_build.KernelBuildError, RuntimeError, ValueError)):
+        _build.library("flash_attention")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.launch_kernel(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_fused.launch_kernel(torch.randn(1, 20, 8),
+                                 [torch.randn(8, 8, 3)])
+
+
+@pytest.mark.parametrize("kwargs,exc", [
+    (dict(dropout_rate=0.1), NotImplementedError),
+    (dict(gate=torch.ones(1, 2, 8)), ValueError),
+])
+def test_attention_rejects_unported_options(kwargs, exc):
+    x = torch.randn(1, 2, 8, 16)
+    with pytest.raises(exc):
+        flash_attention.flash_attention(x, x, x, **kwargs)
+
+
+@pytest.mark.parametrize("d", [8, 24, 528])
+def test_attention_rejects_unsupported_head_dim(d):
+    x = torch.randn(1, 1, 4, d)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd.flash_attention_trainable(x, x, x)
+
+
+def test_conv_chain_tile_fits_shared_memory():
+    """The tile per dtype keeps the staged rows within a Hopper block's
+    shared memory at WavLM-base width."""
+    for ks in ((3, 3, 3), (3, 2, 2)):
+        for esize in (2, 4):
+            tile = conv_fused.pick_tile(ks, 512, esize)
+            assert tile >= 1
+            assert conv_fused.smem_bytes(tile, ks, 512, esize) \
+                <= conv_fused.SMEM_LIMIT

@@ -1,0 +1,672 @@
+"""Inference pipeline: wav → (chunked) forward → postprocess → HTK ``.lab``.
+The port of ``wfl_asr_tpu/infer/pipeline.py``.
+
+Behavioral contract (reference infer.py end to end), as in the JAX package:
+
+- 30 s chunking with per-chunk re-normalization and time shifting
+  (infer.py:19-28, 98-184; quirk Q11 double-normalize kept);
+- per-language logits/offsets averaging when ``lang_id`` is None, as ONE
+  batched forward over all language ids;
+- the ``.wfl_cache`` logits/offsets cache under the reference's file names,
+  entries in torch format;
+- confidence gate → median filter → BIO decode with sub-frame offsets →
+  canonical→language mapping → segment merging → forced alignment;
+- sampling flags accepted with the reference's dead semantics (quirk Q2).
+
+Audio is padded into 1 s buckets; sample and frame masks make valid-frame
+outputs equal exact-length runs, so rows of different lengths share one
+forward. With ``postprocess.device_decode`` the batched folder mode runs
+language averaging, gate, masked median and the BIO state machine on the
+device and moves segment arrays to the host once; the host multiplies
+``(idx + offset) * Δ`` in float64 (``.lab`` truncation parity).
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; with
+no CUDA device they raise. ``int8`` serving, pipeline parallelism and
+sequence parallelism are not ported and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..checkpoint import load_model_checkpoint
+from ..config import Config, as_config
+from ..data.audio import peak_normalize, read_wav, resample, wav_duration
+from ..labels import (Segment, align_phoneme_list, canonical_to_lang,
+                      decode_bio_tags, load_langs, load_phoneme_list,
+                      load_phoneme_merge_map, merge_adjacent_segments,
+                      save_lab)
+from ..models.tagger import TaggerArch
+from ..ops.postprocess import (bio_tables, confidence_gate_ids,
+                               extract_segments_ids, median_filter_ids,
+                               median_filter_ids_masked)
+
+FRAME_DURATION = 0.02          # reference infer.py:12
+MAX_SEGMENT_DURATION = 30.0    # reference infer.py:13
+BUCKET_SECONDS = 1.0           # padding granularity of the bucketed forward
+
+ConfigLike = Union[str, Config, dict]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None``/"cuda" → the CUDA device, which must exist; "cpu" only when
+    asked for. Never a quiet fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but no CUDA device is available; "
+            f"pass device='cpu' to run on the CPU")
+    return dev
+
+
+def split_audio(audio: np.ndarray, sr: int,
+                max_duration: float = MAX_SEGMENT_DURATION) -> List[np.ndarray]:
+    """Fixed-size 30 s splits (reference infer.py:19-28)."""
+    samples_per_segment = int(max_duration * sr)
+    return [audio[start:start + samples_per_segment]
+            for start in range(0, len(audio), samples_per_segment)]
+
+
+class InferenceSession:
+    """A loaded tagger on one device, with the bucketed forward."""
+
+    def __init__(self, config: ConfigLike, checkpoint_path: str,
+                 compute_dtype: torch.dtype = torch.float32,
+                 arch: Optional[TaggerArch] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = as_config(config)
+        save_dir = self.cfg.save_dir
+        self.label_list = load_phoneme_list(os.path.join(save_dir,
+                                                         "phonemes.txt"))
+        self.label2id = {l: i for i, l in enumerate(self.label_list)}
+        self.id2label = {i: l for i, l in enumerate(self.label_list)}
+        self.lang2id = load_langs(os.path.join(save_dir, "langs.txt"))
+        self.merge_map = load_phoneme_merge_map(
+            os.path.join(save_dir, "phoneme_merge_map.json"))
+        self.arch = arch or TaggerArch.from_config(self.cfg,
+                                                   len(self.label_list))
+        quant = self.cfg.serving_quantization
+        if quant == "int8":
+            raise NotImplementedError(
+                "model.serving_quantization=int8 is not ported "
+                "(ROADMAP.md Queue 1: int8 serving)")
+        if quant != "none":
+            raise ValueError(f"model.serving_quantization={quant!r}: only "
+                             f"'int8' or 'none' are supported")
+        if int(self.cfg.serving_pipeline_parallel) > 1 \
+                or self.cfg.serving_sequence_parallel:
+            raise NotImplementedError(
+                "pipeline/sequence-parallel serving is not ported "
+                "(ROADMAP.md Queue 1: parallel/)")
+        self.model = load_model_checkpoint(checkpoint_path, self.arch,
+                                           self.device)
+        self.compute_dtype = compute_dtype
+        self.sr = self.cfg.sample_rate
+        # Position-bias store: one buffer at the largest bucket length seen
+        # (every shorter length's bias is its leading [:t, :t] block), at
+        # the compute dtype, plus a small LRU of sliced shorter views.
+        self._pos_bias_full: Optional[torch.Tensor] = None
+        self._pos_bias_len = 0
+        self._pos_bias_slices: "OrderedDict[int, torch.Tensor]" = OrderedDict()
+        self._pos_bias_slice_cap = 4
+        self._bio_cache = None
+
+    # -- forward --------------------------------------------------------------
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.array(x)).to(self.device)
+
+    def _pos_bias_for(self, t_pad: int) -> torch.Tensor:
+        """Position bias for a bucket length, computed once per session at
+        the largest length seen and sliced for shorter ones (bounded)."""
+        if t_pad > self._pos_bias_len:
+            with torch.inference_mode():
+                bias = self.model.encoder.position_bias(t_pad)
+            if self.compute_dtype == torch.bfloat16:
+                bias = bias.to(torch.bfloat16)   # the kernel reads it so
+            self._pos_bias_full = bias
+            self._pos_bias_len = t_pad
+            self._pos_bias_slices.clear()
+        if t_pad == self._pos_bias_len:
+            return self._pos_bias_full
+        if t_pad not in self._pos_bias_slices:
+            self._pos_bias_slices[t_pad] = \
+                self._pos_bias_full[:, :t_pad, :t_pad].contiguous()
+            while len(self._pos_bias_slices) > self._pos_bias_slice_cap:
+                self._pos_bias_slices.popitem(last=False)
+        else:
+            self._pos_bias_slices.move_to_end(t_pad)
+        return self._pos_bias_slices[t_pad]
+
+    def run_batch(self, audio: np.ndarray, lang_ids: np.ndarray,
+                  sample_mask: Optional[np.ndarray] = None,
+                  frame_mask: Optional[np.ndarray] = None):
+        """One forward over bucketed rows → DEVICE (logits, offsets) at the
+        compute dtype. audio [R, S] f32, lang_ids [R]; masks or None."""
+        t_pad = self.num_frames_for(audio.shape[-1])
+        with torch.inference_mode():
+            return self.model(
+                self._to_device(audio.astype(np.float32)),
+                self._to_device(np.asarray(lang_ids, np.int64)),
+                sample_mask=(self._to_device(sample_mask)
+                             if sample_mask is not None else None),
+                frame_mask=(self._to_device(frame_mask)
+                            if frame_mask is not None else None),
+                compute_dtype=self.compute_dtype,
+                pos_bias=self._pos_bias_for(t_pad))
+
+    def num_frames_for(self, num_samples: int) -> int:
+        """Frames the reference model emits for this exact length, clamped
+        at 0 (the recurrence goes negative below one receptive field)."""
+        return max(self.arch.wavlm.feature_lengths(num_samples), 0)
+
+    def _bucket(self, num_samples: int) -> int:
+        unit = int(BUCKET_SECONDS * self.sr)
+        return max(int(np.ceil(num_samples / unit)), 1) * unit
+
+    def forward(self, audio: np.ndarray, lang_ids: Sequence[int]
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact-length forward on bucketed shapes: audio [S]; the same
+        audio is batched over ``lang_ids``. Returns f32
+        (logits [L, T_ref, n_tags], offsets [L, T_ref, 2])."""
+        s_true = len(audio)
+        n = len(lang_ids)
+        t_ref = self.num_frames_for(s_true)
+        if t_ref == 0:
+            return (np.zeros((n, 0, self.arch.num_labels), np.float32),
+                    np.zeros((n, 0, 2), np.float32))
+        bucket = self._bucket(s_true)
+        buf = np.zeros(bucket, np.float32)
+        buf[:s_true] = audio
+        batch = np.broadcast_to(buf, (n, bucket))
+        t_pad = self.num_frames_for(bucket)
+        sample_mask = np.broadcast_to(np.arange(bucket) < s_true, (n, bucket))
+        frame_mask = np.broadcast_to(np.arange(t_pad) < t_ref, (n, t_pad))
+        masked = s_true != bucket
+        logits, offsets = self.run_batch(
+            batch, np.asarray(lang_ids, np.int64),
+            sample_mask if masked else None, frame_mask if masked else None)
+        return (logits[:, :t_ref].float().cpu().numpy(),
+                offsets[:, :t_ref].float().cpu().numpy())
+
+    def _forward_many_device(self, audios: Sequence[np.ndarray],
+                             lang_ids_per_item: Sequence[Sequence[int]]):
+        """One bucketed forward over every (item, language) row with per-row
+        masks; returns DEVICE outputs and each item's true frame count."""
+        s_true = [len(a) for a in audios]
+        bucket = self._bucket(max(s_true))
+        t_pad = self.num_frames_for(bucket)
+        rows_audio, rows_lang, row_owner = [], [], []
+        for i, (audio, langs) in enumerate(zip(audios, lang_ids_per_item)):
+            buf = np.zeros(bucket, np.float32)
+            buf[:len(audio)] = audio
+            for lang in langs:
+                rows_audio.append(buf)
+                rows_lang.append(lang)
+                row_owner.append(i)
+        t_refs = [self.num_frames_for(s) for s in s_true]
+        sample_mask = (np.arange(bucket)[None, :]
+                       < np.array([s_true[o] for o in row_owner])[:, None])
+        frame_mask = (np.arange(t_pad)[None, :]
+                      < np.array([t_refs[o] for o in row_owner])[:, None])
+        logits, offsets = self.run_batch(
+            np.stack(rows_audio), np.array(rows_lang, np.int64),
+            sample_mask, frame_mask)
+        return logits, offsets, t_refs
+
+    def forward_many(self, audios: Sequence[np.ndarray],
+                     lang_ids_per_item: Sequence[Sequence[int]]):
+        """Batched multi-utterance forward; per item (logits [L_i, T_i, n],
+        offsets [L_i, T_i, 2]) as f32 numpy."""
+        if not audios:
+            return []
+        logits, offsets, t_refs = self._forward_many_device(
+            audios, lang_ids_per_item)
+        logits = logits.float().cpu().numpy()
+        offsets = offsets.float().cpu().numpy()
+        out, row = [], 0
+        for i, langs in enumerate(lang_ids_per_item):
+            n = len(langs)
+            out.append((logits[row:row + n, :t_refs[i]],
+                        offsets[row:row + n, :t_refs[i]]))
+            row += n
+        return out
+
+    def _bio(self):
+        """Cached (kind_table, ph_table on the device, ph_names)."""
+        if self._bio_cache is None:
+            kind, ph, names = bio_tables(self.label_list)
+            self._bio_cache = (self._to_device(kind), self._to_device(ph),
+                               names)
+        return self._bio_cache
+
+    def forward_many_decoded(self, audios: Sequence[np.ndarray],
+                             langs: Sequence[int],
+                             confidence_threshold: float, median_size: int):
+        """Batched forward + device-side language averaging, gate, masked
+        median and BIO decode; one host transfer of segment arrays (plus the
+        averaged logits/offsets the ``.wfl_cache`` needs). Every item uses
+        the language list ``langs``. Returns per item
+        ``(mean_logits [T_i, n], mean_offsets [T_i, 2], segments)``."""
+        if not audios:
+            return []
+        n_items, n_langs = len(audios), len(langs)
+        logits, offsets, t_refs = self._forward_many_device(
+            audios, [list(langs)] * n_items)
+        kind_t, ph_t, ph_names = self._bio()
+        o_id = self.label2id["O"]
+        with torch.inference_mode():
+            lg = logits.float().reshape((n_items, n_langs)
+                                        + logits.shape[1:]).mean(dim=1)
+            off = offsets.float().reshape((n_items, n_langs)
+                                          + offsets.shape[1:]).mean(dim=1)
+            ids = confidence_gate_ids(lg, confidence_threshold, o_id)
+            decoded = []
+            for i in range(n_items):
+                ids_i = ids[i]
+                if median_size > 1:
+                    ids_i = median_filter_ids_masked(ids_i, median_size,
+                                                     t_refs[i])
+                decoded.append(extract_segments_ids(ids_i, off[i], t_refs[i],
+                                                    kind_t, ph_t))
+            # the single host transfer
+            b, e, p, so, eo, cnt = (torch.stack(x).cpu().numpy()
+                                    for x in zip(*decoded))
+            mlg, moff = lg.cpu().numpy(), off.cpu().numpy()
+        out = []
+        for i in range(n_items):
+            segs = []
+            for k in range(int(cnt[i])):
+                st = (int(b[i, k]) + float(so[i, k])) * FRAME_DURATION
+                en = (int(e[i, k]) + float(eo[i, k])) * FRAME_DURATION
+                segs.append((st, en, ph_names[int(p[i, k])]))
+            out.append((mlg[i, :t_refs[i]], moff[i, :t_refs[i]], segs))
+        return out
+
+    def postprocess_ids(self, logits: np.ndarray,
+                        confidence_threshold: float,
+                        median_size: int) -> np.ndarray:
+        """Device-side confidence gate + median filter → label ids [T]."""
+        with torch.inference_mode():
+            ids = confidence_gate_ids(self._to_device(logits),
+                                      confidence_threshold,
+                                      self.label2id["O"])
+            if median_size > 1:
+                ids = median_filter_ids(ids, median_size)
+            return ids.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Cache (reference .wfl_cache layout)
+# ---------------------------------------------------------------------------
+
+def _cache_save(path: str, arr: np.ndarray) -> None:
+    """A torch-format entry: the reference's cache read is a bare
+    ``torch.load`` (infer.py:127-131, 246-249)."""
+    torch.save(torch.from_numpy(np.ascontiguousarray(arr)), path)
+
+
+def _cache_load(path: str) -> Optional[np.ndarray]:
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path, "rb") as f:
+            arr = np.load(f, allow_pickle=False)
+        if isinstance(arr, np.ndarray):
+            return arr
+    except ValueError:
+        pass
+    try:  # torch format (a zip archive: np.load sees an NpzFile above)
+        val = torch.load(path, map_location="cpu", weights_only=False)
+        return np.asarray(val.detach().cpu().numpy(), np.float32)
+    except Exception:
+        return None
+
+
+def _squeeze_batch(arr: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    if arr is not None and arr.ndim == 3 and arr.shape[0] == 1:
+        return arr[0]
+    return arr
+
+
+# ---------------------------------------------------------------------------
+# Prediction on one audio segment (cache + language averaging)
+# ---------------------------------------------------------------------------
+
+def _lang_name_for(session: InferenceSession, lang_id: Optional[int]):
+    if lang_id is None:
+        return None
+    for name, idx in session.lang2id.items():
+        if idx == lang_id:
+            return name
+    return None
+
+
+def _check_lang_id(session: InferenceSession, lang_id: Optional[int]) -> None:
+    """The reference's torch embedding raises on a bad id (infer.py:257-259)."""
+    if lang_id is not None and (
+            lang_id < 0 or (session.lang2id
+                            and lang_id > max(session.lang2id.values()))):
+        raise ValueError(f"Language ID {lang_id} is invalid. "
+                         f"Available: {session.lang2id}")
+
+
+def _predict_segment(session: InferenceSession, segment: np.ndarray,
+                     lang_id: Optional[int],
+                     logit_path: Optional[str], offset_path: Optional[str]):
+    """Forward one segment (all languages batched and averaged when lang_id
+    is None), honoring/filling the cache. Returns (logits [T,n], offsets
+    [T,2])."""
+    logits = offsets = None
+    if logit_path is not None:
+        logits = _squeeze_batch(_cache_load(logit_path))
+        if logits is not None:
+            print(f"Loaded cached logits for {os.path.basename(logit_path)}")
+            offsets = _squeeze_batch(_cache_load(offset_path))
+    if logits is None:
+        _check_lang_id(session, lang_id)
+        lang_ids = ([lang_id] if lang_id is not None
+                    else sorted(session.lang2id.values()) or [0])
+        batched_logits, batched_offsets = session.forward(segment, lang_ids)
+        logits = batched_logits.mean(axis=0)
+        offsets = batched_offsets.mean(axis=0)
+        if logit_path is not None:
+            _cache_save(logit_path, logits)
+            _cache_save(offset_path, offsets)
+    return logits, offsets
+
+
+def _decode_segment(session: InferenceSession, logits: np.ndarray,
+                    offsets: Optional[np.ndarray],
+                    confidence_threshold: float, median_size: int,
+                    lang_name: Optional[str]) -> List[Segment]:
+    """Gate → median → BIO decode → canonical→lang mapping
+    (reference infer.py:163-179)."""
+    ids = session.postprocess_ids(logits, confidence_threshold, median_size)
+    tags = [session.id2label[int(i)] for i in ids]
+    segments = decode_bio_tags(tags, frame_duration=FRAME_DURATION,
+                               offsets=offsets)
+    if session.merge_map and lang_name:
+        segments = [(s, e, canonical_to_lang(ph, lang_name, session.merge_map))
+                    for s, e, ph in segments]
+    return segments
+
+
+def process_segments(session: InferenceSession, segments: List[np.ndarray],
+                     sr: int, lang_id: Optional[int],
+                     cache_dir: Optional[str], base_name: Optional[str],
+                     confidence_threshold: float) -> List[Segment]:
+    """Chunked-path processing (reference infer.py:98-184)."""
+    all_segments: List[Segment] = []
+    current_time = 0.0
+    lang_name = _lang_name_for(session, lang_id)
+    median_size = session.cfg.median_filter
+    lang_suffix = f"_lang{lang_id}" if lang_id is not None else "_avg"
+    for idx, segment in enumerate(segments):
+        if len(segment) > 0:
+            segment = segment / (np.max(np.abs(segment)) + 1e-8)  # Q11
+        logit_path = offset_path = None
+        if cache_dir is not None and base_name is not None:
+            logit_path = os.path.join(
+                cache_dir, f"{base_name}_seg{idx}{lang_suffix}_logits.pt")
+            offset_path = os.path.join(
+                cache_dir, f"{base_name}_seg{idx}{lang_suffix}_offsets.pt")
+        logits, offsets = _predict_segment(session, segment, lang_id,
+                                           logit_path, offset_path)
+        decoded = _decode_segment(session, logits, offsets,
+                                  confidence_threshold, median_size,
+                                  lang_name)
+        all_segments.extend([(s + current_time, e + current_time, ph)
+                             for s, e, ph in decoded])
+        current_time += len(segment) / sr
+    return all_segments
+
+
+# ---------------------------------------------------------------------------
+# Public API (mirrors reference infer.py signatures)
+# ---------------------------------------------------------------------------
+
+_SESSION_CACHE: Dict[tuple, InferenceSession] = {}
+
+
+def _config_key(config: ConfigLike):
+    if isinstance(config, (Config, dict)):
+        return ("object", id(config))
+    return ("path", os.path.abspath(str(config)))
+
+
+def _get_session(config: ConfigLike, checkpoint_path: str, device=None,
+                 compute_dtype: torch.dtype = torch.float32
+                 ) -> InferenceSession:
+    """One cached session per (config, checkpoint, device, dtype)."""
+    dev = resolve_device(device)
+    key = (_config_key(config), os.path.abspath(checkpoint_path), str(dev),
+           compute_dtype)
+    session = _SESSION_CACHE.get(key)
+    if session is None:
+        session = InferenceSession(config, checkpoint_path,
+                                   compute_dtype=compute_dtype, device=dev)
+        _SESSION_CACHE[key] = session
+    return session
+
+
+def infer_audio(audio_path: str, config_path: ConfigLike = "config.yaml",
+                checkpoint_path: str = "best_model.pt",
+                output_lab_path: Optional[str] = None,
+                device=None, lang_id: Optional[int] = None,
+                sample: bool = False, top_k: int = 0, top_p: float = 0.0,
+                temperature: float = 1.0,
+                confidence_threshold: float = 0.0,
+                compute_dtype: torch.dtype = torch.float32) -> List[Segment]:
+    """Single-file inference → segments (+ optional ``.lab``), mirroring
+    reference infer.py:186-328. The sampling flags do not change the output
+    (quirk Q2). ``device`` defaults to CUDA; pass "cpu" for the CPU."""
+    del sample, top_k, top_p, temperature
+    session = _get_session(config_path, checkpoint_path, device,
+                           compute_dtype)
+    lang_name = _lang_name_for(session, lang_id)
+    forced = _load_forced_list(audio_path)
+
+    audio, sr = read_wav(audio_path)
+    if audio.ndim > 1:
+        audio = audio.mean(axis=1)
+    if sr != session.sr:
+        audio = resample(audio, sr, session.sr)
+        sr = session.sr
+    audio = np.asarray(audio, np.float64)
+
+    base_name = os.path.splitext(os.path.basename(audio_path))[0]
+    cache_dir = os.path.join(os.path.dirname(audio_path), ".wfl_cache")
+    os.makedirs(cache_dir, exist_ok=True)
+    lang_suffix = f"_lang{lang_id}" if lang_id is not None else "_avg"
+    if len(audio) > 0:
+        audio = peak_normalize(audio, eps=1e-8)
+
+    median_size = session.cfg.median_filter
+    if len(audio) / sr > MAX_SEGMENT_DURATION:
+        print(f"Audio is too long ({len(audio)/sr:.1f}s), splitting...")
+        segments_pred = process_segments(
+            session, split_audio(audio, sr), sr, lang_id,
+            cache_dir, base_name, confidence_threshold)
+    else:
+        logit_path = os.path.join(cache_dir,
+                                  f"{base_name}{lang_suffix}_logits.pt")
+        offset_path = os.path.join(cache_dir,
+                                   f"{base_name}{lang_suffix}_offsets.pt")
+        logits, offsets = _predict_segment(session, audio, lang_id,
+                                           logit_path, offset_path)
+        segments_pred = _decode_segment(session, logits, offsets,
+                                        confidence_threshold, median_size,
+                                        lang_name)
+
+    if session.cfg.merge_segments != "none":
+        segments_pred = merge_adjacent_segments(
+            segments_pred, mode=session.cfg.merge_segments)
+    if forced is not None:
+        segments_pred = _apply_forced_alignment(segments_pred, forced)
+    if output_lab_path:
+        dir_path = os.path.dirname(output_lab_path)
+        if dir_path:
+            os.makedirs(dir_path, exist_ok=True)
+        save_lab(output_lab_path, segments_pred)
+        print(f"Predictions saved to: {output_lab_path}")
+    return segments_pred
+
+
+def _load_forced_list(audio_path: str) -> Optional[List[str]]:
+    """Forced phoneme list from the sibling .txt (reference infer.py:210-215)."""
+    phoneme_txt = audio_path.replace(".wav", ".txt")
+    if not os.path.exists(phoneme_txt):
+        return None
+    forced: List[str] = []
+    with open(phoneme_txt, "r", encoding="utf-8") as f:
+        for line in f:
+            forced.extend(line.strip().split())
+    print(f"Loaded forced phoneme list with {len(forced)} phonemes.")
+    return forced
+
+
+def _apply_forced_alignment(segments_pred: List[Segment],
+                            forced: List[str]) -> List[Segment]:
+    """Forced alignment + SP/AP edge re-attachment (reference infer.py:312-319)."""
+    aligned = align_phoneme_list(segments_pred, forced)
+    if "SP" not in forced and "AP" not in forced:
+        before = [s for s in segments_pred
+                  if s[2] in ("SP", "AP") and aligned and s[1] <= aligned[0][0]]
+        after = [s for s in segments_pred
+                 if s[2] in ("SP", "AP") and aligned and s[0] >= aligned[-1][1]]
+        return before + aligned + after
+    return aligned
+
+
+def infer_folder_batched(folder_path: str,
+                         config_path: ConfigLike = "config.yaml",
+                         checkpoint_path: str = "best_model.pt",
+                         output_dir: str = "outputs",
+                         lang_id: Optional[int] = None,
+                         confidence_threshold: float = 0.0,
+                         batch_files: int = 8, device=None,
+                         compute_dtype: torch.dtype = torch.float32) -> None:
+    """Throughput folder mode: ≤ 30 s files are batched into shared bucketed
+    forwards via per-row masks, with outputs identical to per-file
+    inference. Longer files take the chunked path; cached files skip the
+    forward."""
+    session = _get_session(config_path, checkpoint_path, device,
+                           compute_dtype)
+    os.makedirs(output_dir, exist_ok=True)
+    median_size = session.cfg.median_filter
+    lang_suffix = f"_lang{lang_id}" if lang_id is not None else "_avg"
+    lang_name = _lang_name_for(session, lang_id)
+    _check_lang_id(session, lang_id)
+    langs = ([lang_id] if lang_id is not None
+             else sorted(session.lang2id.values()) or [0])
+
+    def finish(name, segments):
+        if session.cfg.merge_segments != "none":
+            segments = merge_adjacent_segments(
+                segments, mode=session.cfg.merge_segments)
+        forced = _load_forced_list(os.path.join(folder_path, name))
+        if forced is not None:
+            segments = _apply_forced_alignment(segments, forced)
+        save_lab(os.path.join(output_dir, name.replace(".wav", ".lab")),
+                 segments)
+
+    def flush(group):
+        if session.cfg.device_decode:
+            results = session.forward_many_decoded(
+                [g[1] for g in group], langs, confidence_threshold,
+                median_size)
+            for (name, _audio, logit_path, offset_path), \
+                    (logits, offsets, segs) in zip(group, results):
+                _cache_save(logit_path, logits)
+                _cache_save(offset_path, offsets)
+                if session.merge_map and lang_name:
+                    segs = [(s, e, canonical_to_lang(ph, lang_name,
+                                                     session.merge_map))
+                            for s, e, ph in segs]
+                finish(name, segs)
+            return
+        results = session.forward_many([g[1] for g in group],
+                                       [langs] * len(group))
+        for (name, _audio, logit_path, offset_path), (lg, off) in \
+                zip(group, results):
+            logits = lg.mean(axis=0)
+            offsets = off.mean(axis=0)
+            _cache_save(logit_path, logits)
+            _cache_save(offset_path, offsets)
+            finish(name, _decode_segment(session, logits, offsets,
+                                         confidence_threshold, median_size,
+                                         lang_name))
+
+    pending = []  # (name, audio, logit_path, offset_path)
+    for name in sorted(f for f in os.listdir(folder_path)
+                       if f.lower().endswith(".wav")):
+        path = os.path.join(folder_path, name)
+        # duration gate first (header only): a >30 s file takes the chunked
+        # path even if a stale short-file cache entry has its name
+        n_samples, sr_hdr = wav_duration(path)
+        if n_samples / sr_hdr > MAX_SEGMENT_DURATION:
+            infer_audio(path, config_path, checkpoint_path,
+                        os.path.join(output_dir, name.replace(".wav", ".lab")),
+                        device=device, lang_id=lang_id,
+                        confidence_threshold=confidence_threshold,
+                        compute_dtype=compute_dtype)
+            continue
+        cache_dir = os.path.join(folder_path, ".wfl_cache")
+        os.makedirs(cache_dir, exist_ok=True)
+        base = os.path.splitext(name)[0]
+        logit_path = os.path.join(cache_dir, f"{base}{lang_suffix}_logits.pt")
+        offset_path = os.path.join(cache_dir,
+                                   f"{base}{lang_suffix}_offsets.pt")
+        cached = _squeeze_batch(_cache_load(logit_path))
+        if cached is not None:
+            finish(name, _decode_segment(
+                session, cached, _squeeze_batch(_cache_load(offset_path)),
+                confidence_threshold, median_size, lang_name))
+            continue
+        audio, sr = read_wav(path)
+        if audio.ndim > 1:
+            audio = audio.mean(axis=1)
+        if sr != session.sr:
+            audio = resample(audio, sr, session.sr)
+        if len(audio) > 0:
+            audio = peak_normalize(audio, eps=1e-8)
+        pending.append((name, np.asarray(audio, np.float32),
+                        logit_path, offset_path))
+        if len(pending) >= batch_files:
+            flush(pending)
+            pending = []
+    if pending:
+        flush(pending)
+
+
+def infer_folder(folder_path: str, config_path: ConfigLike = "config.yaml",
+                 checkpoint_path: str = "best_model.pt",
+                 output_dir: str = "outputs", device=None,
+                 lang_id: Optional[int] = None, sample: bool = False,
+                 top_k: int = 0, top_p: float = 0.0, temperature: float = 1.0,
+                 confidence_threshold: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32) -> None:
+    """Folder inference, one file at a time (reference infer.py:330-357)."""
+    wav_files = [f for f in os.listdir(folder_path)
+                 if f.lower().endswith(".wav")]
+    os.makedirs(output_dir, exist_ok=True)
+    for wav_file in wav_files:
+        print(f"\nInferencing: {wav_file}")
+        segments = infer_audio(
+            audio_path=os.path.join(folder_path, wav_file),
+            config_path=config_path, checkpoint_path=checkpoint_path,
+            output_lab_path=os.path.join(output_dir,
+                                         wav_file.replace(".wav", ".lab")),
+            device=device, lang_id=lang_id, sample=sample, top_k=top_k,
+            top_p=top_p, temperature=temperature,
+            confidence_threshold=confidence_threshold,
+            compute_dtype=compute_dtype)
+        print("Predicted segments:")
+        for start, end, ph in segments:
+            print(f"({round(start, 2)}, {round(end, 2)}, {ph})")

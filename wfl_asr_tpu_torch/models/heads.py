@@ -1,0 +1,197 @@
+"""Model heads, the port of ``wfl_asr_tpu/models/heads.py``: BiLSTM,
+Conformer blocks, dilated conv stack, boundary-offset head, language
+conditioning. Module names follow the reference ``BIOPhonemeTagger``
+(``conformer_layers.{i}.ff1.net.{0,1,4}``, a packed
+``self_attn.in_proj_weight``, ``conv.{0,2,3,5}``, ``dilated_conv_stack.{2j}``,
+``boundary_offset_head.{0,2}``), so its checkpoints load unchanged.
+
+Semantics kept from the reference (model.py:21-52): the Conformer conv
+module is a **full** (not depthwise) k=31 conv with BatchNorm1d, attention
+is post-LN, and the block has no final LayerNorm. Eval only: dropout and
+BatchNorm batch statistics are training features.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+from ..ops.kernels.flash_attention_bwd import flash_attention_trainable
+from .layers import conv1d, gelu, layer_norm, linear
+
+
+# ---------------------------------------------------------------------------
+# BiLSTM
+# ---------------------------------------------------------------------------
+
+def bilstm(lstm: nn.LSTM, x: torch.Tensor,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stacked bidirectional ``nn.LSTM(batch_first=True)`` over [B, T, H].
+
+    With ``mask`` [B, T] (right-padded), rows are packed to their true
+    lengths, so the reverse direction starts at each row's last valid frame
+    from a zero state — the JAX package's carry reset on padded frames
+    (heads.py:61-111). Valid frames match; padded frames come out as zeros.
+
+    The LSTM runs in f32 whatever the compute dtype (cuDNN's bf16 RNN
+    support is not relied on); the output is cast back.
+    """
+    dtype = x.dtype
+    xf = x.float()
+    if mask is None:
+        out, _ = lstm(xf)
+        return out.to(dtype)
+    t = x.shape[1]
+    lengths = mask.to(torch.int64).sum(-1).clamp_min(1).cpu()
+    packed = pack_padded_sequence(xf, lengths, batch_first=True,
+                                  enforce_sorted=False)
+    out, _ = lstm(packed)
+    out, _ = pad_packed_sequence(out, batch_first=True, total_length=t)
+    return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Conformer block
+# ---------------------------------------------------------------------------
+
+class FeedForwardModule(nn.Module):
+    """LN → Linear(×e) → GELU → Linear (model.py:6-19); the reference's
+    dropout slots stay as identities so the linears keep their indices."""
+
+    def __init__(self, dim: int, expansion: int):
+        super().__init__()
+        self.net = nn.Sequential(
+            nn.LayerNorm(dim), nn.Linear(dim, dim * expansion), nn.GELU(),
+            nn.Identity(), nn.Linear(dim * expansion, dim), nn.Identity())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = layer_norm(self.net[0], x)
+        return linear(self.net[4], gelu(linear(self.net[1], h)))
+
+
+class PackedSelfAttention(nn.Module):
+    """``nn.MultiheadAttention``'s parameters (packed ``in_proj_weight``
+    [3E, E], ``out_proj``) with the attention through the key-masked kernel
+    ``flash_attention_trainable``."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x: torch.Tensor, kv_len=None) -> torch.Tensor:
+        b, t, dim = x.shape
+        d = dim // self.heads
+        w = self.in_proj_weight.to(x.dtype)
+        bias = self.in_proj_bias.to(x.dtype)
+
+        def proj(i):
+            h = F.linear(x, w[i * dim:(i + 1) * dim], bias[i * dim:(i + 1) * dim])
+            return h.reshape(b, t, self.heads, d).transpose(1, 2).contiguous()
+
+        attn = flash_attention_trainable(proj(0), proj(1), proj(2), kv_len)
+        return linear(self.out_proj, attn.transpose(1, 2).reshape(b, t, dim))
+
+
+def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """Eval BatchNorm over [B, C, T] with running statistics, in f32."""
+    y = (x.float() - bn.running_mean[None, :, None]) \
+        * torch.rsqrt(bn.running_var[None, :, None] + bn.eps)
+    y = y * bn.weight[None, :, None] + bn.bias[None, :, None]
+    return y.to(x.dtype)
+
+
+class ConformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, ff_expansion: int,
+                 conv_kernel: int):
+        super().__init__()
+        self.ff1 = FeedForwardModule(dim, ff_expansion)
+        self.ff2 = FeedForwardModule(dim, ff_expansion)
+        self.self_attn = PackedSelfAttention(dim, heads)
+        self.ln1 = nn.LayerNorm(dim)
+        self.ln2 = nn.LayerNorm(dim)
+        self.conv_kernel = conv_kernel
+        self.conv = nn.Sequential(
+            nn.Conv1d(dim, 2 * dim, 1), nn.GLU(dim=1),
+            nn.Conv1d(dim, dim, conv_kernel, padding=conv_kernel // 2),
+            nn.BatchNorm1d(dim), nn.GELU(), nn.Conv1d(dim, dim, 1))
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Macaron FF halves, post-LN MHSA, conv module, no final LN.
+        ``mask`` [B, T]: key-padding mask for attention, and the main conv's
+        input is zeroed on padded frames (exact-length zero padding)."""
+        x = x + 0.5 * self.ff1(x)
+        kv_len = mask.to(torch.int32).sum(-1) if mask is not None else None
+        x = layer_norm(self.ln1, x + self.self_attn(x, kv_len))
+
+        h = layer_norm(self.ln2, x).transpose(1, 2)            # [B, C, T]
+        h = conv1d(self.conv[0], h)
+        a, g = h.chunk(2, dim=1)                               # GLU(dim=1)
+        h = a * torch.sigmoid(g)
+        if mask is not None:
+            h = h * mask[:, None, :].to(h.dtype)
+        h = conv1d(self.conv[2], h, padding=self.conv_kernel // 2)
+        h = gelu(batch_norm_eval(self.conv[3], h))
+        h = conv1d(self.conv[5], h).transpose(1, 2)
+        x = x + h
+        return x + 0.5 * self.ff2(x)
+
+
+# ---------------------------------------------------------------------------
+# Dilated conv stack / offset head / language conditioning
+# ---------------------------------------------------------------------------
+
+def make_dilated_stack(dim: int, depth: int, kernel: int) -> nn.Sequential:
+    """depth × (Conv1d(dilation=2^i, same padding) + ReLU) (model.py:126-133)."""
+    mods = []
+    for i in range(depth):
+        dilation = 2 ** i
+        mods += [nn.Conv1d(dim, dim, kernel, dilation=dilation,
+                           padding=dilation * (kernel - 1) // 2), nn.ReLU()]
+    return nn.Sequential(*mods)
+
+
+def dilated_stack(stack: nn.Sequential, x: torch.Tensor, kernel: int,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: [B, T, C]; with ``mask`` each conv's input is zeroed on padded
+    frames."""
+    h = x.transpose(1, 2)
+    mask_c = mask[:, None, :].to(h.dtype) if mask is not None else None
+    for i in range(0, len(stack), 2):
+        dilation = 2 ** (i // 2)
+        if mask_c is not None:
+            h = h * mask_c
+        h = torch.relu(conv1d(stack[i], h, padding=dilation * (kernel - 1) // 2,
+                              dilation=dilation))
+    return h.transpose(1, 2)
+
+
+def make_offset_head(dim: int) -> nn.Sequential:
+    return nn.Sequential(nn.Conv1d(dim, dim, 3, padding=1), nn.GELU(),
+                         nn.Conv1d(dim, 2, 1), nn.Sigmoid())
+
+
+def offset_head(head: nn.Sequential, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Conv(k=3) → GELU → Conv(→2, k=1) → Sigmoid → [B, T, 2]."""
+    h = x.transpose(1, 2)
+    if mask is not None:
+        h = h * mask[:, None, :].to(h.dtype)
+    h = gelu(conv1d(head[0], h, padding=1))
+    return torch.sigmoid(conv1d(head[2], h)).transpose(1, 2)
+
+
+def lang_conditioning(emb: nn.Embedding, proj: nn.Linear, x: torch.Tensor,
+                      lang_id: torch.Tensor) -> torch.Tensor:
+    """Embed the language id, broadcast over T, concat, project back."""
+    e = emb.weight[lang_id.long()].to(x.dtype)                  # [B, E]
+    e = e[:, None, :].expand(x.shape[0], x.shape[1], e.shape[-1])
+    return linear(proj, torch.cat([x, e], dim=-1))

@@ -1,0 +1,266 @@
+"""BIO phoneme tagger, the port of ``wfl_asr_tpu/models/tagger.py``:
+``TaggerArch`` (with ``from_config``, the WavLM presets and
+``model.encoder_arch_overrides``) and the ``BIOPhonemeTagger`` module, whose
+``forward`` mirrors ``apply_tagger`` in eval mode:
+
+    audio [B, S], lang_id [B]
+        → wav2vec2 normalize → WavLM encoder
+        → trim-or-pad time to max_label_len (model.py:166-174)
+        → lang embed concat + proj → BiLSTM → Conformer × N → dilated conv
+        → logits [B, T, n_tags], offsets [B, T, 2]
+
+Only ``encoder_type: wavlm`` is ported; ``whisper`` and ``none`` raise
+``NotImplementedError`` (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, fields, replace
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.frontend import wav2vec2_normalize, wav2vec2_normalize_masked
+from . import heads as H
+from .layers import linear
+from .wavlm import WavLMArch, WavLMEncoder
+
+ENCODER_TODO = ("encoder_type {!r} is not ported yet: only 'wavlm' runs in "
+                "wfl_asr_tpu_torch (ROADMAP.md Queue 1: Whisper and the mel "
+                "encoder)")
+
+# Known WavLM checkpoint families → architecture presets (no network).
+WAVLM_PRESETS = {
+    "base": WavLMArch(),
+    "base-plus": WavLMArch(),
+    # wavlm-large: per-layer LayerNorm AND biased convs (its config.json
+    # sets conv_bias: true)
+    "large": WavLMArch(hidden_size=1024, num_layers=24, num_heads=16,
+                       intermediate_size=4096, feat_extract_norm="layer",
+                       do_stable_layer_norm=True, conv_bias=True),
+}
+
+# Fields of the JAX package's WavLMArch that only its training or its
+# kernel switches read; an ``encoder_arch_overrides`` entry naming one is
+# dropped (the port's inference has no dropout and always runs its
+# kernels). Any other key that is not a WavLMArch field raises.
+JAX_ONLY_ARCH_KEYS = frozenset({
+    "use_flash_attention", "use_fused_conv", "hidden_dropout",
+    "activation_dropout", "attention_dropout", "strict_attention_dropout",
+    "feat_proj_dropout", "layerdrop"})
+
+
+def wavlm_arch_from_name(model_name: str) -> WavLMArch:
+    """Preset for a WavLM checkpoint name, or a local HF checkpoint
+    directory's ``config.json``."""
+    from .hf_local import local_hf_arch
+    local = local_hf_arch(model_name, "wavlm", "WavLMConfig",
+                          WavLMArch, "model.wavlm_model")
+    if local is not None:
+        return local
+    tail = model_name.split("/")[-1].removeprefix("wavlm-")
+    if tail in WAVLM_PRESETS:
+        return WAVLM_PRESETS[tail]
+    for key in ("large", "base-plus", "base"):
+        if key in tail:
+            return WAVLM_PRESETS[key]
+    raise ValueError(
+        f"Unknown wavlm model {model_name!r}. Known presets: "
+        f"{sorted(WAVLM_PRESETS)} (plus task-suffixed variants of each). "
+        f"A local HF checkpoint DIRECTORY (with config.json) is also "
+        f"accepted. For a custom architecture set "
+        f"model.encoder_arch_overrides in the config (fields of WavLMArch).")
+
+
+@dataclass(frozen=True)
+class TaggerArch:
+    """All static hyperparameters of the tagger."""
+    encoder_type: str                 # "wavlm" (ported) | "whisper" | "none"
+    num_labels: int
+    num_languages: int
+    hidden_size: int
+    lang_emb_dim: int = 64
+    enable_bilstm: bool = True
+    bilstm_num_layers: int = 1
+    num_conformer_layers: int = 2
+    conformer_heads: int = 4
+    conformer_ff_expansion: int = 4
+    conformer_kernel: int = 31
+    enable_dilated_conv: bool = True
+    dilated_depth: int = 2
+    dilated_kernel: int = 3
+    wavlm: Optional[WavLMArch] = None
+
+    @classmethod
+    def from_config(cls, cfg, num_labels: int) -> "TaggerArch":
+        """Build from a ``Config`` (defaults mirror the reference's
+        model.py:57-142 ``.get`` sites)."""
+        enc = cfg.encoder_type
+        overrides = cfg.raw.get("model", {}).get("encoder_arch_overrides") or {}
+        if enc != "wavlm":
+            raise NotImplementedError(ENCODER_TODO.format(enc))
+        try:
+            wavlm = wavlm_arch_from_name(cfg.encoder_name)
+        except ValueError:
+            if not overrides:
+                raise
+            print(f"[WARN] Unknown wavlm model {cfg.encoder_name!r}: "
+                  f"building from the WavLMArch defaults + "
+                  f"model.encoder_arch_overrides — overrides must name "
+                  f"every field that differs from the defaults.")
+            wavlm = WavLMArch()
+        if overrides:
+            known = {f.name for f in fields(WavLMArch)}
+            unknown = set(overrides) - known - JAX_ONLY_ARCH_KEYS
+            if unknown:
+                raise ValueError(
+                    f"model.encoder_arch_overrides: unknown WavLMArch "
+                    f"field(s) {sorted(unknown)}")
+            wavlm = replace(wavlm, **{
+                k: tuple(v) if isinstance(v, list) else v
+                for k, v in overrides.items() if k in known})
+        return cls(
+            encoder_type=enc, num_labels=num_labels,
+            num_languages=cfg.num_languages, hidden_size=wavlm.hidden_size,
+            lang_emb_dim=cfg.lang_emb_dim,
+            enable_bilstm=cfg.enable_bilstm,
+            bilstm_num_layers=cfg.bilstm_num_layers,
+            num_conformer_layers=cfg.num_conformer_layers,
+            conformer_heads=cfg.conformer_heads,
+            conformer_ff_expansion=cfg.conformer_ff_expansion,
+            conformer_kernel=cfg.conformer_kernel_size,
+            enable_dilated_conv=cfg.enable_dilated_conv,
+            dilated_depth=cfg.dilated_conv_depth,
+            dilated_kernel=cfg.dilated_conv_kernel, wavlm=wavlm,
+        )
+
+
+def _trim_or_pad(x: torch.Tensor, length: int) -> torch.Tensor:
+    """Time-axis trim/zero-pad of [B, T, ...] to ``length``."""
+    t = x.shape[1]
+    if t > length:
+        return x[:, :length]
+    if t < length:
+        pad = [0, 0] * (x.dim() - 2) + [0, length - t]
+        return F.pad(x, pad)
+    return x
+
+
+class BIOPhonemeTagger(nn.Module):
+    """Encoder + language conditioning + heads + classifiers under the
+    reference ``BIOPhonemeTagger``'s state_dict keys (model.py:54-194)."""
+
+    def __init__(self, arch: TaggerArch):
+        super().__init__()
+        if arch.encoder_type != "wavlm":
+            raise NotImplementedError(ENCODER_TODO.format(arch.encoder_type))
+        self.arch = arch
+        hd = arch.hidden_size
+        self.encoder = WavLMEncoder(arch.wavlm)
+        self.lang_emb = nn.Embedding(max(arch.num_languages, 1),
+                                     arch.lang_emb_dim)
+        self.lang_proj = nn.Linear(hd + arch.lang_emb_dim, hd)
+        if arch.enable_bilstm:
+            self.bilstm = nn.LSTM(hd, hd // 2, num_layers=arch.bilstm_num_layers,
+                                  batch_first=True, bidirectional=True)
+        self.conformer_layers = nn.ModuleList(
+            H.ConformerBlock(hd, arch.conformer_heads,
+                             arch.conformer_ff_expansion,
+                             arch.conformer_kernel)
+            for _ in range(arch.num_conformer_layers))
+        if arch.enable_dilated_conv:
+            self.dilated_conv_stack = H.make_dilated_stack(
+                hd, arch.dilated_depth, arch.dilated_kernel)
+        self.classifier = nn.Linear(hd, arch.num_labels)
+        self.boundary_offset_head = H.make_offset_head(hd)
+
+    def _apply(self, fn, recurse=True):
+        out = super()._apply(fn, recurse)
+        if self.arch.enable_bilstm:
+            # after a move to the card: one weight buffer, which cuDNN would
+            # otherwise compact on every call
+            self.bilstm.flatten_parameters()
+        return out
+
+    def encode(self, audio, sample_mask=None, frame_mask=None,
+               compute_dtype=torch.float32, pos_bias=None) -> torch.Tensor:
+        """Front end + encoder → hidden states [B, T_enc, H]."""
+        if sample_mask is not None:
+            normed = wav2vec2_normalize_masked(audio, sample_mask)
+        else:
+            normed = wav2vec2_normalize(audio)
+        return self.encoder(normed, mask=frame_mask, sample_mask=sample_mask,
+                            compute_dtype=compute_dtype, pos_bias=pos_bias)
+
+    def forward(self, audio: torch.Tensor, lang_id: Optional[torch.Tensor],
+                max_label_len: Optional[int] = None,
+                sample_mask: Optional[torch.Tensor] = None,
+                frame_mask: Optional[torch.Tensor] = None,
+                compute_dtype: torch.dtype = torch.float32,
+                pos_bias: Optional[torch.Tensor] = None):
+        """Returns (logits [B, T, n_tags], offsets [B, T, 2]) at the compute
+        dtype. ``sample_mask`` [B, S] / ``frame_mask`` [B, T_enc]: bucketed
+        inference with exact-length numerics on valid frames."""
+        arch = self.arch
+        hidden = self.encode(audio, sample_mask, frame_mask, compute_dtype,
+                             pos_bias)
+        if max_label_len is not None:
+            hidden = _trim_or_pad(hidden, int(max_label_len))
+            if frame_mask is not None:
+                frame_mask = _trim_or_pad(frame_mask, int(max_label_len))
+        if lang_id is not None:
+            hidden = H.lang_conditioning(self.lang_emb, self.lang_proj,
+                                         hidden, lang_id)
+        if arch.enable_bilstm:
+            hidden = H.bilstm(self.bilstm, hidden, mask=frame_mask)
+        out = hidden
+        for block in self.conformer_layers:
+            out = block(out, mask=frame_mask)
+        if arch.enable_dilated_conv:
+            out = H.dilated_stack(self.dilated_conv_stack, out,
+                                  arch.dilated_kernel, mask=frame_mask)
+        logits = linear(self.classifier, out)
+        offsets = H.offset_head(self.boundary_offset_head, out,
+                                mask=frame_mask)
+        return logits, offsets
+
+
+@torch.no_grad()
+def init_tagger(arch: TaggerArch, generator: torch.Generator,
+                device="cpu") -> BIOPhonemeTagger:
+    """A tagger with random weights drawn from ``generator`` (torch default
+    init bounds: U(±1/√fan_in) for linears and convs, U(±1/√hidden) for the
+    LSTM, N(0, 1) for the language embedding, N(0, 0.02) for the bucket
+    table; norms at 1/0), built on ``device``."""
+    model = BIOPhonemeTagger(arch)
+
+    def uniform_(t, bound):
+        t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Linear, nn.Conv1d)):
+            w = (mod.parametrizations.weight.original1
+                 if hasattr(mod, "parametrizations") else mod.weight)
+            fan_in = w[0].numel()
+            uniform_(w, 1.0 / math.sqrt(fan_in))
+            if hasattr(mod, "parametrizations"):
+                mod.parametrizations.weight.original0.copy_(
+                    w.square().sum(dim=(0, 1), keepdim=True).sqrt())
+            if mod.bias is not None:
+                uniform_(mod.bias, 1.0 / math.sqrt(fan_in))
+        elif isinstance(mod, nn.LSTM):
+            for p in mod.parameters():
+                uniform_(p, 1.0 / math.sqrt(mod.hidden_size))
+        elif isinstance(mod, nn.Embedding):
+            std = 0.02 if name.endswith("rel_attn_embed") else 1.0
+            mod.weight.copy_(torch.randn(mod.weight.shape,
+                                         generator=generator) * std)
+        elif isinstance(mod, H.PackedSelfAttention):
+            uniform_(mod.in_proj_weight,
+                     1.0 / math.sqrt(mod.in_proj_weight.shape[1]))
+            uniform_(mod.in_proj_bias,
+                     1.0 / math.sqrt(mod.in_proj_weight.shape[1]))
+    return model.to(device).eval()

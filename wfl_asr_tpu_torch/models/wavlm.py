@@ -1,0 +1,416 @@
+"""WavLM encoder in PyTorch, the port of ``wfl_asr_tpu/models/wavlm.py``.
+
+Module names follow HF ``WavLMModel`` so the reference checkpoint's keys
+load unchanged (``feature_extractor.conv_layers.{i}``,
+``encoder.layers.{i}.attention.q_proj``, the weight-normed
+``encoder.pos_conv_embed.conv``, ``rel_attn_embed`` on layer 0 only).
+
+The forward is the JAX package's inference path with its kernels on:
+
+- conv layer 0 as a windowed matmul emitting channels-last [B, T, C], the
+  layer-0 GroupNorm statistics over valid frames only (``channel_stats``),
+  and layers 1-6 as fused chains of ≤ 3 layers (``ops.kernels.conv_fused``)
+  whose first chain applies the GroupNorm + GELU on its input;
+- the feature projection, padded-frame zeroing, the pos conv;
+- post-LN (base) or pre-LN (large) transformer layers with gated relative
+  position bias attention through ``ops.kernels.flash_attention`` at every
+  length (the TPU's ``FLASH_MIN_T`` cut-over is not carried over).
+
+Parameters stay f32 and are cast to the compute dtype at use. SpecAugment,
+dropout, LayerDrop and remat are training features and are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.kernels.conv_fused import MAX_CHAIN, fused_conv_chain, \
+    pack_weights
+from ..ops.kernels.flash_attention import flash_attention
+from .layers import channel_stats, conv1d, gelu, group_norm, layer_norm, \
+    linear
+
+
+@dataclass(frozen=True)
+class WavLMArch:
+    """Architecture hyperparameters (defaults = wavlm-base/base-plus).
+    Only what the inference forward reads: the JAX package's dropout and
+    kernel-switch fields are dropped by ``TaggerArch.from_config``."""
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"          # "group" (base) | "layer" (large)
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    num_buckets: int = 320
+    max_distance: int = 800
+    do_stable_layer_norm: bool = False        # True for wavlm-large
+    layer_norm_eps: float = 1e-5
+
+    @classmethod
+    def from_hf_config(cls, hf) -> "WavLMArch":
+        return cls(
+            hidden_size=hf.hidden_size, num_layers=hf.num_hidden_layers,
+            num_heads=hf.num_attention_heads,
+            intermediate_size=hf.intermediate_size,
+            conv_dim=tuple(hf.conv_dim), conv_kernel=tuple(hf.conv_kernel),
+            conv_stride=tuple(hf.conv_stride), conv_bias=hf.conv_bias,
+            feat_extract_norm=hf.feat_extract_norm,
+            num_conv_pos_embeddings=hf.num_conv_pos_embeddings,
+            num_conv_pos_embedding_groups=hf.num_conv_pos_embedding_groups,
+            num_buckets=hf.num_buckets, max_distance=hf.max_bucket_distance,
+            do_stable_layer_norm=hf.do_stable_layer_norm,
+            layer_norm_eps=hf.layer_norm_eps,
+        )
+
+    def feature_lengths(self, num_samples: int) -> int:
+        """Frames out of the conv feature encoder: floor((L-k)/s)+1 each."""
+        length = num_samples
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            length = (length - k) // s + 1
+        return length
+
+
+def relative_position_buckets(length: int, num_buckets: int,
+                              max_distance: int) -> np.ndarray:
+    """T5-style (WavLM variant) bucket matrix [T, T], host-side."""
+    half = num_buckets // 2
+    context = np.arange(length)[:, None]
+    memory = np.arange(length)[None, :]
+    rel = memory - context
+    buckets = (rel > 0).astype(np.int64) * half
+    rel_abs = np.abs(rel)
+    max_exact = half // 2
+    is_small = rel_abs < max_exact
+    large = max_exact + (
+        np.log(np.maximum(rel_abs, 1).astype(np.float64) / max_exact)
+        / math.log(max_distance / max_exact) * (half - max_exact)
+    ).astype(np.int64)
+    large = np.minimum(large, half - 1)
+    buckets += np.where(is_small, rel_abs, large)
+    return buckets
+
+
+def fused_tail_start(arch: WavLMArch) -> int:
+    """First conv layer of the trailing run the fused chain can take
+    (C_in == C_out, k ∈ {2,3}, stride 2, no per-layer norm, no bias)."""
+    if arch.conv_bias or arch.feat_extract_norm == "layer":
+        return len(arch.conv_dim)
+    j = len(arch.conv_dim)
+    while j > 1:          # layer 0 stays outside (its GroupNorm lives there)
+        i = j - 1
+        if (arch.conv_stride[i] == 2 and arch.conv_kernel[i] in (2, 3)
+                and arch.conv_dim[i] == arch.conv_dim[i - 1]):
+            j = i
+        else:
+            break
+    return j
+
+
+def conv0_fast_ok(arch: WavLMArch, s: int) -> bool:
+    """Can layer 0 run as the windowed matmul without dropping frames?"""
+    k0, s0 = arch.conv_kernel[0], arch.conv_stride[0]
+    if k0 == 2 * s0:
+        return True
+    if k0 <= s0:
+        return (s - k0) // s0 + 1 <= s // s0
+    return False
+
+
+# ---------------------------------------------------------------------------
+# Modules (HF WavLMModel names)
+# ---------------------------------------------------------------------------
+
+class ConvLayer(nn.Module):
+    def __init__(self, arch: WavLMArch, i: int):
+        super().__init__()
+        c_in = 1 if i == 0 else arch.conv_dim[i - 1]
+        c_out = arch.conv_dim[i]
+        self.conv = nn.Conv1d(c_in, c_out, arch.conv_kernel[i],
+                              stride=arch.conv_stride[i], bias=arch.conv_bias)
+        if arch.feat_extract_norm == "layer":
+            self.layer_norm = nn.LayerNorm(c_out)
+        elif arch.feat_extract_norm == "group" and i == 0:
+            self.layer_norm = nn.GroupNorm(c_out, c_out)
+
+
+class FeatureExtractor(nn.Module):
+    def __init__(self, arch: WavLMArch):
+        super().__init__()
+        self.conv_layers = nn.ModuleList(
+            ConvLayer(arch, i) for i in range(len(arch.conv_dim)))
+
+
+class FeatureProjection(nn.Module):
+    def __init__(self, arch: WavLMArch):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(arch.conv_dim[-1])
+        self.projection = nn.Linear(arch.conv_dim[-1], arch.hidden_size)
+
+
+class PosConvEmbed(nn.Module):
+    def __init__(self, arch: WavLMArch):
+        super().__init__()
+        k = arch.num_conv_pos_embeddings
+        conv = nn.Conv1d(arch.hidden_size, arch.hidden_size, k,
+                         padding=k // 2,
+                         groups=arch.num_conv_pos_embedding_groups)
+        self.conv = nn.utils.parametrizations.weight_norm(conv, dim=2)
+
+
+class WavLMAttention(nn.Module):
+    def __init__(self, arch: WavLMArch, has_rel_embed: bool):
+        super().__init__()
+        h = arch.hidden_size
+        self.q_proj = nn.Linear(h, h)
+        self.k_proj = nn.Linear(h, h)
+        self.v_proj = nn.Linear(h, h)
+        self.out_proj = nn.Linear(h, h)
+        self.gru_rel_pos_const = nn.Parameter(
+            torch.ones(1, arch.num_heads, 1, 1))
+        self.gru_rel_pos_linear = nn.Linear(h // arch.num_heads, 8)
+        if has_rel_embed:
+            self.rel_attn_embed = nn.Embedding(arch.num_buckets,
+                                               arch.num_heads)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, arch: WavLMArch):
+        super().__init__()
+        self.intermediate_dense = nn.Linear(arch.hidden_size,
+                                            arch.intermediate_size)
+        self.output_dense = nn.Linear(arch.intermediate_size,
+                                      arch.hidden_size)
+
+
+class WavLMLayer(nn.Module):
+    def __init__(self, arch: WavLMArch, i: int):
+        super().__init__()
+        self.attention = WavLMAttention(arch, has_rel_embed=(i == 0))
+        self.layer_norm = nn.LayerNorm(arch.hidden_size)
+        self.feed_forward = FeedForward(arch)
+        self.final_layer_norm = nn.LayerNorm(arch.hidden_size)
+
+
+class WavLMTransformer(nn.Module):
+    """HF ``WavLMEncoder``: pos conv, LayerNorm and the layer stack."""
+
+    def __init__(self, arch: WavLMArch):
+        super().__init__()
+        self.pos_conv_embed = PosConvEmbed(arch)
+        self.layer_norm = nn.LayerNorm(arch.hidden_size)
+        self.layers = nn.ModuleList(WavLMLayer(arch, i)
+                                    for i in range(arch.num_layers))
+
+
+class WavLMEncoder(nn.Module):
+    """HF ``WavLMModel``: raw (normalized) audio [B, S] → [B, T, H]."""
+
+    def __init__(self, arch: WavLMArch):
+        super().__init__()
+        self.arch = arch
+        self.feature_extractor = FeatureExtractor(arch)
+        self.feature_projection = FeatureProjection(arch)
+        self.encoder = WavLMTransformer(arch)
+        self._packed = {}
+
+    # -- position bias -------------------------------------------------------
+
+    def position_bias(self, length: int) -> torch.Tensor:
+        """Shared (ungated) relative position bias [H, T, T], f32."""
+        table = self.encoder.layers[0].attention.rel_attn_embed.weight
+        buckets = torch.from_numpy(relative_position_buckets(
+            length, self.arch.num_buckets, self.arch.max_distance)
+        ).to(table.device)
+        return table[buckets].permute(2, 0, 1).contiguous()
+
+    # -- feature encoder -------------------------------------------------------
+
+    def _packed_chain(self, g: int, ws, x: torch.Tensor):
+        """The chain's weights packed for the kernel, once per dtype and
+        device (re-packed only if the weights were replaced or updated)."""
+        if not x.is_cuda:
+            return None
+        key = (g, x.dtype, x.device)
+        version = tuple((w.data_ptr(), w._version) for w in ws)
+        hit = self._packed.get(key)
+        if hit is None or hit[0] != version:
+            hit = (version, pack_weights(ws, x.dtype, x.device))
+            self._packed[key] = hit
+        return hit[1]
+
+    def _fused_tail(self, x: torch.Tensor, split: int, input_norm=None):
+        """Conv layers [split:] as fused chains of ≤ 3 layers on [B, T, C];
+        the first chain applies ``input_norm`` (layer-0 GroupNorm) + GELU
+        to its input."""
+        layers = self.feature_extractor.conv_layers
+        for g in range(split, len(layers), MAX_CHAIN):
+            ws = [layer.conv.weight for layer in layers[g: g + MAX_CHAIN]]
+            x = fused_conv_chain(x, ws, input_norm=input_norm,
+                                 packed=self._packed_chain(g, ws, x))
+            input_norm = None
+        return x
+
+    def _conv0_windowed(self, audio: torch.Tensor) -> torch.Tensor:
+        """Layer 0 (C_in=1, k ≤ 2·stride) as a windowed matmul emitting
+        channels-last [B, T0, C] (no [B, C, T] relayout)."""
+        arch = self.arch
+        k0, s0 = arch.conv_kernel[0], arch.conv_stride[0]
+        b, s = audio.shape
+        t0 = (s - k0) // s0 + 1
+        v = audio[:, : (s // s0) * s0].reshape(b, s // s0, s0)
+        if k0 > s0:
+            win = torch.cat([v[:, :-1], v[:, 1:]], dim=-1)[:, :t0, :k0]
+        else:
+            win = v[:, :t0, :k0]
+        conv = self.feature_extractor.conv_layers[0].conv
+        y = torch.matmul(win, conv.weight.to(audio.dtype)[:, 0, :].t())
+        if conv.bias is not None:
+            y = y + conv.bias.to(y.dtype)
+        return y
+
+    def feature_encoder(self, audio: torch.Tensor,
+                        sample_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """Raw audio [B, S] → conv features [B, T, C]. With
+        ``sample_mask`` the layer-0 GroupNorm statistics cover valid frames
+        only, so valid frames equal an exact-length run."""
+        arch = self.arch
+        layers = self.feature_extractor.conv_layers
+        valid_len = (sample_mask.to(torch.int64).sum(-1)
+                     if sample_mask is not None else None)
+        split = fused_tail_start(arch)
+        if (split == 1 and split < len(layers)
+                and conv0_fast_ok(arch, audio.shape[-1])
+                and arch.feat_extract_norm == "group"):
+            x = self._conv0_windowed(audio)
+            time_mask = None
+            if valid_len is not None:
+                valid_len = (valid_len - arch.conv_kernel[0]) \
+                    // arch.conv_stride[0] + 1
+                time_mask = (torch.arange(x.shape[1], device=x.device)[None]
+                             < valid_len[:, None])
+            mean, var = channel_stats(x, time_mask)
+            gn = layers[0].layer_norm
+            norm = (mean, torch.rsqrt(var + 1e-5), gn.weight, gn.bias)
+            return self._fused_tail(x, split, input_norm=norm)
+
+        x = audio[:, None, :]
+        for i, layer in enumerate(layers[:split]):
+            x = conv1d(layer.conv, x, stride=arch.conv_stride[i],
+                       padding="VALID")
+            if valid_len is not None:
+                valid_len = (valid_len - arch.conv_kernel[i]) \
+                    // arch.conv_stride[i] + 1
+            if hasattr(layer, "layer_norm"):
+                if arch.feat_extract_norm == "group" and i == 0:
+                    time_mask = None
+                    if valid_len is not None:
+                        time_mask = (torch.arange(x.shape[-1],
+                                                  device=x.device)[None]
+                                     < valid_len[:, None])
+                    x = group_norm(layer.layer_norm.weight,
+                                   layer.layer_norm.bias, x,
+                                   num_groups=x.shape[1],
+                                   time_mask=time_mask)
+                else:
+                    x = layer_norm(layer.layer_norm, x.transpose(1, 2)
+                                   ).transpose(1, 2)
+            x = gelu(x)
+        return self._fused_tail(x.transpose(1, 2), split)
+
+    # -- transformer -------------------------------------------------------------
+
+    def _pos_conv_embed(self, x: torch.Tensor) -> torch.Tensor:
+        arch = self.arch
+        conv = self.encoder.pos_conv_embed.conv
+        y = conv1d(conv, x.transpose(1, 2),
+                   padding=arch.num_conv_pos_embeddings // 2,
+                   groups=arch.num_conv_pos_embedding_groups,
+                   weight=conv.weight)
+        if arch.num_conv_pos_embeddings % 2 == 0:
+            y = y[:, :, :-1]
+        return gelu(y).transpose(1, 2)
+
+    def _gate_values(self, att: WavLMAttention,
+                     x: torch.Tensor) -> torch.Tensor:
+        """WavLM's per-query position-bias gate → [B, H, T] f32."""
+        b, t, _ = x.shape
+        heads = self.arch.num_heads
+        xh = x.reshape(b, t, heads, -1).transpose(1, 2)          # [B,H,T,D]
+        proj = linear(att.gru_rel_pos_linear, xh)                # [B,H,T,8]
+        proj = proj.reshape(b, heads, t, 2, 4).sum(-1)
+        gates = torch.sigmoid(proj.float())
+        const = att.gru_rel_pos_const.float().reshape(1, heads, 1)
+        return gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
+
+    def _attend(self, att: WavLMAttention, x: torch.Tensor,
+                pos_bias: torch.Tensor, kv_len) -> torch.Tensor:
+        b, t, hid = x.shape
+        heads = self.arch.num_heads
+
+        def split(h):
+            return h.reshape(b, t, heads, hid // heads).transpose(1, 2) \
+                .contiguous()
+
+        q = split(linear(att.q_proj, x))
+        k = split(linear(att.k_proj, x))
+        v = split(linear(att.v_proj, x))
+        gate = self._gate_values(att, x)
+        out = flash_attention(q, k, v, bias=pos_bias, gate=gate,
+                              kv_len=kv_len)
+        return linear(att.out_proj, out.transpose(1, 2).reshape(b, t, hid))
+
+    def _layer(self, layer: WavLMLayer, x, pos_bias, kv_len):
+        eps = self.arch.layer_norm_eps
+        ff = layer.feed_forward
+        if self.arch.do_stable_layer_norm:       # pre-LN (wavlm-large)
+            xn = layer_norm(layer.layer_norm, x, eps)
+            x = x + self._attend(layer.attention, xn, pos_bias, kv_len)
+            h = layer_norm(layer.final_layer_norm, x, eps)
+            h = linear(ff.output_dense, gelu(linear(ff.intermediate_dense,
+                                                    h)))
+            return x + h
+        x = x + self._attend(layer.attention, x, pos_bias, kv_len)
+        x = layer_norm(layer.layer_norm, x, eps)
+        h = linear(ff.output_dense, gelu(linear(ff.intermediate_dense, x)))
+        return layer_norm(layer.final_layer_norm, x + h, eps)
+
+    def forward(self, audio: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                sample_mask: Optional[torch.Tensor] = None,
+                compute_dtype: torch.dtype = torch.float32,
+                pos_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``audio`` [B, S] normalized; ``mask`` [B, T] / ``sample_mask``
+        [B, S] give exact-length numerics on bucket-padded rows.
+        ``pos_bias`` [H, T, T]: a precomputed position bias."""
+        arch = self.arch
+        eps = arch.layer_norm_eps
+        audio = audio.to(compute_dtype)
+        feats = self.feature_encoder(audio, sample_mask)
+        x = layer_norm(self.feature_projection.layer_norm, feats, eps)
+        x = linear(self.feature_projection.projection, x)
+        if mask is not None:
+            x = x * mask[:, :, None].to(x.dtype)
+        x = x + self._pos_conv_embed(x)
+        if not arch.do_stable_layer_norm:
+            x = layer_norm(self.encoder.layer_norm, x, eps)
+        if pos_bias is None:
+            pos_bias = self.position_bias(x.shape[1])
+        kv_len = (mask.to(torch.int32).sum(-1) if mask is not None else None)
+        for layer in self.encoder.layers:
+            x = self._layer(layer, x, pos_bias, kv_len)
+        if arch.do_stable_layer_norm:
+            x = layer_norm(self.encoder.layer_norm, x, eps)
+        return x
