@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                 # every phase, as the check runs it
     python3 chip_smoke.py --only kernels  # build + kernel-vs-plain phases only
+    python3 chip_smoke.py --only train    # build + training phases 6-7 only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -28,8 +29,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    GroupNorm statistics, unequal key lengths, the packed BiLSTM, the
    device decode): logits must agree to ≤ 1e-3 on every row's valid
    frames;
-6. a ``{"kernels": [...]}`` line, the card line, and the last line
+6. the training path at full width: 24 synthetic wavs of 20-30 s with
+   ``.lab`` files in two languages, ``preprocess``, then ``train`` on the
+   card (the default recipe: Prodigy at lr 1, dropout at its config values,
+   f32, batch 8, 6 steps, validation every 3) with the launch counts reset
+   just before and read just after (12 K2b and 2 K1b launches a step);
+   step times, audio-seconds trained per second, peak memory, one profiled
+   step, ``last_model.pt`` reloaded to the same logits, ``best_model.pt``
+   served by ``infer_folder_batched``, a bf16 step;
+7. one train step (f32, TF32 off, full width, B=2×8 s, dropout 0), the
+   card against the CPU: loss ≤ 1e-5 relative, gradients ≤ 1e-3 × max;
+8. a ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
+
+Phase 3 includes 3b: the backward kernels (K2b, K1b) through
+``flash_attention(...)`` / ``flash_attention_trainable(...)`` then
+``.backward``, at the training shapes, against
+``attention_backward_plain``.
 """
 
 from __future__ import annotations
@@ -55,6 +71,10 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # of the reference output's largest magnitude (≈ 1 on the inputs below):
 # for bf16 attention 1e-2 is 2.5 bf16 steps of a value in [0.5, 1).
 ATTN_TOL = {"f32": 1e-4, "bf16": 1e-2}          # × max|out|
+# Backward kernels against the plain twin, per gradient, as fractions of
+# that gradient's largest magnitude: bf16 inputs and outputs round dq/dk/dv
+# (and the forward's bf16 out enters delta = rowsum(dO·O)), so 2e-2.
+GRAD_TOL = {"f32": 1e-4, "bf16": 2e-2}          # × max|grad|
 CONV_TOL = {"f32": 1e-3, "bf16": 3e-2}          # × max|out|
 # Attention inputs: q·k/√d of std ≈ Q_SCALE, so each row's softmax puts
 # its weight on a few keys and the output (a mix of values in [-1, 1]) is
@@ -181,6 +201,94 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
                 bound_by=by, library_ms=library_ms)
 
 
+def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
+    """One backward entry point (``flash_attention(...)`` or
+    ``flash_attention_trainable(...)`` followed by ``.backward``) against
+    ``attention_backward_plain`` on the same inputs, at the training
+    shapes: q, k, v (and bias f32, gate f32) need gradients, as in the
+    model."""
+    import torch
+    import torch.nn.functional as F
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
+        flash_attention_trainable
+    dev = "cuda"
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q, k, v, bias, gate = attn_inputs(gen, (B, h, T, d), tdt, with_bias)
+    if with_bias:
+        bias = bias.float()
+    leaves = [x.requires_grad_() for x in (q, k, v, bias, gate)
+              if x is not None]
+    kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+    dout = (torch.rand((B, h, T, d), generator=gen, device=dev) * 2 - 1
+            ).to(tdt)
+    if with_bias:
+        out = fa.flash_attention(q, k, v, bias, gate, kv_len)
+    else:
+        out = flash_attention_trainable(q, k, v, kv_len)
+
+    def entry():
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    got = entry()
+    with torch.no_grad():
+        ref_out, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
+                                              return_lse=True)
+        _, lse = fa.launch_kernel(q, k, v, bias, gate, kv_len,
+                                  return_lse=True)
+        want = [g for g in fa.attention_backward_plain(
+            q, k, v, bias, gate, kv_len, ref_out, ref_lse, dout)
+            if g is not None]
+    torch.cuda.synchronize()
+    lse_err = (lse - ref_lse).abs().max().item()
+    errs, ok = {}, math.isfinite(lse_err) and lse_err <= 1e-3
+    for gname, g, w in zip(("dq", "dk", "dv", "dbias", "dgate"), got, want):
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        errs[gname] = (err, scale)
+        ok = ok and math.isfinite(err) and err <= GRAD_TOL[dtype] * scale
+    del want, ref_out
+
+    ms = time_ms(entry, iters)
+    with torch.no_grad():
+        plain_ms = time_ms(lambda: fa.attention_backward_plain(
+            q, k, v, bias, gate, kv_len, out, lse, dout), max(iters // 2, 2))
+    torch.cuda.empty_cache()
+    # the one PyTorch call computing the same gradients (yardstick only):
+    # autograd of SDPA with gate·bias materialized as an attn_mask that
+    # needs a gradient
+    keep = torch.arange(T, device=dev)[None, :] < kv_len[:, None]
+    mask = torch.zeros((B, h, T, T), dtype=tdt, device=dev)
+    if with_bias:
+        mask += (gate.detach()[..., None] * bias.detach()[None]).to(tdt)
+    mask.masked_fill_(~keep[:, None, None, :], -1e30)
+    sdpa_in = [q, k, v] + ([mask.requires_grad_()] if with_bias else [])
+    sdpa_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, sdpa_in, dout, retain_graph=True), iters)
+    del sdpa_out, mask
+    torch.cuda.empty_cache()
+
+    es = 4 if dtype == "f32" else 2
+    valid_keys = float(sum(kv))
+    flops = 5 * 2.0 * h * T * valid_keys * d       # S, dP, dV, dK, dQ
+    nbytes = 8.0 * B * h * T * d * es + 2 * B * h * T * 4 + B * 4
+    if with_bias:                    # bias read, dbias written, gate/dgate
+        nbytes += 2 * h * T * T * 4 + 2 * B * h * T * 4
+    bms, by = bound_ms(flops, nbytes, dtype)
+    log(f"[kernel] {name} {dtype} [{B},{h},{T},{d}] lse_err={lse_err:.3e} "
+        + " ".join(f"{n}={e:.3e}/{sc:.3g}" for n, (e, sc) in errs.items())
+        + f" (tol {GRAD_TOL[dtype]:g}×max) ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={bms:.4f} "
+        f"({by})")
+    if not ok:
+        raise AssertionError(f"{name} {dtype}: gradients {errs} or lse "
+                             f"{lse_err} exceed tolerance")
+    worst = max(e / max(sc, 1e-30) for e, sc in errs.values())
+    return dict(max_abs_err=max(e for e, _ in errs.values()),
+                max_rel_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms)
+
+
 def _conv_case(name, gen, ks, t_in, with_norm, dtype, iters):
     import torch
     from wfl_asr_tpu_torch.ops.kernels import conv_fused as cf
@@ -251,34 +359,56 @@ def phase_kernels(iters: int) -> dict:
                                          (3, 2, 2), 11999, False, dtype,
                                          iters)
         torch.cuda.empty_cache()
+        # phase 3b: the backward kernels at the training shapes
+        res[("K2b", dtype)] = _attn_bwd_case("flash_attention_bwd", gen, 12,
+                                             64, dtype, True, kv, iters)
+        res[("K1b", dtype)] = _attn_bwd_case("flash_attention_trainable_bwd",
+                                             gen, 2, 384, dtype, False, kv,
+                                             iters)
+        torch.cuda.empty_cache()
     head_dims(gen)
     return res
 
 
 def head_dims(gen) -> None:
-    """Every kernel variant of the attention at a small shape: bf16 and f32
-    at head widths from 16 to 512 (the main path runs 64 and 384), with bias,
-    gate and a ragged key length, against the plain twin."""
+    """Every kernel variant of the attention, forward and backward, at a
+    small shape: bf16 and f32 at head widths from 16 to 512 (the main path
+    runs 64 and 384), with bias, gate and a ragged key length, against the
+    plain twins."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     errs = {}
     for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for d in (16, 48, 128, 144, 512):
             q, k, v, bias, gate = attn_inputs(gen, (2, 2, 203, d), tdt, True)
+            bias = bias.float()
             kv = torch.tensor([203, 77], dtype=torch.int32, device="cuda")
             with torch.inference_mode():
                 out = fa.flash_attention(q, k, v, bias, gate, kv)
-            ref = fa.attention_plain(q, k, v, bias, gate, kv)
+            ref, lse = fa.attention_plain(q, k, v, bias, gate, kv,
+                                          return_lse=True)
             scale = ref.float().abs().max().item()
             err = (out.float() - ref.float()).abs().max().item()
-            errs[(dtype, d)] = err
             if not err <= ATTN_TOL[dtype] * scale:
                 raise AssertionError(f"attention {dtype} head_dim {d}: max abs "
                                      f"diff {err} exceeds {ATTN_TOL[dtype]}"
                                      f"×{scale}")
+            leaves = [x.requires_grad_() for x in (q, k, v, bias, gate)]
+            dout = torch.rand_like(q) * 2 - 1
+            got = torch.autograd.grad(fa.flash_attention(q, k, v, bias, gate,
+                                                         kv), leaves, dout)
+            want = fa.attention_backward_plain(q, k, v, bias, gate, kv, ref,
+                                               lse, dout)
+            rel = max((g.float() - w.float()).abs().max().item()
+                      / w.float().abs().max().item()
+                      for g, w in zip(got, want))
+            errs[(dtype, d)] = (err, rel)
+            if not rel <= GRAD_TOL[dtype]:
+                raise AssertionError(f"attention backward {dtype} head_dim "
+                                     f"{d}: max diff {rel} × max|grad|")
     log("[kernel] attention head widths 16/48/128/144/512, f32 and bf16: "
-        "max_abs_err " + ", ".join(f"{k[0]}/{k[1]}={e:.2e}"
-                                   for k, e in errs.items()))
+        "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
+            f"{k[0]}/{k[1]}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -435,9 +565,10 @@ def phase_main(root: str, iters: int) -> dict:
     return dict(perf=perf, counts=counts, cfg=cfg, ckpt=ckpt, wav_dir=wav_dir)
 
 
-def profile_step(step) -> None:
-    """Device time by kernel over one bf16 step (torch.profiler), and the
-    device's busy share of the step's wall time."""
+def profile_step(step, what: str = "one bf16 step", top: int = 12) -> None:
+    """Device time by kernel over one step (torch.profiler), and the
+    device's busy share of the step's wall time. ``step()`` returns a tuple
+    whose first element is moved to the host to end the step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -445,10 +576,14 @@ def profile_step(step) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()[0].cpu()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, spans = {}, []
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        # a record_function range (Optimizer.step#...) also shows on the
+        # device's timeline; it is a span over kernels, not one
+        if evt.device_type != DeviceType.CUDA or getattr(
+                evt, "is_user_annotation", False) or "#" in evt.name:
             continue
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
@@ -465,11 +600,11 @@ def profile_step(step) -> None:
             cur_e = max(cur_e, e_)
     busy += (cur_e - cur_s) if cur_e is not None else 0.0
     total = sum(v[0] for v in by_name.values())
-    log(f"[profile] one bf16 step: wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"[profile] {what}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms (idle share {1 - busy / wall_us:.3f}), "
         f"{sum(v[1] for v in by_name.values())} kernels")
     for name, (us, count) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][0])[:12]:
+                                    key=lambda kv: -kv[1][0])[:top]:
         log(f"[profile] {us / 1e3:9.3f} ms {100 * us / max(total, 1):5.1f}% "
             f"x{count:<5d} {name[:90]}")
 
@@ -563,6 +698,321 @@ def phase_cross_device(cfg, ckpt: str, wav_dir: str) -> dict:
                 lab_lines=n_lines)
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 6: the training path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, VAL_EVERY = 6, 3
+PHONES = [f"p{i}" for i in range(35)] + ["SP"]
+
+
+def write_corpus(data_dir: str, n_per_lang: int = 12) -> float:
+    """Synthetic wavs of 20-30 s with HTK .lab files (segments of 50-200
+    ms over 36 phonemes) in two languages; returns the total seconds."""
+    from wfl_asr_tpu_torch.data.audio import write_wav
+    rng = np.random.RandomState(1)
+    total = 0.0
+    for li, lang in enumerate(("en", "ja")):
+        os.makedirs(os.path.join(data_dir, lang))
+        for i in range(n_per_lang):
+            dur = 20.0 + 10.0 * rng.rand()
+            n = int(dur * 16000)
+            t = np.arange(n) / 16000.0
+            wav = (0.3 * np.sin(2 * np.pi * (150 + 30 * i + 70 * li) * t)
+                   * (0.5 + 0.5 * np.sin(2 * np.pi * 0.9 * t))
+                   + rng.randn(n) * 0.03)
+            write_wav(os.path.join(data_dir, lang, f"u{i}.wav"), wav, 16000)
+            lines, start = [], 0.0
+            while start < dur - 0.06:
+                end = min(start + 0.05 + 0.15 * rng.rand(), dur)
+                lines.append(f"{int(start * 1e7)} {int(end * 1e7)} "
+                             f"{PHONES[rng.randint(len(PHONES))]}")
+                start = end
+            with open(os.path.join(data_dir, lang, f"u{i}.lab"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+            total += dur
+    return total
+
+
+def train_config(root: str) -> dict:
+    """The default config.yaml's training recipe on the flagship
+    (WavLM-base-plus, BiLSTM ×2, Conformer ×2 at 2 heads, dilated ×2),
+    cut to 6 steps at batch 8 with validation every 3."""
+    return {
+        "data": {"data_dir": os.path.join(root, "data"), "sample_rate": 16000,
+                 "num_val_files": 4, "max_seq_len": None,
+                 "frame_duration": 0.02},
+        "model": {
+            "encoder_type": "wavlm", "wavlm_model": "microsoft/wavlm-base-plus",
+            "freeze_encoder": False, "enable_bilstm": True,
+            "bilstm_num_layer": 2, "enable_dilated_conv": True,
+            "dilated_conv_depth": 2, "dilated_conv_kernel": 3,
+            "segmental_loss_weight": 1.0,
+            "segmental_loss_weights": [1.0, 1.0, 2.0],
+            "subframe_loss_weight": 3.0, "num_conformer_layers": 2,
+            "conformer_heads": 2, "conformer_ff_expansion": 2,
+            "conformer_kernel_size": 31, "conformer_dropout": 0.15,
+            "lang_emb_dim": 64, "num_languages": 0},
+        "training": {
+            "batch_size": 8, "optimizer": "Prodigy",
+            "optimizer_params": {"betas": [0.9, 0.999], "eps": 1e-8},
+            "learning_rate": 1, "scheduler": "ConstantLR",
+            "scheduler_params": {}, "scheduler_step_on_update": False,
+            "weight_decay": 1e-5, "label_smoothing": 0.1,
+            "max_steps": TRAIN_STEPS, "val_check_interval": VAL_EVERY,
+            "max_checkpoints": 5, "log_dir": os.path.join(root, "run", "logs"),
+            "merged_phoneme_groups": [], "seed": 0,
+            "compute_dtype": "float32"},
+        "augmentation": {"enable": True, "noise_std": 0.005, "prob": 0.5,
+                         "volume_range": [0.9, 1.1]},
+        "output": {"save_dir": os.path.join(root, "run")},
+        "postprocess": {"median_filter": 3, "merge_segments": "right",
+                        "device_decode": True}}
+
+
+def phase_train(root: str) -> dict:
+    """preprocess → train on the card (f32), with the launch counts set to
+    0 just before and read just after; step times, audio-s/s trained and
+    peak memory; one profiled step; the checkpoints reloaded and served;
+    one bf16 step."""
+    import torch
+    from wfl_asr_tpu_torch.checkpoint import load_model_checkpoint
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.data.dataset import BatchLoader, PhonemeDataset, \
+        split_dataset
+    from wfl_asr_tpu_torch.infer.pipeline import infer_folder_batched
+    from wfl_asr_tpu_torch.labels import load_phoneme_list, parse_lab
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention, \
+        flash_attention_bwd
+    from wfl_asr_tpu_torch.preprocess import preprocess
+    from wfl_asr_tpu_torch.train import loop
+
+    # PyTorch's defaults, which a user's training run has (phases 3 and 5
+    # turn TF32 off): f32 matmuls in full f32, cuDNN convs in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    seconds = write_corpus(os.path.join(root, "data"))
+    raw = train_config(root)
+    preprocess(raw["data"]["data_dir"], raw)
+    save = raw["output"]["save_dir"]
+    cfg = Config.load(os.path.join(save, "config.yaml"))
+    labels = load_phoneme_list(os.path.join(save, "phonemes.txt"))
+    log(f"[train] corpus: 24 wavs, {seconds:.1f} s, {len(labels)} labels, "
+        f"2 languages; preprocess wrote {sorted(os.listdir(save))}")
+
+    marks = []
+
+    def on_update(step, batches):
+        torch.cuda.synchronize()
+        audio_s = sum(len(w) for b in batches for w in b["wavs"]) / 16000.0
+        marks.append((step, time.perf_counter(), audio_s,
+                      batches[0]["audio"].shape))
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = loop.train(cfg, device="cuda", on_update=on_update)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention": flash_attention.launches,
+              "flash_attention_bwd": flash_attention.bwd_launches,
+              "flash_attention_trainable": flash_attention_bwd.launches,
+              "flash_attention_trainable_bwd": flash_attention_bwd.bwd_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] kernel launches over {TRAIN_STEPS} steps + 2 validations: "
+        f"{json.dumps(counts)}")
+    want = {"flash_attention_bwd": 12 * TRAIN_STEPS,
+            "flash_attention_trainable_bwd": 2 * TRAIN_STEPS}
+    if any(counts[k] != n for k, n in want.items()) or min(
+            counts.values()) < 1:
+        raise AssertionError(f"training launches {counts}: want every "
+                             f"kernel > 0 and per step 12 K2b, 2 K1b")
+
+    with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    losses = [e["loss"] for e in events if e["event"] == "train"]
+    vals = {e["step"]: e["loss"] for e in events if e["event"] == "val"}
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train losses {losses}")
+    # step times: updates that follow an update (not the first, not the
+    # one after a validation)
+    times, audio = [], 0.0
+    for (s0, t_prev, _, _), (s1, t_cur, a, shape) in zip(marks, marks[1:]):
+        if s0 % VAL_EVERY:
+            times.append((t_cur - t_prev) * 1e3)
+            audio += a
+    step_ms = float(np.median(times))
+    rate = audio / (sum(times) / 1e3)
+    log(f"[train] f32, batch 8 (buckets {[m[3] for m in marks]}): losses "
+        f"{[round(x, 4) for x in losses]}, val {vals}; median step "
+        f"{step_ms:.2f} ms over steps {[m[0] for m in marks[1:] if (m[0] - 1) % VAL_EVERY]} "
+        f"({', '.join(f'{t:.1f}' for t in times)} ms), {rate:.2f} audio-s "
+        f"trained per s, peak memory {peak_gb:.2f} GiB, whole run {wall:.1f} s")
+
+    # a training batch for the checks below
+    ds = PhonemeDataset(os.path.join(save, "dataset.json"), labels,
+                               cfg.max_seq_len, cfg.augmentation, 16000)
+    train_idx, _ = split_dataset(len(ds), cfg.num_val_files, cfg.seed)
+    batch = next(iter(BatchLoader(ds, train_idx, 8, seed=0,
+                                  shuffle=False).epoch_batches(0)))
+    # the checkpoints: last reloads to the same logits; best is the best
+    # validation's model_step file; the served path reads best
+    arch = TaggerArch.from_config(cfg, len(labels))
+    audio = torch.from_numpy(batch["audio"][:2]).cuda()
+    lang = torch.tensor([0, 1], device="cuda")
+    model.eval()
+    last = load_model_checkpoint(os.path.join(save, "last_model.pt"), arch,
+                                 "cuda")
+    mem = model.state_dict()
+    same_weights = all(torch.equal(v, mem[k])
+                       for k, v in last.state_dict().items())
+    with torch.no_grad():
+        trained = model(audio, lang)[0]
+        reloaded = last(audio, lang)[0]
+    # the same weights on the same card; the logits may still differ by
+    # the run-to-run order of cuDNN's and the gather backward's sums
+    reload_diff = (trained - reloaded).abs().max().item()
+    del last
+    best_step = min(vals, key=vals.get)
+    best = torch.load(os.path.join(save, "best_model.pt"), weights_only=True)
+    at_best = torch.load(os.path.join(save, f"model_step{best_step}.pt"),
+                         weights_only=True)
+    same = all(torch.equal(best[k], at_best[k]) for k in at_best)
+    if not same_weights or reload_diff > 1e-5 * trained.abs().max().item():
+        raise AssertionError(f"last_model.pt: weights equal {same_weights}, "
+                             f"logits differ by {reload_diff}")
+    if not same:
+        raise AssertionError(f"best_model.pt != model_step{best_step}.pt")
+    wav_dir = os.path.join(raw["data"]["data_dir"], "en")
+    out_dir = os.path.join(root, "served")
+    infer_folder_batched(wav_dir, cfg, os.path.join(save, "best_model.pt"),
+                         out_dir, lang_id=0, confidence_threshold=0.0,
+                         batch_files=8, device="cuda",
+                         compute_dtype=torch.bfloat16)
+    labs = [f for f in os.listdir(out_dir) if f.endswith(".lab")]
+    n_segs = sum(len(parse_lab(os.path.join(out_dir, f))) for f in labs)
+    if len(labs) != 12 or n_segs == 0:
+        raise AssertionError(f"served {len(labs)} .lab files, {n_segs} segs")
+    log(f"[train] last_model.pt reloads to the in-memory weights exactly, "
+        f"logits max diff {reload_diff:.3e} of max "
+        f"{trained.abs().max().item():.3g}; best_model.pt = model_step{best_step}.pt (val "
+        f"{vals[best_step]:.4f}); infer_folder_batched on it wrote "
+        f"{len(labs)} .lab files, {n_segs} segments")
+    # one profiled f32 step, then bf16 against f32, on that batch
+    opt = loop.make_optimizer(cfg, model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def step(dtype=torch.float32):
+        m, _, _ = loop.train_step(model, opt, batch, "cuda", 0.1, 3.0,
+                                  compute_dtype=dtype, generator=gen)
+        return m["loss"], m
+    step()
+    profile_step(step, what=f"one f32 train step (batch {batch['audio'].shape})",
+                 top=16)
+    bf16_ms = time_ms(lambda: step(torch.bfloat16), iters=3, warmup=1)
+    bf16_loss = float(step(torch.bfloat16)[0])
+    f32_ms = time_ms(step, iters=3, warmup=0)
+    log(f"[train] same batch, f32 step {f32_ms:.2f} ms, bf16 step "
+        f"{bf16_ms:.2f} ms (loss {bf16_loss:.4f}); "
+        f"{sum(len(w) for w in batch['wavs']) / 16000:.1f} audio-s a step")
+    if not math.isfinite(bf16_loss):
+        raise AssertionError(f"bf16 train step loss {bf16_loss}")
+
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_ms=step_ms, audio_s_per_s=rate,
+                peak_gb=peak_gb, bf16_ms=bf16_ms, f32_ms=f32_ms,
+                labels=len(labels))
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: one train step, the card against the CPU
+# ---------------------------------------------------------------------------
+
+def train_batch(num_labels: int, seconds: float = 8.0) -> dict:
+    """Two rows of ``seconds`` of audio (the second shorter, zero-padded),
+    −100-padded labels and offset targets, from a seed."""
+    from wfl_asr_tpu_torch.train.losses import offset_targets_from_segments
+    rng = np.random.RandomState(7)
+    s = int(seconds * 16000)
+    frames = int(seconds / 0.02)
+    audio = (rng.randn(2, s) * 0.1).astype(np.float32)
+    audio[1, int(0.75 * s):] = 0.0
+    labels = np.full((2, frames), -100, np.int64)
+    targets = []
+    for i, n in enumerate((frames - 1, int(0.75 * frames))):
+        labels[i, :n] = rng.randint(0, num_labels, size=n)
+        edges = np.cumsum(rng.uniform(0.05, 0.2, size=80))
+        segs = [(float(a), float(b), "p1") for a, b in zip(edges, edges[1:])
+                if b < n * 0.02]
+        targets.append(offset_targets_from_segments(segs, 0.02, n, 192))
+    f, c, x, v = (np.stack([t[j] for t in targets]) for j in range(4))
+    return {"audio": audio, "labels": labels,
+            "lang_ids": np.array([0, 1], np.int32), "off_frames": f,
+            "off_channels": c, "off_fracs": x, "off_valid": v,
+            "max_label_len": frames}
+
+
+def phase_train_cross_device(labels: int) -> dict:
+    """f32 with TF32 off, the flagship at full width, dropout 0, the same
+    weights and batch: loss ≤ 1e-5 relative, every gradient ≤ 1e-3 × its
+    max |grad| (one whose CPU value is below 1e-6 × the largest gradient is
+    0 in exact arithmetic — the key bias, the conv bias before BatchNorm —
+    and must be below that on the card too)."""
+    import dataclasses
+    import torch
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
+    from wfl_asr_tpu_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(train_config("/nonexistent"))
+    cfg.num_languages = 2
+    arch = TaggerArch.from_config(cfg, labels)
+    arch = dataclasses.replace(arch, conformer_dropout=0.0,
+                               wavlm=dataclasses.replace(
+                                   arch.wavlm, hidden_dropout=0.0,
+                                   feat_proj_dropout=0.0, layerdrop=0.0))
+    batch = train_batch(labels)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = init_tagger(arch, torch.Generator().manual_seed(3), dev)
+        m, _, _ = loop.micro_step(model, batch, dev, 1, 0.1, 3.0)
+        res[dev] = (float(m["loss"]), {n: p.grad.float().cpu() for n, p
+                                       in model.named_parameters()},
+                    time.perf_counter() - t0)
+        del model
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = res["cuda"], res["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for name, g in g_cpu.items():
+        scale = g.abs().max().item()
+        diff = (g_card[name] - g).abs().max().item()
+        if scale <= 1e-6 * gmax:
+            ok = g_card[name].abs().max().item() <= 1e-6 * gmax
+            rel = 0.0
+        else:
+            rel = diff / scale
+            ok = rel <= 1e-3
+        if not ok:
+            raise AssertionError(f"{name}: card vs CPU gradient diff {diff} "
+                                 f"(max |g| {scale})")
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"[cross-train] one f32 train step (TF32 off), B=2×8 s, dropout 0: "
+        f"loss card {l_card:.7f} vs CPU {l_cpu:.7f} (rel {loss_rel:.2e}, tol "
+        f"1e-5); {len(g_cpu)} gradients, worst {worst:.2e} × max|g| "
+        f"({worst_name}; tol 1e-3); card {s_card:.1f} s, CPU {s_cpu:.1f} s")
+    if not loss_rel <= 1e-5:
+        raise AssertionError(f"card vs CPU loss rel diff {loss_rel}")
+    return dict(loss_rel=loss_rel, grad_rel=worst)
+
+
 # ---------------------------------------------------------------------------
 
 KERNEL_ROWS = [
@@ -579,12 +1029,23 @@ KERNEL_ROWS = [
     ("K5b", "fused_conv_chain[4-6]", "fused_conv_chain[4-6]",
      "wfl_asr_tpu_torch/ops/kernels/csrc/conv_fused.cu",
      "wfl_asr_tpu/ops/pallas/conv_fused.py:135"),
+    ("K2b", "flash_attention_bwd", "flash_attention_bwd",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention.py:262"),
+    ("K1b", "flash_attention_trainable_bwd", "flash_attention_trainable_bwd",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
 ]
+# The inference kernels report their bf16 case (the served path's dtype),
+# the backward kernels their f32 case (the default training dtype), and
+# each its launches on its own main path: inference (phase 4) or training
+# (phase 6).
+ROW_DTYPE = {"K2b": "f32", "K1b": "f32"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels",), default=None)
+    ap.add_argument("--only", choices=("kernels", "train"), default=None)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
 
@@ -606,6 +1067,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
 
+    if args.only == "train":     # phases 6 and 7 alone, for iterating
+        root = tempfile.mkdtemp(prefix="wfl_smoke_")
+        try:
+            phase_train_cross_device(phase_train(root)["labels"])
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        return 0
     kern = phase_kernels(args.iters)
     if args.only == "kernels":
         return 0
@@ -615,12 +1083,16 @@ def main() -> int:
         run = phase_main(root, iters=args.iters)
         perf, counts = run["perf"], run["counts"]
         cross = phase_cross_device(run["cfg"], run["ckpt"], run["wav_dir"])
+        trained = phase_train(root)
+        counts.update({k: n for k, n in trained["counts"].items()
+                       if k.endswith("_bwd")})
+        cross_train = phase_train_cross_device(trained["labels"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     rows = []
     for key, name, counter, source, replaces in KERNEL_ROWS:
-        r = kern[(key, "bf16")]
+        r = kern[(key, ROW_DTYPE.get(key, "bf16"))]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[counter],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -629,7 +1101,11 @@ def main() -> int:
                      "library_ms": r["library_ms"]})
     log(f"[summary] bf16 B=8x30 s: {perf['bf16']['audio_s_per_s']:.2f} "
         f"audio-s/s, f32: {perf['f32']['audio_s_per_s']:.2f} audio-s/s; "
-        f"card vs CPU logits {cross['max_abs_err']:.3e}")
+        f"card vs CPU logits {cross['max_abs_err']:.3e}; training f32 "
+        f"{trained['step_ms']:.1f} ms a step, {trained['audio_s_per_s']:.2f} "
+        f"audio-s/s, {trained['peak_gb']:.2f} GiB peak; card vs CPU train "
+        f"step loss {cross_train['loss_rel']:.2e}, grads "
+        f"{cross_train['grad_rel']:.2e} × max")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

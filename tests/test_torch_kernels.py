@@ -144,3 +144,87 @@ def test_conv_chain_tile_fits_shared_memory():
             assert tile >= 1
             assert conv_fused.smem_bytes(tile, ks, 512, esize) \
                 <= conv_fused.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# Backward: the plain twins (the CPU autograd path) against jax.vjp of the
+# JAX entry points, which runs the K2b/K1b Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(seed, b, h, t, d, mode):
+    rng = np.random.RandomState(seed)
+    q, k, v = [(x * 0.5).astype(np.float32) for x in _qkv(rng, b, h, t, d)]
+    bias = gate = None
+    if mode != "none":
+        bias = (rng.randn(h, t, t) * 0.3).astype(np.float32)
+    if mode == "bias+gate":
+        gate = (rng.rand(b, h, t) * 2.0).astype(np.float32)
+    dout = rng.randn(b, h, t, d).astype(np.float32)
+    return q, k, v, bias, gate, dout
+
+
+@pytest.mark.parametrize("t,d", [(130, 16), (200, 48)])
+@pytest.mark.parametrize("with_kv", [False, True])
+@pytest.mark.parametrize("mode", ["bias+gate", "bias", "none"])
+def test_backward_matches_jax_vjp(mode, with_kv, t, d):
+    """dq, dk, dv (and dbias, dgate) of the port's entry point through
+    autograd on the CPU = the saved-LSE plain twin, against jax.vjp, ≤ 1e-5;
+    the forward's LSE against the JAX forward's (want_lse=True)."""
+    import importlib
+    jfa = importlib.import_module("wfl_asr_tpu.ops.pallas.flash_attention")
+    b, h = 2, 2
+    q, k, v, bias, gate, dout = _bwd_inputs(t + d, b, h, t, d, mode)
+    kv_len = np.array([t, t - 37], np.int32) if with_kv else None
+    jkv = None if kv_len is None else jnp.asarray(kv_len)
+    tkv = None if kv_len is None else torch.from_numpy(kv_len)
+    diff = [x for x in (q, k, v, bias, gate) if x is not None]
+
+    if mode == "none":
+        def jfn(*xs):
+            return jax_fat(*xs, jkv)
+    else:
+        def jfn(q_, k_, v_, bias_, *g):
+            return jax_fa(q_, k_, v_, bias=bias_, gate=g[0] if g else None,
+                          kv_len=jkv)
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, diff))
+    want = vjp(jnp.asarray(dout))
+
+    leaves = [torch.from_numpy(x).requires_grad_() for x in diff]
+    if mode == "none":
+        out = flash_attention_bwd.flash_attention_trainable(*leaves, tkv)
+    else:
+        out = flash_attention.flash_attention(
+            *leaves[:4], gate=leaves[4] if len(leaves) > 4 else None,
+            kv_len=tkv)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+    for name, g, w in zip(("dq", "dk", "dv", "dbias", "dgate"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=0, err_msg=name)
+
+    _, lse_j = jfa._fwd_impl(
+        *map(jnp.asarray, (q, k, v)),
+        None if bias is None else jnp.asarray(bias),
+        None if gate is None else jnp.asarray(gate), jkv,
+        jnp.zeros((1, 1), jnp.int32), 128, 128, want_lse=True)
+    _, lse_t = flash_attention.attention_plain(
+        *map(torch.from_numpy, (q, k, v)),
+        None if bias is None else torch.from_numpy(bias),
+        None if gate is None else torch.from_numpy(gate), tkv,
+        return_lse=True)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=TOL,
+                               rtol=0)
+
+
+def test_backward_counts_no_launch_on_cpu():
+    """The CPU autograd path runs the plain twins: no backward launch is
+    counted, and a CPU tensor never asks for the kernel library."""
+    reset_launch_counts()
+    x = torch.randn(1, 2, 8, 16, requires_grad=True)
+    flash_attention.flash_attention(x, x, x).sum().backward()
+    flash_attention_bwd.flash_attention_trainable(x, x, x).sum().backward()
+    assert flash_attention.bwd_launches == 0
+    assert flash_attention_bwd.bwd_launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.launch_backward(x, x, x, None, None, None, x,
+                                        torch.zeros(1, 2, 8), x)
+

@@ -316,7 +316,8 @@ def test_unported_encoders_raise():
 
 def test_arch_from_config_matches_jax():
     """The same config dict gives the JAX arch's values in every field the
-    port keeps. JAX-only override keys (kernel switches, dropout) are
+    port keeps, the dropout, LayerDrop and freeze fields included. JAX-only
+    override keys (the kernel switches, strict attention dropout) are
     dropped; any other unknown key raises."""
     from wfl_asr_tpu.config import Config as JaxConfig
     from wfl_asr_tpu.models.tagger import TaggerArch as JaxTaggerArch
@@ -329,11 +330,15 @@ def test_arch_from_config_matches_jax():
                      "wavlm_model": "microsoft/wavlm-base-plus",
                      "encoder_arch_overrides": overrides,
                      "num_languages": 2, "conformer_heads": 2,
-                     "dilated_conv_depth": 3}}
+                     "dilated_conv_depth": 3, "conformer_dropout": 0.2,
+                     "freeze_encoder": True}}
     jax_arch = JaxTaggerArch.from_config(JaxConfig(raw), 11)
     arch = PT.TaggerArch.from_config(Config(raw), 11)
     assert arch == port_arch(jax_arch)
     assert arch.wavlm.conv_dim == (32,) * 7 and arch.hidden_size == 64
+    assert (arch.wavlm.layerdrop, arch.wavlm.attention_dropout,
+            arch.wavlm.feat_proj_dropout, arch.conformer_dropout,
+            arch.freeze_encoder) == (0.2, 0.3, 0.1, 0.2, True)
     raw["model"]["encoder_arch_overrides"] = dict(overrides, hiden_size=8)
     with pytest.raises(ValueError, match="hiden_size"):
         PT.TaggerArch.from_config(Config(raw), 11)

@@ -7,8 +7,15 @@ conditioning. Module names follow the reference ``BIOPhonemeTagger``
 
 Semantics kept from the reference (model.py:21-52): the Conformer conv
 module is a **full** (not depthwise) k=31 conv with BatchNorm1d, attention
-is post-LN, and the block has no final LayerNorm. Eval only: dropout and
-BatchNorm batch statistics are training features.
+is post-LN, and the block has no final LayerNorm.
+
+Training mode (``module.train()``) follows the JAX package (heads.py:172-290):
+dropout at ``conformer_dropout`` after each FF module's GELU and output,
+after the attention's output projection (the post-projection substitute
+for probability dropout) and after the conv module; BatchNorm normalizes
+with the batch statistics (biased variance) and updates the running ones
+(unbiased variance, momentum 0.1), as ``nn.BatchNorm1d`` does. Dropout
+draws from the ``generator`` passed in.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from ..ops.kernels.flash_attention_bwd import flash_attention_trainable
-from .layers import conv1d, gelu, layer_norm, linear
+from .layers import conv1d, dropout, gelu, layer_norm, linear
 
 
 # ---------------------------------------------------------------------------
@@ -59,18 +66,23 @@ def bilstm(lstm: nn.LSTM, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class FeedForwardModule(nn.Module):
-    """LN → Linear(×e) → GELU → Linear (model.py:6-19); the reference's
-    dropout slots stay as identities so the linears keep their indices."""
+    """LN → Linear(×e) → GELU → Drop → Linear → Drop (model.py:6-19); the
+    reference's dropout slots are identities (the dropout is
+    :func:`~.layers.dropout` with an explicit generator), so the linears
+    keep their indices."""
 
-    def __init__(self, dim: int, expansion: int):
+    def __init__(self, dim: int, expansion: int, rate: float = 0.0):
         super().__init__()
+        self.rate = rate
         self.net = nn.Sequential(
             nn.LayerNorm(dim), nn.Linear(dim, dim * expansion), nn.GELU(),
             nn.Identity(), nn.Linear(dim * expansion, dim), nn.Identity())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = layer_norm(self.net[0], x)
-        return linear(self.net[4], gelu(linear(self.net[1], h)))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        h = gelu(linear(self.net[1], layer_norm(self.net[0], x)))
+        h = dropout(h, self.rate, generator, self.training)
+        h = linear(self.net[4], h)
+        return dropout(h, self.rate, generator, self.training)
 
 
 class PackedSelfAttention(nn.Module):
@@ -100,8 +112,16 @@ class PackedSelfAttention(nn.Module):
         return linear(self.out_proj, attn.transpose(1, 2).reshape(b, t, dim))
 
 
-def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """Eval BatchNorm over [B, C, T] with running statistics, in f32."""
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm over [B, C, T] in f32: running statistics in eval; in
+    training the batch statistics, with the running ones updated in place
+    (``nn.BatchNorm1d``'s train-mode semantics)."""
+    if bn.training:
+        bn.num_batches_tracked += 1
+        y = torch.nn.functional.batch_norm(
+            x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+            training=True, momentum=bn.momentum, eps=bn.eps)
+        return y.to(x.dtype)
     y = (x.float() - bn.running_mean[None, :, None]) \
         * torch.rsqrt(bn.running_var[None, :, None] + bn.eps)
     y = y * bn.weight[None, :, None] + bn.bias[None, :, None]
@@ -110,10 +130,11 @@ def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
 
 class ConformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, ff_expansion: int,
-                 conv_kernel: int):
+                 conv_kernel: int, rate: float = 0.0):
         super().__init__()
-        self.ff1 = FeedForwardModule(dim, ff_expansion)
-        self.ff2 = FeedForwardModule(dim, ff_expansion)
+        self.rate = rate
+        self.ff1 = FeedForwardModule(dim, ff_expansion, rate)
+        self.ff2 = FeedForwardModule(dim, ff_expansion, rate)
         self.self_attn = PackedSelfAttention(dim, heads)
         self.ln1 = nn.LayerNorm(dim)
         self.ln2 = nn.LayerNorm(dim)
@@ -123,14 +144,17 @@ class ConformerBlock(nn.Module):
             nn.Conv1d(dim, dim, conv_kernel, padding=conv_kernel // 2),
             nn.BatchNorm1d(dim), nn.GELU(), nn.Conv1d(dim, dim, 1))
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator=None) -> torch.Tensor:
         """Macaron FF halves, post-LN MHSA, conv module, no final LN.
         ``mask`` [B, T]: key-padding mask for attention, and the main conv's
         input is zeroed on padded frames (exact-length zero padding)."""
-        x = x + 0.5 * self.ff1(x)
+        def drop(h):
+            return dropout(h, self.rate, generator, self.training)
+
+        x = x + 0.5 * self.ff1(x, generator)
         kv_len = mask.to(torch.int32).sum(-1) if mask is not None else None
-        x = layer_norm(self.ln1, x + self.self_attn(x, kv_len))
+        x = layer_norm(self.ln1, x + drop(self.self_attn(x, kv_len)))
 
         h = layer_norm(self.ln2, x).transpose(1, 2)            # [B, C, T]
         h = conv1d(self.conv[0], h)
@@ -139,10 +163,10 @@ class ConformerBlock(nn.Module):
         if mask is not None:
             h = h * mask[:, None, :].to(h.dtype)
         h = conv1d(self.conv[2], h, padding=self.conv_kernel // 2)
-        h = gelu(batch_norm_eval(self.conv[3], h))
+        h = gelu(batch_norm(self.conv[3], h))
         h = conv1d(self.conv[5], h).transpose(1, 2)
-        x = x + h
-        return x + 0.5 * self.ff2(x)
+        x = x + drop(h)
+        return x + 0.5 * self.ff2(x, generator)
 
 
 # ---------------------------------------------------------------------------

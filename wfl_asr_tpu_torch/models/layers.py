@@ -24,6 +24,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None,
+            training: bool = True) -> torch.Tensor:
+    """Inverted dropout whose keep mask is drawn from ``generator`` (torch's
+    default generator when None; it must live on ``x``'s device). The
+    identity outside training or at rate 0."""
+    if not training or rate <= 0.0:
+        return x
+    keep = torch.empty(x.shape, dtype=x.dtype, device=x.device).bernoulli_(
+        1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
+
+
 def _cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return None if p is None else p.to(dtype)
 

@@ -1,7 +1,9 @@
 """BIO phoneme tagger, the port of ``wfl_asr_tpu/models/tagger.py``:
 ``TaggerArch`` (with ``from_config``, the WavLM presets and
 ``model.encoder_arch_overrides``) and the ``BIOPhonemeTagger`` module, whose
-``forward`` mirrors ``apply_tagger`` in eval mode:
+``forward`` mirrors ``apply_tagger`` — in eval mode, or in training mode
+(``model.train()``: dropout from an explicit ``torch.Generator``, LayerDrop,
+BatchNorm batch statistics):
 
     audio [B, S], lang_id [B]
         → wav2vec2 normalize → WavLM encoder
@@ -9,6 +11,10 @@
         → lang embed concat + proj → BiLSTM → Conformer × N → dilated conv
         → logits [B, T, n_tags], offsets [B, T, 2]
 
+``freeze_encoder`` runs the encoder under ``torch.no_grad()`` (so no
+gradient reaches it, and the forward-only fused conv chains may run); the
+train loop also leaves its parameters out of the optimizer, so they take
+no update and no weight decay (apply_tagger :310-325 and the optax mask).
 Only ``encoder_type: wavlm`` is ported; ``whisper`` and ``none`` raise
 ``NotImplementedError`` (ROADMAP.md Queue 1).
 """
@@ -32,25 +38,30 @@ ENCODER_TODO = ("encoder_type {!r} is not ported yet: only 'wavlm' runs in "
                 "wfl_asr_tpu_torch (ROADMAP.md Queue 1: Whisper and the mel "
                 "encoder)")
 
-# Known WavLM checkpoint families → architecture presets (no network).
+# Known WavLM checkpoint families → architecture presets (no network). The
+# regularizer fields are the hub config.json values (feat_proj_dropout and
+# attention_dropout 0.1, LayerDrop 0.05 base / 0.1 large), as in JAX.
 WAVLM_PRESETS = {
-    "base": WavLMArch(),
-    "base-plus": WavLMArch(),
+    "base": WavLMArch(feat_proj_dropout=0.1, attention_dropout=0.1,
+                      layerdrop=0.05),
+    "base-plus": WavLMArch(feat_proj_dropout=0.1, attention_dropout=0.1,
+                           layerdrop=0.05),
     # wavlm-large: per-layer LayerNorm AND biased convs (its config.json
     # sets conv_bias: true)
     "large": WavLMArch(hidden_size=1024, num_layers=24, num_heads=16,
                        intermediate_size=4096, feat_extract_norm="layer",
-                       do_stable_layer_norm=True, conv_bias=True),
+                       do_stable_layer_norm=True, conv_bias=True,
+                       feat_proj_dropout=0.1, attention_dropout=0.1,
+                       layerdrop=0.1),
 }
 
-# Fields of the JAX package's WavLMArch that only its training or its
-# kernel switches read; an ``encoder_arch_overrides`` entry naming one is
-# dropped (the port's inference has no dropout and always runs its
-# kernels). Any other key that is not a WavLMArch field raises.
+# Fields of the JAX package's WavLMArch that the port does not carry: the
+# kernel switches (the port always runs its kernels) and strict attention
+# dropout (K6, not ported; the train loop raises when a config asks for
+# it). An ``encoder_arch_overrides`` entry naming one is dropped; any other
+# key that is not a WavLMArch field raises.
 JAX_ONLY_ARCH_KEYS = frozenset({
-    "use_flash_attention", "use_fused_conv", "hidden_dropout",
-    "activation_dropout", "attention_dropout", "strict_attention_dropout",
-    "feat_proj_dropout", "layerdrop"})
+    "use_flash_attention", "use_fused_conv", "strict_attention_dropout"})
 
 
 def wavlm_arch_from_name(model_name: str) -> WavLMArch:
@@ -89,9 +100,11 @@ class TaggerArch:
     conformer_heads: int = 4
     conformer_ff_expansion: int = 4
     conformer_kernel: int = 31
+    conformer_dropout: float = 0.1
     enable_dilated_conv: bool = True
     dilated_depth: int = 2
     dilated_kernel: int = 3
+    freeze_encoder: bool = False
     wavlm: Optional[WavLMArch] = None
 
     @classmethod
@@ -132,9 +145,11 @@ class TaggerArch:
             conformer_heads=cfg.conformer_heads,
             conformer_ff_expansion=cfg.conformer_ff_expansion,
             conformer_kernel=cfg.conformer_kernel_size,
+            conformer_dropout=cfg.conformer_dropout,
             enable_dilated_conv=cfg.enable_dilated_conv,
             dilated_depth=cfg.dilated_conv_depth,
-            dilated_kernel=cfg.dilated_conv_kernel, wavlm=wavlm,
+            dilated_kernel=cfg.dilated_conv_kernel,
+            freeze_encoder=cfg.freeze_encoder, wavlm=wavlm,
         )
 
 
@@ -169,7 +184,7 @@ class BIOPhonemeTagger(nn.Module):
         self.conformer_layers = nn.ModuleList(
             H.ConformerBlock(hd, arch.conformer_heads,
                              arch.conformer_ff_expansion,
-                             arch.conformer_kernel)
+                             arch.conformer_kernel, arch.conformer_dropout)
             for _ in range(arch.num_conformer_layers))
         if arch.enable_dilated_conv:
             self.dilated_conv_stack = H.make_dilated_stack(
@@ -186,27 +201,36 @@ class BIOPhonemeTagger(nn.Module):
         return out
 
     def encode(self, audio, sample_mask=None, frame_mask=None,
-               compute_dtype=torch.float32, pos_bias=None) -> torch.Tensor:
-        """Front end + encoder → hidden states [B, T_enc, H]."""
-        if sample_mask is not None:
-            normed = wav2vec2_normalize_masked(audio, sample_mask)
-        else:
-            normed = wav2vec2_normalize(audio)
-        return self.encoder(normed, mask=frame_mask, sample_mask=sample_mask,
-                            compute_dtype=compute_dtype, pos_bias=pos_bias)
+               compute_dtype=torch.float32, pos_bias=None,
+               generator=None) -> torch.Tensor:
+        """Front end + encoder → hidden states [B, T_enc, H]; under
+        ``freeze_encoder`` without autograd."""
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.arch.freeze_encoder):
+            if sample_mask is not None:
+                normed = wav2vec2_normalize_masked(audio, sample_mask)
+            else:
+                normed = wav2vec2_normalize(audio)
+            return self.encoder(normed, mask=frame_mask,
+                                sample_mask=sample_mask,
+                                compute_dtype=compute_dtype,
+                                pos_bias=pos_bias, generator=generator)
 
     def forward(self, audio: torch.Tensor, lang_id: Optional[torch.Tensor],
                 max_label_len: Optional[int] = None,
                 sample_mask: Optional[torch.Tensor] = None,
                 frame_mask: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.float32,
-                pos_bias: Optional[torch.Tensor] = None):
+                pos_bias: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """Returns (logits [B, T, n_tags], offsets [B, T, 2]) at the compute
         dtype. ``sample_mask`` [B, S] / ``frame_mask`` [B, T_enc]: bucketed
-        inference with exact-length numerics on valid frames."""
+        inference with exact-length numerics on valid frames.
+        ``generator``: the dropout draws in training mode (on the
+        model's device)."""
         arch = self.arch
         hidden = self.encode(audio, sample_mask, frame_mask, compute_dtype,
-                             pos_bias)
+                             pos_bias, generator)
         if max_label_len is not None:
             hidden = _trim_or_pad(hidden, int(max_label_len))
             if frame_mask is not None:
@@ -218,7 +242,7 @@ class BIOPhonemeTagger(nn.Module):
             hidden = H.bilstm(self.bilstm, hidden, mask=frame_mask)
         out = hidden
         for block in self.conformer_layers:
-            out = block(out, mask=frame_mask)
+            out = block(out, mask=frame_mask, generator=generator)
         if arch.enable_dilated_conv:
             out = H.dilated_stack(self.dilated_conv_stack, out,
                                   arch.dilated_kernel, mask=frame_mask)
@@ -242,13 +266,8 @@ def init_tagger(arch: TaggerArch, generator: torch.Generator,
 
     for name, mod in model.named_modules():
         if isinstance(mod, (nn.Linear, nn.Conv1d)):
-            w = (mod.parametrizations.weight.original1
-                 if hasattr(mod, "parametrizations") else mod.weight)
-            fan_in = w[0].numel()
-            uniform_(w, 1.0 / math.sqrt(fan_in))
-            if hasattr(mod, "parametrizations"):
-                mod.parametrizations.weight.original0.copy_(
-                    w.square().sum(dim=(0, 1), keepdim=True).sqrt())
+            fan_in = mod.weight[0].numel()
+            uniform_(mod.weight, 1.0 / math.sqrt(fan_in))
             if mod.bias is not None:
                 uniform_(mod.bias, 1.0 / math.sqrt(fan_in))
         elif isinstance(mod, nn.LSTM):

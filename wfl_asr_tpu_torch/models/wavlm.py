@@ -5,19 +5,27 @@ load unchanged (``feature_extractor.conv_layers.{i}``,
 ``encoder.layers.{i}.attention.q_proj``, the weight-normed
 ``encoder.pos_conv_embed.conv``, ``rel_attn_embed`` on layer 0 only).
 
-The forward is the JAX package's inference path with its kernels on:
+The forward is the JAX package's path with its kernels on:
 
 - conv layer 0 as a windowed matmul emitting channels-last [B, T, C], the
   layer-0 GroupNorm statistics over valid frames only (``channel_stats``),
-  and layers 1-6 as fused chains of ≤ 3 layers (``ops.kernels.conv_fused``)
-  whose first chain applies the GroupNorm + GELU on its input;
+  and layers 1-6 as fused chains of ≤ 3 layers (``ops.kernels.conv_fused``,
+  forward only) whose first chain applies the GroupNorm + GELU on its
+  input. While the conv weights train (grad enabled and weights that need
+  it) the layers run as plain differentiable convs instead, as the JAX
+  package leaves them to XLA then (train/loop.py:766-772);
 - the feature projection, padded-frame zeroing, the pos conv;
 - post-LN (base) or pre-LN (large) transformer layers with gated relative
-  position bias attention through ``ops.kernels.flash_attention`` at every
-  length (the TPU's ``FLASH_MIN_T`` cut-over is not carried over).
+  position bias attention through ``ops.kernels.flash_attention`` (forward
+  and backward kernels) at every length (the TPU's ``FLASH_MIN_T``
+  cut-over is not carried over).
 
-Parameters stay f32 and are cast to the compute dtype at use. SpecAugment,
-dropout, LayerDrop and remat are training features and are not ported.
+In training mode (``module.train()``) dropout (feature projection, hidden,
+activation) and LayerDrop follow wavlm.py:533-660, drawing from the
+``generator`` passed in. LayerDrop computes every layer and selects, as the
+JAX package does, so the kernels launch once per layer on every step.
+Attention-probability dropout (strict mode, K6) and remat are not ported.
+Parameters stay f32 and are cast to the compute dtype at use.
 """
 
 from __future__ import annotations
@@ -28,20 +36,22 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv_fused import MAX_CHAIN, fused_conv_chain, \
     pack_weights
 from ..ops.kernels.flash_attention import flash_attention
-from .layers import channel_stats, conv1d, gelu, group_norm, layer_norm, \
-    linear
+from .layers import channel_stats, conv1d, dropout, gelu, group_norm, \
+    layer_norm, linear
 
 
 @dataclass(frozen=True)
 class WavLMArch:
-    """Architecture hyperparameters (defaults = wavlm-base/base-plus).
-    Only what the inference forward reads: the JAX package's dropout and
-    kernel-switch fields are dropped by ``TaggerArch.from_config``."""
+    """Architecture hyperparameters (defaults = wavlm-base/base-plus), under
+    the JAX package's names and defaults; its kernel switches and
+    ``strict_attention_dropout`` are dropped by ``TaggerArch.from_config``
+    (the port always runs its kernels; strict dropout is K6, not ported)."""
     hidden_size: int = 768
     num_layers: int = 12
     num_heads: int = 12
@@ -57,6 +67,12 @@ class WavLMArch:
     max_distance: int = 800
     do_stable_layer_norm: bool = False        # True for wavlm-large
     layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    activation_dropout: float = 0.0
+    # carried, not applied: probability dropout is the strict mode (K6)
+    attention_dropout: float = 0.0
+    feat_proj_dropout: float = 0.0
+    layerdrop: float = 0.0                    # whole-batch layer skip
 
     @classmethod
     def from_hf_config(cls, hf) -> "WavLMArch":
@@ -72,6 +88,11 @@ class WavLMArch:
             num_buckets=hf.num_buckets, max_distance=hf.max_bucket_distance,
             do_stable_layer_norm=hf.do_stable_layer_norm,
             layer_norm_eps=hf.layer_norm_eps,
+            hidden_dropout=hf.hidden_dropout,
+            activation_dropout=hf.activation_dropout,
+            attention_dropout=hf.attention_dropout,
+            feat_proj_dropout=hf.feat_proj_dropout,
+            layerdrop=hf.layerdrop,
         )
 
     def feature_lengths(self, num_samples: int) -> int:
@@ -159,14 +180,53 @@ class FeatureProjection(nn.Module):
         self.projection = nn.Linear(arch.conv_dim[-1], arch.hidden_size)
 
 
+def _pos_conv_norm(w: torch.Tensor) -> torch.Tensor:
+    """Per-kernel-position L2 norm [1, 1, K] (weight norm over dim 2),
+    computed on the CPU whatever ``w``'s device, so that the norm written
+    on save and the one divided by on load are the same float and the
+    round trip is exact."""
+    return w.detach().cpu().square().sum(dim=(0, 1), keepdim=True).sqrt() \
+        .to(w.device)
+
+
+def _weight_norm_state(module, state_dict, prefix, local_metadata) -> None:
+    """state_dict post-hook: ``conv.weight`` → the reference's weight-norm
+    keys, original1 = the weight and original0 = its norm (what the JAX
+    package's export writes), so a save and a load round-trip exactly."""
+    with torch.no_grad():
+        w = state_dict.pop(prefix + "conv.weight")
+        state_dict[prefix + "conv.parametrizations.weight.original0"] = \
+            _pos_conv_norm(w)
+        state_dict[prefix + "conv.parametrizations.weight.original1"] = w
+
+
+def _fold_weight_norm(module, state_dict, prefix, *args) -> None:
+    """load_state_dict pre-hook: fold the weight norm (the parametrization
+    keys, or the older ``weight_g``/``weight_v``) into ``conv.weight``."""
+    for g_key, v_key in (("conv.parametrizations.weight.original0",
+                          "conv.parametrizations.weight.original1"),
+                         ("conv.weight_g", "conv.weight_v")):
+        if prefix + g_key in state_dict and prefix + v_key in state_dict:
+            g = state_dict.pop(prefix + g_key)
+            v = state_dict.pop(prefix + v_key)
+            state_dict[prefix + "conv.weight"] = \
+                v * (g / _pos_conv_norm(v).clamp_min(1e-12))
+
+
 class PosConvEmbed(nn.Module):
+    """The convolutional position embedding. Its weight is a plain
+    parameter, trained as the JAX package trains it (the weight norm folded
+    in); the state_dict keeps the reference's weight-norm form
+    (``conv.parametrizations.weight.original0/1``)."""
+
     def __init__(self, arch: WavLMArch):
         super().__init__()
         k = arch.num_conv_pos_embeddings
-        conv = nn.Conv1d(arch.hidden_size, arch.hidden_size, k,
-                         padding=k // 2,
-                         groups=arch.num_conv_pos_embedding_groups)
-        self.conv = nn.utils.parametrizations.weight_norm(conv, dim=2)
+        self.conv = nn.Conv1d(arch.hidden_size, arch.hidden_size, k,
+                              padding=k // 2,
+                              groups=arch.num_conv_pos_embedding_groups)
+        self.register_state_dict_post_hook(_weight_norm_state)
+        self.register_load_state_dict_pre_hook(_fold_weight_norm)
 
 
 class WavLMAttention(nn.Module):
@@ -224,16 +284,25 @@ class WavLMEncoder(nn.Module):
         self.feature_projection = FeatureProjection(arch)
         self.encoder = WavLMTransformer(arch)
         self._packed = {}
+        # bucket index matrices per (length, device): lengths come in 1 s
+        # buckets, so this stays small, and a step skips the host's [T, T]
+        self._buckets = {}
 
     # -- position bias -------------------------------------------------------
 
     def position_bias(self, length: int) -> torch.Tensor:
         """Shared (ungated) relative position bias [H, T, T], f32."""
         table = self.encoder.layers[0].attention.rel_attn_embed.weight
-        buckets = torch.from_numpy(relative_position_buckets(
-            length, self.arch.num_buckets, self.arch.max_distance)
-        ).to(table.device)
-        return table[buckets].permute(2, 0, 1).contiguous()
+        key = (length, table.device)
+        buckets = self._buckets.get(key)
+        if buckets is None:
+            buckets = torch.from_numpy(relative_position_buckets(
+                length, self.arch.num_buckets, self.arch.max_distance)
+            ).to(table.device)
+            self._buckets[key] = buckets
+        # an embedding lookup: its backward (the table's gradient from the
+        # summed dBias of every layer) is a segmented sum, not a scatter
+        return F.embedding(buckets, table).permute(2, 0, 1).contiguous()
 
     # -- feature encoder -------------------------------------------------------
 
@@ -285,12 +354,16 @@ class WavLMEncoder(nn.Module):
                         ) -> torch.Tensor:
         """Raw audio [B, S] → conv features [B, T, C]. With
         ``sample_mask`` the layer-0 GroupNorm statistics cover valid frames
-        only, so valid frames equal an exact-length run."""
+        only, so valid frames equal an exact-length run. While the conv
+        weights train, every layer runs as a plain conv (K5 has no
+        backward)."""
         arch = self.arch
         layers = self.feature_extractor.conv_layers
         valid_len = (sample_mask.to(torch.int64).sum(-1)
                      if sample_mask is not None else None)
-        split = fused_tail_start(arch)
+        trains = torch.is_grad_enabled() and any(
+            layer.conv.weight.requires_grad for layer in layers)
+        split = len(layers) if trains else fused_tail_start(arch)
         if (split == 1 and split < len(layers)
                 and conv0_fast_ok(arch, audio.shape[-1])
                 and arch.feat_extract_norm == "group"):
@@ -372,45 +445,62 @@ class WavLMEncoder(nn.Module):
                               kv_len=kv_len)
         return linear(att.out_proj, out.transpose(1, 2).reshape(b, t, hid))
 
-    def _layer(self, layer: WavLMLayer, x, pos_bias, kv_len):
-        eps = self.arch.layer_norm_eps
+    def _layer(self, layer: WavLMLayer, x, pos_bias, kv_len, generator):
+        arch = self.arch
+        eps = arch.layer_norm_eps
         ff = layer.feed_forward
-        if self.arch.do_stable_layer_norm:       # pre-LN (wavlm-large)
+
+        def hidden_drop(h):
+            return dropout(h, arch.hidden_dropout, generator, self.training)
+
+        def feed_forward(h):
+            h = gelu(linear(ff.intermediate_dense, h))
+            h = dropout(h, arch.activation_dropout, generator, self.training)
+            return hidden_drop(linear(ff.output_dense, h))
+
+        if arch.do_stable_layer_norm:            # pre-LN (wavlm-large)
             xn = layer_norm(layer.layer_norm, x, eps)
-            x = x + self._attend(layer.attention, xn, pos_bias, kv_len)
-            h = layer_norm(layer.final_layer_norm, x, eps)
-            h = linear(ff.output_dense, gelu(linear(ff.intermediate_dense,
-                                                    h)))
-            return x + h
-        x = x + self._attend(layer.attention, x, pos_bias, kv_len)
+            x = x + hidden_drop(self._attend(layer.attention, xn, pos_bias,
+                                             kv_len))
+            return x + feed_forward(layer_norm(layer.final_layer_norm, x,
+                                               eps))
+        x = x + hidden_drop(self._attend(layer.attention, x, pos_bias,
+                                         kv_len))
         x = layer_norm(layer.layer_norm, x, eps)
-        h = linear(ff.output_dense, gelu(linear(ff.intermediate_dense, x)))
-        return layer_norm(layer.final_layer_norm, x + h, eps)
+        return layer_norm(layer.final_layer_norm, x + feed_forward(x), eps)
 
     def forward(self, audio: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 sample_mask: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.float32,
-                pos_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_bias: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``audio`` [B, S] normalized; ``mask`` [B, T] / ``sample_mask``
         [B, S] give exact-length numerics on bucket-padded rows.
-        ``pos_bias`` [H, T, T]: a precomputed position bias."""
+        ``pos_bias`` [H, T, T]: a precomputed position bias. ``generator``:
+        the dropout and LayerDrop draws in training mode."""
         arch = self.arch
         eps = arch.layer_norm_eps
         audio = audio.to(compute_dtype)
         feats = self.feature_encoder(audio, sample_mask)
         x = layer_norm(self.feature_projection.layer_norm, feats, eps)
         x = linear(self.feature_projection.projection, x)
+        x = dropout(x, arch.feat_proj_dropout, generator, self.training)
         if mask is not None:
             x = x * mask[:, :, None].to(x.dtype)
         x = x + self._pos_conv_embed(x)
         if not arch.do_stable_layer_norm:
             x = layer_norm(self.encoder.layer_norm, x, eps)
+        x = dropout(x, arch.hidden_dropout, generator, self.training)
         if pos_bias is None:
             pos_bias = self.position_bias(x.shape[1])
         kv_len = (mask.to(torch.int32).sum(-1) if mask is not None else None)
+        layerdrop = arch.layerdrop if self.training else 0.0
         for layer in self.encoder.layers:
-            x = self._layer(layer, x, pos_bias, kv_len)
+            skip = (torch.rand((), generator=generator, device=x.device)
+                    < layerdrop) if layerdrop > 0.0 else None
+            y = self._layer(layer, x, pos_bias, kv_len, generator)
+            x = torch.where(skip, x, y) if skip is not None else y
         if arch.do_stable_layer_norm:
             x = layer_norm(self.encoder.layer_norm, x, eps)
         return x

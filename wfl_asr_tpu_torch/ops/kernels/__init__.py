@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels (sm_90a) for the TPU kernels of the inference
-path, each beside its plain PyTorch twin.
+and training paths, each beside its plain PyTorch twin.
 
-| port module                 | kernel source              | TPU kernel replaced                                   |
-| --------------------------- | -------------------------- | ----------------------------------------------------- |
-| ``flash_attention``         | ``csrc/flash_attention.cu`` | ``ops/pallas/flash_attention.py:_flash_kernel``       |
-| ``flash_attention_bwd``     | ``csrc/flash_attention.cu`` | ``ops/pallas/flash_attention_bwd.py:_fwd_kernel``     |
-| ``conv_fused``              | ``csrc/conv_fused.cu``      | ``ops/pallas/conv_fused.py:_kernel``                  |
+| port module                 | kernel source               | TPU kernels replaced (``ops/pallas/``)                                   |
+| --------------------------- | --------------------------- | ------------------------------------------------------------------------ |
+| ``flash_attention``         | ``csrc/flash_attention.cu`` | ``flash_attention.py``: ``_flash_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` |
+| ``flash_attention_bwd``     | ``csrc/flash_attention.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` |
+| ``conv_fused``              | ``csrc/conv_fused.cu``      | ``conv_fused.py``: ``_kernel``                                           |
 
 Sources build with ``nvcc`` at first use (``_build.py``); importing these
 modules needs no CUDA.
@@ -17,6 +17,7 @@ KERNEL_SOURCES = ("flash_attention", "conv_fused")
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from . import conv_fused, flash_attention, flash_attention_bwd
-    flash_attention.launches = 0
-    flash_attention_bwd.launches = 0
+    for mod in (flash_attention, flash_attention_bwd):
+        mod.launches = 0
+        mod.bwd_launches = 0
     conv_fused.launches.clear()

@@ -169,8 +169,8 @@ class _FusedConvChain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "the fused conv chain is inference-only, as in the JAX package "
-            "(training keeps plain convs: ROADMAP.md Queue 1, training)")
+            "the fused conv chain is forward-only, as in the JAX package "
+            "(the feature encoder runs plain convs while its weights train)")
 
 
 def fused_conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -181,10 +181,18 @@ def fused_conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
     input_norm: optional (mean [B,C], inv [B,C], scale [C], bias [C]).
     packed: the weights pre-packed by :func:`pack_weights` for x's dtype.
-    A CUDA tensor runs the kernel, a CPU tensor the plain twin."""
+    A CUDA tensor runs the kernel, a CPU tensor the plain twin. The kernel
+    is forward-only: a CUDA input or weight that needs a gradient raises
+    (it is never silently detached)."""
     _check(x, weights)
     if x.device.type == "cpu":
         return conv_chain_plain(x, weights, input_norm)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
+    norm = [t for t in (input_norm or ()) if isinstance(t, torch.Tensor)]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, *weights, *norm]):
+        raise RuntimeError(
+            "fused_conv_chain (K5) has no backward: run it under "
+            "torch.no_grad() (a frozen encoder), or use the plain convs")
     return _FusedConvChain.apply(x, list(weights), input_norm, packed)

@@ -62,7 +62,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
               const float* __restrict__ gate, const int* __restrict__ kv_len,
-              float* __restrict__ out, int H, int T_len, int D, float scale) {
+              float* __restrict__ out, float* __restrict__ lse, int H,
+              int T_len, int D, float scale) {
   constexpr int RQ = f32_rows(NC);
   constexpr int BQ = RQ * kWarps;
   extern __shared__ __align__(16) float smem[];
@@ -188,6 +189,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int c = lane + 32 * m;
       if (c < D) ob[(size_t)qi * D + c] = o[r][m] * inv_l;
     }
+    if (lse != nullptr && lane == 0)
+      lse[bh * T_len + qi] = m_row[r] + logf(fmaxf(l_row[r], 1e-30f));
   }
 }
 
@@ -203,7 +206,8 @@ flash_fwd_wmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ bias,
                const float* __restrict__ gate,
                const int* __restrict__ kv_len, bf16* __restrict__ out,
-               int H, int T_len, int D, float scale) {
+               float* __restrict__ lse, int H, int T_len, int D,
+               float scale) {
   constexpr int BQ = 16 * NW;
   constexpr int BK = kBK;
   constexpr int NT = NW * 32;
@@ -351,8 +355,12 @@ flash_fwd_wmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
 #pragma unroll
-  for (int r = 0; r < 16; ++r)
+  for (int r = 0; r < 16; ++r) {
     if (lane == 0) sA[wr + r] = 1.f / fmaxf(l_row[r], 1e-30f);
+    const int qi = q0 + wr + r;
+    if (lse != nullptr && lane == 0 && qi < T_len)
+      lse[bh * T_len + qi] = m_row[r] + logf(fmaxf(l_row[r], 1e-30f));
+  }
   __syncwarp();
   bf16* ob = out + bh * T_len * D;
   for (int e = lane; e < 16 * D; e += 32) {
@@ -424,7 +432,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ bias,
               const float* __restrict__ gate, const int* __restrict__ kv_len,
-              bf16* __restrict__ out, int H, int T_len, float scale) {
+              bf16* __restrict__ out, float* __restrict__ lse, int H,
+              int T_len, float scale) {
   constexpr int NT = kMmaWarps * 32;
   constexpr int DP = D + 8;        // bf16 pitch: 16-byte rows, no conflicts
   constexpr int KD = D / 16;       // k-steps of Q·Kᵀ
@@ -576,8 +585,11 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* ob = out + bh * T_len * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float inv_l = 1.f / fmaxf(quad_sum(l_row[i]), 1e-30f);
+    const float l_sum = quad_sum(l_row[i]);
+    const float inv_l = 1.f / fmaxf(l_sum, 1e-30f);
     if (qrow[i] >= T_len) continue;
+    if (lse != nullptr && t == 0)
+      lse[bh * T_len + qrow[i]] = m_row[i] + logf(fmaxf(l_sum, 1e-30f));
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qrow[i] * D + n * 8
@@ -589,8 +601,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t run_mma(const void* q, const void* k, const void* v,
                     const void* bias, const void* gate, const void* kv_len,
-                    void* out, int B, int H, int T_len, float scale,
-                    cudaStream_t stream) {
+                    void* out, void* lse, int B, int H, int T_len,
+                    float scale, cudaStream_t stream) {
   dim3 grid((T_len + kMmaBQ - 1) / kMmaBQ, H, B);
   const size_t smem = sizeof(bf16) * (size_t)(kMmaBQ + 2 * kMmaBK) * (D + 8);
   return wfl::launch(flash_fwd_mma<D>, grid, dim3(kMmaWarps * 32), smem,
@@ -599,7 +611,7 @@ cudaError_t run_mma(const void* q, const void* k, const void* v,
                      static_cast<const bf16*>(bias),
                      static_cast<const float*>(gate),
                      static_cast<const int*>(kv_len), static_cast<bf16*>(out),
-                     H, T_len, scale);
+                     static_cast<float*>(lse), H, T_len, scale);
 }
 
 size_t wmma_smem_bytes(int nw, int D) {
@@ -611,8 +623,8 @@ size_t wmma_smem_bytes(int nw, int D) {
 template <int NW>
 cudaError_t run_wmma(const void* q, const void* k, const void* v,
                      const void* bias, const void* gate, const void* kv_len,
-                     void* out, int B, int H, int T_len, int D, float scale,
-                     cudaStream_t stream) {
+                     void* out, void* lse, int B, int H, int T_len, int D,
+                     float scale, cudaStream_t stream) {
   dim3 grid((T_len + 16 * NW - 1) / (16 * NW), H, B);
   return wfl::launch(flash_fwd_wmma<NW>, grid, dim3(NW * 32),
                      wmma_smem_bytes(NW, D), stream,
@@ -621,7 +633,7 @@ cudaError_t run_wmma(const void* q, const void* k, const void* v,
                      static_cast<const bf16*>(bias),
                      static_cast<const float*>(gate),
                      static_cast<const int*>(kv_len), static_cast<bf16*>(out),
-                     H, T_len, D, scale);
+                     static_cast<float*>(lse), H, T_len, D, scale);
 }
 
 // Up to D=128 the register-resident mma.sync kernel (its output tile fits
@@ -629,10 +641,11 @@ cudaError_t run_wmma(const void* q, const void* k, const void* v,
 // query rows) above D=384, so the staged tiles fit in 227 KB.
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                           const void* bias, const void* gate,
-                          const void* kv_len, void* out, int B, int H,
-                          int T_len, int D, float scale, cudaStream_t s) {
+                          const void* kv_len, void* out, void* lse, int B,
+                          int H, int T_len, int D, float scale,
+                          cudaStream_t s) {
 #define WFL_MMA_CASE(d) \
-  case d: return run_mma<d>(q, k, v, bias, gate, kv_len, out, B, H, T_len, scale, s);
+  case d: return run_mma<d>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, scale, s);
   switch (D) {
     WFL_MMA_CASE(16) WFL_MMA_CASE(32) WFL_MMA_CASE(48) WFL_MMA_CASE(64)
     WFL_MMA_CASE(80) WFL_MMA_CASE(96) WFL_MMA_CASE(112) WFL_MMA_CASE(128)
@@ -640,15 +653,17 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
   }
 #undef WFL_MMA_CASE
   if (D <= 384)
-    return run_wmma<4>(q, k, v, bias, gate, kv_len, out, B, H, T_len, D, scale, s);
-  return run_wmma<2>(q, k, v, bias, gate, kv_len, out, B, H, T_len, D, scale, s);
+    return run_wmma<4>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, D,
+                       scale, s);
+  return run_wmma<2>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, D,
+                     scale, s);
 }
 
 template <int NC>
 cudaError_t run_f32(const void* q, const void* k, const void* v,
                     const void* bias, const void* gate, const void* kv_len,
-                    void* out, int B, int H, int T_len, int D, float scale,
-                    cudaStream_t stream) {
+                    void* out, void* lse, int B, int H, int T_len, int D,
+                    float scale, cudaStream_t stream) {
   constexpr int BQ = f32_rows(NC) * kWarps;
   dim3 grid((T_len + BQ - 1) / BQ, H, B);
   const size_t smem = sizeof(float) *
@@ -659,16 +674,17 @@ cudaError_t run_f32(const void* q, const void* k, const void* v,
                      static_cast<const float*>(bias),
                      static_cast<const float*>(gate),
                      static_cast<const int*>(kv_len), static_cast<float*>(out),
-                     H, T_len, D, scale);
+                     static_cast<float*>(lse), H, T_len, D, scale);
 }
 
 // One instantiation per ⌈D/32⌉ (D a multiple of 16 up to 512).
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          const void* bias, const void* gate,
-                         const void* kv_len, void* out, int B, int H,
-                         int T_len, int D, float scale, cudaStream_t s) {
+                         const void* kv_len, void* out, void* lse, int B,
+                         int H, int T_len, int D, float scale,
+                         cudaStream_t s) {
 #define WFL_F32_CASE(nc) \
-  case nc: return run_f32<nc>(q, k, v, bias, gate, kv_len, out, B, H, T_len, D, scale, s);
+  case nc: return run_f32<nc>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, D, scale, s);
   switch ((D + 31) / 32) {
     WFL_F32_CASE(1) WFL_F32_CASE(2) WFL_F32_CASE(3) WFL_F32_CASE(4)
     WFL_F32_CASE(5) WFL_F32_CASE(6) WFL_F32_CASE(7) WFL_F32_CASE(8)
@@ -679,6 +695,439 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 #undef WFL_F32_CASE
 }
 
+// ---------------------------------------------------------------------------
+// Backward (K2b with bias and gate, K1b without): two passes that recompute
+// P = exp(S − LSE) tile by tile from the forward's row LSE, so nothing of
+// size [B,H,T,T] is formed.
+//
+// Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_bwd_dkdv_kernel and
+// _bwd_dq_kernel (K2b) and flash_attention_bwd.py:_bwd_dkdv_kernel and
+// _bwd_dq_kernel (K1b); the TPU package keeps K1b apart only for grid order.
+//
+// - dK/dV pass (flash_bwd_dkdv): one block per (key tile, h, b) loops over
+//   the query tiles: S (gated bias, key mask before the exp), P, dP = dO·Vᵀ,
+//   dS = P·(dP − delta), then dV += Pᵀ·dO and dK += dSᵀ·(Q·scale). Key
+//   tiles wholly past kv_len write zeros and stop.
+// - dQ pass (flash_bwd_dq): one block per (query tile, h) loops over b and,
+//   inside, over the key tiles below kv_len[b]: dQ += dS·K·scale and
+//   dGate[b,h,q] += Σ_k bias·dS. dBias[h,q,k] = Σ_b gate·dS is added into
+//   the block's own [BQ, T] strip of the zero-filled f32 dBias by the thread
+//   that owns each element, b after b: the TPU's revisited output block
+//   (batch innermost) as a loop inside the block. Deterministic, no float
+//   atomics, no [B,H,T,T] buffer; the price is B read-modify-writes of the
+//   strip, 2·B·H·T²·4 bytes per call (1.7 GB at [8,12,1499,·], ≈ 0.5 ms at
+//   3.35 TB/s), plus B reads of the bias in each pass.
+//
+// What bounds it on the card: 7 products of B·H·T²·D (S and dP in both
+// passes, dV, dK, dQ), so operations, as in the forward. This first version
+// runs them as f32 FMA loops from shared memory for both dtypes (bf16 is
+// widened on load, everything accumulates in f32); each thread holds a
+// register micro-tile of S/dP (RI×RJ) and of the dK/dV/dQ updates (2×4), so
+// a shared-memory load feeds ~1.3-2 FMAs. Tensor cores (mma.sync/wgmma) are
+// later work. Rows are pitched at D + 1 floats, so the threads of a warp,
+// which own consecutive keys, read distinct banks. Tiles by D keep the
+// staged rows within 227 KB: at D=384 (the Conformer) 16 keys × 32 queries
+// (dK/dV, 197 KB) and 16 queries × 32 keys (dQ, 171 KB).
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+
+// rows [row0, row0 + n) of a [T, D] matrix, times mul, into an f32 tile of
+// pitch `pitch`; zero past T
+template <typename T>
+__device__ __forceinline__ void bwd_load(float* dst, int pitch, const T* src,
+                                         int row0, int n, int T_len, int D,
+                                         float mul) {
+  for (int idx = threadIdx.x; idx < n * D; idx += kBwdThreads) {
+    const int r = idx / D, c = idx - r * D;
+    dst[r * pitch + c] = row0 + r < T_len
+        ? to_f(src[(size_t)(row0 + r) * D + c]) * mul : 0.f;
+  }
+}
+
+// lse, delta and gate of query rows [q0, q0 + BQ) into sRow[0..3·BQ); rows
+// past T get lse = delta = gate = 0 (their Q and dO rows are zero, so they
+// add nothing)
+template <int BQ>
+__device__ __forceinline__ void bwd_rows(float* sRow, const float* lse,
+                                         const float* delta,
+                                         const float* gate, size_t bh,
+                                         int q0, int T_len) {
+  for (int i = threadIdx.x; i < BQ; i += kBwdThreads) {
+    const int qi = q0 + i;
+    const bool ok = qi < T_len;
+    sRow[i] = ok ? lse[bh * T_len + qi] : 0.f;
+    sRow[BQ + i] = ok ? delta[bh * T_len + qi] : 0.f;
+    sRow[2 * BQ + i] = (ok && gate != nullptr) ? gate[bh * T_len + qi] : 0.f;
+  }
+}
+
+// P and dS of one (query tile, key tile) pair from the staged tiles. Thread
+// (ti, tj) = (tid / 16, tid % 16) owns query rows ti + 16·r and keys
+// tj + 16·c. sQ holds q·scale. bv returns the bias values read (0 without
+// bias).
+template <typename T, int BQ, int BK>
+__device__ __forceinline__ void bwd_tile_ds(
+    const float* sQ, const float* sDO, const float* sK, const float* sV,
+    int DP, int D, const float* sRow, bool has_gate, const T* bias_h,
+    int q0, int k0, int kvl, int T_len, float (&p)[BQ / 16][BK / 16],
+    float (&ds)[BQ / 16][BK / 16], float (&bv)[BQ / 16][BK / 16]) {
+  constexpr int RI = BQ / 16, RJ = BK / 16;
+  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
+  float s[RI][RJ], dp[RI][RJ];
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int c = 0; c < RJ; ++c) s[r][c] = dp[r][c] = 0.f;
+  for (int d = 0; d < D; ++d) {
+    float qv[RI], dov[RI], kv[RJ], vv[RJ];
+#pragma unroll
+    for (int r = 0; r < RI; ++r) {
+      qv[r] = sQ[(ti + 16 * r) * DP + d];
+      dov[r] = sDO[(ti + 16 * r) * DP + d];
+    }
+#pragma unroll
+    for (int c = 0; c < RJ; ++c) {
+      kv[c] = sK[(tj + 16 * c) * DP + d];
+      vv[c] = sV[(tj + 16 * c) * DP + d];
+    }
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int c = 0; c < RJ; ++c) {
+        s[r][c] += qv[r] * kv[c];
+        dp[r][c] += dov[r] * vv[c];
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < RI; ++r) {
+    const int i = ti + 16 * r, qi = q0 + i;
+    const float lse = sRow[i], delta = sRow[BQ + i], g = sRow[2 * BQ + i];
+#pragma unroll
+    for (int c = 0; c < RJ; ++c) {
+      const int kj = k0 + tj + 16 * c;
+      float sv = s[r][c], b_ = 0.f;
+      if (bias_h != nullptr) {
+        b_ = (qi < T_len && kj < T_len)
+            ? to_f(bias_h[(size_t)qi * T_len + kj]) : 0.f;
+        sv += has_gate ? g * b_ : b_;
+      }
+      // mask before the exp: a masked key's raw score may exceed the LSE
+      // by more than 88, and exp → inf, times 0, is NaN
+      if (kj >= kvl) sv = kNegInf;
+      const float pv = expf(sv - lse);
+      p[r][c] = pv;
+      ds[r][c] = pv * (dp[r][c] - delta);
+      bv[r][c] = b_;
+    }
+  }
+}
+
+template <typename T, int BQ, int BK>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ bias,
+               const float* __restrict__ gate, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const int* __restrict__ kv_len, T* __restrict__ dk,
+               T* __restrict__ dv, int H, int T_len, int D, float scale) {
+  constexpr int RI = BQ / 16, RJ = BK / 16, PP = BK + 1;
+  extern __shared__ float smem[];
+  const int DP = D + 1;
+  float* sK = smem;                 // [BK][DP]
+  float* sV = sK + BK * DP;         // [BK][DP]
+  float* sQ = sV + BK * DP;         // [BQ][DP]  q * scale
+  float* sDO = sQ + BQ * DP;        // [BQ][DP]
+  float* sP = sDO + BQ * DP;        // [BQ][PP]
+  float* sDS = sP + BQ * PP;        // [BQ][PP]
+  float* sdK = sDS + BQ * PP;       // [BK][D]  accumulators
+  float* sdV = sdK + BK * D;        // [BK][D]
+  float* sRow = sdV + BK * D;       // [3][BQ]  lse, delta, gate
+
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const size_t bh = (size_t)b * H + h;
+  const size_t base = bh * T_len * D;
+  const int kvl = kv_len[b];
+  if (k0 >= kvl) {      // no query attends these keys: zero gradients
+    for (int idx = tid; idx < BK * D; idx += kBwdThreads) {
+      const int r = idx / D;
+      if (k0 + r < T_len) {
+        dk[base + (size_t)k0 * D + idx] = from_f<T>(0.f);
+        dv[base + (size_t)k0 * D + idx] = from_f<T>(0.f);
+      }
+    }
+    return;
+  }
+  bwd_load(sK, DP, k + base, k0, BK, T_len, D, 1.f);
+  bwd_load(sV, DP, v + base, k0, BK, T_len, D, 1.f);
+  for (int idx = tid; idx < 2 * BK * D; idx += kBwdThreads) sdK[idx] = 0.f;
+  const T* bias_h = bias != nullptr ? bias + (size_t)h * T_len * T_len
+                                    : nullptr;
+  const int ti = tid >> 4, tj = tid & 15;
+  const int nd = D / 4;
+
+  for (int q0 = 0; q0 < T_len; q0 += BQ) {
+    __syncthreads();    // the previous tile's updates are done with sQ..sDS
+    bwd_load(sQ, DP, q + base, q0, BQ, T_len, D, scale);
+    bwd_load(sDO, DP, dout + base, q0, BQ, T_len, D, 1.f);
+    bwd_rows<BQ>(sRow, lse, delta, gate, bh, q0, T_len);
+    __syncthreads();
+    float p[RI][RJ], ds[RI][RJ], bv[RI][RJ];
+    bwd_tile_ds<T, BQ, BK>(sQ, sDO, sK, sV, DP, D, sRow, gate != nullptr,
+                           bias_h, q0, k0, kvl, T_len, p, ds, bv);
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int c = 0; c < RJ; ++c) {
+        sP[(ti + 16 * r) * PP + tj + 16 * c] = p[r][c];
+        sDS[(ti + 16 * r) * PP + tj + 16 * c] = ds[r][c];
+      }
+    __syncthreads();
+    // dV += Pᵀ·dO, dK += dSᵀ·(q·scale): 2 keys × 4 columns a micro-tile
+    for (int m = tid; m < (BK / 2) * nd; m += kBwdThreads) {
+      const int jg = m / nd, dg = m - jg * nd;
+      float av[2][4], ak[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd) {
+          const int e = (jg + (BK / 2) * jj) * D + dg + nd * dd;
+          av[jj][dd] = sdV[e];
+          ak[jj][dd] = sdK[e];
+        }
+      for (int i = 0; i < BQ; ++i) {
+        float pv[2], dsv[2], dov[4], qv[4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          pv[jj] = sP[i * PP + jg + (BK / 2) * jj];
+          dsv[jj] = sDS[i * PP + jg + (BK / 2) * jj];
+        }
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd) {
+          dov[dd] = sDO[i * DP + dg + nd * dd];
+          qv[dd] = sQ[i * DP + dg + nd * dd];
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int dd = 0; dd < 4; ++dd) {
+            av[jj][dd] += pv[jj] * dov[dd];
+            ak[jj][dd] += dsv[jj] * qv[dd];
+          }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd) {
+          const int e = (jg + (BK / 2) * jj) * D + dg + nd * dd;
+          sdV[e] = av[jj][dd];
+          sdK[e] = ak[jj][dd];
+        }
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BK * D; idx += kBwdThreads) {
+    const int r = idx / D;
+    if (k0 + r < T_len) {
+      dk[base + (size_t)k0 * D + idx] = from_f<T>(sdK[idx]);
+      dv[base + (size_t)k0 * D + idx] = from_f<T>(sdV[idx]);
+    }
+  }
+}
+
+template <typename T, int BQ, int BK>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ bias,
+             const float* __restrict__ gate, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             const int* __restrict__ kv_len, T* __restrict__ dq,
+             float* __restrict__ dgate, float* __restrict__ dbias, int B,
+             int H, int T_len, int D, float scale) {
+  constexpr int RI = BQ / 16, RJ = BK / 16, PP = BK + 1;
+  extern __shared__ float smem[];
+  const int DP = D + 1;
+  float* sQ = smem;                 // [BQ][DP]  q * scale
+  float* sDO = sQ + BQ * DP;        // [BQ][DP]
+  float* sK = sDO + BQ * DP;        // [BK][DP]
+  float* sV = sK + BK * DP;         // [BK][DP]
+  float* sDS = sV + BK * DP;        // [BQ][PP]
+  float* sdQ = sDS + BQ * PP;       // [BQ][D]  accumulator
+  float* sRow = sdQ + BQ * D;       // [4][BQ]  lse, delta, gate, dGate
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y;
+  const int tid = threadIdx.x, ti = tid >> 4, tj = tid & 15;
+  const int nd = D / 4;
+  const T* bias_h = bias != nullptr ? bias + (size_t)h * T_len * T_len
+                                    : nullptr;
+  float* dbias_h = dbias != nullptr ? dbias + (size_t)h * T_len * T_len
+                                    : nullptr;
+  const bool has_gate = gate != nullptr;
+
+  for (int b = 0; b < B; ++b) {
+    const size_t bh = (size_t)b * H + h;
+    const size_t base = bh * T_len * D;
+    const int kvl = kv_len[b];
+    __syncthreads();    // the previous b's stores are done with sdQ/sRow
+    bwd_load(sQ, DP, q + base, q0, BQ, T_len, D, scale);
+    bwd_load(sDO, DP, dout + base, q0, BQ, T_len, D, 1.f);
+    bwd_rows<BQ>(sRow, lse, delta, gate, bh, q0, T_len);
+    for (int idx = tid; idx < BQ * D; idx += kBwdThreads) sdQ[idx] = 0.f;
+    for (int i = tid; i < BQ; i += kBwdThreads) sRow[3 * BQ + i] = 0.f;
+
+    for (int k0 = 0; k0 < kvl; k0 += BK) {
+      __syncthreads();  // the previous key tile's dQ update is done
+      bwd_load(sK, DP, k + base, k0, BK, T_len, D, 1.f);
+      bwd_load(sV, DP, v + base, k0, BK, T_len, D, 1.f);
+      __syncthreads();
+      float p[RI][RJ], ds[RI][RJ], bv[RI][RJ];
+      bwd_tile_ds<T, BQ, BK>(sQ, sDO, sK, sV, DP, D, sRow, has_gate, bias_h,
+                             q0, k0, kvl, T_len, p, ds, bv);
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        const int i = ti + 16 * r, qi = q0 + i;
+        const float g = sRow[2 * BQ + i];
+        float dg = 0.f;
+#pragma unroll
+        for (int c = 0; c < RJ; ++c) {
+          const int kj = k0 + tj + 16 * c;
+          sDS[i * PP + tj + 16 * c] = ds[r][c];
+          dg += bv[r][c] * ds[r][c];
+          // this thread owns dBias[h, qi, kj] for every b
+          if (dbias_h != nullptr && qi < T_len && kj < T_len)
+            dbias_h[(size_t)qi * T_len + kj] += has_gate ? g * ds[r][c]
+                                                         : ds[r][c];
+        }
+        if (has_gate) {
+          // Σ over the 16 threads of this row (lanes tj = 0..15)
+#pragma unroll
+          for (int o = 1; o < 16; o <<= 1)
+            dg += __shfl_xor_sync(0xffffffffu, dg, o);
+          if (tj == 0) sRow[3 * BQ + i] += dg;
+        }
+      }
+      __syncthreads();
+      // dQ += dS·K (scale at the store): 2 rows × 4 columns a micro-tile
+      for (int m = tid; m < (BQ / 2) * nd; m += kBwdThreads) {
+        const int ig = m / nd, dg = m - ig * nd;
+        float acc[2][4];
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int dd = 0; dd < 4; ++dd)
+            acc[ii][dd] = sdQ[(ig + (BQ / 2) * ii) * D + dg + nd * dd];
+        for (int j = 0; j < BK; ++j) {
+          float dsv[2], kv[4];
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii)
+            dsv[ii] = sDS[(ig + (BQ / 2) * ii) * PP + j];
+#pragma unroll
+          for (int dd = 0; dd < 4; ++dd) kv[dd] = sK[j * DP + dg + nd * dd];
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+            for (int dd = 0; dd < 4; ++dd) acc[ii][dd] += dsv[ii] * kv[dd];
+        }
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int dd = 0; dd < 4; ++dd)
+            sdQ[(ig + (BQ / 2) * ii) * D + dg + nd * dd] = acc[ii][dd];
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < BQ * D; idx += kBwdThreads) {
+      const int r = idx / D;
+      if (q0 + r < T_len)
+        dq[base + (size_t)q0 * D + idx] = from_f<T>(sdQ[idx] * scale);
+    }
+    if (has_gate)
+      for (int i = tid; i < BQ; i += kBwdThreads)
+        if (q0 + i < T_len) dgate[bh * T_len + q0 + i] = sRow[3 * BQ + i];
+  }
+}
+
+template <typename T, int BQ, int BK>
+cudaError_t run_dkdv(const void* q, const void* k, const void* v,
+                     const void* bias, const void* gate, const void* dout,
+                     const void* lse, const void* delta, const void* kv_len,
+                     void* dk, void* dv, int B, int H, int T_len, int D,
+                     float scale, cudaStream_t stream) {
+  const size_t dp = D + 1;
+  const size_t smem = sizeof(float) *
+      (2 * BK * dp + 2 * BQ * dp + 2 * BQ * (BK + 1) + 2 * BK * (size_t)D
+       + 3 * BQ);
+  dim3 grid((T_len + BK - 1) / BK, H, B);
+  return wfl::launch(flash_bwd_dkdv<T, BQ, BK>, grid, dim3(kBwdThreads),
+                     smem, stream, static_cast<const T*>(q),
+                     static_cast<const T*>(k), static_cast<const T*>(v),
+                     static_cast<const T*>(bias),
+                     static_cast<const float*>(gate),
+                     static_cast<const T*>(dout),
+                     static_cast<const float*>(lse),
+                     static_cast<const float*>(delta),
+                     static_cast<const int*>(kv_len), static_cast<T*>(dk),
+                     static_cast<T*>(dv), H, T_len, D, scale);
+}
+
+template <typename T, int BQ, int BK>
+cudaError_t run_dq(const void* q, const void* k, const void* v,
+                   const void* bias, const void* gate, const void* dout,
+                   const void* lse, const void* delta, const void* kv_len,
+                   void* dq, void* dgate, void* dbias, int B, int H,
+                   int T_len, int D, float scale, cudaStream_t stream) {
+  const size_t dp = D + 1;
+  const size_t smem = sizeof(float) *
+      (2 * BQ * dp + 2 * BK * dp + BQ * (BK + 1) + BQ * (size_t)D + 4 * BQ);
+  dim3 grid((T_len + BQ - 1) / BQ, H);
+  return wfl::launch(flash_bwd_dq<T, BQ, BK>, grid, dim3(kBwdThreads), smem,
+                     stream, static_cast<const T*>(q),
+                     static_cast<const T*>(k), static_cast<const T*>(v),
+                     static_cast<const T*>(bias),
+                     static_cast<const float*>(gate),
+                     static_cast<const T*>(dout),
+                     static_cast<const float*>(lse),
+                     static_cast<const float*>(delta),
+                     static_cast<const int*>(kv_len), static_cast<T*>(dq),
+                     static_cast<float*>(dgate), static_cast<float*>(dbias),
+                     B, H, T_len, D, scale);
+}
+
+// Tiles by D (staged rows within 227 KB; the dQ pass's grid of
+// ⌈T/BQ⌉·H blocks kept above the 132 SMs at the Conformer's 2 heads).
+template <typename T>
+cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
+                         const void* bias, const void* gate,
+                         const void* dout, const void* lse,
+                         const void* delta, const void* kv_len, void* dq,
+                         void* dk, void* dv, void* dgate, void* dbias,
+                         int B, int H, int T_len, int D, float scale,
+                         cudaStream_t s) {
+  cudaError_t err;
+  if (D <= 64)
+    err = run_dkdv<T, 64, 64>(q, k, v, bias, gate, dout, lse, delta, kv_len,
+                              dk, dv, B, H, T_len, D, scale, s);
+  else if (D <= 128)
+    err = run_dkdv<T, 64, 32>(q, k, v, bias, gate, dout, lse, delta, kv_len,
+                              dk, dv, B, H, T_len, D, scale, s);
+  else if (D <= 384)
+    err = run_dkdv<T, 32, 16>(q, k, v, bias, gate, dout, lse, delta, kv_len,
+                              dk, dv, B, H, T_len, D, scale, s);
+  else
+    err = run_dkdv<T, 16, 16>(q, k, v, bias, gate, dout, lse, delta, kv_len,
+                              dk, dv, B, H, T_len, D, scale, s);
+  if (err != cudaSuccess) return err;
+  if (D <= 128)
+    return run_dq<T, 32, 64>(q, k, v, bias, gate, dout, lse, delta, kv_len,
+                             dq, dgate, dbias, B, H, T_len, D, scale, s);
+  if (D <= 384)
+    return run_dq<T, 16, 32>(q, k, v, bias, gate, dout, lse, delta, kv_len,
+                             dq, dgate, dbias, B, H, T_len, D, scale, s);
+  return run_dq<T, 16, 16>(q, k, v, bias, gate, dout, lse, delta, kv_len,
+                           dq, dgate, dbias, B, H, T_len, D, scale, s);
+}
+
 }  // namespace
 
 using namespace wfl;
@@ -686,21 +1135,47 @@ using namespace wfl;
 // q, k, v, out: [B, H, T, D] contiguous, D a multiple of 16 up to 512;
 // dtype 0 = f32 (FMA kernel), 1 = bf16 (tensor-core kernels), the tiles
 // chosen by D. bias: [H, T, T] of the same dtype or null; gate: [B, H, T]
-// f32 or null; kv_len: [B] int32 in [1, T]. Returns the launch's
-// cudaError_t.
+// f32 or null; kv_len: [B] int32 in [1, T]. lse: [B, H, T] f32, written
+// (the row's logsumexp of the scaled, biased, masked scores) when not null.
+// Returns the launch's cudaError_t.
 extern "C" int wfl_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        const void* gate, const void* kv_len,
-                                       void* out, int B, int H, int T_len,
-                                       int D, float scale, int dtype,
-                                       void* stream) {
+                                       void* out, void* lse, int B, int H,
+                                       int T_len, int D, float scale,
+                                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D % 16 != 0 || D > 512) return cudaErrorInvalidValue;
   if (dtype == kF32)
-    return dispatch_f32(q, k, v, bias, gate, kv_len, out, B, H, T_len, D,
-                        scale, s);
+    return dispatch_f32(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len,
+                        D, scale, s);
   if (dtype == kBF16)
-    return dispatch_bf16(q, k, v, bias, gate, kv_len, out, B, H, T_len, D,
-                         scale, s);
+    return dispatch_bf16(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len,
+                         D, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// The backward of wfl_flash_attention_fwd: both passes, in order, on one
+// stream. q, k, v, dout, dq, dk, dv: [B, H, T, D] of the dtype; bias [H, T,
+// T] of the dtype or null; gate [B, H, T] f32 or null; lse and delta =
+// rowsum(dO·O) [B, H, T] f32; kv_len [B] int32 in [1, T]. dgate [B, H, T]
+// f32 (null without gate); dbias [H, T, T] f32, zero-filled by the caller
+// (null without bias).
+extern "C" int wfl_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* gate, const void* dout, const void* lse, const void* delta,
+    const void* kv_len, void* dq, void* dk, void* dv, void* dgate,
+    void* dbias, int B, int H, int T_len, int D, float scale, int dtype,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D % 16 != 0 || D > 512) return cudaErrorInvalidValue;
+  if (dtype == kF32)
+    return dispatch_bwd<float>(q, k, v, bias, gate, dout, lse, delta, kv_len,
+                               dq, dk, dv, dgate, dbias, B, H, T_len, D,
+                               scale, s);
+  if (dtype == kBF16)
+    return dispatch_bwd<bf16>(q, k, v, bias, gate, dout, lse, delta, kv_len,
+                              dq, dk, dv, dgate, dbias, B, H, T_len, D, scale,
+                              s);
   return cudaErrorInvalidValue;
 }

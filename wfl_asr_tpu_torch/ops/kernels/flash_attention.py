@@ -1,5 +1,6 @@
-"""Gated-bias flash attention (forward), the port of
-``wfl_asr_tpu/ops/pallas/flash_attention.py:flash_attention``.
+"""Gated-bias flash attention, the port of
+``wfl_asr_tpu/ops/pallas/flash_attention.py:flash_attention``, forward and
+backward.
 
     out[b,h,q,:] = softmax_k( q·kᵀ/√d + gate[b,h,q]·bias[h,q,k],
                               keys ≥ kv_len[b] → −1e30 ) · v
@@ -8,12 +9,13 @@
   batch (read per tile by the kernel, never expanded to [B,H,T,T]);
   ``gate`` [B, H, T] is the per-query gate; ``kv_len`` [B] masks padded
   keys (clamped to ≥ 1, as in JAX).
-- On a CUDA tensor the hand-written kernel ``csrc/flash_attention.cu``
-  runs (f32 or bf16 in, f32 softmax and accumulation). On a CPU tensor the
-  plain twin :func:`attention_plain` runs. Nothing falls back: a kernel
-  that fails to build or launch raises.
-- Forward only: the backward (dQ/dK/dV/dBias/dGate) is ROADMAP Queue 2
-  "K2b", and calling it raises ``NotImplementedError``.
+- On a CUDA tensor the hand-written kernels of ``csrc/flash_attention.cu``
+  run (f32 or bf16 in, f32 softmax and accumulation): the forward, which
+  also writes the row logsumexp (LSE) when autograd will need it, and the
+  two backward passes (dK/dV; dQ with dGate and dBias), which recompute
+  P = exp(S − LSE) tile by tile. On a CPU tensor the plain twins
+  :func:`attention_plain` and :func:`attention_backward_plain` run. Nothing
+  falls back: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -27,12 +29,12 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-BACKWARD_TODO = ("the attention backward kernels are not ported yet "
-                 "(ROADMAP.md Queue 2, K2b/K1b: training slice)")
 
-# Launches of the CUDA kernel through this module's entry point; a run
-# resets it to 0 and reads it to show the path went through the kernel.
+# Launches of the CUDA kernels through this module's entry point (forward,
+# and the backward pair); a run resets them to 0 and reads them to show the
+# path went through the kernels.
 launches = 0
+bwd_launches = 0
 
 
 def _prep_kv_len(kv_len, b: int, t: int, device) -> torch.Tensor:
@@ -45,23 +47,60 @@ def _prep_kv_len(kv_len, b: int, t: int, device) -> torch.Tensor:
     return kv.expand(b).clamp(1, t).contiguous()
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None,
-                    gate: Optional[torch.Tensor] = None,
-                    kv_len=None) -> torch.Tensor:
-    """Plain PyTorch twin: materialized f32 scores, the kernel's exact
-    math (``layers.attention_core`` with the gated bias and key mask)."""
-    b, h, t, d = q.shape
+def _scores_plain(q, k, bias, gate, kv) -> torch.Tensor:
+    """f32 scores (q·scale)·kᵀ + gate·bias with keys ≥ kv set to −1e30."""
+    t, d = q.shape[2], q.shape[3]
     s = torch.matmul(q.float() * (1.0 / math.sqrt(d)),
                      k.float().transpose(-1, -2))
     if bias is not None:
         bf = bias.float()[None]
         s = s + (gate.float()[..., None] * bf if gate is not None else bf)
-    kv = _prep_kv_len(kv_len, b, t, q.device)
     keep = torch.arange(t, device=q.device)[None, :] < kv[:, None]
-    s = torch.where(keep[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    return torch.where(keep[:, None, None, :], s, torch.full_like(s, NEG_INF))
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    gate: Optional[torch.Tensor] = None,
+                    kv_len=None, return_lse: bool = False):
+    """Plain PyTorch twin: materialized f32 scores, the kernel's exact
+    math (``layers.attention_core`` with the gated bias and key mask).
+    With ``return_lse`` also the row logsumexp [B, H, T] f32."""
+    b, h, t, d = q.shape
+    s = _scores_plain(q, k, bias, gate, _prep_kv_len(kv_len, b, t, q.device))
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    out = torch.matmul(p.float(), v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def attention_backward_plain(q, k, v, bias, gate, kv_len, out, lse, dout):
+    """Plain twin of the backward kernels, step by step from the saved LSE
+    as they work: P = exp(S − LSE), dP = dO·Vᵀ, delta = rowsum(dO·O),
+    dS = P·(dP − delta); dQ = dS·K·scale, dK = dSᵀ·(Q·scale), dV = Pᵀ·dO,
+    dBias = Σ_b gate·dS, dGate = Σ_k bias·dS. Returns (dq, dk, dv, dbias,
+    dgate): dq/dk/dv in q's dtype, dbias [H,T,T] and dgate [B,H,T] in f32
+    (None where there is no bias or gate)."""
+    b, h, t, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    kv = _prep_kv_len(kv_len, b, t, q.device)
+    s = _scores_plain(q, k, bias, gate, kv)
+    p = torch.exp(s - lse.float()[..., None])
+    do = dout.float()
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float() * scale)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dbias = dgate = None
+    if bias is not None:
+        dbias = ((gate.float()[..., None] * ds) if gate is not None
+                 else ds).sum(0)
+    if gate is not None:
+        dgate = (bias.float()[None] * ds).sum(-1)
+    return (dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias, dgate)
 
 
 def _check(q, k, v, bias, gate):
@@ -86,8 +125,10 @@ def _check(q, k, v, bias, gate):
                          f"{tuple(gate.shape)}")
 
 
-def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None) -> torch.Tensor:
-    """Run ``csrc/flash_attention.cu`` on CUDA tensors (no launch count)."""
+def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
+                  return_lse: bool = False):
+    """Run the forward of ``csrc/flash_attention.cu`` on CUDA tensors (no
+    launch count); with ``return_lse`` also the row LSE [B, H, T] f32."""
     _check(q, k, v, bias, gate)
     if not q.is_cuda:
         raise ValueError("launch_kernel needs CUDA tensors")
@@ -100,31 +141,106 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None) -> torch.Tensor:
         gate = gate.float().contiguous()
     kv = _prep_kv_len(kv_len, b, t, q.device)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = lib.wfl_flash_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             bias.data_ptr() if bias is not None else None,
-             gate.data_ptr() if gate is not None else None,
-             kv.data_ptr(), out.data_ptr(), b, h, t, d,
-             1.0 / math.sqrt(d), 0 if q.dtype == torch.float32 else 1,
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+             _ptr(gate), kv.data_ptr(), out.data_ptr(), _ptr(lse), b, h, t,
+             d, 1.0 / math.sqrt(d), _dtype_code(q),
              _build.stream_ptr(q.device))
     _build.check(lib, err, "flash_attention")
+    return (out, lse) if return_lse else out
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return x.data_ptr() if x is not None else None
+
+
+def _dtype_code(q: torch.Tensor) -> int:
+    return 0 if q.dtype == torch.float32 else 1
+
+
+def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout):
+    """Run both backward passes of ``csrc/flash_attention.cu`` on CUDA
+    tensors (no launch count). Same contract as
+    :func:`attention_backward_plain`; ``delta = rowsum(dO·O)`` is a plain
+    f32 torch op here, as the JAX package leaves it to XLA."""
+    _check(q, k, v, bias, gate)
+    if not q.is_cuda:
+        raise ValueError("launch_backward needs CUDA tensors")
+    b, h, t, d = q.shape
+    lib = _build.library("flash_attention")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dout = dout.to(q.dtype).contiguous()
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    if bias is not None:
+        bias = bias.to(q.dtype).contiguous()
+    if gate is not None:
+        gate = gate.float().contiguous()
+    kv = _prep_kv_len(kv_len, b, t, q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = (torch.zeros((h, t, t), dtype=torch.float32, device=q.device)
+             if bias is not None else None)
+    dgate = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+             if gate is not None else None)
+    fn = lib.wfl_flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+             _ptr(gate), dout.data_ptr(), lse.contiguous().data_ptr(),
+             delta.data_ptr(), kv.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t, d,
+             1.0 / math.sqrt(d), _dtype_code(q),
+             _build.stream_ptr(q.device))
+    _build.check(lib, err, "flash_attention backward")
+    return dq, dk, dv, dbias, dgate
+
+
+def attention_forward(ctx, q, k, v, bias, gate, kv_len) -> torch.Tensor:
+    """The forward of both autograd Functions: the kernel on CUDA, the
+    plain twin on the CPU. The LSE is made, and everything the backward
+    reads is saved, only when autograd will need it."""
+    want_lse = any(ctx.needs_input_grad[:5])
+    fn = launch_kernel if q.is_cuda else attention_plain
+    res = fn(q, k, v, bias, gate, kv_len, return_lse=want_lse)
+    out, lse = res if want_lse else (res, None)
+    if want_lse:
+        b, _, t, _ = q.shape
+        ctx.save_for_backward(q, k, v, bias, gate,
+                              _prep_kv_len(kv_len, b, t, q.device), out, lse)
     return out
+
+
+def attention_backward(ctx, dout):
+    """(dq, dk, dv, dbias, dgate) for the saved inputs: the backward
+    kernels on CUDA, the plain twin on the CPU. dBias comes back in the
+    bias's dtype, dGate in f32."""
+    q, k, v, bias, gate, kv, out, lse = ctx.saved_tensors
+    fn = launch_backward if q.is_cuda else attention_backward_plain
+    dq, dk, dv, dbias, dgate = fn(q, k, v, bias, gate, kv, out, lse, dout)
+    if dbias is not None:
+        dbias = dbias.to(bias.dtype)
+    return dq, dk, dv, dbias, dgate
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, gate, kv_len):
         global launches
-        out = launch_kernel(q, k, v, bias, gate, kv_len)
-        launches += 1
+        out = attention_forward(ctx, q, k, v, bias, gate, kv_len)
+        launches += q.is_cuda
         return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(BACKWARD_TODO)
+    def backward(ctx, dout):
+        global bwd_launches
+        grads = attention_backward(ctx, dout)
+        bwd_launches += dout.is_cuda
+        return (*grads, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,14 +250,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v: [B, H, T, D] → [B, H, T, D]. bias: [H, T, T] or None;
     gate: [B, H, T] or None (requires bias); kv_len: [B] or None (= T).
 
-    A CUDA tensor runs the kernel, a CPU tensor the plain twin."""
+    A CUDA tensor runs the kernels, a CPU tensor the plain twins; both are
+    differentiable in every tensor argument but ``kv_len``."""
+    check_entry(q, k, v, bias, gate, dropout_rate)
+    return _FlashAttention.apply(q, k, v, bias, gate, kv_len)
+
+
+def check_entry(q, k, v, bias, gate, dropout_rate: float) -> None:
+    """The checks of both entry points: shapes, dtype, device, no dropout."""
     if dropout_rate > 0.0:
         raise NotImplementedError(
             "in-kernel attention dropout is not ported (ROADMAP.md Queue 2, "
             "K6)")
     _check(q, k, v, bias, gate)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, bias, gate, kv_len)
-    if not q.is_cuda:
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    return _FlashAttention.apply(q, k, v, bias, gate, kv_len)

@@ -1,0 +1,584 @@
+"""The train loop, the port of ``wfl_asr_tpu/train/loop.py:554-1276`` for
+one device on one host:
+
+- artifacts from ``save_dir`` (``phonemes.txt``, ``dataset.json``, written
+  by ``python -m wfl_asr_tpu_torch.preprocess``; the language names and
+  the merge map serve only the figures, which are not drawn);
+- a seeded train/val split by ``num_val_files``;
+- optional finetune surgery: language-embedding rows grown, classifier rows
+  carried over by tag name;
+- the optimizer by name — ``Prodigy`` (train/prodigy.py) or any
+  ``torch.optim`` class, kwargs filtered by its signature;
+- schedulers stepped per validation (default) or per update, with the
+  ReduceLROnPlateau special case;
+- gradient accumulation (the applied gradient is the mean of the
+  micro-batch gradients; ``step`` counts updates);
+- auto-resume from the newest readable ``model_step{N}.pt`` plus its
+  training sidecar; checkpoint rotation, ``best_model.pt``,
+  ``last_model.pt``;
+- ``metrics.jsonl`` (the JAX event schema) with a one-step-delayed metric
+  readback, so the host never waits on the step it just queued, and
+  TensorBoard scalars when ``tensorboardX`` imports.
+
+Each step runs the model in training mode (dropout from a seeded
+``torch.Generator`` on the device, LayerDrop, BatchNorm batch statistics):
+CE + subframe_weight · offset (+ the optional soft-IoU term), backward
+through the hand-written attention kernels, and the optimizer. The
+segmental term is a value-only metric on the host, as in the reference.
+
+Not ported (a config that asks for one raises ``NotImplementedError``
+naming ROADMAP.md): data/tensor/pipeline parallelism, FSDP, sequence
+parallelism, multi-host and sharded validation, remat, strict attention
+dropout (K6), the orbax format, the optax-only optimizers; validation
+figures are not drawn.
+
+    python -m wfl_asr_tpu_torch.train CONFIG [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import json
+import os
+import pickle
+import time
+import zipfile
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint import (find_resume_checkpoints, load_train_state,
+                          read_state_dict, remove_checkpoint,
+                          save_model_checkpoint, save_train_state)
+from ..config import Config, as_config
+from ..data.dataset import BatchLoader, PhonemeDataset, split_dataset
+from ..infer.pipeline import resolve_device
+from ..labels import decode_bio_tags, load_phoneme_list, \
+    merge_adjacent_segments
+from ..metrics import framewise_accuracy, phoneme_error_rate, \
+    timing_error_rate
+from ..models.tagger import BIOPhonemeTagger, TaggerArch, init_tagger
+from .losses import (cross_entropy, offset_loss, segmental_loss_value,
+                     soft_iou_segmental_loss)
+from .prodigy import Prodigy
+from .schedules import get_scheduler
+
+BATCH_KEYS = ("audio", "labels", "lang_ids", "off_frames", "off_channels",
+              "off_fracs", "off_valid")
+
+# Names the JAX package resolves to optax-only optimizers (loop.py:79-97)
+# that have no torch.optim class here: ROADMAP.md queues them.
+OPTAX_ONLY = frozenset({
+    "lion", "lamb", "lars", "adabelief", "adan", "novograd", "yogi",
+    "fromage", "amsgrad", "sm3", "nadamw", "adamaxw", "dadaptadamw",
+    "ademamix", "adopt", "adafactor"})
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to wfl_asr_tpu_torch yet (ROADMAP.md Queue 1:"
+        f" training leftovers)")
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise for the JAX-only training options."""
+    t = cfg._sec("training")
+    if int(t.get("model_parallel", 1)) > 1:
+        raise _not_ported("training.model_parallel (tensor parallelism)")
+    if int(t.get("pipeline_parallel", 1)) > 1:
+        raise _not_ported("training.pipeline_parallel")
+    for key in ("fsdp", "sequence_parallel", "sharded_validation"):
+        if bool(t.get(key, False)):
+            raise _not_ported(f"training.{key}")
+    remat = t.get("remat", t.get("gradient_checkpointing", False))
+    if (isinstance(remat, str) and remat.strip().lower() == "auto") \
+            or (not isinstance(remat, str) and bool(remat)):
+        raise _not_ported("training.remat (gradient checkpointing)")
+    overrides = cfg._sec("model").get("encoder_arch_overrides") or {}
+    if bool(t.get("strict_attention_dropout", False)) \
+            or bool(overrides.get("strict_attention_dropout", False)):
+        raise _not_ported("training.strict_attention_dropout (kernel K6)")
+    fmt = str(cfg._sec("output").get("checkpoint_format", "pt"))
+    if fmt != "pt":
+        raise _not_ported(f"output.checkpoint_format {fmt!r}")
+
+
+# ---------------------------------------------------------------------------
+# Optimizer
+# ---------------------------------------------------------------------------
+
+def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
+    """The optimizer by name, kwargs filtered by its signature (the
+    reference's lookup, train.py:379-408): Prodigy, or a ``torch.optim``
+    class matched case-insensitively. ``weight_decay`` comes from the
+    config's training section."""
+    name = cfg.optimizer
+    kwargs = dict(cfg.optimizer_params)
+    if cfg.weight_decay is not None:
+        kwargs["weight_decay"] = cfg.weight_decay
+    if name.lower() == "prodigy":
+        cls = Prodigy
+    else:
+        by_name = {n.lower(): getattr(torch.optim, n)
+                   for n in dir(torch.optim)
+                   if isinstance(getattr(torch.optim, n), type)
+                   and issubclass(getattr(torch.optim, n),
+                                  torch.optim.Optimizer)
+                   and n != "Optimizer"}
+        cls = by_name.get(name.lower())
+        if cls is None:
+            if name.lower() in OPTAX_ONLY:
+                raise _not_ported(f"optimizer {name!r} (optax-only)")
+            raise ValueError(f"Optimizer '{name}' not found. Available: "
+                             f"Prodigy, {sorted(by_name)}")
+    accepted = set(inspect.signature(cls).parameters)
+    if "betas" in kwargs and "betas" in accepted:
+        kwargs["betas"] = tuple(kwargs["betas"])
+    filtered = {k: v for k, v in kwargs.items() if k in accepted}
+    return cls(params, lr=cfg.learning_rate, **filtered)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+# ---------------------------------------------------------------------------
+# One step
+# ---------------------------------------------------------------------------
+
+def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """The array fields of a collated batch as tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device)
+            for k in BATCH_KEYS}
+
+
+def micro_step(model: BIOPhonemeTagger, batch: Dict, device, n_micro: int,
+               label_smoothing: float, subframe_weight: float,
+               compute_dtype=torch.float32, seg_diff_weight: float = 0.0,
+               generator: Optional[torch.Generator] = None):
+    """Forward (training mode) and backward of one micro-batch, its loss
+    scaled by 1/n_micro so that the gradients summed over n_micro
+    micro-batches are their mean. Returns ({loss, ce, offset_loss} as
+    detached device scalars, pred_ids, offsets)."""
+    arrays = to_device(batch, device)
+    model.train()
+    logits, offsets = model(arrays["audio"], arrays["lang_ids"],
+                            max_label_len=batch["max_label_len"],
+                            compute_dtype=compute_dtype, generator=generator)
+    ce = cross_entropy(logits, arrays["labels"], label_smoothing)
+    ol = offset_loss(offsets, arrays["off_frames"], arrays["off_channels"],
+                     arrays["off_fracs"], arrays["off_valid"])
+    loss = ce + subframe_weight * ol
+    if seg_diff_weight:
+        loss = loss + seg_diff_weight * soft_iou_segmental_loss(
+            logits, arrays["labels"])
+    (loss / n_micro).backward()
+    metrics = {"loss": loss.detach(), "ce": ce.detach(),
+               "offset_loss": ol.detach()}
+    return metrics, logits.detach().argmax(-1), offsets.detach()
+
+
+def apply_update(optimizer: torch.optim.Optimizer) -> None:
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+
+
+def train_step(model, optimizer, batch, device, label_smoothing: float,
+               subframe_weight: float, compute_dtype=torch.float32,
+               seg_diff_weight: float = 0.0, generator=None):
+    """One update from one batch (no accumulation)."""
+    out = micro_step(model, batch, device, 1, label_smoothing,
+                     subframe_weight, compute_dtype, seg_diff_weight,
+                     generator)
+    apply_update(optimizer)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Finetune surgery
+# ---------------------------------------------------------------------------
+
+def finetune_surgery(model: BIOPhonemeTagger, arch: TaggerArch, cfg: Config,
+                     label_list, generator: torch.Generator) -> None:
+    """Load a base checkpoint into ``model``: the language embedding grown
+    with N(0, 0.01²) rows, classifier rows carried over by matching tag
+    names (reference train.py:334-377)."""
+    base_path = cfg.finetuning_model_path
+    if not base_path or not os.path.exists(base_path):
+        return
+    print(f"[INFO] Loading finetune base model: {base_path}")
+    base_phoneme_path = base_path.replace("best_model.pt", "phonemes.txt")
+    if not os.path.exists(base_phoneme_path):
+        raise RuntimeError(
+            f"Missing phoneme list for base model: {base_phoneme_path}")
+    old_labels = load_phoneme_list(base_phoneme_path)
+    sd = read_state_dict(base_path)
+    old_langs = sd["lang_emb.weight"].shape[0]
+    base = BIOPhonemeTagger(dataclasses.replace(
+        arch, num_labels=len(old_labels), num_languages=old_langs))
+    base.load_state_dict(sd, strict=True)
+    base_sd = {k: v.detach().clone() for k, v in base.state_dict().items()}
+
+    if arch.num_languages > old_langs:
+        print(f"[INFO] Expanding lang_emb from {old_langs} -> "
+              f"{arch.num_languages}")
+        emb = base_sd["lang_emb.weight"]
+        grown = 0.01 * torch.randn(
+            (arch.num_languages - old_langs, emb.shape[1]),
+            generator=generator, device=generator.device).cpu()
+        base_sd["lang_emb.weight"] = torch.cat([emb, grown], dim=0)
+
+    new_index = {l: i for i, l in enumerate(label_list)}
+    print(f"[INFO] Attempting partial reuse of classifier weights: "
+          f"{len(old_labels)} -> {len(label_list)}")
+    w = model.classifier.weight.detach().cpu().clone()
+    b = model.classifier.bias.detach().cpu().clone()
+    matched = 0
+    for i, label in enumerate(old_labels):
+        if label in new_index:
+            w[new_index[label]] = base_sd["classifier.weight"][i]
+            b[new_index[label]] = base_sd["classifier.bias"][i]
+            matched += 1
+    print(f"[INFO] Transferred weights for {matched} matching phoneme tags")
+    base_sd["classifier.weight"], base_sd["classifier.bias"] = w, b
+    model.load_state_dict(base_sd, strict=True)
+
+
+# ---------------------------------------------------------------------------
+# Validation
+# ---------------------------------------------------------------------------
+
+def _median_filter_np(ids: np.ndarray, size: int) -> np.ndarray:
+    """scipy-semantics median filter (symmetric pad, rank size//2) on the
+    host, over each row's exact label length."""
+    if size <= 1 or ids.size == 0:
+        return ids
+    left = size // 2
+    padded = np.pad(ids, (left, size - 1 - left), mode="symmetric")
+    windows = np.lib.stride_tricks.sliding_window_view(padded, size)
+    return np.sort(windows, axis=-1)[:, size // 2]
+
+
+def _gt_segments(segs):
+    if isinstance(segs, list) and len(segs) == 1 and isinstance(segs[0], list):
+        return segs[0]
+    return segs
+
+
+@torch.no_grad()
+def evaluate(model: BIOPhonemeTagger, val_loader: BatchLoader, label_list,
+             cfg: Config, device, writer=None, step: int = 0) -> float:
+    """Reference evaluate() (train.py:456-545) in eval mode: the mean of
+    batch CEs, frame accuracy, PER and TER over median-filtered, BIO-decoded
+    and merged segments. Returns the mean CE."""
+    id2label = dict(enumerate(label_list))
+    model.eval()
+    losses, acc, per, ter, count = [], 0.0, 0.0, 0.0, 0
+    for batch in val_loader.epoch_batches(epoch=0):
+        arrays = to_device(batch, device)
+        logits, offsets = model(arrays["audio"], arrays["lang_ids"],
+                                max_label_len=batch["max_label_len"])
+        losses.append(float(cross_entropy(logits, arrays["labels"],
+                                          cfg.label_smoothing)))
+        pred_ids = logits.argmax(-1).cpu().numpy()
+        offsets = offsets.float().cpu().numpy()
+        labels = np.asarray(batch["labels"])
+        for j in range(len(batch["label_lengths"])):
+            n = int(batch["label_lengths"][j])
+            ids = _median_filter_np(pred_ids[j, :n], cfg.median_filter)
+            segs = decode_bio_tags([id2label[int(p)] for p in ids],
+                                   frame_duration=cfg.frame_duration,
+                                   offsets=offsets[j, :n])
+            if cfg.merge_segments != "none":
+                segs = merge_adjacent_segments(segs, mode=cfg.merge_segments)
+            gt = _gt_segments(batch["segments_gt"][j])
+            acc += framewise_accuracy(pred_ids[j, :n], labels[j, :n])
+            per += phoneme_error_rate(segs, gt)
+            ter += timing_error_rate(segs, gt)
+            count += 1
+    avg_loss = float(np.mean(losses)) if losses else 0.0
+    avg = [x / count if count else 0.0 for x in (acc, per, ter)]
+    if writer is not None:
+        for name, val in zip(("loss", "accuracy", "per", "ter"),
+                             [avg_loss] + avg):
+            writer.add_scalar(f"val/{name}", val, step)
+    print(f"\n[Validation] Loss: {avg_loss:.4f} | Acc: {avg[0] * 100:.2f}% | "
+          f"PER: {avg[1]:.3f} | TER: {avg[2]:.3f}", flush=True)
+    return avg_loss
+
+
+# ---------------------------------------------------------------------------
+# The loop
+# ---------------------------------------------------------------------------
+
+def _compute_dtype(cfg: Config) -> torch.dtype:
+    name = str(cfg._sec("training").get("compute_dtype", "float32"))
+    return torch.bfloat16 if name in ("bfloat16", "bf16") else torch.float32
+
+
+def train(config="config.yaml", device=None, segmental_metric: bool = True,
+          on_update: Optional[Callable[[int, List[Dict]], None]] = None
+          ) -> BIOPhonemeTagger:
+    """Train from ``config`` (a YAML path, a dict or a ``Config``) on
+    ``device`` (CUDA unless "cpu" is asked for). Returns the model.
+    ``on_update(step, batches)``, when given, is called after each
+    optimizer update with the update's micro-batches."""
+    cfg = as_config(config)
+    check_supported(cfg)
+    device = resolve_device(device)
+    save_dir = cfg.save_dir
+    os.makedirs(save_dir, exist_ok=True)
+
+    label_list = load_phoneme_list(os.path.join(save_dir, "phonemes.txt"))
+    dataset = PhonemeDataset(os.path.join(save_dir, "dataset.json"),
+                             label_list, cfg.max_seq_len, cfg.augmentation,
+                             cfg.sample_rate)
+    train_idx, val_idx = split_dataset(len(dataset), cfg.num_val_files,
+                                       cfg.seed)
+    if not train_idx:
+        raise ValueError(
+            f"num_val_files={cfg.num_val_files} leaves no training samples "
+            f"(dataset has {len(dataset)})")
+    train_loader = BatchLoader(dataset, train_idx, cfg.batch_size,
+                               seed=cfg.seed, shuffle=True,
+                               frame_duration=cfg.frame_duration)
+    val_loader = BatchLoader(dataset, val_idx, cfg.batch_size, seed=cfg.seed,
+                             shuffle=False, frame_duration=cfg.frame_duration)
+
+    arch = TaggerArch.from_config(cfg, len(label_list))
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    model = init_tagger(arch, torch.Generator().manual_seed(cfg.seed),
+                        device=device)
+    if cfg.finetuning_enable:
+        finetune_surgery(model, arch, cfg, label_list, generator)
+    if arch.freeze_encoder:
+        model.encoder.requires_grad_(False)
+    optimizer = make_optimizer(
+        cfg, [p for p in model.parameters() if p.requires_grad])
+    base_lr = cfg.learning_rate
+    scheduler = get_scheduler(cfg.scheduler, cfg.scheduler_params,
+                              base_lr=base_lr)
+
+    try:
+        from tensorboardX import SummaryWriter
+        writer = SummaryWriter(cfg.log_dir)
+    except ImportError:
+        writer = None
+    os.makedirs(cfg.log_dir, exist_ok=True)
+    metrics_log = open(os.path.join(cfg.log_dir, "metrics.jsonl"), "a")
+
+    def log_event(kind: str, step_: int, **fields) -> None:
+        metrics_log.write(json.dumps(
+            {"event": kind, "step": step_, "time": time.time(), **fields})
+            + "\n")
+        metrics_log.flush()
+
+    best_loss, checkpoint_paths = float("inf"), []
+    step = _resume(model, optimizer, generator, scheduler, save_dir)
+    if step:
+        checkpoint_paths = [p for p, _ in sorted(
+            find_resume_checkpoints(save_dir), key=lambda c: c[1])
+        ][-cfg.max_checkpoints:]
+    else:
+        print("Training start")
+
+    compute_dtype = _compute_dtype(cfg)
+    accum = int(cfg._sec("training").get("grad_accumulation", 1))
+    if accum > 1:
+        print(f"[INFO] Gradient accumulation: {accum} micro-batches per "
+              f"update (effective batch {accum * cfg.batch_size})")
+    restart_loader = bool(cfg._sec("training").get(
+        "restart_loader_on_validation", False))
+    id2label = dict(enumerate(label_list))
+    step_kwargs = dict(label_smoothing=cfg.label_smoothing,
+                       subframe_weight=cfg.subframe_loss_weight,
+                       compute_dtype=compute_dtype,
+                       seg_diff_weight=cfg.differentiable_segmental_weight,
+                       generator=generator)
+
+    # One-step-delayed readback: step N's metrics are read on the host
+    # while step N+1 runs on the device (drained before every validation).
+    pending = None
+    last_log = time.time()
+
+    def drain_pending() -> None:
+        nonlocal pending, last_log
+        if pending is None:
+            return
+        p_step, p_metrics, p_micro, p_lr = pending
+        pending = None
+        loss_val = float(p_metrics["loss"])
+        offset_val = float(p_metrics["offset_loss"])
+        if segmental_metric and cfg.segmental_loss_weight != 0.0:
+            seg_total, n_samples = 0.0, 0
+            for pred, off, batch in p_micro:
+                pred, off = pred.cpu().numpy(), off.float().cpu().numpy()
+                for i, ll in enumerate(batch["label_lengths"]):
+                    ll = int(ll)
+                    segs = decode_bio_tags(
+                        [id2label[int(p)] for p in pred[i, :ll]],
+                        frame_duration=cfg.frame_duration,
+                        offsets=off[i, :ll])
+                    seg_total += segmental_loss_value(
+                        segs, _gt_segments(batch["segments_gt"][i]),
+                        cfg.segmental_loss_weights)
+                n_samples += len(batch["label_lengths"])
+            loss_val += (cfg.segmental_loss_weight * seg_total
+                         / max(n_samples, 1))
+        if writer is not None:
+            writer.add_scalar("train/loss", loss_val, p_step)
+            writer.add_scalar("train/offset_loss", offset_val, p_step)
+        log_event("train", p_step, loss=loss_val, offset_loss=offset_val,
+                  lr=p_lr)
+        now = time.time()
+        print(f"[train] step {p_step} loss {loss_val:.4f} offset_loss "
+              f"{offset_val:.4f} lr {p_lr:g} "
+              f"({1.0 / max(now - last_log, 1e-9):.2f} it/s)", flush=True)
+        last_log = now
+
+    micro: List = []
+    metric_sum = None
+    epoch = 0
+    while step < cfg.max_steps:
+        epoch_ran = False
+        for batch in train_loader.epoch_batches(epoch):
+            epoch_ran = True
+            lr_used = base_lr * scheduler.factor
+            set_lr(optimizer, lr_used)
+            m, pred_ids, offsets = micro_step(model, batch, device, accum,
+                                              **step_kwargs)
+            metric_sum = m if metric_sum is None else {
+                k: metric_sum[k] + m[k] for k in m}
+            micro.append((pred_ids, offsets, batch))
+            if len(micro) < accum:
+                continue
+            apply_update(optimizer)
+            metrics = {k: v / len(micro) for k, v in metric_sum.items()}
+            update_micro, micro, metric_sum = micro, [], None
+            if cfg.scheduler_step_on_update:
+                scheduler.step()
+            step += 1
+            if on_update is not None:
+                on_update(step, [b for _, _, b in update_micro])
+
+            drain_pending()
+            pending = (step, metrics, update_micro, lr_used)
+
+            if step % cfg.val_check_interval == 0:
+                drain_pending()
+                val_loss = evaluate(model, val_loader, label_list, cfg,
+                                    device, writer, step)
+                log_event("val", step, loss=val_loss)
+                model_path = os.path.join(save_dir, f"model_step{step}.pt")
+                save_model_checkpoint(model_path, model)
+                save_train_state(model_path, optimizer, step, generator,
+                                 scheduler.state_dict())
+                checkpoint_paths.append(model_path)
+                if len(checkpoint_paths) > cfg.max_checkpoints:
+                    remove_checkpoint(checkpoint_paths.pop(0))
+                if val_loss < best_loss:
+                    best_loss = val_loss
+                    save_model_checkpoint(
+                        os.path.join(save_dir, "best_model.pt"), model)
+                    print(f"\nSaved best model with loss = {val_loss:.4f}")
+                if not cfg.scheduler_step_on_update:
+                    if type(scheduler).__name__ == "ReduceLROnPlateau":
+                        scheduler.step(best_loss)
+                    else:
+                        scheduler.step(step)
+                if writer is not None:
+                    writer.add_scalar("train/learning_rate",
+                                      base_lr * scheduler.factor, step)
+                if restart_loader:
+                    break
+            if step >= cfg.max_steps:
+                break
+        drain_pending()
+        if not epoch_ran:
+            raise ValueError(
+                f"training epoch produced no batches ({len(train_idx)} "
+                f"train samples, batch_size {cfg.batch_size})")
+        epoch += 1
+
+    save_model_checkpoint(os.path.join(save_dir, "last_model.pt"), model)
+    metrics_log.close()
+    if writer is not None:
+        writer.close()
+    print("\nTraining complete at max_steps!")
+    return model
+
+
+# what torch.load raises on a torn or truncated file (the weights-only
+# unpickler raises IndexError or KeyError on a cut stream)
+_TORN = (EOFError, pickle.UnpicklingError, zipfile.BadZipFile, ValueError,
+         OSError, RuntimeError, IndexError, KeyError)
+
+
+def _resume(model, optimizer, generator, scheduler, save_dir: str) -> int:
+    """Load the newest readable ``model_step{N}.pt`` (and its sidecar);
+    returns its step, or 0 when there is none. A torn file falls back to
+    the next older one; a readable checkpoint that does not fit the model
+    (the config changed) raises, as does a save_dir whose checkpoints are
+    all unreadable."""
+    candidates = find_resume_checkpoints(save_dir)
+    errors = []
+    for path, step in candidates:
+        try:
+            sd = read_state_dict(path)
+        except _TORN as e:
+            print(f"[WARN] Skipping unreadable checkpoint "
+                  f"{os.path.basename(path)}: {e}")
+            errors.append(e)
+            continue
+        try:
+            model.load_state_dict(sd, strict=True)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"Checkpoint {os.path.basename(path)} is readable but does "
+                f"not match the configured model. If the model config "
+                f"changed, point output.save_dir at a fresh directory "
+                f"instead of resuming over the old run.") from e
+        print(f"Resuming from checkpoint: {os.path.basename(path)} "
+              f"(step {step})")
+        try:
+            state = load_train_state(path)
+        except _TORN as e:
+            print(f"[WARN] Unreadable train-state sidecar, starting the "
+                  f"optimizer fresh: {e}")
+            state = None
+        if state is not None:
+            optimizer.load_state_dict(state["optimizer"])
+            generator.set_state(state["generator"])
+            if state["scheduler"]:
+                scheduler.load_state_dict(state["scheduler"])
+            print("[INFO] Restored optimizer, generator and scheduler state")
+        else:
+            # a fresh optimizer: Prodigy takes p0 from the loaded
+            # parameters at its first step
+            print("[INFO] No train-state sidecar: optimizer starts fresh "
+                  "from the loaded parameters")
+        return step
+    if candidates:
+        raise RuntimeError(
+            f"{len(candidates)} checkpoint(s) found in {save_dir} but none "
+            f"could be loaded (last error: {errors[-1]}). Delete the "
+            f"unreadable files to deliberately restart.")
+    return 0
+
+
+def main(argv=None) -> None:
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Train the WFL model with a config file (PyTorch port)")
+    parser.add_argument("config", type=str, help="Path to the config.yaml")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    train(args.config, device=args.device)
+
+
+if __name__ == "__main__":
+    main()
