@@ -39,18 +39,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    served by ``infer_folder_batched``, a bf16 step;
 7. one train step (f32, TF32 off, full width, B=2×8 s, dropout 0), the
    card against the CPU: loss ≤ 1e-5 relative, gradients ≤ 1e-3 × max;
-8. a ``{"kernels": [...]}`` line, the card line, and the last line
+8. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
+   line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 3 includes 3b: the backward kernels (K2b, K1b) through
 ``flash_attention(...)`` / ``flash_attention_trainable(...)`` then
 ``.backward``, at the training shapes, against
-``attention_backward_plain``.
+``attention_backward_plain``; 3c: strict attention dropout (K6) inside all
+four, forward and backward, at the main shapes in f32 and bf16 at rates 0.1
+and 0.15 against the plain twins with the same mask, timed with and without
+dropout beside SDPA with ``dropout_p`` (the bf16 forward held element by
+element to its rounding bound, and a mask of another seed shown to fail
+the same limit); 3d: the mask of each forward variant (f32 FMA, bf16
+``mma.sync``, bf16 WMMA), read off bit for bit at T=1499 over every query
+and key tile, and the kept share at the main shape.
+
+Phase 6 includes 6b: the flagship recipe with
+``training.strict_attention_dropout: true`` (4 steps, validation at the
+last) with the plain attention twins replaced by stubs that raise; 12 K2 +
+2 K1 dropout forwards and 12 K2b + 2 K1b dropout backwards a step; step
+times strict against not, on one batch in turns; peak memory; a profiled
+strict step; a bf16 strict step. Phase 7 includes 7b: one strict f32 train
+step, the card against the CPU, with fixed attention seeds.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -66,11 +83,32 @@ import numpy as np
 # FLOP/s for bf16 on tensor cores and f32 outside them.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# INT32 operations/s: 64 INT32 lanes a SM against 128 FP32 ones (Hopper
+# architecture white paper), at the clock of the 67 TFLOP/s f32 figure
+# (132 SMs × 64 × 1.98 GHz). The dropout hash (K6) costs HASH_OPS of them
+# per valid score element: 2 multiply-adds of the pre-mix, three shift-xor
+# pairs, two multiplies, the mask, the compare and the select. A bound
+# counts it once in the forward and once in the backward, as the backward's
+# recomputed S and dP are counted once (its two passes are a choice of this
+# design, not work the function needs).
+PEAK_INT32_OPS = 16.7e12
+HASH_OPS = 12
+DROP_RATES = (0.1, 0.15)
+DROP_SEED = 1234567
 
 # Tolerances of a kernel against its plain twin on the card, as fractions
 # of the reference output's largest magnitude (≈ 1 on the inputs below):
 # for bf16 attention 1e-2 is 2.5 bf16 steps of a value in [0.5, 1).
 ATTN_TOL = {"f32": 1e-4, "bf16": 1e-2}          # × max|out|
+# bf16 attention with dropout, element by element against the f32 plain
+# twin on the same (bf16-valued) inputs: the kernel rounds P·M to bf16
+# before P·V, which moves out[i] by at most u·A[i] (A = Σ_j p_j·M_j·|v_j|,
+# the attention of |v|), and rounds out[i] to bf16, at most u·|out[i]|;
+# u = 2⁻⁸ is bf16's unit roundoff. BF16_SLACK and BF16_FLOOR cover the
+# f32 exp and sums.
+BF16_U = 2.0 ** -8
+BF16_SLACK = 1.02
+BF16_FLOOR = 1e-5
 # Backward kernels against the plain twin, per gradient, as fractions of
 # that gradient's largest magnitude: bf16 inputs and outputs round dq/dk/dv
 # (and the forward's bf16 out enters delta = rowsum(dO·O)), so 2e-2.
@@ -87,6 +125,23 @@ B, T = 8, 1499          # batch rows and frames of a 30 s chunk
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+LAPS: dict = {}         # wall seconds by phase, summed over its calls
+
+
+@contextlib.contextmanager
+def lap(name: str):
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        LAPS[name] = LAPS.get(name, 0.0) + time.time() - t0
+
+
+def log_laps() -> None:
+    log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in LAPS.items())
+        + f"; total {sum(LAPS.values()):.1f} s")
 
 
 def card_line() -> str:
@@ -115,8 +170,37 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def bound_ms(flops: float, nbytes: float, dtype: str):
-    t_ops = flops / PEAK_FLOPS[dtype]
+def ptxas_summary(text: str):
+    """One line per kernel of nvcc's ``-Xptxas -v`` report: the kernel's
+    name (demangled by ``c++filt`` where the toolkit's host has it),
+    registers and spills."""
+    names, out, cur, spill = [], [], None, ""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            cur, spill = line.split("Function properties for", 1)[1].strip(), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and cur is not None:
+            names.append(cur)
+            out.append(line.split(":", 1)[-1].strip() + "; " + spill)
+            cur = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, timeout=30,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    short = [n.replace("(anonymous namespace)::", "").split("(")[0]
+             for n in names]
+    return [f"{n}: {o}" for n, o in zip(short, out)]
+
+
+def bound_ms(flops: float, nbytes: float, dtype: str, int_ops: float = 0.0):
+    """The least time, ms: the largest of ``flops`` over the dtype's peak,
+    ``int_ops`` over the INT32 rate and ``nbytes`` over the HBM rate. The
+    INT32 lanes are a pipe of their own beside the FP32 lanes and the
+    tensor cores, so the two operation times overlap and are not added."""
+    t_ops = max(flops / PEAK_FLOPS[dtype], int_ops / PEAK_INT32_OPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -348,25 +432,41 @@ def phase_kernels(iters: int) -> dict:
     kv = [T - 100 * i for i in range(B)]     # unequal key lengths
     res = {}
     for dtype in ("f32", "bf16"):
-        res[("K2", dtype)] = _attn_case("flash_attention", gen, 12, 64,
-                                        dtype, True, kv, iters)
-        res[("K1", dtype)] = _attn_case("flash_attention_trainable", gen, 2,
-                                        384, dtype, False, kv, iters)
-        res[("K5a", dtype)] = _conv_case("fused_conv_chain[1-3]", gen,
-                                         (3, 3, 3), 95999, True, dtype,
-                                         iters)
-        res[("K5b", dtype)] = _conv_case("fused_conv_chain[4-6]", gen,
-                                         (3, 2, 2), 11999, False, dtype,
-                                         iters)
-        torch.cuda.empty_cache()
-        # phase 3b: the backward kernels at the training shapes
-        res[("K2b", dtype)] = _attn_bwd_case("flash_attention_bwd", gen, 12,
-                                             64, dtype, True, kv, iters)
-        res[("K1b", dtype)] = _attn_bwd_case("flash_attention_trainable_bwd",
-                                             gen, 2, 384, dtype, False, kv,
+        with lap("3"):
+            res[("K2", dtype)] = _attn_case("flash_attention", gen, 12, 64,
+                                            dtype, True, kv, iters)
+            res[("K1", dtype)] = _attn_case("flash_attention_trainable", gen,
+                                            2, 384, dtype, False, kv, iters)
+            res[("K5a", dtype)] = _conv_case("fused_conv_chain[1-3]", gen,
+                                             (3, 3, 3), 95999, True, dtype,
                                              iters)
-        torch.cuda.empty_cache()
-    head_dims(gen)
+            res[("K5b", dtype)] = _conv_case("fused_conv_chain[4-6]", gen,
+                                             (3, 2, 2), 11999, False, dtype,
+                                             iters)
+            torch.cuda.empty_cache()
+        # phase 3b: the backward kernels at the training shapes
+        with lap("3b"):
+            res[("K2b", dtype)] = _attn_bwd_case("flash_attention_bwd", gen,
+                                                 12, 64, dtype, True, kv,
+                                                 iters)
+            res[("K1b", dtype)] = _attn_bwd_case(
+                "flash_attention_trainable_bwd", gen, 2, 384, dtype, False,
+                kv, iters)
+            torch.cuda.empty_cache()
+        # phase 3c: strict attention dropout (K6) inside all four kernels
+        with lap("3c"):
+            for rate in DROP_RATES:
+                res[("K2drop", dtype, rate)] = _attn_drop_case(
+                    "flash_attention+dropout", gen, 12, 64, dtype, True, kv,
+                    rate, iters)
+                res[("K1drop", dtype, rate)] = _attn_drop_case(
+                    "flash_attention_trainable+dropout", gen, 2, 384, dtype,
+                    False, kv, rate, iters)
+                torch.cuda.empty_cache()
+    with lap("head widths"):
+        head_dims(gen)
+    with lap("3d"):
+        mask_bits()
     return res
 
 
@@ -409,6 +509,249 @@ def head_dims(gen) -> None:
     log("[kernel] attention head widths 16/48/128/144/512, f32 and bf16: "
         "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
             f"{k[0]}/{k[1]}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c-3d: strict attention dropout (K6)
+# ---------------------------------------------------------------------------
+
+def _sdpa_ms(q, k, v, mask, dout, rate, iters, mask_grad):
+    """SDPA with ``dropout_p`` (its own mask: a yardstick only), forward
+    and autograd backward (the mask needs a gradient where it carries the
+    bias); None where PyTorch refuses the call."""
+    import torch
+    import torch.nn.functional as F
+    try:
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q.detach(), k.detach(), v.detach(), attn_mask=mask.detach(),
+            dropout_p=rate), iters)
+        ins = [x.detach().requires_grad_() for x in (q, k, v)]
+        m = mask.detach()
+        if mask_grad:
+            ins.append(m.requires_grad_())
+        out = F.scaled_dot_product_attention(*ins[:3], attn_mask=m,
+                                             dropout_p=rate)
+        bwd = time_ms(lambda: torch.autograd.grad(out, ins, dout,
+                                                  retain_graph=True), iters)
+        del out, ins, m
+        return fwd, bwd
+    except RuntimeError as e:
+        log(f"[kernel] sdpa dropout_p={rate}: refused "
+            f"({str(e).splitlines()[0][:100]})")
+        return None, None
+
+
+def _limit_text(dtype: str) -> str:
+    if dtype == "f32":
+        return f"{ATTN_TOL['f32']:g}×max|ref|"
+    return f"{BF16_SLACK:g}·2^-8·(|ref|+A)+{BF16_FLOOR:g} per element"
+
+
+def _drop_fwd_limit(q, k, v, bias, gate, kv_len, rate, seed, dtype):
+    """3c's forward check: (the per-element limit, the f32 plain twin with
+    the kernel's mask, the f32 plain twin with the mask of seed + 1). f32:
+    ATTN_TOL × max|ref|. bf16: u·(|ref| + A)·BF16_SLACK + BF16_FLOOR, A the
+    attention of |v| (see BF16_U)."""
+    import torch
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    up = [None if x is None else x.detach().float()
+          for x in (q, k, v, bias, gate)]
+
+    def plain(vv, s):
+        return fa.attention_plain(up[0], up[1], vv, up[3], up[4], kv_len,
+                                  dropout_rate=rate, dropout_seed=s)
+    ref32, wrong = plain(up[2], seed), plain(up[2], seed + 1)
+    if dtype == "f32":
+        lim = torch.full_like(ref32, ATTN_TOL["f32"]
+                              * ref32.abs().max().item())
+    else:
+        lim = (BF16_U * BF16_SLACK * (ref32.abs() + plain(up[2].abs(), seed))
+               + BF16_FLOOR)
+    return lim, ref32, wrong
+
+
+def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
+    """3c: one entry point with dropout at ``rate`` (fixed seed) at the
+    main shape: the forward against ``attention_plain`` and ``.backward``
+    against ``attention_backward_plain`` with the same mask; each timed
+    with and without dropout, in turns."""
+    import torch
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
+        flash_attention_trainable
+    dev = "cuda"
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q, k, v, bias, gate = attn_inputs(gen, (B, h, T, d), tdt, with_bias)
+    if with_bias:
+        bias = bias.float()
+    leaves = [x.requires_grad_() for x in (q, k, v, bias, gate)
+              if x is not None]
+    kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    dout = (torch.rand((B, h, T, d), generator=gen, device=dev) * 2 - 1
+            ).to(tdt)
+
+    def entry(r):
+        drop = dict(dropout_rate=r, dropout_seed=seed if r else None)
+        if with_bias:
+            return fa.flash_attention(q, k, v, bias, gate, kv_len, **drop)
+        return flash_attention_trainable(q, k, v, kv_len, **drop)
+
+    with torch.inference_mode():
+        out = entry(rate)
+    outs = {r: entry(r) for r in (0.0, rate)}       # with autograd
+    got = torch.autograd.grad(outs[rate], leaves, dout, retain_graph=True)
+    with torch.no_grad():
+        ref, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
+                                          return_lse=True, dropout_rate=rate,
+                                          dropout_seed=seed)
+        want = [g for g in fa.attention_backward_plain(
+            q, k, v, bias, gate, kv_len, ref, ref_lse, dout,
+            dropout_rate=rate, dropout_seed=seed) if g is not None]
+        lim, ref32, wrong = _drop_fwd_limit(q, k, v, bias, gate, kv_len,
+                                            rate, seed, dtype)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref32).abs()
+    err = diff.max().item()
+    ratio = (diff / lim).max().item()
+    ok = math.isfinite(ratio) and ratio <= 1.0
+    # the same limit must catch a mask of another seed
+    over = (out.float() - wrong).abs() > lim
+    wrong_over, wrong_share = int(over.sum().item()), over.float().mean().item()
+    del diff, lim, ref32, wrong, over
+    if not wrong_over:
+        raise AssertionError(f"{name} {dtype} rate {rate}: the forward limit "
+                             f"passes the mask of another seed")
+    errs = {}
+    for gname, g, w in zip(("dq", "dk", "dv", "dbias", "dgate"), got, want):
+        gs = w.float().abs().max().item()
+        e = (g.float() - w.float()).abs().max().item()
+        errs[gname] = (e, gs)
+        ok = ok and math.isfinite(e) and e <= GRAD_TOL[dtype] * gs
+    del want, got
+
+    def bwd(r):
+        return torch.autograd.grad(outs[r], leaves, dout, retain_graph=True)
+    with torch.inference_mode():
+        fwd_ms = [time_ms(lambda: entry(r), iters)
+                  for r in (0.0, rate, rate, 0.0)]
+    bwd_ms = [time_ms(lambda: bwd(r), iters) for r in (0.0, rate, rate, 0.0)]
+    with torch.no_grad():
+        plain_ms = time_ms(lambda: fa.attention_plain(
+            q, k, v, bias, gate, kv_len, dropout_rate=rate,
+            dropout_seed=seed), max(iters // 2, 2))
+        plain_bwd_ms = time_ms(lambda: fa.attention_backward_plain(
+            q, k, v, bias, gate, kv_len, ref, ref_lse, dout,
+            dropout_rate=rate, dropout_seed=seed), max(iters // 2, 2))
+    del ref, ref_lse, outs
+    torch.cuda.empty_cache()
+    keep = torch.arange(T, device=dev)[None, :] < kv_len[:, None]
+    mask = torch.zeros((B, h, T, T), dtype=tdt, device=dev)
+    if with_bias:
+        mask += (gate.detach()[..., None] * bias.detach()[None]).to(tdt)
+    mask.masked_fill_(~keep[:, None, None, :], -1e30)
+    sdpa_fwd, sdpa_bwd = _sdpa_ms(q, k, v, mask, dout, rate, iters,
+                                  with_bias)
+    del mask
+    torch.cuda.empty_cache()
+
+    es = 4 if dtype == "f32" else 2
+    valid = float(h * T * sum(kv))                  # valid score elements
+    f_bytes = 4.0 * B * h * T * d * es + B * 4 + 4
+    b_bytes = 8.0 * B * h * T * d * es + 2 * B * h * T * 4 + B * 4 + 4
+    if with_bias:
+        f_bytes += h * T * T * es + B * h * T * 4
+        b_bytes += 2 * h * T * T * 4 + 2 * B * h * T * 4
+    f_bound, f_by = bound_ms(4.0 * valid * d, f_bytes, dtype,
+                             HASH_OPS * valid)
+    b_bound, b_by = bound_ms(10.0 * valid * d, b_bytes, dtype,
+                             HASH_OPS * valid)
+    f_ms = float(np.mean(fwd_ms[1:3]))
+    f0_ms = float(np.mean(fwd_ms[::3]))
+    b_ms = float(np.mean(bwd_ms[1:3]))
+    b0_ms = float(np.mean(bwd_ms[::3]))
+
+    def fmt(x):
+        return "refused" if x is None else f"{x:.4f}"
+    log(f"[kernel] {name} {dtype} rate={rate} [{B},{h},{T},{d}] forward "
+        f"max_abs_err={err:.3e} max err/limit={ratio:.3f} (limit "
+        f"{_limit_text(dtype)}; seed+1's mask: {wrong_over} elements "
+        f"over, {wrong_share:.4f} of all) backward " + " ".join(f"{n}={e:.3e}/{s:.3g}"
+                                for n, (e, s) in errs.items())
+        + f" (tol {GRAD_TOL[dtype]:g}×max); forward ms={f_ms:.4f} "
+        f"(no dropout {f0_ms:.4f}; turns {', '.join(f'{x:.4f}' for x in fwd_ms)}) "
+        f"plain_ms={plain_ms:.4f} sdpa_dropout_ms={fmt(sdpa_fwd)} "
+        f"bound_ms={f_bound:.4f} ({f_by}); backward ms={b_ms:.4f} "
+        f"(no dropout {b0_ms:.4f}; turns {', '.join(f'{x:.4f}' for x in bwd_ms)}) "
+        f"plain_ms={plain_bwd_ms:.4f} sdpa_dropout_bwd_ms={fmt(sdpa_bwd)} "
+        f"bound_ms={b_bound:.4f} ({b_by})")
+    if not ok:
+        raise AssertionError(f"{name} {dtype} rate {rate}: forward {err} "
+                             f"or gradients {errs} exceed tolerance")
+    return dict(fwd=dict(max_abs_err=err, ms=f_ms, ms_nodrop=f0_ms,
+                         plain_ms=plain_ms, bound_ms=f_bound, bound_by=f_by,
+                         library_ms=sdpa_fwd),
+                bwd=dict(max_abs_err=max(e for e, _ in errs.values()),
+                         ms=b_ms, ms_nodrop=b0_ms, plain_ms=plain_bwd_ms,
+                         bound_ms=b_bound, bound_by=b_by,
+                         library_ms=sdpa_bwd))
+
+
+def mask_bits() -> None:
+    """3d: each forward variant's dropout mask read off bit for bit at the
+    main length T=1499, over every query and key tile and the ragged tail.
+    With q = k = 0 and no bias every row is uniform over its kv_len keys;
+    v holds the identity on keys j0..j0+D−1 (one call for each block of D
+    keys), so out[b,h,q,j−j0] > 0 exactly when key j is kept. The pattern
+    must equal the plain mask's (zero mismatches). Also the kept share of
+    the mask at the main shape."""
+    import torch
+    from wfl_asr_tpu_torch.ops.kernels import dropout_mask as dm
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    dev, b, h = "cuda", 2, 3
+    kv = torch.tensor([T, 1001], dtype=torch.int32, device=dev)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    valid = (torch.arange(T, device=dev)[None, :] < kv[:, None])[
+        :, None, None, :]
+    found = []
+    for variant, dtype, d in (("f32 FMA", torch.float32, 64),
+                              ("f32 FMA", torch.float32, 384),
+                              ("bf16 mma.sync", torch.bfloat16, 64),
+                              ("bf16 WMMA", torch.bfloat16, 384)):
+        q = torch.zeros((b, h, T, d), dtype=dtype, device=dev)
+        for rate in DROP_RATES:
+            kept = torch.zeros((b, h, T, T), dtype=torch.bool, device=dev)
+            for j0 in range(0, T, d):
+                w = min(d, T - j0)
+                v = torch.zeros_like(q)
+                v[..., j0:j0 + w, :w] = torch.eye(w, dtype=dtype, device=dev)
+                with torch.inference_mode():
+                    out = fa.flash_attention(q, q, v, kv_len=kv,
+                                             dropout_rate=rate,
+                                             dropout_seed=seed)
+                kept[..., j0:j0 + w] = out[..., :w].float() > 0
+            want = (dm.mask_grid(seed, b, h, T, T, rate, dev) > 0) & valid
+            bad = int((kept != want).sum().item())
+            found.append(f"{variant} D={d} rate={rate}: {bad} of "
+                         f"{want.numel()} differ, {int(want.sum())} kept")
+            if bad:
+                raise AssertionError(f"dropout mask of the {variant} kernel "
+                                     f"(D={d}, rate {rate}): {bad} elements "
+                                     f"differ from the plain mask")
+            del kept, want
+    shares = []
+    for rate in DROP_RATES:
+        share = (dm.mask_grid(seed, B, 12, T, T, rate, dev) > 0).float() \
+            .mean().item()
+        shares.append(f"rate {rate}: {share:.5f}")
+        if abs(share - (1 - rate)) > 0.005:
+            raise AssertionError(f"kept share {share} at rate {rate}")
+    torch.cuda.empty_cache()
+    log(f"[kernel] dropout mask bit for bit, [2,3,{T},D], kv_len ({T}, "
+        f"1001), keys read D at a time: "
+        + "; ".join(found))
+    log(f"[kernel] dropout kept share at [{B},12,{T},{T}] (must be 1 − rate "
+        f"± 0.005): " + ", ".join(shares))
 
 
 # ---------------------------------------------------------------------------
@@ -928,6 +1271,151 @@ def phase_train(root: str) -> dict:
                 labels=len(labels))
 
 
+STRICT_STEPS = 4         # phase 6b, validation after the last
+
+
+def set_strict(model, flag: bool) -> None:
+    """Strict attention dropout on or off in a built tagger (the flag the
+    WavLM layers and the Conformer blocks read), for timing both on one
+    model."""
+    import dataclasses
+    model.encoder.arch = dataclasses.replace(model.encoder.arch,
+                                             strict_attention_dropout=flag)
+    for block in model.conformer_layers:
+        block.strict_attn_dropout = flag
+
+
+def phase_train_strict(root: str, base: dict) -> dict:
+    """6b: the flagship recipe with ``training.strict_attention_dropout:
+    true`` on phase 6's corpus, f32, batch 8, validation after the last
+    step, with the plain attention twins replaced by stubs that raise (no
+    dropout call on the card may reach them). Launch counts set to 0 just
+    before ``train`` and read just after: per step 12 K2 and 2 K1 dropout
+    forwards, 12 K2b and 2 K1b dropout backwards. Then on one batch: the f32
+    step with strict dropout off and on, in turns; one profiled strict
+    step; one bf16 strict step."""
+    import torch
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.data.dataset import BatchLoader, PhonemeDataset, \
+        split_dataset
+    from wfl_asr_tpu_torch.labels import load_phoneme_list
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention, \
+        flash_attention_bwd
+    from wfl_asr_tpu_torch.preprocess import preprocess
+    from wfl_asr_tpu_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    raw = train_config(root)
+    raw["output"]["save_dir"] = os.path.join(root, "strict")
+    raw["training"].update(strict_attention_dropout=True,
+                           max_steps=STRICT_STEPS,
+                           val_check_interval=STRICT_STEPS,
+                           log_dir=os.path.join(root, "strict", "logs"))
+    preprocess(raw["data"]["data_dir"], raw)
+    save = raw["output"]["save_dir"]
+    cfg = Config.load(os.path.join(save, "config.yaml"))
+    labels = load_phoneme_list(os.path.join(save, "phonemes.txt"))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain attention twin ran on the card path")
+    saved = flash_attention.attention_plain, \
+        flash_attention.attention_backward_plain
+    flash_attention.attention_plain = refuse
+    flash_attention.attention_backward_plain = refuse
+    try:
+        marks = []
+
+        def on_update(step, batches):
+            torch.cuda.synchronize()
+            marks.append((step, time.perf_counter()))
+
+        kernels.reset_launch_counts()
+        resident_gb = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = loop.train(cfg, device="cuda", on_update=on_update)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {
+            "K2 dropout": flash_attention.dropout_launches,
+            "K1 dropout": flash_attention_bwd.dropout_launches,
+            "K2b dropout": flash_attention.dropout_bwd_launches,
+            "K1b dropout": flash_attention_bwd.dropout_bwd_launches,
+            "K2 all": flash_attention.launches,
+            "K1 all": flash_attention_bwd.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[train-strict] kernel launches over {STRICT_STEPS} strict "
+            f"steps + 1 validation: {json.dumps(counts)}")
+        want = {"K2 dropout": 12 * STRICT_STEPS,
+                "K1 dropout": 2 * STRICT_STEPS,
+                "K2b dropout": 12 * STRICT_STEPS,
+                "K1b dropout": 2 * STRICT_STEPS}
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"strict training launches {counts}: want "
+                                 f"per step 12 K2, 2 K1, 12 K2b, 2 K1b with "
+                                 f"dropout")
+        with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        losses = [e["loss"] for e in events if e["event"] == "train"]
+        vals = [e["loss"] for e in events if e["event"] == "val"]
+        if len(losses) != STRICT_STEPS or not all(
+                map(math.isfinite, losses + vals)) or len(vals) != 1:
+            raise AssertionError(f"strict train losses {losses}, val {vals}")
+        times = [(t1 - t0_) * 1e3 for (_, t0_), (_, t1) in
+                 zip(marks, marks[1:])]
+        step_ms = float(np.median(times))
+        log(f"[train-strict] f32, batch 8, strict attention dropout (WavLM "
+            f"0.1, Conformer 0.15): losses {[round(x, 4) for x in losses]}, "
+            f"val {vals[0]:.4f}; median step {step_ms:.2f} ms over "
+            f"{', '.join(f'{t:.1f}' for t in times)} ms (not strict, phase "
+            f"6: {base['step_ms']:.2f}); peak memory {peak_gb:.2f} GiB, "
+            f"{resident_gb:.2f} of it resident before the run (not strict "
+            f"{base['peak_gb']:.2f}); whole run {wall:.1f} s")
+
+        ds = PhonemeDataset(os.path.join(save, "dataset.json"), labels,
+                            cfg.max_seq_len, cfg.augmentation, 16000)
+        train_idx, _ = split_dataset(len(ds), cfg.num_val_files, cfg.seed)
+        batch = next(iter(BatchLoader(ds, train_idx, 8, seed=0,
+                                      shuffle=False).epoch_batches(0)))
+        opt = loop.make_optimizer(cfg, model.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(1)
+
+        def step(dtype=torch.float32):
+            m, _, _ = loop.train_step(model, opt, batch, "cuda", 0.1, 3.0,
+                                      compute_dtype=dtype, generator=gen)
+            return m["loss"], m
+        step()
+        turns, peaks = [], {False: 0.0, True: 0.0}
+        for flag in (False, True, True, False):
+            set_strict(model, flag)
+            torch.cuda.reset_peak_memory_stats()
+            turns.append(time_ms(step, iters=3, warmup=1))
+            peaks[flag] = max(peaks[flag],
+                              torch.cuda.max_memory_allocated() / 2 ** 30)
+        set_strict(model, True)
+        ab = (float(np.mean(turns[1:3])), float(np.mean(turns[::3])))
+        log(f"[train-strict] same batch {tuple(batch['audio'].shape)}, f32 "
+            f"step in turns off/on/on/off: "
+            f"{', '.join(f'{t:.2f}' for t in turns)} ms — strict "
+            f"{ab[0]:.2f} against {ab[1]:.2f} ms ({ab[0] / ab[1]:.4f}×); "
+            f"peak memory strict {peaks[True]:.3f} against "
+            f"{peaks[False]:.3f} GiB ({peaks[True] / peaks[False]:.4f}×)")
+        profile_step(step, what="one strict f32 train step", top=12)
+        bf16_loss = float(step(torch.bfloat16)[0])
+        log(f"[train-strict] one bf16 strict step: loss {bf16_loss:.4f}")
+        if not math.isfinite(bf16_loss):
+            raise AssertionError(f"bf16 strict step loss {bf16_loss}")
+    finally:
+        flash_attention.attention_plain, \
+            flash_attention.attention_backward_plain = saved
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_ms=step_ms, peak_gb=peak_gb,
+                same_batch_ms=ab)
+
+
 # ---------------------------------------------------------------------------
 # Phase 7: one train step, the card against the CPU
 # ---------------------------------------------------------------------------
@@ -956,37 +1444,82 @@ def train_batch(num_labels: int, seconds: float = 8.0) -> dict:
             "max_label_len": frames}
 
 
-def phase_train_cross_device(labels: int) -> dict:
-    """f32 with TF32 off, the flagship at full width, dropout 0, the same
-    weights and batch: loss ≤ 1e-5 relative, every gradient ≤ 1e-3 × its
-    max |grad| (one whose CPU value is below 1e-6 × the largest gradient is
-    0 in exact arithmetic — the key bias, the conv bias before BatchNorm —
-    and must be below that on the card too)."""
+def _scaled_dropout(x, rate, generator=None, training=True):
+    """A deterministic stand-in for the heads' generator dropout (the
+    card's and the CPU's generators draw different bits), so phase 7b can
+    keep the Conformer's rate, and its in-kernel dropout, above 0."""
+    return x if not training or rate <= 0.0 else x * (1.0 - rate)
+
+
+def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
+    """f32 with TF32 off, the flagship at full width, the same weights and
+    batch: loss ≤ 1e-5 relative, every gradient ≤ 1e-3 × its max |grad|
+    (one whose CPU value is below 1e-6 × the largest gradient is 0 in
+    exact arithmetic — the key bias, the conv bias before BatchNorm — and
+    must be below that on the card too). Phase 7: dropout 0. Phase 7b
+    (``strict``): strict attention dropout at the recipe's rates (WavLM
+    0.1, Conformer 0.15) with the same fixed seed for each attention call
+    on both devices (the seed helper patched), the heads' generator
+    dropout replaced by a deterministic scaling, every other dropout 0."""
     import dataclasses
     import torch
     from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.models import heads, layers
     from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention, \
+        flash_attention_bwd
     from wfl_asr_tpu_torch.train import loop
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Config(train_config("/nonexistent"))
+    raw = train_config("/nonexistent")
+    raw["training"]["strict_attention_dropout"] = strict
+    cfg = Config(raw)
     cfg.num_languages = 2
     arch = TaggerArch.from_config(cfg, labels)
-    arch = dataclasses.replace(arch, conformer_dropout=0.0,
-                               wavlm=dataclasses.replace(
-                                   arch.wavlm, hidden_dropout=0.0,
-                                   feat_proj_dropout=0.0, layerdrop=0.0))
+    arch = dataclasses.replace(
+        arch, conformer_dropout=arch.conformer_dropout if strict else 0.0,
+        wavlm=dataclasses.replace(arch.wavlm, hidden_dropout=0.0,
+                                  feat_proj_dropout=0.0, layerdrop=0.0))
     batch = train_batch(labels)
-    res = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        model = init_tagger(arch, torch.Generator().manual_seed(3), dev)
-        m, _, _ = loop.micro_step(model, batch, dev, 1, 0.1, 3.0)
-        res[dev] = (float(m["loss"]), {n: p.grad.float().cpu() for n, p
-                                       in model.named_parameters()},
-                    time.perf_counter() - t0)
-        del model
+    seeds = [int(s) for s in np.random.RandomState(11).randint(
+        -2 ** 31, 2 ** 31 - 1, size=64)]
+    draws = []
+
+    def fixed_seed(generator, device):
+        draws.append(device)
+        return torch.tensor([seeds[len(draws) - 1]], dtype=torch.int32,
+                            device=device)
+
+    saved = layers.attention_dropout_seed, heads.dropout
+    if strict:
+        layers.attention_dropout_seed, heads.dropout = fixed_seed, \
+            _scaled_dropout
+    res, drop_counts = {}, None
+    try:
+        for dev in ("cuda", "cpu"):
+            draws.clear()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            model = init_tagger(arch, torch.Generator().manual_seed(3), dev)
+            m, _, _ = loop.micro_step(model, batch, dev, 1, 0.1, 3.0)
+            res[dev] = (float(m["loss"]), {n: p.grad.float().cpu() for n, p
+                                           in model.named_parameters()},
+                        time.perf_counter() - t0)
+            if dev == "cuda":
+                drop_counts = [flash_attention.dropout_launches,
+                               flash_attention_bwd.dropout_launches,
+                               flash_attention.dropout_bwd_launches,
+                               flash_attention_bwd.dropout_bwd_launches]
+            n_draws = len(draws)
+            del model
+    finally:
+        layers.attention_dropout_seed, heads.dropout = saved
     (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = res["cuda"], res["cpu"]
+    want = [12, 2, 12, 2] if strict else [0, 0, 0, 0]
+    if drop_counts != want or n_draws != (14 if strict else 0):
+        raise AssertionError(f"dropout launches on the card {drop_counts} "
+                             f"(want {want}), seeds drawn {n_draws}")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     gmax = max(g.abs().max().item() for g in g_cpu.values())
     worst, worst_name = 0.0, ""
@@ -1004,7 +1537,10 @@ def phase_train_cross_device(labels: int) -> dict:
                                  f"(max |g| {scale})")
         if rel > worst:
             worst, worst_name = rel, name
-    log(f"[cross-train] one f32 train step (TF32 off), B=2×8 s, dropout 0: "
+    what = ("strict attention dropout (WavLM 0.1, Conformer 0.15; fixed "
+            "seeds; dropout launches on the card K2/K1/K2b/K1b "
+            f"{drop_counts})" if strict else "dropout 0")
+    log(f"[cross-train] one f32 train step (TF32 off), B=2×8 s, {what}: "
         f"loss card {l_card:.7f} vs CPU {l_cpu:.7f} (rel {loss_rel:.2e}, tol "
         f"1e-5); {len(g_cpu)} gradients, worst {worst:.2e} × max|g| "
         f"({worst_name}; tol 1e-3); card {s_card:.1f} s, CPU {s_cpu:.1f} s")
@@ -1043,6 +1579,24 @@ KERNEL_ROWS = [
 ROW_DTYPE = {"K2b": "f32", "K1b": "f32"}
 
 
+def k6_row(kern: dict, strict: dict) -> dict:
+    """The strict attention dropout's row: K6 runs inside the four attention
+    kernels, so its launches are the dropout launches of phase 6b's
+    training run, and its numbers are K2b's in f32 at rate 0.1 with
+    dropout (phase 3c): the hash's cost where the training step spends
+    most (the bound: the larger of K2b's f32 operations, the hash's INT32
+    operations and the bytes, each over its rate)."""
+    r = kern[("K2drop", "f32", DROP_RATES[0])]["bwd"]
+    return {"name": "attention_dropout (in K1/K2/K1b/K2b)", "route": "cuda",
+            "source": "wfl_asr_tpu_torch/ops/kernels/csrc/common.cuh",
+            "replaces": "wfl_asr_tpu/ops/pallas/dropout_mask.py:65",
+            "launches": sum(n for k, n in strict["counts"].items()
+                            if k.endswith("dropout")),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "train"), default=None)
@@ -1059,36 +1613,52 @@ def main() -> int:
     card = card_line()
     log(f"[device] {card} | torch {torch.__version__} | "
         f"CUDA {torch.version.cuda} | {sys.version.split()[0]}")
-    t0 = time.time()
-    logs = _build.build_all(list(KERNEL_SOURCES))
-    log(f"[build] {', '.join(KERNEL_SOURCES)} in {time.time() - t0:.1f} s")
+    with lap("build"):
+        logs = _build.build_all(list(KERNEL_SOURCES))
+    log(f"[build] {', '.join(KERNEL_SOURCES)} in {LAPS['build']:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas] {name}: {line.strip()}")
+        for line in ptxas_summary(text):
+            log(f"[ptxas] {name}: {line}")
+
+    def train_phases(root):
+        with lap("6"):
+            trained = phase_train(root)
+        with lap("6b"):
+            strict = phase_train_strict(root, trained)
+        with lap("7"):
+            cross_train = phase_train_cross_device(trained["labels"])
+        with lap("7b"):
+            cross_strict = phase_train_cross_device(trained["labels"],
+                                                    strict=True)
+        return trained, strict, cross_train, cross_strict
 
     if args.only == "train":     # phases 6 and 7 alone, for iterating
         root = tempfile.mkdtemp(prefix="wfl_smoke_")
         try:
-            phase_train_cross_device(phase_train(root)["labels"])
+            train_phases(root)
         finally:
             shutil.rmtree(root, ignore_errors=True)
+        log_laps()
         return 0
     kern = phase_kernels(args.iters)
     if args.only == "kernels":
+        log_laps()
         return 0
 
     root = tempfile.mkdtemp(prefix="wfl_smoke_")
     try:
-        run = phase_main(root, iters=args.iters)
+        with lap("4"):
+            run = phase_main(root, iters=args.iters)
         perf, counts = run["perf"], run["counts"]
-        cross = phase_cross_device(run["cfg"], run["ckpt"], run["wav_dir"])
-        trained = phase_train(root)
+        with lap("5"):
+            cross = phase_cross_device(run["cfg"], run["ckpt"],
+                                       run["wav_dir"])
+        trained, strict, cross_train, cross_strict = train_phases(root)
         counts.update({k: n for k, n in trained["counts"].items()
                        if k.endswith("_bwd")})
-        cross_train = phase_train_cross_device(trained["labels"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    log_laps()
 
     rows = []
     for key, name, counter, source, replaces in KERNEL_ROWS:
@@ -1099,13 +1669,19 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+    rows.append(k6_row(kern, strict))
     log(f"[summary] bf16 B=8x30 s: {perf['bf16']['audio_s_per_s']:.2f} "
         f"audio-s/s, f32: {perf['f32']['audio_s_per_s']:.2f} audio-s/s; "
         f"card vs CPU logits {cross['max_abs_err']:.3e}; training f32 "
         f"{trained['step_ms']:.1f} ms a step, {trained['audio_s_per_s']:.2f} "
         f"audio-s/s, {trained['peak_gb']:.2f} GiB peak; card vs CPU train "
         f"step loss {cross_train['loss_rel']:.2e}, grads "
-        f"{cross_train['grad_rel']:.2e} × max")
+        f"{cross_train['grad_rel']:.2e} × max; strict training "
+        f"{strict['step_ms']:.1f} ms a step, {strict['peak_gb']:.2f} GiB "
+        f"peak, same batch {strict['same_batch_ms'][0]:.1f} against "
+        f"{strict['same_batch_ms'][1]:.1f} ms; card vs CPU strict step loss "
+        f"{cross_strict['loss_rel']:.2e}, grads {cross_strict['grad_rel']:.2e}"
+        f" × max")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -119,7 +119,7 @@ def test_asking_for_a_kernel_raises_without_cuda():
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(dropout_rate=0.1), NotImplementedError),
+    (dict(dropout_rate=0.1), ValueError),       # a rate needs a seed
     (dict(gate=torch.ones(1, 2, 8)), ValueError),
 ])
 def test_attention_rejects_unported_options(kwargs, exc):

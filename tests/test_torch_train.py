@@ -540,7 +540,7 @@ def test_unported_options_raise(prepped):
     root, cfg = prepped
     for section, key, val in (("training", "remat", True),
                               ("training", "fsdp", True),
-                              ("training", "strict_attention_dropout", True),
+                              ("training", "sequence_parallel", True),
                               ("training", "optimizer", "Lion")):
         raw = json.loads(json.dumps(cfg))
         raw[section][key] = val

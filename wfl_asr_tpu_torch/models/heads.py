@@ -15,7 +15,10 @@ after the attention's output projection (the post-projection substitute
 for probability dropout) and after the conv module; BatchNorm normalizes
 with the batch statistics (biased variance) and updates the running ones
 (unbiased variance, momentum 0.1), as ``nn.BatchNorm1d`` does. Dropout
-draws from the ``generator`` passed in.
+draws from the ``generator`` passed in. With ``strict_attn_dropout`` the
+attention probabilities are dropped at that rate inside the kernels (K6)
+instead, and the post-projection substitute is skipped (heads.py:260-268),
+so the block is the reference's ``nn.MultiheadAttention(dropout=...)``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from ..ops.kernels.flash_attention_bwd import flash_attention_trainable
+from . import layers
 from .layers import conv1d, dropout, gelu, layer_norm, linear
 
 
@@ -98,7 +102,8 @@ class PackedSelfAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x: torch.Tensor, kv_len=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv_len=None,
+                dropout_rate: float = 0.0, dropout_seed=None) -> torch.Tensor:
         b, t, dim = x.shape
         d = dim // self.heads
         w = self.in_proj_weight.to(x.dtype)
@@ -108,7 +113,8 @@ class PackedSelfAttention(nn.Module):
             h = F.linear(x, w[i * dim:(i + 1) * dim], bias[i * dim:(i + 1) * dim])
             return h.reshape(b, t, self.heads, d).transpose(1, 2).contiguous()
 
-        attn = flash_attention_trainable(proj(0), proj(1), proj(2), kv_len)
+        attn = flash_attention_trainable(proj(0), proj(1), proj(2), kv_len,
+                                         dropout_rate, dropout_seed)
         return linear(self.out_proj, attn.transpose(1, 2).reshape(b, t, dim))
 
 
@@ -130,9 +136,11 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
 
 class ConformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, ff_expansion: int,
-                 conv_kernel: int, rate: float = 0.0):
+                 conv_kernel: int, rate: float = 0.0,
+                 strict_attn_dropout: bool = False):
         super().__init__()
         self.rate = rate
+        self.strict_attn_dropout = strict_attn_dropout
         self.ff1 = FeedForwardModule(dim, ff_expansion, rate)
         self.ff2 = FeedForwardModule(dim, ff_expansion, rate)
         self.self_attn = PackedSelfAttention(dim, heads)
@@ -154,7 +162,14 @@ class ConformerBlock(nn.Module):
 
         x = x + 0.5 * self.ff1(x, generator)
         kv_len = mask.to(torch.int32).sum(-1) if mask is not None else None
-        x = layer_norm(self.ln1, x + drop(self.self_attn(x, kv_len)))
+        if self.training and self.strict_attn_dropout and self.rate > 0.0:
+            # the exact probability dropout, in-kernel; no substitute after
+            attn = self.self_attn(x, kv_len, self.rate,
+                                  layers.attention_dropout_seed(generator,
+                                                                x.device))
+        else:
+            attn = drop(self.self_attn(x, kv_len))
+        x = layer_norm(self.ln1, x + attn)
 
         h = layer_norm(self.ln2, x).transpose(1, 2)            # [B, C, T]
         h = conv1d(self.conv[0], h)

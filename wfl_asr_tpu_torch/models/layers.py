@@ -37,6 +37,17 @@ def dropout(x: torch.Tensor, rate: float,
     return x * keep / (1.0 - rate)
 
 
+def attention_dropout_seed(generator: Optional[torch.Generator],
+                           device) -> torch.Tensor:
+    """One attention call's dropout seed (K6): an int32 drawn from
+    ``generator`` on ``device``, as [1] — it stays on the device, so the
+    kernels read it by pointer and the host never waits. The JAX package
+    draws it with ``jax.random.randint(key, (), -2**31, 2**31 - 1)``
+    (wavlm.py:418, heads.py:252)."""
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=generator,
+                         device=device, dtype=torch.int32)
+
+
 def _cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return None if p is None else p.to(dtype)
 

@@ -56,12 +56,10 @@ WAVLM_PRESETS = {
 }
 
 # Fields of the JAX package's WavLMArch that the port does not carry: the
-# kernel switches (the port always runs its kernels) and strict attention
-# dropout (K6, not ported; the train loop raises when a config asks for
-# it). An ``encoder_arch_overrides`` entry naming one is dropped; any other
-# key that is not a WavLMArch field raises.
-JAX_ONLY_ARCH_KEYS = frozenset({
-    "use_flash_attention", "use_fused_conv", "strict_attention_dropout"})
+# kernel switches (the port always runs its kernels). An
+# ``encoder_arch_overrides`` entry naming one is dropped; any other key that
+# is not a WavLMArch field raises.
+JAX_ONLY_ARCH_KEYS = frozenset({"use_flash_attention", "use_fused_conv"})
 
 
 def wavlm_arch_from_name(model_name: str) -> WavLMArch:
@@ -105,6 +103,11 @@ class TaggerArch:
     dilated_depth: int = 2
     dilated_kernel: int = 3
     freeze_encoder: bool = False
+    # training.strict_attention_dropout: true attention-probability dropout
+    # (HF WavLM attention_dropout, nn.MultiheadAttention(dropout=...)) in
+    # training, in-kernel (K6), instead of the post-projection substitute;
+    # inference is unaffected
+    strict_attention_dropout: bool = False
     wavlm: Optional[WavLMArch] = None
 
     @classmethod
@@ -112,6 +115,8 @@ class TaggerArch:
         """Build from a ``Config`` (defaults mirror the reference's
         model.py:57-142 ``.get`` sites)."""
         enc = cfg.encoder_type
+        strict_attn = bool(cfg.raw.get("training", {})
+                           .get("strict_attention_dropout", False))
         overrides = cfg.raw.get("model", {}).get("encoder_arch_overrides") or {}
         if enc != "wavlm":
             raise NotImplementedError(ENCODER_TODO.format(enc))
@@ -135,6 +140,8 @@ class TaggerArch:
             wavlm = replace(wavlm, **{
                 k: tuple(v) if isinstance(v, list) else v
                 for k, v in overrides.items() if k in known})
+        if strict_attn:
+            wavlm = replace(wavlm, strict_attention_dropout=True)
         return cls(
             encoder_type=enc, num_labels=num_labels,
             num_languages=cfg.num_languages, hidden_size=wavlm.hidden_size,
@@ -149,7 +156,8 @@ class TaggerArch:
             enable_dilated_conv=cfg.enable_dilated_conv,
             dilated_depth=cfg.dilated_conv_depth,
             dilated_kernel=cfg.dilated_conv_kernel,
-            freeze_encoder=cfg.freeze_encoder, wavlm=wavlm,
+            freeze_encoder=cfg.freeze_encoder,
+            strict_attention_dropout=strict_attn, wavlm=wavlm,
         )
 
 
@@ -184,7 +192,8 @@ class BIOPhonemeTagger(nn.Module):
         self.conformer_layers = nn.ModuleList(
             H.ConformerBlock(hd, arch.conformer_heads,
                              arch.conformer_ff_expansion,
-                             arch.conformer_kernel, arch.conformer_dropout)
+                             arch.conformer_kernel, arch.conformer_dropout,
+                             arch.strict_attention_dropout)
             for _ in range(arch.num_conformer_layers))
         if arch.enable_dilated_conv:
             self.dilated_conv_stack = H.make_dilated_stack(

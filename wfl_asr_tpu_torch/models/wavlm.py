@@ -23,9 +23,12 @@ The forward is the JAX package's path with its kernels on:
 In training mode (``module.train()``) dropout (feature projection, hidden,
 activation) and LayerDrop follow wavlm.py:533-660, drawing from the
 ``generator`` passed in. LayerDrop computes every layer and selects, as the
-JAX package does, so the kernels launch once per layer on every step.
-Attention-probability dropout (strict mode, K6) and remat are not ported.
-Parameters stay f32 and are cast to the compute dtype at use.
+JAX package does, so the kernels launch once per layer on every step. With
+``strict_attention_dropout`` the attention probabilities are dropped at
+``attention_dropout`` inside the kernels (K6), each layer's seed drawn from
+the same generator (wavlm.py:439-442); the hidden dropout after the
+attention stays. Remat is not ported. Parameters stay f32 and are cast to
+the compute dtype at use.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from torch import nn
 from ..ops.kernels.conv_fused import MAX_CHAIN, fused_conv_chain, \
     pack_weights
 from ..ops.kernels.flash_attention import flash_attention
+from . import layers
 from .layers import channel_stats, conv1d, dropout, gelu, group_norm, \
     layer_norm, linear
 
@@ -49,9 +53,8 @@ from .layers import channel_stats, conv1d, dropout, gelu, group_norm, \
 @dataclass(frozen=True)
 class WavLMArch:
     """Architecture hyperparameters (defaults = wavlm-base/base-plus), under
-    the JAX package's names and defaults; its kernel switches and
-    ``strict_attention_dropout`` are dropped by ``TaggerArch.from_config``
-    (the port always runs its kernels; strict dropout is K6, not ported)."""
+    the JAX package's names and defaults; its kernel switches are dropped by
+    ``TaggerArch.from_config`` (the port always runs its kernels)."""
     hidden_size: int = 768
     num_layers: int = 12
     num_heads: int = 12
@@ -69,8 +72,11 @@ class WavLMArch:
     layer_norm_eps: float = 1e-5
     hidden_dropout: float = 0.1
     activation_dropout: float = 0.0
-    # carried, not applied: probability dropout is the strict mode (K6)
+    # attention-probability dropout, applied in training only under
+    # strict_attention_dropout (in-kernel, K6); by default the hidden
+    # dropout after the attention is the regularizer, as in JAX
     attention_dropout: float = 0.0
+    strict_attention_dropout: bool = False
     feat_proj_dropout: float = 0.0
     layerdrop: float = 0.0                    # whole-batch layer skip
 
@@ -429,7 +435,8 @@ class WavLMEncoder(nn.Module):
         return gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
 
     def _attend(self, att: WavLMAttention, x: torch.Tensor,
-                pos_bias: torch.Tensor, kv_len) -> torch.Tensor:
+                pos_bias: torch.Tensor, kv_len, generator=None
+                ) -> torch.Tensor:
         b, t, hid = x.shape
         heads = self.arch.num_heads
 
@@ -441,8 +448,16 @@ class WavLMEncoder(nn.Module):
         k = split(linear(att.k_proj, x))
         v = split(linear(att.v_proj, x))
         gate = self._gate_values(att, x)
+        drop = {}
+        arch = self.arch
+        if (self.training and arch.strict_attention_dropout
+                and arch.attention_dropout > 0.0):
+            # strict attention dropout, in-kernel (torch semantics)
+            drop = dict(dropout_rate=arch.attention_dropout,
+                        dropout_seed=layers.attention_dropout_seed(
+                            generator, x.device))
         out = flash_attention(q, k, v, bias=pos_bias, gate=gate,
-                              kv_len=kv_len)
+                              kv_len=kv_len, **drop)
         return linear(att.out_proj, out.transpose(1, 2).reshape(b, t, hid))
 
     def _layer(self, layer: WavLMLayer, x, pos_bias, kv_len, generator):
@@ -461,11 +476,11 @@ class WavLMEncoder(nn.Module):
         if arch.do_stable_layer_norm:            # pre-LN (wavlm-large)
             xn = layer_norm(layer.layer_norm, x, eps)
             x = x + hidden_drop(self._attend(layer.attention, xn, pos_bias,
-                                             kv_len))
+                                             kv_len, generator))
             return x + feed_forward(layer_norm(layer.final_layer_norm, x,
                                                eps))
         x = x + hidden_drop(self._attend(layer.attention, x, pos_bias,
-                                         kv_len))
+                                         kv_len, generator))
         x = layer_norm(layer.layer_norm, x, eps)
         return layer_norm(layer.final_layer_norm, x + feed_forward(x), eps)
 

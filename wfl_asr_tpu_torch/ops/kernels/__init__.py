@@ -6,6 +6,7 @@ and training paths, each beside its plain PyTorch twin.
 | ``flash_attention``         | ``csrc/flash_attention.cu`` | ``flash_attention.py``: ``_flash_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` |
 | ``flash_attention_bwd``     | ``csrc/flash_attention.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` |
 | ``conv_fused``              | ``csrc/conv_fused.cu``      | ``conv_fused.py``: ``_kernel``                                           |
+| ``dropout_mask``            | ``csrc/common.cuh``         | ``dropout_mask.py``: ``uniform24``, ``keep_mask_f32`` (inside the attention kernels) |
 
 Sources build with ``nvcc`` at first use (``_build.py``); importing these
 modules needs no CUDA.
@@ -18,6 +19,6 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from . import conv_fused, flash_attention, flash_attention_bwd
     for mod in (flash_attention, flash_attention_bwd):
-        mod.launches = 0
-        mod.bwd_launches = 0
+        mod.launches = mod.bwd_launches = 0
+        mod.dropout_launches = mod.dropout_bwd_launches = 0
     conv_fused.launches.clear()

@@ -39,6 +39,19 @@
 // - Any D that is a multiple of 16 up to 512 works (D=384: 16 query rows and
 //   76 KB of shared memory a block); ragged tails (T=1499) are zero-filled on
 //   load and never stored.
+//
+// Strict attention dropout (K6, wfl_asr_tpu/ops/pallas/dropout_mask.py) runs
+// inside every forward variant and both backward passes when the launcher is
+// given a seed pointer: each score element's keep decision is the integer
+// hash wfl::drop_keep (common.cuh) of (seed, b, h, q, k) at absolute indices,
+// so any tiling regenerates the same mask, bit-identical to the JAX kernels'.
+// The forwards mask P after the row sum l (the LSE stays undropped) and
+// before P·V; the backward recomputes P from that LSE and uses P·M for dV and
+// P·(M·dP − delta) for dS. It costs ≈ 12 integer operations per valid score
+// element per pass, against 2·D FMAs. Every kernel takes it as a template
+// flag, so without a seed it compiles exactly as before (a runtime branch
+// cost 5-50 % in the forwards and 2-4 % in K1b's backward at rate 0 on the
+// card).
 #include <mma.h>
 
 #include "common.cuh"
@@ -57,13 +70,13 @@ constexpr float kNegInf = -1e30f;
 // Query rows per warp of the f32 kernel for NC = ⌈D/32⌉ output columns a lane.
 __host__ __device__ constexpr int f32_rows(int nc) { return nc <= 2 ? 16 : nc <= 4 ? 8 : 4; }
 
-template <int NC>
+template <int NC, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
               const float* __restrict__ gate, const int* __restrict__ kv_len,
               float* __restrict__ out, float* __restrict__ lse, int H,
-              int T_len, int D, float scale) {
+              int T_len, int D, float scale, Dropout drop) {
   constexpr int RQ = f32_rows(NC);
   constexpr int BQ = RQ * kWarps;
   extern __shared__ __align__(16) float smem[];
@@ -80,6 +93,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + bh * T_len * D;
   const int kvl = kv_len[b];
   const int D4 = D / 4;
+  const uint32_t dbase = DROP ? drop_base(drop, b, h) : 0u;
 
   // rows [row0, row0 + n) of a [T, D] matrix, times mul, into a tile of
   // pitch `pitch`; zero past T
@@ -143,9 +157,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       if (kj >= kvl) sv = kNegInf;
       const float m_new = fmaxf(m_row[r], warp_max(sv));
       alpha[r] = expf(m_row[r] - m_new);
-      const float p = expf(sv - m_new);
+      float p = expf(sv - m_new);
       l_row[r] = l_row[r] * alpha[r] + warp_sum(p);
       m_row[r] = m_new;
+      // K6: l keeps the undropped sum, only P·V takes the mask
+      if (DROP && qi < T_len && kj < kvl)
+        p *= drop_keep(drop, dbase, qi, kj);
       sP[(warp * RQ + r) * kBK + lane] = p;
     }
     __syncthreads();  // every warp is done with the K tile
@@ -200,14 +217,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // the output accumulator in shared memory. Each warp owns 16 query rows.
 // ---------------------------------------------------------------------------
 
-template <int NW>
+template <int NW, bool DROP>
 __global__ void __launch_bounds__(NW * 32)
 flash_fwd_wmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ bias,
                const float* __restrict__ gate,
                const int* __restrict__ kv_len, bf16* __restrict__ out,
                float* __restrict__ lse, int H, int T_len, int D,
-               float scale) {
+               float scale, Dropout drop) {
   constexpr int BQ = 16 * NW;
   constexpr int BK = kBK;
   constexpr int NT = NW * 32;
@@ -232,6 +249,7 @@ flash_fwd_wmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + bh * T_len * D;
   const int kvl = kv_len[b];
   const int v8 = D / 8;        // 16-byte vectors per row
+  const uint32_t dbase = DROP ? drop_base(drop, b, h) : 0u;
 
   // rows [row0, row0 + n) of a [T, D] matrix into a DP-pitched tile,
   // zero past T
@@ -310,8 +328,12 @@ flash_fwd_wmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float ps = 0.f;
 #pragma unroll
       for (int t = 0; t < BK / 32; ++t) {
-        const float p = expf(vals[t] - m_new);
+        const int kj = k0 + lane + 32 * t;
+        float p = expf(vals[t] - m_new);
         ps += p;
+        // K6: masked in f32 before the bf16 P of P·V, after the row sum
+        if (DROP && qi < T_len && kj < kvl)
+          p *= drop_keep(drop, dbase, qi, kj);
         sP[row * PP + lane + 32 * t] = from_f<bf16>(p);
       }
       l_row[r] = l_row[r] * alpha + warp_sum(ps);
@@ -427,13 +449,13 @@ constexpr int kMmaWarps = 4;
 constexpr int kMmaBQ = 16 * kMmaWarps;
 constexpr int kMmaBK = 64;
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ bias,
               const float* __restrict__ gate, const int* __restrict__ kv_len,
               bf16* __restrict__ out, float* __restrict__ lse, int H,
-              int T_len, float scale) {
+              int T_len, float scale, Dropout drop) {
   constexpr int NT = kMmaWarps * 32;
   constexpr int DP = D + 8;        // bf16 pitch: 16-byte rows, no conflicts
   constexpr int KD = D / 16;       // k-steps of Q·Kᵀ
@@ -452,6 +474,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + bh * T_len * D;
   const bf16* vb = v + bh * T_len * D;
   const int kvl = kv_len[b];
+  const uint32_t dbase = DROP ? drop_base(drop, b, h) : 0u;
 
   // rows [row0, row0 + n) of a [T, D] matrix into a DP-pitched tile, zero
   // past T
@@ -554,6 +577,17 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l_row[i] = l_row[i] * alpha[i] + ps[i];
+    // K6, after the row sum: element e of score tile n is row qrow[e / 2],
+    // key k0 + 8·n + 2·t + e % 2 (the accumulator layout of m16n8k16)
+    if constexpr (DROP) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qrow[e >> 1], kj = k0 + n * 8 + 2 * t + (e & 1);
+          if (qi < T_len && kj < kvl) s[n][e] *= drop_keep(drop, dbase, qi, kj);
+        }
+    }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       o[n][0] *= alpha[0];
@@ -598,20 +632,20 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 cudaError_t run_mma(const void* q, const void* k, const void* v,
                     const void* bias, const void* gate, const void* kv_len,
                     void* out, void* lse, int B, int H, int T_len,
-                    float scale, cudaStream_t stream) {
+                    float scale, Dropout drop, cudaStream_t stream) {
   dim3 grid((T_len + kMmaBQ - 1) / kMmaBQ, H, B);
   const size_t smem = sizeof(bf16) * (size_t)(kMmaBQ + 2 * kMmaBK) * (D + 8);
-  return wfl::launch(flash_fwd_mma<D>, grid, dim3(kMmaWarps * 32), smem,
+  return wfl::launch(flash_fwd_mma<D, DROP>, grid, dim3(kMmaWarps * 32), smem,
                      stream, static_cast<const bf16*>(q),
                      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
                      static_cast<const bf16*>(bias),
                      static_cast<const float*>(gate),
                      static_cast<const int*>(kv_len), static_cast<bf16*>(out),
-                     static_cast<float*>(lse), H, T_len, scale);
+                     static_cast<float*>(lse), H, T_len, scale, drop);
 }
 
 size_t wmma_smem_bytes(int nw, int D) {
@@ -620,20 +654,20 @@ size_t wmma_smem_bytes(int nw, int D) {
          sizeof(float) * (bq * (bk + 4) + bq * D + bq);
 }
 
-template <int NW>
+template <int NW, bool DROP>
 cudaError_t run_wmma(const void* q, const void* k, const void* v,
                      const void* bias, const void* gate, const void* kv_len,
                      void* out, void* lse, int B, int H, int T_len, int D,
-                     float scale, cudaStream_t stream) {
+                     float scale, Dropout drop, cudaStream_t stream) {
   dim3 grid((T_len + 16 * NW - 1) / (16 * NW), H, B);
-  return wfl::launch(flash_fwd_wmma<NW>, grid, dim3(NW * 32),
+  return wfl::launch(flash_fwd_wmma<NW, DROP>, grid, dim3(NW * 32),
                      wmma_smem_bytes(NW, D), stream,
                      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                      static_cast<const bf16*>(v),
                      static_cast<const bf16*>(bias),
                      static_cast<const float*>(gate),
                      static_cast<const int*>(kv_len), static_cast<bf16*>(out),
-                     static_cast<float*>(lse), H, T_len, D, scale);
+                     static_cast<float*>(lse), H, T_len, D, scale, drop);
 }
 
 // Up to D=128 the register-resident mma.sync kernel (its output tile fits
@@ -642,49 +676,55 @@ cudaError_t run_wmma(const void* q, const void* k, const void* v,
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                           const void* bias, const void* gate,
                           const void* kv_len, void* out, void* lse, int B,
-                          int H, int T_len, int D, float scale,
+                          int H, int T_len, int D, float scale, Dropout drop,
                           cudaStream_t s) {
 #define WFL_MMA_CASE(d) \
-  case d: return run_mma<d>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, scale, s);
+  case d: return drop.seed ? run_mma<d, true>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, scale, drop, s) \
+                           : run_mma<d, false>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, scale, drop, s);
   switch (D) {
     WFL_MMA_CASE(16) WFL_MMA_CASE(32) WFL_MMA_CASE(48) WFL_MMA_CASE(64)
     WFL_MMA_CASE(80) WFL_MMA_CASE(96) WFL_MMA_CASE(112) WFL_MMA_CASE(128)
     default: break;
   }
 #undef WFL_MMA_CASE
-  if (D <= 384)
-    return run_wmma<4>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, D,
-                       scale, s);
-  return run_wmma<2>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, D,
-                     scale, s);
+#define WFL_WMMA(nw, dr) \
+  return run_wmma<nw, dr>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, D, scale, drop, s)
+  if (D <= 384) {
+    if (drop.seed) WFL_WMMA(4, true);
+    WFL_WMMA(4, false);
+  }
+  if (drop.seed) WFL_WMMA(2, true);
+  WFL_WMMA(2, false);
+#undef WFL_WMMA
 }
 
-template <int NC>
+template <int NC, bool DROP>
 cudaError_t run_f32(const void* q, const void* k, const void* v,
                     const void* bias, const void* gate, const void* kv_len,
                     void* out, void* lse, int B, int H, int T_len, int D,
-                    float scale, cudaStream_t stream) {
+                    float scale, Dropout drop, cudaStream_t stream) {
   constexpr int BQ = f32_rows(NC) * kWarps;
   dim3 grid((T_len + BQ - 1) / BQ, H, B);
   const size_t smem = sizeof(float) *
       ((size_t)BQ * D + (size_t)kBK * (D + 4) + (size_t)BQ * kBK);
-  return wfl::launch(flash_fwd_f32<NC>, grid, dim3(kThreads), smem, stream,
+  return wfl::launch(flash_fwd_f32<NC, DROP>, grid, dim3(kThreads), smem, stream,
                      static_cast<const float*>(q), static_cast<const float*>(k),
                      static_cast<const float*>(v),
                      static_cast<const float*>(bias),
                      static_cast<const float*>(gate),
                      static_cast<const int*>(kv_len), static_cast<float*>(out),
-                     static_cast<float*>(lse), H, T_len, D, scale);
+                     static_cast<float*>(lse), H, T_len, D, scale, drop);
 }
 
 // One instantiation per ⌈D/32⌉ (D a multiple of 16 up to 512).
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          const void* bias, const void* gate,
                          const void* kv_len, void* out, void* lse, int B,
-                         int H, int T_len, int D, float scale,
+                         int H, int T_len, int D, float scale, Dropout drop,
                          cudaStream_t s) {
 #define WFL_F32_CASE(nc) \
-  case nc: return run_f32<nc>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, D, scale, s);
+  case nc: return drop.seed ? run_f32<nc, true>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, D, scale, drop, s) \
+                            : run_f32<nc, false>(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len, D, scale, drop, s);
   switch ((D + 31) / 32) {
     WFL_F32_CASE(1) WFL_F32_CASE(2) WFL_F32_CASE(3) WFL_F32_CASE(4)
     WFL_F32_CASE(5) WFL_F32_CASE(6) WFL_F32_CASE(7) WFL_F32_CASE(8)
@@ -765,13 +805,15 @@ __device__ __forceinline__ void bwd_rows(float* sRow, const float* lse,
 // P and dS of one (query tile, key tile) pair from the staged tiles. Thread
 // (ti, tj) = (tid / 16, tid % 16) owns query rows ti + 16·r and keys
 // tj + 16·c. sQ holds q·scale. bv returns the bias values read (0 without
-// bias).
-template <typename T, int BQ, int BK>
+// bias). With DROP (dbase = drop_base of this (b, h)) p returns the
+// dropped P·M and ds the dropped dS.
+template <typename T, int BQ, int BK, bool DROP>
 __device__ __forceinline__ void bwd_tile_ds(
     const float* sQ, const float* sDO, const float* sK, const float* sV,
     int DP, int D, const float* sRow, bool has_gate, const T* bias_h,
-    int q0, int k0, int kvl, int T_len, float (&p)[BQ / 16][BK / 16],
-    float (&ds)[BQ / 16][BK / 16], float (&bv)[BQ / 16][BK / 16]) {
+    int q0, int k0, int kvl, int T_len, const Dropout& drop, uint32_t dbase,
+    float (&p)[BQ / 16][BK / 16], float (&ds)[BQ / 16][BK / 16],
+    float (&bv)[BQ / 16][BK / 16]) {
   constexpr int RI = BQ / 16, RJ = BK / 16;
   const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
   float s[RI][RJ], dp[RI][RJ];
@@ -816,21 +858,26 @@ __device__ __forceinline__ void bwd_tile_ds(
       // by more than 88, and exp → inf, times 0, is NaN
       if (kj >= kvl) sv = kNegInf;
       const float pv = expf(sv - lse);
-      p[r][c] = pv;
-      ds[r][c] = pv * (dp[r][c] - delta);
+      // K6: the P that dV takes is P·M, and dS = P·(M·dP − delta); P, and
+      // so the LSE, stay undropped
+      const float ks = (DROP && qi < T_len && kj < kvl)
+          ? drop_keep(drop, dbase, qi, kj) : 1.f;
+      p[r][c] = pv * ks;
+      ds[r][c] = pv * (dp[r][c] * ks - delta);
       bv[r][c] = b_;
     }
   }
 }
 
-template <typename T, int BQ, int BK>
+template <typename T, int BQ, int BK, bool DROP>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ bias,
                const float* __restrict__ gate, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const int* __restrict__ kv_len, T* __restrict__ dk,
-               T* __restrict__ dv, int H, int T_len, int D, float scale) {
+               T* __restrict__ dv, int H, int T_len, int D, float scale,
+               Dropout drop) {
   constexpr int RI = BQ / 16, RJ = BK / 16, PP = BK + 1;
   extern __shared__ float smem[];
   const int DP = D + 1;
@@ -859,6 +906,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     }
     return;
   }
+  const uint32_t dbase = DROP ? drop_base(drop, b, h) : 0u;
   bwd_load(sK, DP, k + base, k0, BK, T_len, D, 1.f);
   bwd_load(sV, DP, v + base, k0, BK, T_len, D, 1.f);
   for (int idx = tid; idx < 2 * BK * D; idx += kBwdThreads) sdK[idx] = 0.f;
@@ -874,8 +922,9 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     bwd_rows<BQ>(sRow, lse, delta, gate, bh, q0, T_len);
     __syncthreads();
     float p[RI][RJ], ds[RI][RJ], bv[RI][RJ];
-    bwd_tile_ds<T, BQ, BK>(sQ, sDO, sK, sV, DP, D, sRow, gate != nullptr,
-                           bias_h, q0, k0, kvl, T_len, p, ds, bv);
+    bwd_tile_ds<T, BQ, BK, DROP>(sQ, sDO, sK, sV, DP, D, sRow,
+                                 gate != nullptr, bias_h, q0, k0, kvl, T_len,
+                                 drop, dbase, p, ds, bv);
 #pragma unroll
     for (int r = 0; r < RI; ++r)
 #pragma unroll
@@ -936,7 +985,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int BQ, int BK>
+template <typename T, int BQ, int BK, bool DROP>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ bias,
@@ -944,7 +993,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const float* __restrict__ lse, const float* __restrict__ delta,
              const int* __restrict__ kv_len, T* __restrict__ dq,
              float* __restrict__ dgate, float* __restrict__ dbias, int B,
-             int H, int T_len, int D, float scale) {
+             int H, int T_len, int D, float scale, Dropout drop) {
   constexpr int RI = BQ / 16, RJ = BK / 16, PP = BK + 1;
   extern __shared__ float smem[];
   const int DP = D + 1;
@@ -969,6 +1018,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bh = (size_t)b * H + h;
     const size_t base = bh * T_len * D;
     const int kvl = kv_len[b];
+    const uint32_t dbase = DROP ? drop_base(drop, b, h) : 0u;
     __syncthreads();    // the previous b's stores are done with sdQ/sRow
     bwd_load(sQ, DP, q + base, q0, BQ, T_len, D, scale);
     bwd_load(sDO, DP, dout + base, q0, BQ, T_len, D, 1.f);
@@ -982,8 +1032,9 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
       bwd_load(sV, DP, v + base, k0, BK, T_len, D, 1.f);
       __syncthreads();
       float p[RI][RJ], ds[RI][RJ], bv[RI][RJ];
-      bwd_tile_ds<T, BQ, BK>(sQ, sDO, sK, sV, DP, D, sRow, has_gate, bias_h,
-                             q0, k0, kvl, T_len, p, ds, bv);
+      bwd_tile_ds<T, BQ, BK, DROP>(sQ, sDO, sK, sV, DP, D, sRow, has_gate,
+                                   bias_h, q0, k0, kvl, T_len, drop, dbase,
+                                   p, ds, bv);
 #pragma unroll
       for (int r = 0; r < RI; ++r) {
         const int i = ti + 16 * r, qi = q0 + i;
@@ -1048,19 +1099,19 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int BQ, int BK>
+template <typename T, int BQ, int BK, bool DROP>
 cudaError_t run_dkdv(const void* q, const void* k, const void* v,
                      const void* bias, const void* gate, const void* dout,
                      const void* lse, const void* delta, const void* kv_len,
                      void* dk, void* dv, int B, int H, int T_len, int D,
-                     float scale, cudaStream_t stream) {
+                     float scale, Dropout drop, cudaStream_t stream) {
   const size_t dp = D + 1;
   const size_t smem = sizeof(float) *
       (2 * BK * dp + 2 * BQ * dp + 2 * BQ * (BK + 1) + 2 * BK * (size_t)D
        + 3 * BQ);
   dim3 grid((T_len + BK - 1) / BK, H, B);
-  return wfl::launch(flash_bwd_dkdv<T, BQ, BK>, grid, dim3(kBwdThreads),
-                     smem, stream, static_cast<const T*>(q),
+  return wfl::launch(flash_bwd_dkdv<T, BQ, BK, DROP>, grid,
+                     dim3(kBwdThreads), smem, stream, static_cast<const T*>(q),
                      static_cast<const T*>(k), static_cast<const T*>(v),
                      static_cast<const T*>(bias),
                      static_cast<const float*>(gate),
@@ -1068,21 +1119,22 @@ cudaError_t run_dkdv(const void* q, const void* k, const void* v,
                      static_cast<const float*>(lse),
                      static_cast<const float*>(delta),
                      static_cast<const int*>(kv_len), static_cast<T*>(dk),
-                     static_cast<T*>(dv), H, T_len, D, scale);
+                     static_cast<T*>(dv), H, T_len, D, scale, drop);
 }
 
-template <typename T, int BQ, int BK>
+template <typename T, int BQ, int BK, bool DROP>
 cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* bias, const void* gate, const void* dout,
                    const void* lse, const void* delta, const void* kv_len,
                    void* dq, void* dgate, void* dbias, int B, int H,
-                   int T_len, int D, float scale, cudaStream_t stream) {
+                   int T_len, int D, float scale, Dropout drop,
+                   cudaStream_t stream) {
   const size_t dp = D + 1;
   const size_t smem = sizeof(float) *
       (2 * BQ * dp + 2 * BK * dp + BQ * (BK + 1) + BQ * (size_t)D + 4 * BQ);
   dim3 grid((T_len + BQ - 1) / BQ, H);
-  return wfl::launch(flash_bwd_dq<T, BQ, BK>, grid, dim3(kBwdThreads), smem,
-                     stream, static_cast<const T*>(q),
+  return wfl::launch(flash_bwd_dq<T, BQ, BK, DROP>, grid,
+                     dim3(kBwdThreads), smem, stream, static_cast<const T*>(q),
                      static_cast<const T*>(k), static_cast<const T*>(v),
                      static_cast<const T*>(bias),
                      static_cast<const float*>(gate),
@@ -1091,11 +1143,37 @@ cudaError_t run_dq(const void* q, const void* k, const void* v,
                      static_cast<const float*>(delta),
                      static_cast<const int*>(kv_len), static_cast<T*>(dq),
                      static_cast<float*>(dgate), static_cast<float*>(dbias),
-                     B, H, T_len, D, scale);
+                     B, H, T_len, D, scale, drop);
 }
 
 // Tiles by D (staged rows within 227 KB; the dQ pass's grid of
 // ⌈T/BQ⌉·H blocks kept above the 132 SMs at the Conformer's 2 heads).
+template <typename T, bool DROP>
+cudaError_t dispatch_bwd_tiles(const void* q, const void* k, const void* v,
+                               const void* bias, const void* gate,
+                               const void* dout, const void* lse,
+                               const void* delta, const void* kv_len,
+                               void* dq, void* dk, void* dv, void* dgate,
+                               void* dbias, int B, int H, int T_len, int D,
+                               float scale, Dropout drop, cudaStream_t s) {
+#define WFL_DKDV(bq, bk) \
+  run_dkdv<T, bq, bk, DROP>(q, k, v, bias, gate, dout, lse, delta, kv_len, dk, dv, B, H, T_len, D, scale, drop, s)
+#define WFL_DQ(bq, bk) \
+  run_dq<T, bq, bk, DROP>(q, k, v, bias, gate, dout, lse, delta, kv_len, dq, dgate, dbias, B, H, T_len, D, scale, drop, s)
+  cudaError_t err;
+  if (D <= 64) err = WFL_DKDV(64, 64);
+  else if (D <= 128) err = WFL_DKDV(64, 32);
+  else if (D <= 384) err = WFL_DKDV(32, 16);
+  else err = WFL_DKDV(16, 16);
+  if (err != cudaSuccess) return err;
+  if (D <= 128) return WFL_DQ(32, 64);
+  if (D <= 384) return WFL_DQ(16, 32);
+  return WFL_DQ(16, 16);
+#undef WFL_DKDV
+#undef WFL_DQ
+}
+
+// The dropout hash is compiled in only when a seed is given.
 template <typename T>
 cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
                          const void* bias, const void* gate,
@@ -1103,29 +1181,14 @@ cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
                          const void* delta, const void* kv_len, void* dq,
                          void* dk, void* dv, void* dgate, void* dbias,
                          int B, int H, int T_len, int D, float scale,
-                         cudaStream_t s) {
-  cudaError_t err;
-  if (D <= 64)
-    err = run_dkdv<T, 64, 64>(q, k, v, bias, gate, dout, lse, delta, kv_len,
-                              dk, dv, B, H, T_len, D, scale, s);
-  else if (D <= 128)
-    err = run_dkdv<T, 64, 32>(q, k, v, bias, gate, dout, lse, delta, kv_len,
-                              dk, dv, B, H, T_len, D, scale, s);
-  else if (D <= 384)
-    err = run_dkdv<T, 32, 16>(q, k, v, bias, gate, dout, lse, delta, kv_len,
-                              dk, dv, B, H, T_len, D, scale, s);
-  else
-    err = run_dkdv<T, 16, 16>(q, k, v, bias, gate, dout, lse, delta, kv_len,
-                              dk, dv, B, H, T_len, D, scale, s);
-  if (err != cudaSuccess) return err;
-  if (D <= 128)
-    return run_dq<T, 32, 64>(q, k, v, bias, gate, dout, lse, delta, kv_len,
-                             dq, dgate, dbias, B, H, T_len, D, scale, s);
-  if (D <= 384)
-    return run_dq<T, 16, 32>(q, k, v, bias, gate, dout, lse, delta, kv_len,
-                             dq, dgate, dbias, B, H, T_len, D, scale, s);
-  return run_dq<T, 16, 16>(q, k, v, bias, gate, dout, lse, delta, kv_len,
-                           dq, dgate, dbias, B, H, T_len, D, scale, s);
+                         Dropout drop, cudaStream_t s) {
+  return drop.seed
+      ? dispatch_bwd_tiles<T, true>(q, k, v, bias, gate, dout, lse, delta,
+                                    kv_len, dq, dk, dv, dgate, dbias, B, H,
+                                    T_len, D, scale, drop, s)
+      : dispatch_bwd_tiles<T, false>(q, k, v, bias, gate, dout, lse, delta,
+                                     kv_len, dq, dk, dv, dgate, dbias, B, H,
+                                     T_len, D, scale, drop, s);
 }
 
 }  // namespace
@@ -1137,45 +1200,52 @@ using namespace wfl;
 // chosen by D. bias: [H, T, T] of the same dtype or null; gate: [B, H, T]
 // f32 or null; kv_len: [B] int32 in [1, T]. lse: [B, H, T] f32, written
 // (the row's logsumexp of the scaled, biased, masked scores) when not null.
-// Returns the launch's cudaError_t.
+// seed: one int32 on the device, or null for no dropout; with it, attention
+// probabilities are dropped (K6): kept iff the hash of (seed, b, h, q, k)
+// is >= drop_thr, and scaled by drop_scale. Returns the launch's
+// cudaError_t.
 extern "C" int wfl_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        const void* gate, const void* kv_len,
-                                       void* out, void* lse, int B, int H,
-                                       int T_len, int D, float scale,
-                                       int dtype, void* stream) {
+                                       void* out, void* lse, const void* seed,
+                                       int B, int H, int T_len, int D,
+                                       float scale, int drop_thr,
+                                       float drop_scale, int dtype,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D % 16 != 0 || D > 512) return cudaErrorInvalidValue;
+  const Dropout drop{static_cast<const int*>(seed), drop_thr, drop_scale};
   if (dtype == kF32)
     return dispatch_f32(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len,
-                        D, scale, s);
+                        D, scale, drop, s);
   if (dtype == kBF16)
     return dispatch_bf16(q, k, v, bias, gate, kv_len, out, lse, B, H, T_len,
-                         D, scale, s);
+                         D, scale, drop, s);
   return cudaErrorInvalidValue;
 }
 
 // The backward of wfl_flash_attention_fwd: both passes, in order, on one
 // stream. q, k, v, dout, dq, dk, dv: [B, H, T, D] of the dtype; bias [H, T,
 // T] of the dtype or null; gate [B, H, T] f32 or null; lse and delta =
-// rowsum(dO·O) [B, H, T] f32; kv_len [B] int32 in [1, T]. dgate [B, H, T]
-// f32 (null without gate); dbias [H, T, T] f32, zero-filled by the caller
-// (null without bias).
+// rowsum(dO·O) [B, H, T] f32; kv_len [B] int32 in [1, T]; seed, drop_thr
+// and drop_scale as the forward's. dgate [B, H, T] f32 (null without gate);
+// dbias [H, T, T] f32, zero-filled by the caller (null without bias).
 extern "C" int wfl_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* gate, const void* dout, const void* lse, const void* delta,
-    const void* kv_len, void* dq, void* dk, void* dv, void* dgate,
-    void* dbias, int B, int H, int T_len, int D, float scale, int dtype,
-    void* stream) {
+    const void* kv_len, const void* seed, void* dq, void* dk, void* dv,
+    void* dgate, void* dbias, int B, int H, int T_len, int D, float scale,
+    int drop_thr, float drop_scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D % 16 != 0 || D > 512) return cudaErrorInvalidValue;
+  const Dropout drop{static_cast<const int*>(seed), drop_thr, drop_scale};
   if (dtype == kF32)
     return dispatch_bwd<float>(q, k, v, bias, gate, dout, lse, delta, kv_len,
                                dq, dk, dv, dgate, dbias, B, H, T_len, D,
-                               scale, s);
+                               scale, drop, s);
   if (dtype == kBF16)
     return dispatch_bwd<bf16>(q, k, v, bias, gate, dout, lse, delta, kv_len,
                               dq, dk, dv, dgate, dbias, B, H, T_len, D, scale,
-                              s);
+                              drop, s);
   return cudaErrorInvalidValue;
 }

@@ -16,6 +16,10 @@ backward.
   P = exp(S − LSE) tile by tile. On a CPU tensor the plain twins
   :func:`attention_plain` and :func:`attention_backward_plain` run. Nothing
   falls back: a kernel that fails to build or launch raises.
+- ``dropout_rate`` > 0 with a ``dropout_seed`` runs strict attention
+  dropout (K6) inside those kernels, with the JAX package's hash mask
+  (``dropout_mask``): the forward masks P after the row sum, the backward
+  recomputes the same mask; the seed stays on the device.
 """
 
 from __future__ import annotations
@@ -27,14 +31,17 @@ from typing import Optional
 import torch
 
 from . import _build
+from .dropout_mask import check_rate, keep_scale, keep_threshold, mask_grid
 
 NEG_INF = -1e30
 
 # Launches of the CUDA kernels through this module's entry point (forward,
-# and the backward pair); a run resets them to 0 and reads them to show the
-# path went through the kernels.
+# and the backward pair), and of those the ones with dropout; a run resets
+# them to 0 and reads them to show the path went through the kernels.
 launches = 0
 bwd_launches = 0
+dropout_launches = 0
+dropout_bwd_launches = 0
 
 
 def _prep_kv_len(kv_len, b: int, t: int, device) -> torch.Tensor:
@@ -59,29 +66,46 @@ def _scores_plain(q, k, bias, gate, kv) -> torch.Tensor:
     return torch.where(keep[:, None, None, :], s, torch.full_like(s, NEG_INF))
 
 
+def _dropout_plain(q, dropout_rate: float, dropout_seed):
+    """The [B, H, T, T] f32 keep·scale mask of the kernels (K6), or None
+    at rate 0."""
+    if dropout_rate <= 0.0:
+        return None
+    b, h, t, _ = q.shape
+    return mask_grid(dropout_seed, b, h, t, t, dropout_rate, q.device)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     gate: Optional[torch.Tensor] = None,
-                    kv_len=None, return_lse: bool = False):
+                    kv_len=None, return_lse: bool = False,
+                    dropout_rate: float = 0.0, dropout_seed=None):
     """Plain PyTorch twin: materialized f32 scores, the kernel's exact
-    math (``layers.attention_core`` with the gated bias and key mask).
-    With ``return_lse`` also the row logsumexp [B, H, T] f32."""
+    math (``layers.attention_core`` with the gated bias and key mask, and
+    with ``dropout_rate`` > 0 the kernels' dropout mask on the normalized
+    probabilities). With ``return_lse`` also the row logsumexp [B, H, T]
+    f32 (of the undropped scores)."""
     b, h, t, d = q.shape
     s = _scores_plain(q, k, bias, gate, _prep_kv_len(kv_len, b, t, q.device))
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    out = torch.matmul(p.float(), v.float()).to(q.dtype)
+    p = torch.softmax(s, dim=-1)
+    mask = _dropout_plain(q, dropout_rate, dropout_seed)
+    if mask is not None:
+        p = p * mask
+    out = torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
 
 
-def attention_backward_plain(q, k, v, bias, gate, kv_len, out, lse, dout):
+def attention_backward_plain(q, k, v, bias, gate, kv_len, out, lse, dout,
+                             dropout_rate: float = 0.0, dropout_seed=None):
     """Plain twin of the backward kernels, step by step from the saved LSE
     as they work: P = exp(S − LSE), dP = dO·Vᵀ, delta = rowsum(dO·O),
     dS = P·(dP − delta); dQ = dS·K·scale, dK = dSᵀ·(Q·scale), dV = Pᵀ·dO,
-    dBias = Σ_b gate·dS, dGate = Σ_k bias·dS. Returns (dq, dk, dv, dbias,
-    dgate): dq/dk/dv in q's dtype, dbias [H,T,T] and dgate [B,H,T] in f32
-    (None where there is no bias or gate)."""
+    dBias = Σ_b gate·dS, dGate = Σ_k bias·dS. With dropout (mask M) dV =
+    (P·M)ᵀ·dO and dS = P·(M·dP − delta), delta unchanged. Returns (dq, dk,
+    dv, dbias, dgate): dq/dk/dv in q's dtype, dbias [H,T,T] and dgate
+    [B,H,T] in f32 (None where there is no bias or gate)."""
     b, h, t, d = q.shape
     scale = 1.0 / math.sqrt(d)
     kv = _prep_kv_len(kv_len, b, t, q.device)
@@ -90,10 +114,14 @@ def attention_backward_plain(q, k, v, bias, gate, kv_len, out, lse, dout):
     do = dout.float()
     dp = torch.matmul(do, v.float().transpose(-1, -2))
     delta = (do * out.float()).sum(-1, keepdim=True)
+    mask = _dropout_plain(q, dropout_rate, dropout_seed)
+    if mask is not None:
+        dp = dp * mask
     ds = p * (dp - delta)
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float() * scale)
-    dv = torch.matmul(p.transpose(-1, -2), do)
+    dv = torch.matmul((p if mask is None else p * mask).transpose(-1, -2),
+                      do)
     dbias = dgate = None
     if bias is not None:
         dbias = ((gate.float()[..., None] * ds) if gate is not None
@@ -125,10 +153,35 @@ def _check(q, k, v, bias, gate):
                          f"{tuple(gate.shape)}")
 
 
+def _seed_tensor(seed, device) -> Optional[torch.Tensor]:
+    """The seed as one int32 on ``device`` (a tensor stays where it is
+    when it already lies there, so no host sync)."""
+    if seed is None:
+        return None
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1:
+            raise ValueError(f"dropout_seed must hold one value, got shape "
+                             f"{tuple(seed.shape)}")
+        return seed.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([int(seed)], dtype=torch.int32, device=device)
+
+
+def _dropout_args(dropout_rate: float, dropout_seed):
+    """(seed tensor or None, threshold, scale) for the launchers; the seed
+    is the one-element int32 tensor on the card that :func:`check_entry`
+    made, passed on as it is."""
+    if dropout_rate <= 0.0:
+        return None, 0, 1.0
+    return dropout_seed, keep_threshold(dropout_rate), keep_scale(dropout_rate)
+
+
 def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
-                  return_lse: bool = False):
+                  return_lse: bool = False, dropout_rate: float = 0.0,
+                  dropout_seed=None):
     """Run the forward of ``csrc/flash_attention.cu`` on CUDA tensors (no
-    launch count); with ``return_lse`` also the row LSE [B, H, T] f32."""
+    launch count); with ``return_lse`` also the row LSE [B, H, T] f32; with
+    ``dropout_rate`` > 0 the in-kernel dropout (K6) of ``dropout_seed``, a
+    one-element int32 tensor on q's device."""
     _check(q, k, v, bias, gate)
     if not q.is_cuda:
         raise ValueError("launch_kernel needs CUDA tensors")
@@ -143,14 +196,16 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
     fn = lib.wfl_flash_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-             _ptr(gate), kv.data_ptr(), out.data_ptr(), _ptr(lse), b, h, t,
-             d, 1.0 / math.sqrt(d), _dtype_code(q),
-             _build.stream_ptr(q.device))
+             _ptr(gate), kv.data_ptr(), out.data_ptr(), _ptr(lse),
+             _ptr(seed), b, h, t, d, 1.0 / math.sqrt(d), thr, drop_scale,
+             _dtype_code(q), _build.stream_ptr(q.device))
     _build.check(lib, err, "flash_attention")
     return (out, lse) if return_lse else out
 
@@ -163,7 +218,8 @@ def _dtype_code(q: torch.Tensor) -> int:
     return 0 if q.dtype == torch.float32 else 1
 
 
-def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout):
+def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
+                    dropout_rate: float = 0.0, dropout_seed=None):
     """Run both backward passes of ``csrc/flash_attention.cu`` on CUDA
     tensors (no launch count). Same contract as
     :func:`attention_backward_plain`; ``delta = rowsum(dO·O)`` is a plain
@@ -186,32 +242,39 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout):
              if bias is not None else None)
     dgate = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
              if gate is not None else None)
+    seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
     fn = lib.wfl_flash_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
              _ptr(gate), dout.data_ptr(), lse.contiguous().data_ptr(),
-             delta.data_ptr(), kv.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t, d,
-             1.0 / math.sqrt(d), _dtype_code(q),
+             delta.data_ptr(), kv.data_ptr(), _ptr(seed), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t,
+             d, 1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
              _build.stream_ptr(q.device))
     _build.check(lib, err, "flash_attention backward")
     return dq, dk, dv, dbias, dgate
 
 
-def attention_forward(ctx, q, k, v, bias, gate, kv_len) -> torch.Tensor:
+def attention_forward(ctx, q, k, v, bias, gate, kv_len, dropout_rate=0.0,
+                      seed=None) -> torch.Tensor:
     """The forward of both autograd Functions: the kernel on CUDA, the
     plain twin on the CPU. The LSE is made, and everything the backward
-    reads is saved, only when autograd will need it."""
+    reads is saved (the seed tensor too, as JAX keeps it as a residual),
+    only when autograd will need it."""
     want_lse = any(ctx.needs_input_grad[:5])
     fn = launch_kernel if q.is_cuda else attention_plain
-    res = fn(q, k, v, bias, gate, kv_len, return_lse=want_lse)
+    res = fn(q, k, v, bias, gate, kv_len, return_lse=want_lse,
+             dropout_rate=dropout_rate, dropout_seed=seed)
     out, lse = res if want_lse else (res, None)
     if want_lse:
         b, _, t, _ = q.shape
+        ctx.dropout_rate = dropout_rate
         ctx.save_for_backward(q, k, v, bias, gate,
-                              _prep_kv_len(kv_len, b, t, q.device), out, lse)
+                              _prep_kv_len(kv_len, b, t, q.device), out, lse,
+                              seed)
     return out
 
 
@@ -219,9 +282,11 @@ def attention_backward(ctx, dout):
     """(dq, dk, dv, dbias, dgate) for the saved inputs: the backward
     kernels on CUDA, the plain twin on the CPU. dBias comes back in the
     bias's dtype, dGate in f32."""
-    q, k, v, bias, gate, kv, out, lse = ctx.saved_tensors
+    q, k, v, bias, gate, kv, out, lse, seed = ctx.saved_tensors
     fn = launch_backward if q.is_cuda else attention_backward_plain
-    dq, dk, dv, dbias, dgate = fn(q, k, v, bias, gate, kv, out, lse, dout)
+    dq, dk, dv, dbias, dgate = fn(q, k, v, bias, gate, kv, out, lse, dout,
+                                  dropout_rate=ctx.dropout_rate,
+                                  dropout_seed=seed)
     if dbias is not None:
         dbias = dbias.to(bias.dtype)
     return dq, dk, dv, dbias, dgate
@@ -229,39 +294,50 @@ def attention_backward(ctx, dout):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, gate, kv_len):
-        global launches
-        out = attention_forward(ctx, q, k, v, bias, gate, kv_len)
+    def forward(ctx, q, k, v, bias, gate, kv_len, dropout_rate, seed):
+        global launches, dropout_launches
+        out = attention_forward(ctx, q, k, v, bias, gate, kv_len,
+                                dropout_rate, seed)
         launches += q.is_cuda
+        dropout_launches += q.is_cuda and dropout_rate > 0.0
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        global bwd_launches
+        global bwd_launches, dropout_bwd_launches
         grads = attention_backward(ctx, dout)
         bwd_launches += dout.is_cuda
-        return (*grads, None)
+        dropout_bwd_launches += dout.is_cuda and ctx.dropout_rate > 0.0
+        return (*grads, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     gate: Optional[torch.Tensor] = None,
-                    kv_len=None, dropout_rate: float = 0.0) -> torch.Tensor:
+                    kv_len=None, dropout_rate: float = 0.0,
+                    dropout_seed=None) -> torch.Tensor:
     """q, k, v: [B, H, T, D] → [B, H, T, D]. bias: [H, T, T] or None;
     gate: [B, H, T] or None (requires bias); kv_len: [B] or None (= T).
 
+    ``dropout_rate`` in [0, 1) and ``dropout_seed`` (a Python int, or an
+    int32 tensor of one element on q's device): strict attention dropout
+    with torch semantics (K6), its mask a hash of (seed, b, h, q, k).
+
     A CUDA tensor runs the kernels, a CPU tensor the plain twins; both are
     differentiable in every tensor argument but ``kv_len``."""
-    check_entry(q, k, v, bias, gate, dropout_rate)
-    return _FlashAttention.apply(q, k, v, bias, gate, kv_len)
+    rate, seed = check_entry(q, k, v, bias, gate, dropout_rate, dropout_seed)
+    return _FlashAttention.apply(q, k, v, bias, gate, kv_len, rate, seed)
 
 
-def check_entry(q, k, v, bias, gate, dropout_rate: float) -> None:
-    """The checks of both entry points: shapes, dtype, device, no dropout."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "in-kernel attention dropout is not ported (ROADMAP.md Queue 2, "
-            "K6)")
+def check_entry(q, k, v, bias, gate, dropout_rate: float, dropout_seed):
+    """The checks of both entry points: shapes, dtype, device, the dropout
+    rate in [0, 1) with a seed when it is above 0. Returns (rate, the seed
+    as an int32 tensor of one element on q's device, or None at rate 0)."""
+    rate = check_rate(dropout_rate)
+    if rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
     _check(q, k, v, bias, gate)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+    return rate, (_seed_tensor(dropout_seed, q.device) if rate > 0.0
+                  else None)

@@ -7,7 +7,8 @@ package keeps it apart from the gated kernel for TPU grid order and VMEM
 only (flash_attention_bwd.py:18-25); on the card both entry points run the
 same kernels of ``csrc/flash_attention.cu`` without bias or gate — the
 forward (with the row LSE when autograd needs it) and the two backward
-passes — and each entry point keeps its own launch counts.
+passes, with the strict attention dropout (K6) when asked — and each entry
+point keeps its own launch counts.
 """
 
 from __future__ import annotations
@@ -18,32 +19,40 @@ from .flash_attention import attention_backward, attention_forward, \
     check_entry
 
 # Launches of the CUDA kernels through this entry point (forward, and the
-# backward pair).
+# backward pair), and of those the ones with dropout.
 launches = 0
 bwd_launches = 0
+dropout_launches = 0
+dropout_bwd_launches = 0
 
 
 class _FlashAttentionTrainable(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kv_len):
-        global launches
-        out = attention_forward(ctx, q, k, v, None, None, kv_len)
+    def forward(ctx, q, k, v, kv_len, dropout_rate, seed):
+        global launches, dropout_launches
+        out = attention_forward(ctx, q, k, v, None, None, kv_len,
+                                dropout_rate, seed)
         launches += q.is_cuda
+        dropout_launches += q.is_cuda and dropout_rate > 0.0
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        global bwd_launches
+        global bwd_launches, dropout_bwd_launches
         dq, dk, dv, _, _ = attention_backward(ctx, dout)
         bwd_launches += dout.is_cuda
-        return dq, dk, dv, None
+        dropout_bwd_launches += dout.is_cuda and ctx.dropout_rate > 0.0
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, kv_len=None,
-                              dropout_rate: float = 0.0) -> torch.Tensor:
+                              dropout_rate: float = 0.0,
+                              dropout_seed=None) -> torch.Tensor:
     """q, k, v: [B, H, T, D] → [B, H, T, D]; kv_len: [B] or None (= T).
-    A CUDA tensor runs the kernels, a CPU tensor the plain twins; both are
-    differentiable in q, k and v."""
-    check_entry(q, k, v, None, None, dropout_rate)
-    return _FlashAttentionTrainable.apply(q, k, v, kv_len)
+    ``dropout_rate``/``dropout_seed``: strict attention dropout (K6), as
+    :func:`~.flash_attention.flash_attention` takes them. A CUDA tensor
+    runs the kernels, a CPU tensor the plain twins; both are differentiable
+    in q, k and v."""
+    rate, seed = check_entry(q, k, v, None, None, dropout_rate, dropout_seed)
+    return _FlashAttentionTrainable.apply(q, k, v, kv_len, rate, seed)

@@ -21,16 +21,19 @@ one device on one host:
   TensorBoard scalars when ``tensorboardX`` imports.
 
 Each step runs the model in training mode (dropout from a seeded
-``torch.Generator`` on the device, LayerDrop, BatchNorm batch statistics):
+``torch.Generator`` on the device, LayerDrop, BatchNorm batch statistics;
+with ``training.strict_attention_dropout`` the attention-probability
+dropout inside the attention kernels, K6, its seeds drawn from the same
+generator):
 CE + subframe_weight · offset (+ the optional soft-IoU term), backward
 through the hand-written attention kernels, and the optimizer. The
 segmental term is a value-only metric on the host, as in the reference.
 
 Not ported (a config that asks for one raises ``NotImplementedError``
 naming ROADMAP.md): data/tensor/pipeline parallelism, FSDP, sequence
-parallelism, multi-host and sharded validation, remat, strict attention
-dropout (K6), the orbax format, the optax-only optimizers; validation
-figures are not drawn.
+parallelism, multi-host and sharded validation, remat, the orbax format,
+the optax-only optimizers; validation figures are not drawn. Validation runs
+in eval mode, without dropout.
 
     python -m wfl_asr_tpu_torch.train CONFIG [--device cuda|cpu]
 """
@@ -96,10 +99,6 @@ def check_supported(cfg: Config) -> None:
     if (isinstance(remat, str) and remat.strip().lower() == "auto") \
             or (not isinstance(remat, str) and bool(remat)):
         raise _not_ported("training.remat (gradient checkpointing)")
-    overrides = cfg._sec("model").get("encoder_arch_overrides") or {}
-    if bool(t.get("strict_attention_dropout", False)) \
-            or bool(overrides.get("strict_attention_dropout", False)):
-        raise _not_ported("training.strict_attention_dropout (kernel K6)")
     fmt = str(cfg._sec("output").get("checkpoint_format", "pt"))
     if fmt != "pt":
         raise _not_ported(f"output.checkpoint_format {fmt!r}")
