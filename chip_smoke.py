@@ -33,7 +33,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``.lab`` files in two languages, ``preprocess``, then ``train`` on the
    card (the default recipe: Prodigy at lr 1, dropout at its config values,
    f32, batch 8, 6 steps, validation every 3) with the launch counts reset
-   just before and read just after (12 K2b and 2 K1b launches a step);
+   just before and read just after (12 K2b launches a step on the FMA
+   pair, 2 K1b on the mma.sync pair);
    step times, audio-seconds trained per second, peak memory, one profiled
    step, ``last_model.pt`` reloaded to the same logits, ``best_model.pt``
    served by ``infer_folder_batched``, a bf16 step;
@@ -46,14 +47,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 Phase 3 includes 3b: the backward kernels (K2b, K1b) through
 ``flash_attention(...)`` / ``flash_attention_trainable(...)`` then
 ``.backward``, at the training shapes, against
-``attention_backward_plain``; 3c: strict attention dropout (K6) inside all
+``attention_backward_plain``, each shown by the launch counts to run the
+pair ``backward_route`` names (K1b: the mma.sync pair of
+``attention_bwd_mma.cu``; K2b: the FMA pair of ``flash_attention.cu``);
+3c: strict attention dropout (K6) inside all
 four, forward and backward, at the main shapes in f32 and bf16 at rates 0.1
 and 0.15 against the plain twins with the same mask, timed with and without
 dropout beside SDPA with ``dropout_p`` (the bf16 forward held element by
 element to its rounding bound, and a mask of another seed shown to fail
-the same limit); 3d: the mask of each forward variant (f32 FMA, bf16
-``mma.sync``, bf16 WMMA), read off bit for bit at T=1499 over every query
-and key tile, and the kept share at the main shape.
+the same limit; K1b's backward shown to fail the plain twin of seed + 1);
+the head-width sweep, with bias at 16-512 and bias-free at 144, 384 and
+512; 3d: the mask of each forward variant (f32 FMA, bf16 ``mma.sync``,
+bf16 WMMA), read off bit for bit at T=1499 over every query and key tile,
+and the kept share at the main shape.
 
 Phase 6 includes 6b: the flagship recipe with
 ``training.strict_attention_dropout: true`` (4 steps, validation at the
@@ -95,6 +101,9 @@ PEAK_INT32_OPS = 16.7e12
 HASH_OPS = 12
 DROP_RATES = (0.1, 0.15)
 DROP_SEED = 1234567
+# The profiler's names of the kernels of ops/kernels/csrc/*.cu
+PORT_KERNELS = tuple(f"void (anonymous namespace)::{k}" for k in (
+    "flash_fwd_", "flash_bwd_", "attn_bwd_", "conv_chain_kernel"))
 
 # Tolerances of a kernel against its plain twin on the card, as fractions
 # of the reference output's largest magnitude (≈ 1 on the inputs below):
@@ -285,6 +294,24 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
                 bound_by=by, library_ms=library_ms)
 
 
+def pair_launch(grad, d, with_bias, what):
+    """Run one backward (``grad()``) and check that it launched the pair
+    it should, once, and not the other: bias-free at head_dim > 128 the
+    mma.sync pair of ``attention_bwd_mma.cu``, else the FMA pair of
+    ``flash_attention.cu``. Each pair's count rises in the branch of
+    ``launch_backward`` that calls its library, after the launch returned
+    no error. Returns what ``grad()`` did."""
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    before = fa.mma_bwd_launches, fa.fma_bwd_launches
+    got = grad()
+    rose = (fa.mma_bwd_launches - before[0], fa.fma_bwd_launches - before[1])
+    want = (1, 0) if not with_bias and d > 128 else (0, 1)
+    if rose != want:
+        raise AssertionError(f"{what}: backward launches (mma, fma) rose by "
+                             f"{rose}, want {want}")
+    return got
+
+
 def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
     """One backward entry point (``flash_attention(...)`` or
     ``flash_attention_trainable(...)`` followed by ``.backward``) against
@@ -313,7 +340,7 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
 
     def entry():
         return torch.autograd.grad(out, leaves, dout, retain_graph=True)
-    got = entry()
+    got = pair_launch(entry, d, with_bias, f"{name} {dtype}")
     with torch.no_grad():
         ref_out, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
                                               return_lse=True)
@@ -473,42 +500,57 @@ def phase_kernels(iters: int) -> dict:
 def head_dims(gen) -> None:
     """Every kernel variant of the attention, forward and backward, at a
     small shape: bf16 and f32 at head widths from 16 to 512 (the main path
-    runs 64 and 384), with bias, gate and a ragged key length, against the
-    plain twins."""
+    runs 64 and 384) with bias, gate and a ragged key length, and bias-free
+    (``flash_attention_trainable``; its backward on the mma.sync pair) at
+    144, 384 and 512, against the plain twins."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
+        flash_attention_trainable
+    cases = ([(d, True) for d in (16, 48, 128, 144, 512)]
+             + [(d, False) for d in (144, 384, 512)])
     errs = {}
     for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for d in (16, 48, 128, 144, 512):
-            q, k, v, bias, gate = attn_inputs(gen, (2, 2, 203, d), tdt, True)
-            bias = bias.float()
+        for d, with_bias in cases:
+            what = f"{dtype} head_dim {d}{'' if with_bias else ' bias-free'}"
+            q, k, v, bias, gate = attn_inputs(gen, (2, 2, 203, d), tdt,
+                                              with_bias)
+            if with_bias:
+                bias = bias.float()
             kv = torch.tensor([203, 77], dtype=torch.int32, device="cuda")
+
+            def entry():
+                if with_bias:
+                    return fa.flash_attention(q, k, v, bias, gate, kv)
+                return flash_attention_trainable(q, k, v, kv)
             with torch.inference_mode():
-                out = fa.flash_attention(q, k, v, bias, gate, kv)
+                out = entry()
             ref, lse = fa.attention_plain(q, k, v, bias, gate, kv,
                                           return_lse=True)
             scale = ref.float().abs().max().item()
             err = (out.float() - ref.float()).abs().max().item()
             if not err <= ATTN_TOL[dtype] * scale:
-                raise AssertionError(f"attention {dtype} head_dim {d}: max abs "
-                                     f"diff {err} exceeds {ATTN_TOL[dtype]}"
-                                     f"×{scale}")
-            leaves = [x.requires_grad_() for x in (q, k, v, bias, gate)]
+                raise AssertionError(f"attention {what}: max abs diff {err} "
+                                     f"exceeds {ATTN_TOL[dtype]}×{scale}")
+            leaves = [x.requires_grad_() for x in (q, k, v, bias, gate)
+                      if x is not None]
             dout = torch.rand_like(q) * 2 - 1
-            got = torch.autograd.grad(fa.flash_attention(q, k, v, bias, gate,
-                                                         kv), leaves, dout)
+            got = pair_launch(lambda: torch.autograd.grad(entry(), leaves,
+                                                          dout),
+                              d, with_bias, f"attention backward {what}")
             want = fa.attention_backward_plain(q, k, v, bias, gate, kv, ref,
                                                lse, dout)
             rel = max((g.float() - w.float()).abs().max().item()
                       / w.float().abs().max().item()
                       for g, w in zip(got, want))
-            errs[(dtype, d)] = (err, rel)
+            errs[what] = (err, rel)
             if not rel <= GRAD_TOL[dtype]:
-                raise AssertionError(f"attention backward {dtype} head_dim "
-                                     f"{d}: max diff {rel} × max|grad|")
-    log("[kernel] attention head widths 16/48/128/144/512, f32 and bf16: "
-        "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
-            f"{k[0]}/{k[1]}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
+                raise AssertionError(f"attention backward {what}: max diff "
+                                     f"{rel} × max|grad|")
+    log("[kernel] attention head widths, with bias 16/48/128/144/512 and "
+        "bias-free 144/384/512, f32 and bf16: forward max_abs_err, backward "
+        "max diff / max|grad| " + ", ".join(
+            f"{k}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -600,7 +642,9 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
     with torch.inference_mode():
         out = entry(rate)
     outs = {r: entry(r) for r in (0.0, rate)}       # with autograd
-    got = torch.autograd.grad(outs[rate], leaves, dout, retain_graph=True)
+    got = pair_launch(lambda: torch.autograd.grad(
+        outs[rate], leaves, dout, retain_graph=True), d, with_bias,
+        f"{name} {dtype} rate {rate}")
     with torch.no_grad():
         ref, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
                                           return_lse=True, dropout_rate=rate,
@@ -608,6 +652,20 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
         want = [g for g in fa.attention_backward_plain(
             q, k, v, bias, gate, kv_len, ref, ref_lse, dout,
             dropout_rate=rate, dropout_seed=seed) if g is not None]
+        # the mma.sync backward's mask map: the plain twin with the mask of
+        # seed + 1 must be outside the tolerance of some gradient
+        wrong_bwd = None
+        if fa.backward_route(d, with_bias) == "mma":
+            wrong_bwd = max(
+                ((g.float() - w.float()).abs().max()
+                 / w.float().abs().max()).item()
+                for g, w in zip(got, fa.attention_backward_plain(
+                    q, k, v, bias, gate, kv_len, ref, ref_lse, dout,
+                    dropout_rate=rate, dropout_seed=seed + 1)[:3]))
+            if not wrong_bwd > GRAD_TOL[dtype]:
+                raise AssertionError(
+                    f"{name} {dtype} rate {rate}: the backward passes the "
+                    f"plain twin of seed + 1 ({wrong_bwd} × max|grad|)")
         lim, ref32, wrong = _drop_fwd_limit(q, k, v, bias, gate, kv_len,
                                             rate, seed, dtype)
     torch.cuda.synchronize()
@@ -678,7 +736,10 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
         f"{_limit_text(dtype)}; seed+1's mask: {wrong_over} elements "
         f"over, {wrong_share:.4f} of all) backward " + " ".join(f"{n}={e:.3e}/{s:.3g}"
                                 for n, (e, s) in errs.items())
-        + f" (tol {GRAD_TOL[dtype]:g}×max); forward ms={f_ms:.4f} "
+        + f" (tol {GRAD_TOL[dtype]:g}×max"
+        + ("" if wrong_bwd is None else
+           f"; seed+1's plain twin {wrong_bwd:.3e}×max")
+        + f"); forward ms={f_ms:.4f} "
         f"(no dropout {f0_ms:.4f}; turns {', '.join(f'{x:.4f}' for x in fwd_ms)}) "
         f"plain_ms={plain_ms:.4f} sdpa_dropout_ms={fmt(sdpa_fwd)} "
         f"bound_ms={f_bound:.4f} ({f_by}); backward ms={b_ms:.4f} "
@@ -909,9 +970,12 @@ def phase_main(root: str, iters: int) -> dict:
 
 
 def profile_step(step, what: str = "one bf16 step", top: int = 12) -> None:
-    """Device time by kernel over one step (torch.profiler), and the
-    device's busy share of the step's wall time. ``step()`` returns a tuple
-    whose first element is moved to the host to end the step."""
+    """Device time by kernel over one step (torch.profiler): the ``top``
+    kernels and every hand-written one, and the device's busy share of the
+    step's wall time. ``step()`` returns a tuple
+    whose first element is moved to the host to end the step. Returns the
+    wall and busy ms, the idle share and {kernel name: [device µs,
+    launches]}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -946,10 +1010,27 @@ def profile_step(step, what: str = "one bf16 step", top: int = 12) -> None:
     log(f"[profile] {what}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms (idle share {1 - busy / wall_us:.3f}), "
         f"{sum(v[1] for v in by_name.values())} kernels")
-    for name, (us, count) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][0])[:top]:
-        log(f"[profile] {us / 1e3:9.3f} ms {100 * us / max(total, 1):5.1f}% "
-            f"x{count:<5d} {name[:90]}")
+    # the top rows, then the kernels of csrc/*.cu that fall below them
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (us, count)) in enumerate(ranked):
+        if i < top or name.startswith(PORT_KERNELS):
+            log(f"[profile] {us / 1e3:9.3f} ms "
+                f"{100 * us / max(total, 1):5.1f}% x{count:<5d} {name[:90]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle": 1 - busy / wall_us, "kernels": by_name}
+
+
+def profiled_pairs(prof: dict, what: str) -> None:
+    """The profiler's kernel names as a second witness of the launch counts:
+    a train step runs each kernel of the mma.sync pair twice (2 K1b
+    backwards) and each kernel of the FMA pair 12 times (12 K2b)."""
+    want = {"attn_bwd_dkdv_mma": 2, "attn_bwd_dq_mma": 2,
+            "flash_bwd_dkdv": 12, "flash_bwd_dq": 12}
+    got = {part: sum(n for name, (_, n) in prof["kernels"].items()
+                     if f"::{part}<" in name) for part in want}
+    if got != want:
+        raise AssertionError(f"{what}: profiled backward kernels {got}, "
+                             f"want {want}")
 
 
 def lstm_dtypes(model) -> None:
@@ -1163,16 +1244,20 @@ def phase_train(root: str) -> dict:
     counts = {"flash_attention": flash_attention.launches,
               "flash_attention_bwd": flash_attention.bwd_launches,
               "flash_attention_trainable": flash_attention_bwd.launches,
-              "flash_attention_trainable_bwd": flash_attention_bwd.bwd_launches}
+              "flash_attention_trainable_bwd": flash_attention_bwd.bwd_launches,
+              "fma pair": flash_attention.fma_bwd_launches,
+              "mma pair": flash_attention.mma_bwd_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[train] kernel launches over {TRAIN_STEPS} steps + 2 validations: "
         f"{json.dumps(counts)}")
     want = {"flash_attention_bwd": 12 * TRAIN_STEPS,
-            "flash_attention_trainable_bwd": 2 * TRAIN_STEPS}
+            "flash_attention_trainable_bwd": 2 * TRAIN_STEPS,
+            "fma pair": 12 * TRAIN_STEPS, "mma pair": 2 * TRAIN_STEPS}
     if any(counts[k] != n for k, n in want.items()) or min(
             counts.values()) < 1:
         raise AssertionError(f"training launches {counts}: want every "
-                             f"kernel > 0 and per step 12 K2b, 2 K1b")
+                             f"kernel > 0 and per step 12 K2b (FMA pair), "
+                             f"2 K1b (mma.sync pair)")
 
     with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
         events = [json.loads(line) for line in f]
@@ -1253,8 +1338,9 @@ def phase_train(root: str) -> dict:
                                   compute_dtype=dtype, generator=gen)
         return m["loss"], m
     step()
-    profile_step(step, what=f"one f32 train step (batch {batch['audio'].shape})",
-                 top=16)
+    profiled_pairs(profile_step(
+        step, what=f"one f32 train step (batch {batch['audio'].shape})",
+        top=24), "phase 6")
     bf16_ms = time_ms(lambda: step(torch.bfloat16), iters=3, warmup=1)
     bf16_loss = float(step(torch.bfloat16)[0])
     f32_ms = time_ms(step, iters=3, warmup=0)
@@ -1344,18 +1430,22 @@ def phase_train_strict(root: str, base: dict) -> dict:
             "K2b dropout": flash_attention.dropout_bwd_launches,
             "K1b dropout": flash_attention_bwd.dropout_bwd_launches,
             "K2 all": flash_attention.launches,
-            "K1 all": flash_attention_bwd.launches}
+            "K1 all": flash_attention_bwd.launches,
+            "fma pair": flash_attention.fma_bwd_launches,
+            "mma pair": flash_attention.mma_bwd_launches}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[train-strict] kernel launches over {STRICT_STEPS} strict "
             f"steps + 1 validation: {json.dumps(counts)}")
         want = {"K2 dropout": 12 * STRICT_STEPS,
                 "K1 dropout": 2 * STRICT_STEPS,
                 "K2b dropout": 12 * STRICT_STEPS,
-                "K1b dropout": 2 * STRICT_STEPS}
+                "K1b dropout": 2 * STRICT_STEPS,
+                "fma pair": 12 * STRICT_STEPS,
+                "mma pair": 2 * STRICT_STEPS}
         if any(counts[k] != n for k, n in want.items()):
             raise AssertionError(f"strict training launches {counts}: want "
-                                 f"per step 12 K2, 2 K1, 12 K2b, 2 K1b with "
-                                 f"dropout")
+                                 f"per step 12 K2, 2 K1, 12 K2b (FMA pair), "
+                                 f"2 K1b (mma.sync pair) with dropout")
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             events = [json.loads(line) for line in f]
         losses = [e["loss"] for e in events if e["event"] == "train"]
@@ -1402,7 +1492,8 @@ def phase_train_strict(root: str, base: dict) -> dict:
             f"{ab[0]:.2f} against {ab[1]:.2f} ms ({ab[0] / ab[1]:.4f}×); "
             f"peak memory strict {peaks[True]:.3f} against "
             f"{peaks[False]:.3f} GiB ({peaks[True] / peaks[False]:.4f}×)")
-        profile_step(step, what="one strict f32 train step", top=12)
+        profiled_pairs(profile_step(step, what="one strict f32 train step",
+                                    top=24), "phase 6b")
         bf16_loss = float(step(torch.bfloat16)[0])
         log(f"[train-strict] one bf16 strict step: loss {bf16_loss:.4f}")
         if not math.isfinite(bf16_loss):
@@ -1511,6 +1602,8 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
                                flash_attention_bwd.dropout_launches,
                                flash_attention.dropout_bwd_launches,
                                flash_attention_bwd.dropout_bwd_launches]
+                pairs = [flash_attention.fma_bwd_launches,
+                         flash_attention.mma_bwd_launches]
             n_draws = len(draws)
             del model
     finally:
@@ -1520,6 +1613,9 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
     if drop_counts != want or n_draws != (14 if strict else 0):
         raise AssertionError(f"dropout launches on the card {drop_counts} "
                              f"(want {want}), seeds drawn {n_draws}")
+    if pairs != [12, 2]:
+        raise AssertionError(f"backward pairs on the card (FMA, mma.sync) "
+                             f"{pairs}, want [12, 2]")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     gmax = max(g.abs().max().item() for g in g_cpu.values())
     worst, worst_name = 0.0, ""
@@ -1540,6 +1636,7 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
     what = ("strict attention dropout (WavLM 0.1, Conformer 0.15; fixed "
             "seeds; dropout launches on the card K2/K1/K2b/K1b "
             f"{drop_counts})" if strict else "dropout 0")
+    what += f"; backward pairs on the card (FMA, mma.sync) {pairs}"
     log(f"[cross-train] one f32 train step (TF32 off), B=2×8 s, {what}: "
         f"loss card {l_card:.7f} vs CPU {l_cpu:.7f} (rel {loss_rel:.2e}, tol "
         f"1e-5); {len(g_cpu)} gradients, worst {worst:.2e} × max|g| "
@@ -1569,7 +1666,7 @@ KERNEL_ROWS = [
      "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention.py:262"),
     ("K1b", "flash_attention_trainable_bwd", "flash_attention_trainable_bwd",
-     "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
 ]
 # The inference kernels report their bf16 case (the served path's dtype),

@@ -213,7 +213,8 @@ def test_port_sources_never_import_jax():
     files = []
     for root, _, names in os.walk(os.path.join(REPO, "wfl_asr_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, n) for n in ("chip_smoke.py",
+                                              "train_step_ab.py")]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(open(path).read(), path)

@@ -4,7 +4,8 @@ and training paths, each beside its plain PyTorch twin.
 | port module                 | kernel source               | TPU kernels replaced (``ops/pallas/``)                                   |
 | --------------------------- | --------------------------- | ------------------------------------------------------------------------ |
 | ``flash_attention``         | ``csrc/flash_attention.cu`` | ``flash_attention.py``: ``_flash_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` |
-| ``flash_attention_bwd``     | ``csrc/flash_attention.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` |
+| ``flash_attention_bwd``     | ``csrc/flash_attention.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel``                              |
+| ``flash_attention_bwd``     | ``csrc/attention_bwd_mma.cu`` | ``flash_attention_bwd.py``: ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head_dim > 128) |
 | ``conv_fused``              | ``csrc/conv_fused.cu``      | ``conv_fused.py``: ``_kernel``                                           |
 | ``dropout_mask``            | ``csrc/common.cuh``         | ``dropout_mask.py``: ``uniform24``, ``keep_mask_f32`` (inside the attention kernels) |
 
@@ -12,7 +13,7 @@ Sources build with ``nvcc`` at first use (``_build.py``); importing these
 modules needs no CUDA.
 """
 
-KERNEL_SOURCES = ("flash_attention", "conv_fused")
+KERNEL_SOURCES = ("flash_attention", "attention_bwd_mma", "conv_fused")
 
 
 def reset_launch_counts() -> None:
@@ -21,4 +22,5 @@ def reset_launch_counts() -> None:
     for mod in (flash_attention, flash_attention_bwd):
         mod.launches = mod.bwd_launches = 0
         mod.dropout_launches = mod.dropout_bwd_launches = 0
+    flash_attention.fma_bwd_launches = flash_attention.mma_bwd_launches = 0
     conv_fused.launches.clear()

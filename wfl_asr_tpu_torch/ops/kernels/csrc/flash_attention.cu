@@ -55,6 +55,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -400,50 +401,8 @@ flash_fwd_wmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // A thread holds rows g = lane/4 and g + 8 of its warp's 16, and columns
 // 2·(lane%4) + {0, 1} of each 8-wide tile; row statistics reduce over the
 // 4 threads of a quad, and the row sum l stays per thread until the end.
+// The mma.sync/ldmatrix helpers are in mma.cuh.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a · b for one m16n8k16 tile (bf16 in, f32 accumulate)
-__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaBQ = 16 * kMmaWarps;
@@ -743,6 +702,9 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 // Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_bwd_dkdv_kernel and
 // _bwd_dq_kernel (K2b) and flash_attention_bwd.py:_bwd_dkdv_kernel and
 // _bwd_dq_kernel (K1b); the TPU package keeps K1b apart only for grid order.
+// Bias-free calls at head_dim > 128 (K1b on the main path) run the
+// tensor-core pair of attention_bwd_mma.cu instead; these kernels serve
+// every call with a bias and bias-free calls up to head_dim 128.
 //
 // - dK/dV pass (flash_bwd_dkdv): one block per (key tile, h, b) loops over
 //   the query tiles: S (gated bias, key mask before the exp), P, dP = dO·Vᵀ,

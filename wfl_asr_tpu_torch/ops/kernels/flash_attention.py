@@ -13,7 +13,9 @@ backward.
   run (f32 or bf16 in, f32 softmax and accumulation): the forward, which
   also writes the row logsumexp (LSE) when autograd will need it, and the
   two backward passes (dK/dV; dQ with dGate and dBias), which recompute
-  P = exp(S − LSE) tile by tile. On a CPU tensor the plain twins
+  P = exp(S − LSE) tile by tile. A bias-free backward at head_dim > 128
+  runs the tensor-core pair of ``csrc/attention_bwd_mma.cu`` instead
+  (:func:`backward_route`). On a CPU tensor the plain twins
   :func:`attention_plain` and :func:`attention_backward_plain` run. Nothing
   falls back: a kernel that fails to build or launch raises.
 - ``dropout_rate`` > 0 with a ``dropout_seed`` runs strict attention
@@ -42,6 +44,21 @@ launches = 0
 bwd_launches = 0
 dropout_launches = 0
 dropout_bwd_launches = 0
+# Launches of each backward pair, counted in the branch of
+# launch_backward that runs it: the FMA pair of flash_attention.cu, the
+# mma.sync pair of attention_bwd_mma.cu.
+fma_bwd_launches = 0
+mma_bwd_launches = 0
+
+# Head widths above this, without a bias, take the mma.sync backward pair.
+MMA_BWD_MIN_D = 128
+
+
+def backward_route(d: int, has_bias: bool) -> str:
+    """Which backward pair a CUDA call runs: ``"mma"`` (the tensor-core
+    pair of ``csrc/attention_bwd_mma.cu``) for a bias-free call at head_dim
+    > 128, else ``"fma"`` (the FMA pair of ``csrc/flash_attention.cu``)."""
+    return "mma" if not has_bias and d > MMA_BWD_MIN_D else "fma"
 
 
 def _prep_kv_len(kv_len, b: int, t: int, device) -> torch.Tensor:
@@ -220,42 +237,79 @@ def _dtype_code(q: torch.Tensor) -> int:
 
 def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
                     dropout_rate: float = 0.0, dropout_seed=None):
-    """Run both backward passes of ``csrc/flash_attention.cu`` on CUDA
-    tensors (no launch count). Same contract as
+    """Run both backward passes on CUDA tensors: the pair
+    :func:`backward_route` names, with no fallback from one to the other,
+    each counted where it launches (``mma_bwd_launches``,
+    ``fma_bwd_launches``). Same contract as
     :func:`attention_backward_plain`; ``delta = rowsum(dO·O)`` is a plain
     f32 torch op here, as the JAX package leaves it to XLA."""
+    global fma_bwd_launches
     _check(q, k, v, bias, gate)
     if not q.is_cuda:
         raise ValueError("launch_backward needs CUDA tensors")
     b, h, t, d = q.shape
-    lib = _build.library("flash_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = dout.to(q.dtype).contiguous()
     delta = (dout.float() * out.float()).sum(-1).contiguous()
+    kv = _prep_kv_len(kv_len, b, t, q.device)
+    lse = lse.contiguous()
+    seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
+    if backward_route(d, bias is not None) == "mma":
+        dq, dk, dv = _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr,
+                                 drop_scale)
+        return dq, dk, dv, None, None
+    lib = _build.library("flash_attention")
     if bias is not None:
         bias = bias.to(q.dtype).contiguous()
     if gate is not None:
         gate = gate.float().contiguous()
-    kv = _prep_kv_len(kv_len, b, t, q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = (torch.zeros((h, t, t), dtype=torch.float32, device=q.device)
              if bias is not None else None)
     dgate = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
              if gate is not None else None)
-    seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
     fn = lib.wfl_flash_attention_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-             _ptr(gate), dout.data_ptr(), lse.contiguous().data_ptr(),
-             delta.data_ptr(), kv.data_ptr(), _ptr(seed), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t,
-             d, 1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
+             _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t, d,
+             1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
              _build.stream_ptr(q.device))
     _build.check(lib, err, "flash_attention backward")
+    fma_bwd_launches += 1
     return dq, dk, dv, dbias, dgate
+
+
+def _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale):
+    """The bias-free tensor-core backward pair of
+    ``csrc/attention_bwd_mma.cu`` on the tensors :func:`launch_backward`
+    has checked and laid out (the launcher itself refuses a head_dim
+    outside (128, 512]). The dK/dV pass leaves dS in a [B, H, T,
+    ⌈T/32⌉·32] workspace of q's dtype for the dQ pass. Returns (dq, dk,
+    dv) in q's dtype."""
+    global mma_bwd_launches
+    b, h, t, d = q.shape
+    lib = _build.library("attention_bwd_mma")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ldk = -(-t // 32) * 32
+    ds = torch.empty((b, h, t, ldk), dtype=q.dtype, device=q.device)
+    fn = lib.wfl_attention_bwd_mma
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), kv.data_ptr(), _ptr(seed),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ds.data_ptr(), b,
+             h, t, d, ldk, 1.0 / math.sqrt(d), thr, drop_scale,
+             _dtype_code(q), _build.stream_ptr(q.device))
+    _build.check(lib, err, "attention_bwd_mma")
+    mma_bwd_launches += 1
+    return dq, dk, dv
 
 
 def attention_forward(ctx, q, k, v, bias, gate, kv_len, dropout_rate=0.0,
@@ -280,8 +334,8 @@ def attention_forward(ctx, q, k, v, bias, gate, kv_len, dropout_rate=0.0,
 
 def attention_backward(ctx, dout):
     """(dq, dk, dv, dbias, dgate) for the saved inputs: the backward
-    kernels on CUDA, the plain twin on the CPU. dBias comes back in the
-    bias's dtype, dGate in f32."""
+    kernels on CUDA (the pair :func:`backward_route` names), the plain twin
+    on the CPU. dBias comes back in the bias's dtype, dGate in f32."""
     q, k, v, bias, gate, kv, out, lse, seed = ctx.saved_tensors
     fn = launch_backward if q.is_cuda else attention_backward_plain
     dq, dk, dv, dbias, dgate = fn(q, k, v, bias, gate, kv, out, lse, dout,
