@@ -33,8 +33,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``.lab`` files in two languages, ``preprocess``, then ``train`` on the
    card (the default recipe: Prodigy at lr 1, dropout at its config values,
    f32, batch 8, 6 steps, validation every 3) with the launch counts reset
-   just before and read just after (12 K2b launches a step on the FMA
-   pair, 2 K1b on the mma.sync pair);
+   just before and read just after (12 K2b launches a step on the
+   mma.sync passes with a bias, 2 K1b on the mma.sync pair, none on the
+   FMA pair);
    step times, audio-seconds trained per second, peak memory, one profiled
    step, ``last_model.pt`` reloaded to the same logits, ``best_model.pt``
    served by ``infer_folder_batched``, a bf16 step;
@@ -48,25 +49,28 @@ Phase 3 includes 3b: the backward kernels (K2b, K1b) through
 ``flash_attention(...)`` / ``flash_attention_trainable(...)`` then
 ``.backward``, at the training shapes, against
 ``attention_backward_plain``, each shown by the launch counts to run the
-pair ``backward_route`` names (K1b: the mma.sync pair of
-``attention_bwd_mma.cu``; K2b: the FMA pair of ``flash_attention.cu``);
-3c: strict attention dropout (K6) inside all
-four, forward and backward, at the main shapes in f32 and bf16 at rates 0.1
-and 0.15 against the plain twins with the same mask, timed with and without
-dropout beside SDPA with ``dropout_p`` (the bf16 forward held element by
-element to its rounding bound, and a mask of another seed shown to fail
-the same limit; K1b's backward shown to fail the plain twin of seed + 1);
-the head-width sweep, with bias at 16-512 and bias-free at 144, 384 and
-512; 3d: the mask of each forward variant (f32 FMA, bf16 ``mma.sync``,
-bf16 WMMA), read off bit for bit at T=1499 over every query and key tile,
-and the kept share at the main shape.
+route ``backward_route`` names (K1b: the mma.sync pair of
+``attention_bwd_mma.cu``; K2b: the three mma.sync passes of
+``attention_bwd_bias_mma.cu``, dK/dV, dQ and dBias/dGate; other widths
+with a bias: the FMA pair of ``flash_attention.cu``), with the device
+time of each kernel of the call; 3c: strict attention dropout (K6) inside
+all four, forward and backward, at the main shapes in f32 and bf16 at
+rates 0.1 and 0.15 against the plain twins with the same mask, timed with
+and without dropout beside SDPA with ``dropout_p`` (the bf16 forward held
+element by element to its rounding bound, and a mask of another seed
+shown to fail the same limit; K1b's and K2b's backwards shown to fail the
+plain twin of seed + 1); the head-width sweep, with bias at 16-512 (64 on
+the mma.sync passes, there also without gate) and bias-free at 144, 384
+and 512; 3d: the mask of each forward variant (f32 FMA, bf16
+``mma.sync``, bf16 WMMA), read off bit for bit at T=1499 over every query
+and key tile, and the kept share at the main shape.
 
 Phase 6 includes 6b: the flagship recipe with
 ``training.strict_attention_dropout: true`` (4 steps, validation at the
 last) with the plain attention twins replaced by stubs that raise; 12 K2 +
-2 K1 dropout forwards and 12 K2b + 2 K1b dropout backwards a step; step
-times strict against not, on one batch in turns; peak memory; a profiled
-strict step; a bf16 strict step. Phase 7 includes 7b: one strict f32 train
+2 K1 dropout forwards and 12 K2b + 2 K1b dropout backwards a step, each
+on its mma.sync route; step times strict against not, on one batch in
+turns; peak memory; a profiled strict step; a bf16 strict step. Phase 7 includes 7b: one strict f32 train
 step, the card against the CPU, with fixed attention seeds.
 """
 
@@ -86,9 +90,12 @@ import time
 import numpy as np
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
-# FLOP/s for bf16 on tensor cores and f32 outside them.
+# FLOP/s for bf16 on tensor cores and f32 outside them. "tf32x3" is the
+# ceiling of f32 work done as three TF32 products on the tensor cores
+# (495 TFLOP/s over 3), as the f32 routes of the mma backward pairs do it;
+# their f32 bound is taken at that rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 # INT32 operations/s: 64 INT32 lanes a SM against 128 FP32 ones (Hopper
 # architecture white paper), at the clock of the 67 TFLOP/s f32 figure
 # (132 SMs × 64 × 1.98 GHz). The dropout hash (K6) costs HASH_OPS of them
@@ -103,7 +110,8 @@ DROP_RATES = (0.1, 0.15)
 DROP_SEED = 1234567
 # The profiler's names of the kernels of ops/kernels/csrc/*.cu
 PORT_KERNELS = tuple(f"void (anonymous namespace)::{k}" for k in (
-    "flash_fwd_", "flash_bwd_", "attn_bwd_", "conv_chain_kernel"))
+    "flash_fwd_", "flash_bwd_", "attn_bwd_", "attn_bias_bwd_",
+    "conv_chain_kernel"))
 
 # Tolerances of a kernel against its plain twin on the card, as fractions
 # of the reference output's largest magnitude (≈ 1 on the inputs below):
@@ -204,8 +212,18 @@ def ptxas_summary(text: str):
     return [f"{n}: {o}" for n, o in zip(short, out)]
 
 
+def bwd_rate(d: int, with_bias: bool, dtype: str) -> str:
+    """The ``PEAK_FLOPS`` key of a backward's products: the 3×TF32
+    ceiling for f32 on a tensor-core route, else the dtype's own."""
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    if dtype == "f32" and fa.backward_route(d, with_bias) != "fma":
+        return "tf32x3"
+    return dtype
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str, int_ops: float = 0.0):
-    """The least time, ms: the largest of ``flops`` over the dtype's peak,
+    """The least time, ms: the largest of ``flops`` over the peak of
+    ``dtype`` (a ``PEAK_FLOPS`` key),
     ``int_ops`` over the INT32 rate and ``nbytes`` over the HBM rate. The
     INT32 lanes are a pipe of their own beside the FP32 lanes and the
     tensor cores, so the two operation times overlap and are not added."""
@@ -294,22 +312,51 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
                 bound_by=by, library_ms=library_ms)
 
 
+def route_counts():
+    """The launch counts of the three backward routes: (the mma.sync
+    passes with a bias, the bias-free mma.sync pair, the FMA pair)."""
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    return [fa.mma_bias_bwd_launches, fa.mma_bwd_launches,
+            fa.fma_bwd_launches]
+
+
 def pair_launch(grad, d, with_bias, what):
-    """Run one backward (``grad()``) and check that it launched the pair
-    it should, once, and not the other: bias-free at head_dim > 128 the
-    mma.sync pair of ``attention_bwd_mma.cu``, else the FMA pair of
-    ``flash_attention.cu``. Each pair's count rises in the branch of
+    """Run one backward (``grad()``) and check that it launched the route
+    it should, once, and no other: with a bias at head_dim 64 the mma.sync
+    passes of ``attention_bwd_bias_mma.cu``, bias-free at head_dim > 128
+    the mma.sync pair of ``attention_bwd_mma.cu``, else the FMA pair of
+    ``flash_attention.cu``. Each route's count rises in the branch of
     ``launch_backward`` that calls its library, after the launch returned
     no error. Returns what ``grad()`` did."""
-    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
-    before = fa.mma_bwd_launches, fa.fma_bwd_launches
+    before = route_counts()
     got = grad()
-    rose = (fa.mma_bwd_launches - before[0], fa.fma_bwd_launches - before[1])
-    want = (1, 0) if not with_bias and d > 128 else (0, 1)
+    rose = [n - m for n, m in zip(route_counts(), before)]
+    if with_bias:
+        want = [1, 0, 0] if d == 64 else [0, 0, 1]
+    else:
+        want = [0, 1, 0] if d > 128 else [0, 0, 1]
     if rose != want:
-        raise AssertionError(f"{what}: backward launches (mma, fma) rose by "
-                             f"{rose}, want {want}")
+        raise AssertionError(f"{what}: backward launches (mma bias, mma, "
+                             f"fma) rose by {rose}, want {want}")
     return got
+
+
+def device_ms_by_kernel(fn, reps: int = 3) -> dict:
+    """Device ms a call of ``fn()`` spends in each kernel of ``csrc/``
+    (torch.profiler over ``reps`` calls), by the kernel's short name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.key.startswith(PORT_KERNELS):
+            short = evt.key.split("::", 1)[1].split("(")[0]
+            out[short] = (out.get(short, 0.0)
+                          + evt.device_time_total / reps / 1e3)
+    return out
 
 
 def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
@@ -360,6 +407,7 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
     del want, ref_out
 
     ms = time_ms(entry, iters)
+    by_kernel = device_ms_by_kernel(entry)
     with torch.no_grad():
         plain_ms = time_ms(lambda: fa.attention_backward_plain(
             q, k, v, bias, gate, kv_len, out, lse, dout), max(iters // 2, 2))
@@ -383,14 +431,15 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
     valid_keys = float(sum(kv))
     flops = 5 * 2.0 * h * T * valid_keys * d       # S, dP, dV, dK, dQ
     nbytes = 8.0 * B * h * T * d * es + 2 * B * h * T * 4 + B * 4
-    if with_bias:                    # bias read, dbias written, gate/dgate
-        nbytes += 2 * h * T * T * 4 + 2 * B * h * T * 4
-    bms, by = bound_ms(flops, nbytes, dtype)
+    if with_bias:    # bias read in q's dtype; dbias f32; gate, dgate
+        nbytes += h * T * T * es + h * T * T * 4 + 2 * B * h * T * 4
+    bms, by = bound_ms(flops, nbytes, bwd_rate(d, with_bias, dtype))
     log(f"[kernel] {name} {dtype} [{B},{h},{T},{d}] lse_err={lse_err:.3e} "
         + " ".join(f"{n}={e:.3e}/{sc:.3g}" for n, (e, sc) in errs.items())
         + f" (tol {GRAD_TOL[dtype]:g}×max) ms={ms:.4f} plain_ms="
         f"{plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={bms:.4f} "
-        f"({by})")
+        f"({by}); device ms by kernel "
+        + ", ".join(f"{n} {t:.4f}" for n, t in by_kernel.items()))
     if not ok:
         raise AssertionError(f"{name} {dtype}: gradients {errs} or lse "
                              f"{lse_err} exceed tolerance")
@@ -500,23 +549,28 @@ def phase_kernels(iters: int) -> dict:
 def head_dims(gen) -> None:
     """Every kernel variant of the attention, forward and backward, at a
     small shape: bf16 and f32 at head widths from 16 to 512 (the main path
-    runs 64 and 384) with bias, gate and a ragged key length, and bias-free
+    runs 64 and 384) with bias, gate and a ragged key length (the backward
+    at 64 on the mma.sync passes with a bias, the others on the FMA pair),
+    at 64 with a bias and no gate, and bias-free
     (``flash_attention_trainable``; its backward on the mma.sync pair) at
     144, 384 and 512, against the plain twins."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
         flash_attention_trainable
-    cases = ([(d, True) for d in (16, 48, 128, 144, 512)]
-             + [(d, False) for d in (144, 384, 512)])
+    cases = ([(d, True, "") for d in (16, 48, 64, 128, 144, 512)]
+             + [(64, True, " no gate")]
+             + [(d, False, " bias-free") for d in (144, 384, 512)])
     errs = {}
     for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for d, with_bias in cases:
-            what = f"{dtype} head_dim {d}{'' if with_bias else ' bias-free'}"
+        for d, with_bias, kind in cases:
+            what = f"{dtype} head_dim {d}{kind}"
             q, k, v, bias, gate = attn_inputs(gen, (2, 2, 203, d), tdt,
                                               with_bias)
             if with_bias:
                 bias = bias.float()
+            if kind == " no gate":
+                gate = None
             kv = torch.tensor([203, 77], dtype=torch.int32, device="cuda")
 
             def entry():
@@ -547,9 +601,9 @@ def head_dims(gen) -> None:
             if not rel <= GRAD_TOL[dtype]:
                 raise AssertionError(f"attention backward {what}: max diff "
                                      f"{rel} × max|grad|")
-    log("[kernel] attention head widths, with bias 16/48/128/144/512 and "
-        "bias-free 144/384/512, f32 and bf16: forward max_abs_err, backward "
-        "max diff / max|grad| " + ", ".join(
+    log("[kernel] attention head widths, with bias 16/48/64/128/144/512, "
+        "with bias and no gate 64, bias-free 144/384/512, f32 and bf16: "
+        "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
             f"{k}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
 
 
@@ -652,16 +706,17 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
         want = [g for g in fa.attention_backward_plain(
             q, k, v, bias, gate, kv_len, ref, ref_lse, dout,
             dropout_rate=rate, dropout_seed=seed) if g is not None]
-        # the mma.sync backward's mask map: the plain twin with the mask of
+        # the mma.sync backwards' mask map: the plain twin with the mask of
         # seed + 1 must be outside the tolerance of some gradient
         wrong_bwd = None
-        if fa.backward_route(d, with_bias) == "mma":
+        if fa.backward_route(d, with_bias) in ("mma", "mma_bias"):
             wrong_bwd = max(
                 ((g.float() - w.float()).abs().max()
                  / w.float().abs().max()).item()
-                for g, w in zip(got, fa.attention_backward_plain(
+                for g, w in zip(got, [w for w in fa.attention_backward_plain(
                     q, k, v, bias, gate, kv_len, ref, ref_lse, dout,
-                    dropout_rate=rate, dropout_seed=seed + 1)[:3]))
+                    dropout_rate=rate, dropout_seed=seed + 1)
+                    if w is not None]))
             if not wrong_bwd > GRAD_TOL[dtype]:
                 raise AssertionError(
                     f"{name} {dtype} rate {rate}: the backward passes the "
@@ -719,10 +774,11 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
     b_bytes = 8.0 * B * h * T * d * es + 2 * B * h * T * 4 + B * 4 + 4
     if with_bias:
         f_bytes += h * T * T * es + B * h * T * 4
-        b_bytes += 2 * h * T * T * 4 + 2 * B * h * T * 4
+        b_bytes += h * T * T * es + h * T * T * 4 + 2 * B * h * T * 4
     f_bound, f_by = bound_ms(4.0 * valid * d, f_bytes, dtype,
                              HASH_OPS * valid)
-    b_bound, b_by = bound_ms(10.0 * valid * d, b_bytes, dtype,
+    b_bound, b_by = bound_ms(10.0 * valid * d, b_bytes,
+                             bwd_rate(d, with_bias, dtype),
                              HASH_OPS * valid)
     f_ms = float(np.mean(fwd_ms[1:3]))
     f0_ms = float(np.mean(fwd_ms[::3]))
@@ -1022,10 +1078,13 @@ def profile_step(step, what: str = "one bf16 step", top: int = 12) -> None:
 
 def profiled_pairs(prof: dict, what: str) -> None:
     """The profiler's kernel names as a second witness of the launch counts:
-    a train step runs each kernel of the mma.sync pair twice (2 K1b
-    backwards) and each kernel of the FMA pair 12 times (12 K2b)."""
+    a train step runs each kernel of the bias-free mma.sync pair twice (2
+    K1b backwards), each of the three mma.sync passes with a bias 12 times
+    (12 K2b), and no kernel of the FMA pair."""
     want = {"attn_bwd_dkdv_mma": 2, "attn_bwd_dq_mma": 2,
-            "flash_bwd_dkdv": 12, "flash_bwd_dq": 12}
+            "attn_bias_bwd_dkdv_mma": 12, "attn_bias_bwd_dq_mma": 12,
+            "attn_bias_bwd_dbias": 12, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
     got = {part: sum(n for name, (_, n) in prof["kernels"].items()
                      if f"::{part}<" in name) for part in want}
     if got != want:
@@ -1245,19 +1304,22 @@ def phase_train(root: str) -> dict:
               "flash_attention_bwd": flash_attention.bwd_launches,
               "flash_attention_trainable": flash_attention_bwd.launches,
               "flash_attention_trainable_bwd": flash_attention_bwd.bwd_launches,
-              "fma pair": flash_attention.fma_bwd_launches,
-              "mma pair": flash_attention.mma_bwd_launches}
+              "mma bias passes": flash_attention.mma_bias_bwd_launches,
+              "mma pair": flash_attention.mma_bwd_launches,
+              "fma pair": flash_attention.fma_bwd_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[train] kernel launches over {TRAIN_STEPS} steps + 2 validations: "
         f"{json.dumps(counts)}")
     want = {"flash_attention_bwd": 12 * TRAIN_STEPS,
             "flash_attention_trainable_bwd": 2 * TRAIN_STEPS,
-            "fma pair": 12 * TRAIN_STEPS, "mma pair": 2 * TRAIN_STEPS}
+            "mma bias passes": 12 * TRAIN_STEPS, "mma pair": 2 * TRAIN_STEPS,
+            "fma pair": 0}
     if any(counts[k] != n for k, n in want.items()) or min(
-            counts.values()) < 1:
+            n for k, n in counts.items() if k != "fma pair") < 1:
         raise AssertionError(f"training launches {counts}: want every "
-                             f"kernel > 0 and per step 12 K2b (FMA pair), "
-                             f"2 K1b (mma.sync pair)")
+                             f"kernel > 0 and per step 12 K2b (mma.sync "
+                             f"passes with a bias), 2 K1b (mma.sync pair), "
+                             f"0 on the FMA pair")
 
     with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
         events = [json.loads(line) for line in f]
@@ -1431,8 +1493,9 @@ def phase_train_strict(root: str, base: dict) -> dict:
             "K1b dropout": flash_attention_bwd.dropout_bwd_launches,
             "K2 all": flash_attention.launches,
             "K1 all": flash_attention_bwd.launches,
-            "fma pair": flash_attention.fma_bwd_launches,
-            "mma pair": flash_attention.mma_bwd_launches}
+            "mma bias passes": flash_attention.mma_bias_bwd_launches,
+            "mma pair": flash_attention.mma_bwd_launches,
+            "fma pair": flash_attention.fma_bwd_launches}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[train-strict] kernel launches over {STRICT_STEPS} strict "
             f"steps + 1 validation: {json.dumps(counts)}")
@@ -1440,12 +1503,14 @@ def phase_train_strict(root: str, base: dict) -> dict:
                 "K1 dropout": 2 * STRICT_STEPS,
                 "K2b dropout": 12 * STRICT_STEPS,
                 "K1b dropout": 2 * STRICT_STEPS,
-                "fma pair": 12 * STRICT_STEPS,
-                "mma pair": 2 * STRICT_STEPS}
+                "mma bias passes": 12 * STRICT_STEPS,
+                "mma pair": 2 * STRICT_STEPS,
+                "fma pair": 0}
         if any(counts[k] != n for k, n in want.items()):
             raise AssertionError(f"strict training launches {counts}: want "
-                                 f"per step 12 K2, 2 K1, 12 K2b (FMA pair), "
-                                 f"2 K1b (mma.sync pair) with dropout")
+                                 f"per step 12 K2, 2 K1, 12 K2b (mma.sync "
+                                 f"passes with a bias), 2 K1b (mma.sync "
+                                 f"pair) with dropout, 0 on the FMA pair")
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             events = [json.loads(line) for line in f]
         losses = [e["loss"] for e in events if e["event"] == "train"]
@@ -1602,8 +1667,7 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
                                flash_attention_bwd.dropout_launches,
                                flash_attention.dropout_bwd_launches,
                                flash_attention_bwd.dropout_bwd_launches]
-                pairs = [flash_attention.fma_bwd_launches,
-                         flash_attention.mma_bwd_launches]
+                routes = route_counts()
             n_draws = len(draws)
             del model
     finally:
@@ -1613,9 +1677,9 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
     if drop_counts != want or n_draws != (14 if strict else 0):
         raise AssertionError(f"dropout launches on the card {drop_counts} "
                              f"(want {want}), seeds drawn {n_draws}")
-    if pairs != [12, 2]:
-        raise AssertionError(f"backward pairs on the card (FMA, mma.sync) "
-                             f"{pairs}, want [12, 2]")
+    if routes != [12, 2, 0]:
+        raise AssertionError(f"backward routes on the card (mma bias, mma, "
+                             f"fma) {routes}, want [12, 2, 0]")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     gmax = max(g.abs().max().item() for g in g_cpu.values())
     worst, worst_name = 0.0, ""
@@ -1636,7 +1700,7 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
     what = ("strict attention dropout (WavLM 0.1, Conformer 0.15; fixed "
             "seeds; dropout launches on the card K2/K1/K2b/K1b "
             f"{drop_counts})" if strict else "dropout 0")
-    what += f"; backward pairs on the card (FMA, mma.sync) {pairs}"
+    what += f"; backward routes on the card (mma bias, mma, fma) {routes}"
     log(f"[cross-train] one f32 train step (TF32 off), B=2×8 s, {what}: "
         f"loss card {l_card:.7f} vs CPU {l_cpu:.7f} (rel {loss_rel:.2e}, tol "
         f"1e-5); {len(g_cpu)} gradients, worst {worst:.2e} × max|g| "
@@ -1663,7 +1727,7 @@ KERNEL_ROWS = [
      "wfl_asr_tpu_torch/ops/kernels/csrc/conv_fused.cu",
      "wfl_asr_tpu/ops/pallas/conv_fused.py:135"),
     ("K2b", "flash_attention_bwd", "flash_attention_bwd",
-     "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_bias_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention.py:262"),
     ("K1b", "flash_attention_trainable_bwd", "flash_attention_trainable_bwd",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_mma.cu",
@@ -1681,8 +1745,9 @@ def k6_row(kern: dict, strict: dict) -> dict:
     kernels, so its launches are the dropout launches of phase 6b's
     training run, and its numbers are K2b's in f32 at rate 0.1 with
     dropout (phase 3c): the hash's cost where the training step spends
-    most (the bound: the larger of K2b's f32 operations, the hash's INT32
-    operations and the bytes, each over its rate)."""
+    most (the bound: the larger of K2b's f32 operations at the 3×TF32
+    ceiling, the hash's INT32 operations and the bytes, each over its
+    rate)."""
     r = kern[("K2drop", "f32", DROP_RATES[0])]["bwd"]
     return {"name": "attention_dropout (in K1/K2/K1b/K2b)", "route": "cuda",
             "source": "wfl_asr_tpu_torch/ops/kernels/csrc/common.cuh",

@@ -114,7 +114,9 @@ def turn(root: str, steps: int) -> dict:
         times.append(start.elapsed_time(end))
     counts = {"K2b": flash_attention.bwd_launches,
               "K1b": flash_attention_bwd.bwd_launches,
-              "mma pair": getattr(flash_attention, "mma_bwd_launches", None)}
+              "mma pair": getattr(flash_attention, "mma_bwd_launches", None),
+              "mma bias passes": getattr(flash_attention,
+                                         "mma_bias_bwd_launches", None)}
     prof = sm.profile_step(step, what="one f32 train step", top=0)
     bwd = {}
     for name, (us, n) in prof["kernels"].items():

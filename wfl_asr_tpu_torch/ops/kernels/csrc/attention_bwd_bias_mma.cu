@@ -1,0 +1,546 @@
+// Backward of the gated-bias key-masked attention at head_dim 64 (WavLM's
+// gated relative-position attention, 12 layers on the main path) on the
+// tensor cores, for Hopper (sm_90a). dQ, dK, dV, dBias and dGate of
+//
+//   out[b,h,q,:] = softmax_k( (q·kᵀ)·scale + gate[b,h,q]·bias[h,q,k],
+//                             keys k >= kv_len[b] set to -1e30 ) · v
+//
+// from the forward's row logsumexp (LSE) and delta = rowsum(dO·O).
+//
+// Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_bwd_dkdv_kernel
+// (:262) and _bwd_dq_kernel (:342), the kernels of _bwd_impl (:417) (K2b).
+// Other head widths with a bias keep the FMA pair of flash_attention.cu.
+//
+// What bounds it on the card: 5 products of 2·H·T·Σkv_len·D FLOPs (S = Q·Kᵀ,
+// dP = dO·Vᵀ, dV += (P·M)ᵀ·dO, dK += dSᵀ·Q, dQ += dS·K; 105.8 GFLOP at
+// [8, 12, 1499, 64]) against the bias read and dBias written once ([H, T, T]
+// f32, 108 MB each): operations in f32 (1.58 ms at the 67 TFLOP/s FMA rate),
+// bytes in bf16. The FMA pair this replaces ran all five products (and S and
+// dP twice) as f32 FMA loops fed from shared memory, and its dQ pass looped
+// over the batch inside each block so that one thread owned dBias[h, q, k]
+// for every b.
+//
+// What this design does about it: three launches, each gradient written by
+// one block, no atomics, so the result does not depend on the schedule.
+// - The products run on mma.sync with f32 accumulation through the operand
+//   policies of attention_mma.cuh (bf16 m16n8k16; f32 as three TF32
+//   m16n8k8 products of split operands, each mma step summed into fresh
+//   registers that are then added in f32), as in attention_bwd_mma.cu.
+// - At D = 64 a contraction over D is four (bf16) or eight (f32) mma steps,
+//   too short to split over warps, so the warps split the rows of the score
+//   tile instead: 4 warps a block, each owning 16 keys (dK/dV pass) or 16
+//   queries (dQ pass) and every column of its gradient in registers.
+// - dK/dV pass (attn_bias_bwd_dkdv_mma): one block per (64-key tile, b, h),
+//   b the fastest-varying block index, so the 8 blocks that read the same
+//   bias[h, :, key tile] strip run together and share it in L2. Each block
+//   walks the query tiles (32 queries in f32, 64 in bf16, double-buffered by
+//   cp.async with their LSE, delta and gate rows); each warp computes its
+//   16 keys × 16 queries of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ at a time, adds
+//   gate·bias, masks keys past kv_len to -1e30 before the exp, and forms
+//   P = exp(S − LSE) and dS = P·(M·dP − delta) in its accumulator
+//   registers, which are the A operands of dV += (P·M)ᵀ·dO and dK += dSᵀ·Q
+//   as they stand (attention_mma.cuh: a_from_acc), with no trip through
+//   shared memory. The bias is read straight from device memory (its rows
+//   are T elements apart, odd at T = 1499, too unaligned for cp.async), one
+//   16-query chunk ahead of its use, so that a chunk's products hide the
+//   next chunk's loads. dS goes to a workspace [B, H, T, ldk] of the
+//   kernel's dtype (ldk = T rounded up to 64) through a 16 × 16 staging
+//   tile of the warp, as 16-byte stores. Key tiles wholly past kv_len write
+//   zero dK and dV and no dS.
+// - dQ pass (attn_bias_bwd_dq_mma): one block per (64-query tile, h, b),
+//   no batch loop; dQ += dS·K over the key tiles up to kv_len, K and dS
+//   double-buffered. So S and dP are computed once: 5 products.
+// - dBias/dGate pass (attn_bias_bwd_dbias): no products, a bandwidth pass
+//   over the workspace. One block per (8 query rows, h), a warp a row; it
+//   walks the key tiles of 256 keys (8 a lane, lane + 32·i), and for each
+//   walks b = 0..B−1 in order. Reduction orders, each fixed:
+//   dBias[h, q, k] = Σ_b gate[b,h,q]·dS[b,h,q,k], b in order, in one
+//   thread's register, stored once in f32; dGate[b, h, q] = Σ_k bias·dS:
+//   each lane sums its 8 keys of the tile in order, the warp adds its 32
+//   lanes by an xor butterfly (16, 8, 4, 2, 1; lane 0's order is kept), and
+//   lane 0 adds the tile's sum to the row's B-long strip in shared memory,
+//   tile after tile; the strip is stored once at the end. bias and dS are
+//   each read once; keys ≥ kv_len[b] (dS there is 0 or never written) and
+//   query rows past T add nothing. Doing dGate here, and not in the dQ pass,
+//   keeps the bias out of the dQ pass: there it would be read B times.
+// - Bytes of the workspace: B·H·T·ldk elements (884 MB in f32 at the main
+//   shape), of which the key tiles below kv_len are written once and read
+//   twice, ≈ 0.6 ms at 3.35 TB/s; bf16 rounds dS in the workspace where the
+//   dQ product's operand would anyway, and dBias and dGate add the rounded
+//   values in f32.
+// - Strict attention dropout (K6) as a DROP template flag, in the dK/dV pass
+//   only, the only one that computes scores: wfl::drop_keep on the absolute
+//   (b, h, q, k) of each accumulator element (rows of the transposed tile
+//   are keys). dV takes P·M, dS = P·(M·dP − delta); P and the LSE stay
+//   undropped, and the mask reaches dQ, dBias and dGate through dS.
+#include "common.cuh"
+#include "attention_mma.cuh"
+
+namespace {
+
+using namespace wfl;
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 64;                // the head width of this pair
+constexpr int kNT = kD / 8;           // 8-column tiles of a gradient row
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBK = 64;               // keys a dK/dV block, workspace tile
+constexpr int kBQ = 64;               // queries a dQ block
+constexpr int kRows = 8;              // query rows a dBias/dGate block
+constexpr int kBiasThreads = kRows * 32;
+constexpr int kKeysPerLane = 8;       // dBias/dGate: 256 keys a key tile
+constexpr float kNegInf = -1e30f;
+
+// Shared memory of the two product passes. The dK/dV pass holds K and V
+// (64 × D), two buffers of the streamed Q and dO tiles and their LSE, delta
+// and gate rows, and each warp's 16 × 16 dS staging tile; f32 streams 32
+// queries (78 KB, two blocks a SM), bf16 64 (59 KB, three a SM). The dQ
+// pass holds two buffers of K (64 keys) and of dS (64 queries × 64 keys).
+template <class Pol>
+struct BiasTiles {
+  static constexpr bool kF32 = sizeof(typename Pol::T) == 4;
+  static constexpr int es = sizeof(typename Pol::T);
+  static constexpr int bq = kF32 ? 32 : 64;      // queries a streamed tile
+  static constexpr int blocks = kF32 ? 2 : 3;    // dK/dV blocks a SM
+  static constexpr int p = Pol::pitch(kD);
+  // dS staging rows: 16 keys and 16 bytes of padding, so that the lanes'
+  // element stores fall on distinct banks and rows stay 16-byte aligned
+  static constexpr int pst = 16 + 16 / es;
+  static constexpr int pq = Pol::pitch_s(kBK);   // the dQ pass's dS tile
+  static constexpr size_t dkdv_smem =
+      (size_t)es * (2 * kBK * p + 2 * 2 * bq * p + kWarps * 16 * pst)
+      + sizeof(float) * 3 * 2 * bq;
+  static constexpr size_t dq_smem = (size_t)es * 2 * (kBK * p + kBQ * pq);
+  // 228 KB a SM, 1 KB of it reserved per block
+  static_assert(blocks * (dkdv_smem + 1024) <= 233472,
+                "dK/dV blocks a SM exceed its shared memory");
+  static_assert(dq_smem <= 232448, "dQ tiles exceed 227 KB");
+};
+
+// The launches' arguments as one kernel parameter: [B, H, T, 64] tensors,
+// bias [H, T, T] of the dtype, gate [B, H, T] f32 (null: 1), the LSE and
+// delta rows, the key lengths, the dS workspace [B, H, T, ldk], dBias [H,
+// T, T] f32 and dGate [B, H, T] f32 (null without gate).
+template <class T>
+struct BiasArgs {
+  const T *q, *k, *v, *dout, *bias;
+  const float *gate, *lse, *delta;
+  const int* kv_len;
+  T *dq, *dk, *dv, *ds;
+  float *dbias, *dgate;
+  int B, H, T_len, ldk;
+  float scale;
+  Dropout drop;
+};
+
+// gate of query rows [row0, row0 + n) into sG by 4-byte cp.async in the
+// caller's copy group (1 without a gate, 0 past T)
+__device__ __forceinline__ void stage_gate(float* sG, const float* gate,
+                                           size_t bh, int row0, int n,
+                                           int T_len) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const bool ok = row0 + i < T_len;
+    if (gate == nullptr) {
+      sG[i] = ok ? 1.f : 0.f;
+    } else {
+      cp_async4(sG + i, gate + (ok ? bh * T_len + row0 + i : 0),
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// acc += C·B for one 16 × 16 tile C that the warp holds in accumulator
+// registers (rows: its 16 keys; columns: 16 queries from row k0 of the
+// [k][n]-stored tile b_t) and all 64 columns of b_t. Each mma step sums into
+// fresh registers that are added to acc in f32 (see score_part).
+template <class Pol>
+__device__ __forceinline__ void accumulate_held(
+    float (&acc)[kNT][4], const float (&c)[2][4], const typename Pol::T* b_t,
+    int pb, int k0) {
+#pragma unroll
+  for (int st = 0; st < Pol::kStepsAcc; ++st) {
+    typename Pol::A a;
+    Pol::a_from_acc(a, c, st);
+#pragma unroll
+    for (int n = 0; n < kNT; n += 2) {
+      typename Pol::B b0, b1;
+      Pol::load_bt2_acc(b0, b1, b_t, pb, k0 + st * Pol::KS, n * 8);
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+      Pol::mma(t0, a, b0);
+      Pol::mma(t1, a, b1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[n][e] += t0[e];
+        acc[n + 1][e] += t1[e];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV pass: block (b, 64-key tile, h). Warp w owns keys 16·w and all 64
+// columns of dV and dK across the query tiles, and stores its keys' dS.
+// ---------------------------------------------------------------------------
+
+template <class Pol, bool DROP>
+__global__ void __launch_bounds__(kThreads, BiasTiles<Pol>::blocks)
+attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
+  using T = typename Pol::T;
+  using Cfg = BiasTiles<Pol>;
+  constexpr int BQ = Cfg::bq, P = Cfg::p, PST = Cfg::pst;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);      // [BK][P]
+  T* sV = sK + kBK * P;                          // [BK][P]
+  T* sQ = sV + kBK * P;                          // [2][BQ][P]
+  T* sDO = sQ + 2 * BQ * P;                      // [2][BQ][P]
+  T* sSt = sDO + 2 * BQ * P;                     // [warps][16 q][PST] dS
+  float* sL = reinterpret_cast<float*>(sSt + kWarps * 16 * PST);  // [2][BQ]
+  float* sDl = sL + 2 * BQ;                                        // [2][BQ]
+  float* sG = sDl + 2 * BQ;                                        // [2][BQ]
+
+  const int b = blockIdx.x, k0 = blockIdx.y * kBK, h = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int T_len = a.T_len, ldk = a.ldk;
+  const float scale = a.scale;
+  const size_t bh = (size_t)b * a.H + h;
+  const size_t base = bh * T_len * kD;
+  const int kvl = a.kv_len[b];
+  if (k0 >= kvl) {      // no query attends these keys: zero gradients
+    for (int idx = tid; idx < kBK * kD; idx += kThreads) {
+      if (k0 + idx / kD < T_len) {
+        a.dk[base + (size_t)k0 * kD + idx] = from_f<T>(0.f);
+        a.dv[base + (size_t)k0 * kD + idx] = from_f<T>(0.f);
+      }
+    }
+    return;
+  }
+  const uint32_t dbase = DROP ? drop_base(a.drop, b, h) : 0u;
+  const T* __restrict__ bias = a.bias + (size_t)h * T_len * T_len;
+  T* __restrict__ ds = a.ds + bh * T_len * ldk;
+  T* st = sSt + warp * 16 * PST;                 // this warp's dS tile
+
+  auto stage_q = [&](int qt, int buf) {
+    const int q0 = qt * BQ;
+    stage_rows<Pol, kThreads>(sQ + buf * BQ * P, P, a.q + base, q0, BQ,
+                              T_len, kD);
+    stage_rows<Pol, kThreads>(sDO + buf * BQ * P, P, a.dout + base, q0, BQ,
+                              T_len, kD);
+    stage_stats<kThreads>(sL + buf * BQ, sDl + buf * BQ, a.lse, a.delta, bh,
+                          q0, BQ, T_len);
+    stage_gate(sG + buf * BQ, a.gate, bh, q0, BQ, T_len);
+  };
+  stage_rows<Pol, kThreads>(sK, P, a.k + base, k0, kBK, T_len, kD);
+  stage_rows<Pol, kThreads>(sV, P, a.v + base, k0, kBK, T_len, kD);
+  stage_q(0, 0);
+  cp_async_commit();
+
+  const int r0 = warp * 16;                      // the warp's keys, local
+  float acc_dv[kNT][4], acc_dk[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dv[n][e] = acc_dk[n][e] = 0.f;
+
+  // The bias of this lane's 8 elements of the 16 queries from qc: element
+  // e of 8-column tile n is key r0 + g + 8·(e/2), query qc + 8·n +
+  // 2·(lane%4) + e%2. Loaded one 16-query chunk ahead of its use, so that
+  // a chunk's products hide the next chunk's loads.
+  auto load_bias = [&](float (&bv)[2][4], int qc) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + r0 + g + 8 * (e >> 1);
+        const int qi = qc + 8 * n + 2 * t4 + (e & 1);
+        bv[n][e] = (qi < T_len && kj < kvl)
+            ? to_f(bias[(size_t)qi * T_len + kj]) : 0.f;
+      }
+  };
+  float bv[2][4];
+  load_bias(bv, 0);
+
+  const int n_qt = (T_len + BQ - 1) / BQ;
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int buf = qt & 1;
+    cp_async_wait<0>();
+    __syncthreads();    // this tile is in; every warp is done with qt − 1
+    if (qt + 1 < n_qt) {
+      stage_q(qt + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const T* tQ = sQ + buf * BQ * P;
+    const T* tDO = sDO + buf * BQ * P;
+    const float* tL = sL + buf * BQ;
+    const float* tDl = sDl + buf * BQ;
+    const float* tG = sG + buf * BQ;
+    const int q0 = qt * BQ;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < BQ; c0 += 16) {
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: rows are keys, columns queries
+      float s[2][4], dp[2][4];
+      score_part<Pol>(s, sK, tQ, P, r0, c0, 0, kD);
+      score_part<Pol>(dp, sV, tDO, P, r0, c0, 0, kD);
+      float bn[2][4];
+      load_bias(bn, q0 + c0 + 16);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int kl = g + 8 * (x >> 1), kj = k0 + r0 + kl;
+          const int ql = 8 * n + 2 * t4 + (x & 1), qi = q0 + c0 + ql;
+          // mask before the exp: a masked key's raw score may exceed the
+          // LSE by more than 88, and exp → inf, times 0, is NaN
+          const float sv = kj < kvl
+              ? s[n][x] * scale + tG[c0 + ql] * bv[n][x] : kNegInf;
+          const float p = qi < T_len ? expf(sv - tL[c0 + ql]) : 0.f;
+          // K6: dV takes P·M, dS = P·(M·dP − delta)
+          const float ks = (DROP && qi < T_len && kj < kvl)
+              ? drop_keep(a.drop, dbase, qi, kj) : 1.f;
+          s[n][x] = p * ks;
+          dp[n][x] = p * (dp[n][x] * ks - tDl[c0 + ql]);
+          st[ql * PST + kl] = from_f<T>(dp[n][x]);
+        }
+      // dV += (P·M)ᵀ·dO, dK += dSᵀ·Q (scale at the store), P·M and dS
+      // straight from the registers
+      accumulate_held<Pol>(acc_dv, s, tDO, P, c0);
+      accumulate_held<Pol>(acc_dk, dp, tQ, P, c0);
+      // dS[q][k] for the dQ and dBias/dGate passes: the warp's 16 queries
+      // × 16 keys, 16 bytes a lane
+      __syncwarp();
+      constexpr int kVecs = 16 / Pol::kVec;       // 16-byte pieces a row
+      for (int i = lane; i < 16 * kVecs; i += 32) {
+        const int ql = i / kVecs, c = (i % kVecs) * Pol::kVec;
+        const int qi = q0 + c0 + ql;
+        if (qi < T_len) {
+          *reinterpret_cast<uint4*>(ds + (size_t)qi * ldk + k0 + r0 + c) =
+              *reinterpret_cast<const uint4*>(st + ql * PST + c);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) bv[n][x] = bn[n][x];
+    }
+  }
+  store_acc<T, kNT>(a.dv + base, acc_dv, k0 + r0, 0, kNT, kNT, T_len, kD,
+                    1.f);
+  store_acc<T, kNT>(a.dk + base, acc_dk, k0 + r0, 0, kNT, kNT, T_len, kD,
+                    scale);
+}
+
+// ---------------------------------------------------------------------------
+// dQ pass: block (64-query tile, h, b), after the dK/dV pass has written dS.
+// Warp w owns queries 16·w and all 64 columns of dQ across the key tiles.
+// ---------------------------------------------------------------------------
+
+template <class Pol>
+__global__ void __launch_bounds__(kThreads, 3)
+attn_bias_bwd_dq_mma(const BiasArgs<typename Pol::T> a) {
+  using T = typename Pol::T;
+  using Cfg = BiasTiles<Pol>;
+  constexpr int P = Cfg::p, PQ = Cfg::pq;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);      // [2][BK][P]
+  T* sDS = sK + 2 * kBK * P;                     // [2][BQ][PQ]
+
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int T_len = a.T_len;
+  const size_t bh = (size_t)b * a.H + h;
+  const T* __restrict__ k = a.k + bh * T_len * kD;
+  const T* __restrict__ ds = a.ds + bh * T_len * a.ldk;
+  const int kvl = a.kv_len[b];
+
+  // key tiles up to kv_len: the dK/dV pass wrote dS for each (0 past kv_len)
+  auto stage = [&](int kt, int buf) {
+    stage_rows<Pol, kThreads>(sK + buf * kBK * P, P, k, kt * kBK, kBK, T_len,
+                              kD);
+    stage_cols<Pol, kBK, kThreads>(sDS + buf * kBQ * PQ, PQ, ds, q0,
+                                   kt * kBK, kBQ, T_len, a.ldk);
+    cp_async_commit();
+  };
+  stage(0, 0);
+
+  float acc[1][kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][n][e] = 0.f;
+
+  const int n_kt = (kvl + kBK - 1) / kBK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    cp_async_wait<0>();
+    __syncthreads();    // this tile is in; every warp is done with kt − 1
+    if (kt + 1 < n_kt) stage(kt + 1, buf ^ 1);
+    // dQ += dS·K (scale at the store), 32 keys at a time, not unrolled:
+    // unrolled, the compiler hoists every B fragment of the tile and
+    // spills. A slice starts 32 columns into the dS tile (f32's column
+    // swizzle stays below 32) and 32 rows into the K tile (f32's row shift
+    // repeats every 8 rows).
+#pragma unroll 1
+    for (int kk = 0; kk < kBK; kk += 32) {
+      accumulate<Pol, kNT, 32, 1>(acc, sDS + buf * kBQ * PQ + kk, PQ,
+                                  warp * 16, sK + (buf * kBK + kk) * P, P, 0,
+                                  kNT, kNT);
+    }
+  }
+  store_acc<T, kNT>(a.dq + bh * T_len * kD, acc[0], q0 + warp * 16, 0, kNT,
+                    kNT, T_len, kD, a.scale);
+}
+
+// ---------------------------------------------------------------------------
+// dBias/dGate pass: block (8 query rows, h), a warp a row; dynamic shared
+// memory holds each row's dGate strip over b (8 · B floats).
+// ---------------------------------------------------------------------------
+
+template <class T>
+__global__ void __launch_bounds__(kBiasThreads)
+attn_bias_bwd_dbias(const BiasArgs<T> a) {
+  extern __shared__ float sDGate[];              // [kRows][B]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kRows + warp, h = blockIdx.y;
+  const int B = a.B, H = a.H, T_len = a.T_len;
+  if (q >= T_len) return;       // the warp's row is padding (no barrier below)
+  const bool with_gate = a.gate != nullptr;
+  float* strip = sDGate + warp * B;
+  for (int b = lane; b < B; b += 32) strip[b] = 0.f;
+  __syncwarp();
+  const T* __restrict__ bias = a.bias + ((size_t)h * T_len + q) * T_len;
+  float* __restrict__ dbias = a.dbias + ((size_t)h * T_len + q) * T_len;
+  constexpr int KT = 32 * kKeysPerLane;
+
+  for (int k0 = 0; k0 < T_len; k0 += KT) {
+    float bv[kKeysPerLane], acc[kKeysPerLane];
+#pragma unroll
+    for (int i = 0; i < kKeysPerLane; ++i) {
+      const int kj = k0 + lane + 32 * i;
+      bv[i] = kj < T_len ? to_f(bias[kj]) : 0.f;
+      acc[i] = 0.f;
+    }
+    for (int b = 0; b < B; ++b) {
+      const size_t row = ((size_t)b * H + h) * T_len + q;
+      const float gv = with_gate ? a.gate[row] : 1.f;
+      const int kvl = a.kv_len[b];
+      const T* __restrict__ ds = a.ds + row * a.ldk;
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < kKeysPerLane; ++i) {
+        const int kj = k0 + lane + 32 * i;
+        // past kv_len dS is 0, or was never written (whole key tiles)
+        const float d = kj < kvl ? to_f(ds[kj]) : 0.f;
+        acc[i] += gv * d;
+        part += bv[i] * d;
+      }
+      if (with_gate) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, o);
+        if (lane == 0) strip[b] += part;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kKeysPerLane; ++i) {
+      const int kj = k0 + lane + 32 * i;
+      if (kj < T_len) dbias[kj] = acc[i];
+    }
+  }
+  if (with_gate) {
+    __syncwarp();
+    for (int b = lane; b < B; b += 32)
+      a.dgate[((size_t)b * H + h) * T_len + q] = strip[b];
+  }
+}
+
+// The three passes in turn on one stream: dK/dV (which writes dS), then dQ
+// and dBias/dGate (which read it).
+template <class Pol, bool DROP>
+cudaError_t run_passes(const BiasArgs<typename Pol::T>& a,
+                       cudaStream_t stream) {
+  using Cfg = BiasTiles<Pol>;
+  const int n_kt = (a.T_len + kBK - 1) / kBK;
+  cudaError_t err = wfl::launch(attn_bias_bwd_dkdv_mma<Pol, DROP>,
+                                dim3(a.B, n_kt, a.H), dim3(kThreads),
+                                Cfg::dkdv_smem, stream, a);
+  if (err != cudaSuccess) return err;
+  err = wfl::launch(attn_bias_bwd_dq_mma<Pol>,
+                    dim3((a.T_len + kBQ - 1) / kBQ, a.H, a.B),
+                    dim3(kThreads), Cfg::dq_smem, stream, a);
+  if (err != cudaSuccess) return err;
+  return wfl::launch(attn_bias_bwd_dbias<typename Pol::T>,
+                     dim3((a.T_len + kRows - 1) / kRows, a.H),
+                     dim3(kBiasThreads), sizeof(float) * kRows * a.B, stream,
+                     a);
+}
+
+// The dropout hash only with a seed.
+template <class Pol>
+cudaError_t dispatch(const BiasArgs<typename Pol::T>& a, cudaStream_t s) {
+  return a.drop.seed ? run_passes<Pol, true>(a, s)
+                     : run_passes<Pol, false>(a, s);
+}
+
+template <class T>
+cudaError_t dispatch_dtype(const void* q, const void* k, const void* v,
+                           const void* bias, const void* gate,
+                           const void* dout, const void* lse,
+                           const void* delta, const void* kv_len, void* dq,
+                           void* dk, void* dv, void* ds, void* dbias,
+                           void* dgate, int B, int H, int T_len, int ldk,
+                           float scale, Dropout drop, cudaStream_t s) {
+  const BiasArgs<T> a{
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const T*>(bias), static_cast<const float*>(gate),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<T*>(ds),
+      static_cast<float*>(dbias), static_cast<float*>(dgate), B, H, T_len,
+      ldk, scale, drop};
+  if constexpr (sizeof(T) == 4) return dispatch<PolF32>(a, s);
+  else return dispatch<PolBF16>(a, s);
+}
+
+}  // namespace
+
+using namespace wfl;
+
+// dQ, dK, dV, dBias and dGate of the gated-bias attention at head_dim 64
+// (the forward wfl_flash_attention_fwd with a bias): the dK/dV pass, the dQ
+// pass, the dBias/dGate pass. q, k, v, dout, dq, dk, dv: [B, H, T, D]
+// contiguous of the dtype (0 = f32 as 3×TF32, 1 = bf16), D = 64; bias [H,
+// T, T] of the dtype; gate [B, H, T] f32 or null; lse and delta =
+// rowsum(dO·O) [B, H, T] f32; kv_len [B] int32 in [1, T]; ds a workspace
+// [B, H, T, ldk] of the dtype, ldk ≥ T a multiple of 64 (its contents on
+// return are dS where a key tile is below kv_len); dbias [H, T, T] f32 and
+// dgate [B, H, T] f32 (null without gate), every element written; seed (one
+// int32 on the device, or null), drop_thr and drop_scale as the forward's.
+// Returns the launches' cudaError_t.
+extern "C" int wfl_attention_bwd_bias_mma(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* gate, const void* dout, const void* lse, const void* delta,
+    const void* kv_len, const void* seed, void* dq, void* dk, void* dv,
+    void* ds, void* dbias, void* dgate, int B, int H, int T_len, int D,
+    int ldk, float scale, int drop_thr, float drop_scale, int dtype,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D != kD || bias == nullptr || dbias == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  if ((gate == nullptr) != (dgate == nullptr)) return cudaErrorInvalidValue;
+  if (ldk % kBK != 0 || ldk < T_len) return cudaErrorInvalidValue;
+  const Dropout drop{static_cast<const int*>(seed), drop_thr, drop_scale};
+  if (dtype == kF32)
+    return dispatch_dtype<float>(q, k, v, bias, gate, dout, lse, delta,
+                                 kv_len, dq, dk, dv, ds, dbias, dgate, B, H,
+                                 T_len, ldk, scale, drop, s);
+  if (dtype == kBF16)
+    return dispatch_dtype<bf16>(q, k, v, bias, gate, dout, lse, delta,
+                                kv_len, dq, dk, dv, ds, dbias, dgate, B, H,
+                                T_len, ldk, scale, drop, s);
+  return cudaErrorInvalidValue;
+}

@@ -9,8 +9,9 @@
 //
 // Replaces wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:_bwd_dkdv_kernel
 // (:106) and _bwd_dq_kernel (:171), the backward of flash_attention_trainable
-// (K1b). Calls with a bias (K2b) and head widths ≤ 128 keep the FMA kernels
-// of flash_attention.cu.
+// (K1b). Calls with a bias take attention_bwd_bias_mma.cu at head_dim 64
+// (K2b) and the FMA kernels of flash_attention.cu at other widths, as do
+// bias-free widths ≤ 128.
 //
 // What bounds it on the card: 5 products of 2·H·T·Σkv_len·D FLOPs (S = Q·Kᵀ,
 // dP = dO·Vᵀ, dV += (P·M)ᵀ·dO, dK += dSᵀ·Q, dQ += dS·K) against a few MB of
@@ -30,9 +31,9 @@
 //   max|grad| tolerance. Three TF32 products cost three times one, so the
 //   split's ceiling is a third of the TF32 rate (≈ 165 TFLOP/s of f32 work
 //   against the H100 SXM's published 495 TF32 dense). The dtypes share one
-//   skeleton; an operand policy (PolBF16, PolF32) lays out tiles, loads
-//   fragments and runs the mma, so tiling, masking and dropout are
-//   written once.
+//   skeleton; an operand policy (PolBF16, PolF32 of attention_mma.cuh) lays
+//   out tiles, loads fragments and runs the mma, so tiling, masking and
+//   dropout are written once.
 // - 16 warps a block. In the dK/dV pass the scores of a streamed tile
 //   (32 × W) are 16×16 sub-tiles per product: warps 0-7 compute S, warps
 //   8-15 dP, the 8 of a product splitting each sub-tile's contraction over
@@ -85,7 +86,7 @@
 //   computes scores, rows are keys and columns queries. dV takes P·M and
 //   dS = P·(M·dP − delta); P and the LSE stay undropped.
 #include "common.cuh"
-#include "mma.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -95,166 +96,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
-
-// ---------------------------------------------------------------------------
-// Operand policies. A tile is row-major in shared memory with a pitch of
-// pitch(cols) elements; at(p, r, c) is the element offset of (r, c); the
-// score tiles written by the kernel itself use pitch_s and at_s.
-// - load_a: the A fragment (16 rows from r0, KS columns from k0) of a score
-//   tile (Pᵀ, dSᵀ, dS), whose rows are the product's rows.
-// - load_ak: the same of a D-wide tile (K, V, Q, dO: at).
-// - load_bk2: the B fragments (8 × KS) of two adjacent 8-column tiles of a
-//   D-wide tile stored as [n][k] (K's rows in S = Q·Kᵀ).
-// - load_bt: the B fragment (KS × 8) of a D-wide tile stored as [k][n]
-//   (dO's rows in dV += Pᵀ·dO); load_bt2 that of two adjacent 8-column
-//   tiles.
-// ---------------------------------------------------------------------------
-
-struct PolBF16 {
-  using T = bf16;
-  static constexpr int KS = 16;          // k depth of one mma
-  static constexpr int kVec = 8;         // elements in 16 bytes
-  struct A { unsigned r[4]; };
-  struct B { unsigned r[2]; };
-
-  // 16-byte rows that are not a multiple of 128 bytes apart: the 8 row
-  // addresses of each ldmatrix fall on distinct banks
-  __host__ __device__ static constexpr int pitch(int cols) { return cols + 8; }
-  __device__ static int at(int p, int r, int c) { return r * p + c; }
-  // the score tiles (Pᵀ, dSᵀ, dS) use the same layout
-  __host__ __device__ static constexpr int pitch_s(int cols) {
-    return pitch(cols);
-  }
-  __device__ static int at_s(int p, int r, int c) { return at(p, r, c); }
-
-  __device__ static void load_a(A& a, const T* t, int p, int r0, int k0) {
-    const int lane = threadIdx.x & 31;
-    ldsm_x4(a.r, t + (r0 + (lane & 15)) * p + k0 + (lane >> 4) * 8);
-  }
-  __device__ static void load_ak(A& a, const T* t, int p, int r0, int k0) {
-    load_a(a, t, p, r0, k0);
-  }
-  __device__ static void load_bk2(B& b0, B& b1, const T* t, int p, int n0,
-                                  int k0) {
-    const int lane = threadIdx.x & 31;
-    unsigned r[4];
-    ldsm_x4(r, t + (n0 + (lane & 7) + (lane >> 4) * 8) * p + k0
-                   + ((lane >> 3) & 1) * 8);
-    b0.r[0] = r[0]; b0.r[1] = r[1];
-    b1.r[0] = r[2]; b1.r[1] = r[3];
-  }
-  __device__ static void load_bt(B& b, const T* t, int p, int k0, int n0) {
-    const int lane = threadIdx.x & 31;
-    ldsm_x2_t(b.r, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * p + n0);
-  }
-  __device__ static void load_bt2(B& b0, B& b1, const T* t, int p, int k0,
-                                  int n0) {
-    const int lane = threadIdx.x & 31;
-    unsigned r[4];
-    ldsm_x4_t(r, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * p + n0
-                     + (lane >> 4) * 8);
-    b0.r[0] = r[0]; b0.r[1] = r[1];
-    b1.r[0] = r[2]; b1.r[1] = r[3];
-  }
-  __device__ static void mma(float (&c)[4], const A& a, const B& b) {
-    mma16816(c, a.r, b.r[0], b.r[1]);
-  }
-  // (r, c) and (r, c + 1), c even
-  __device__ static void store2(T* t, int p, int r, int c, float v0,
-                                float v1) {
-    *reinterpret_cast<unsigned*>(t + at_s(p, r, c)) = pack_bf16(v0, v1);
-  }
-};
-
-struct PolF32 {
-  using T = float;
-  static constexpr int KS = 8;
-  static constexpr int kVec = 4;
-  struct A { unsigned hi[4], lo[4]; };
-  struct B { unsigned hi[2], lo[2]; };
-
-  // Streamed and resident tiles (Q, dO, K, V) are read both plainly (A and
-  // [n][k] B fragments: row g, column t over g < 8, t < 4) and transposed
-  // ([k][n] B fragments: row t, column g). Rows are 8 floats more than a
-  // multiple of 32 apart, and rows with bit 2 set start 4 floats in, so row
-  // r starts on bank sh(r) = 8·(r % 4) + 4·((r / 4) % 2): plain reads fall
-  // on banks sh(g) + t, transposed ones on 8·t + g (rows t < 4) or
-  // 8·t + 4 + g (rows t + 4), all 32 distinct. The shift is additive in the
-  // column, so with a pitch fixed per kernel every offset of an unrolled
-  // loop is an immediate, and 16-byte rows stay whole.
-  __host__ __device__ static constexpr int pitch(int cols) {
-    return (cols + 31) / 32 * 32 + 8;
-  }
-  __device__ static int at(int p, int r, int c) { return r * p + (r & 4) + c; }
-  // The score tiles (Pᵀ, dSᵀ, dS) are only read plainly: rows 32 floats
-  // apart, columns XOR-swizzled in 4-float steps by sh(r).
-  __host__ __device__ static constexpr int pitch_s(int cols) {
-    return (cols + 31) / 32 * 32;
-  }
-  __device__ static int at_s(int p, int r, int c) {
-    return r * p + (c ^ (((r & 3) << 3) | (r & 4)));
-  }
-  // hi = x rounded to nearest TF32 by integer ops (cvt.rna.tf32 runs at
-  // a quarter of the ALU rate and was the f32 kernels' limit), lo = x − hi
-  // exact in f32; the mma reads lo's top 10 mantissa bits (truncation,
-  // ≤ 2⁻²²·|x|)
-  __device__ static void split(float x, unsigned& hi, unsigned& lo) {
-    hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  }
-
-  // Plain reads by ldmatrix: an 8×8 matrix of 16-bit values is 8 rows of 4
-  // floats, of which lane (g, t) receives float t of row g, the TF32 A and
-  // [n][k] B fragment layout; lane l gives a row address of matrix l / 8.
-  // Each 16-byte row chunk stays whole under both layouts, and the 8 rows
-  // of a matrix start on 8 distinct 4-bank groups.
-  __device__ static void split4(const unsigned (&r)[4], unsigned (&hi)[4],
-                                unsigned (&lo)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), hi[i], lo[i]);
-  }
-  __device__ static void load_a(A& a, const T* t, int p, int r0, int k0) {
-    const int lane = threadIdx.x & 31, m = lane >> 3;
-    unsigned r[4];
-    ldsm_x4(r, t + at_s(p, r0 + (lane & 7) + 8 * (m & 1), k0 + 4 * (m >> 1)));
-    split4(r, a.hi, a.lo);
-  }
-  __device__ static void load_ak(A& a, const T* t, int p, int r0, int k0) {
-    const int lane = threadIdx.x & 31, m = lane >> 3;
-    unsigned r[4];
-    ldsm_x4(r, t + at(p, r0 + (lane & 7) + 8 * (m & 1), k0 + 4 * (m >> 1)));
-    split4(r, a.hi, a.lo);
-  }
-  __device__ static void load_bk2(B& b0, B& b1, const T* t, int p, int n0,
-                                  int k0) {
-    const int lane = threadIdx.x & 31, m = lane >> 3;
-    unsigned r[4], hi[4], lo[4];
-    ldsm_x4(r, t + at(p, n0 + (lane & 7) + 8 * (m >> 1), k0 + 4 * (m & 1)));
-    split4(r, hi, lo);
-    b0.hi[0] = hi[0]; b0.hi[1] = hi[1]; b0.lo[0] = lo[0]; b0.lo[1] = lo[1];
-    b1.hi[0] = hi[2]; b1.hi[1] = hi[3]; b1.lo[0] = lo[2]; b1.lo[1] = lo[3];
-  }
-  __device__ static void load_bt(B& b, const T* t, int p, int k0, int n0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
-    split(t[at(p, k0 + c, n0 + g)], b.hi[0], b.lo[0]);
-    split(t[at(p, k0 + c + 4, n0 + g)], b.hi[1], b.lo[1]);
-  }
-  __device__ static void load_bt2(B& b0, B& b1, const T* t, int p, int k0,
-                                  int n0) {
-    load_bt(b0, t, p, k0, n0);
-    load_bt(b1, t, p, k0, n0 + 8);
-  }
-  // the small terms first
-  __device__ static void mma(float (&c)[4], const A& a, const B& b) {
-    mma1688_tf32(c, a.lo, b.hi);
-    mma1688_tf32(c, a.hi, b.lo);
-    mma1688_tf32(c, a.hi, b.hi);
-  }
-  __device__ static void store2(T* t, int p, int r, int c, float v0,
-                                float v1) {
-    *reinterpret_cast<float2*>(t + at_s(p, r, c)) = make_float2(v0, v1);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // Tiles. The block's 16 warps own its dK/dV (or dQ) accumulators as 2 row
@@ -297,89 +138,6 @@ struct Tiles {
   static_assert(dkdv_smem <= 232448, "dK/dV tiles exceed 227 KB");
   static_assert(dq_smem <= 232448, "dQ tiles exceed 227 KB");
 };
-
-// rows [row0, row0 + n) of a [T, D] matrix into a tile of pitch p by
-// 16-byte cp.async; rows past T are zero-filled
-template <class Pol>
-__device__ __forceinline__ void stage_rows(typename Pol::T* dst, int p,
-                                           const typename Pol::T* src,
-                                           int row0, int n, int T_len, int D) {
-  const int nv = D / Pol::kVec;
-  for (int idx = threadIdx.x; idx < n * nv; idx += kThreads) {
-    const int r = idx / nv, c = (idx - r * nv) * Pol::kVec;
-    const bool ok = row0 + r < T_len;
-    cp_async16(dst + Pol::at(p, r, c),
-               ok ? src + (size_t)(row0 + r) * D + c : src, ok ? 16 : 0);
-  }
-}
-
-// rows [row0, row0 + n) × columns [c0, c0 + W) of a matrix of row pitch ld
-// into a score tile of pitch p (Pol::at_s) by 16-byte cp.async; rows past
-// T are zero-filled
-template <class Pol, int W>
-__device__ __forceinline__ void stage_cols(typename Pol::T* dst, int p,
-                                           const typename Pol::T* src,
-                                           int row0, int c0, int n, int T_len,
-                                           int ld) {
-  constexpr int nv = W / Pol::kVec;
-  for (int idx = threadIdx.x; idx < n * nv; idx += kThreads) {
-    const int r = idx / nv, c = (idx - r * nv) * Pol::kVec;
-    const bool ok = row0 + r < T_len;
-    cp_async16(dst + Pol::at_s(p, r, c),
-               ok ? src + (size_t)(row0 + r) * ld + c0 + c : src,
-               ok ? 16 : 0);
-  }
-}
-
-// lse and delta of rows [row0, row0 + n) into sL[0..n), sD[0..n) by 4-byte
-// cp.async, in the caller's copy group; rows past T get 0 (their Q and dO
-// rows are zero, and P is set to 0 there)
-__device__ __forceinline__ void stage_stats(float* sL, float* sD,
-                                            const float* lse,
-                                            const float* delta, size_t bh,
-                                            int row0, int n, int T_len) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const bool ok = row0 + i < T_len;
-    const size_t at = ok ? bh * T_len + row0 + i : 0;
-    cp_async4(sL + i, lse + at, ok ? 4 : 0);
-    cp_async4(sD + i, delta + at, ok ? 4 : 0);
-  }
-}
-
-// This warp's part of one 16×16 tile of X = A·Bᵀ (two 8-column tiles):
-// rows r0 of the A tile, columns c0 of the [n][k]-stored B tile, contracted
-// over columns [kbeg, kend). Each 4 mma steps sum into fresh registers that
-// are then added in f32: the tensor core's adds into a long-lived
-// accumulator truncate.
-template <class Pol>
-__device__ __forceinline__ void score_part(float (&x)[2][4],
-                                           const typename Pol::T* a_t,
-                                           const typename Pol::T* b_t,
-                                           int p, int r0, int c0, int kbeg,
-                                           int kend) {
-  constexpr int CH = 4 * Pol::KS;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) x[0][e] = x[1][e] = 0.f;
-#pragma unroll 2
-  for (int kc = kbeg; kc < kend; kc += CH) {
-    float y[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kd = kc; kd < kc + CH; kd += Pol::KS) {
-      if (kd >= kend) break;
-      typename Pol::A a;
-      typename Pol::B b0, b1;
-      Pol::load_ak(a, a_t, p, r0, kd);
-      Pol::load_bk2(b0, b1, b_t, p, c0, kd);
-      Pol::mma(y[0], a, b0);
-      Pol::mma(y[1], a, b1);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      x[0][e] += y[0][e];
-      x[1][e] += y[1][e];
-    }
-  }
-}
 
 // S = A_s·B_sᵀ and dP = A_dp·B_dpᵀ of one streamed tile (32 × 16·SUBS/2),
 // computed by all warps: warp w takes product w / 8, sub-tile (w % 8) % SUBS
@@ -426,77 +184,6 @@ __device__ __forceinline__ bool score_tiles(
   rl = r0 + (lane >> 2) + 8 * i;
   cl = c0 + 8 * j + 2 * (lane & 3);
   return true;
-}
-
-// acc[m][n] += A·B over the KDIM rows of B: A from the tile a_t (rows
-// r0 + 16·m, m < MT), B from the [k][n]-stored tile b_t, the warp's
-// 8-column tiles nt0 + n (n < npw, nt0 + n < NT); each B fragment serves
-// the MT row tiles. Each mma step's product sums into fresh registers and
-// is added to acc in f32 (see score_part), which also keeps the A
-// fragments live; pairs of tiles share one ldmatrix in bf16.
-template <class Pol, int NPW, int KDIM, int MT>
-__device__ __forceinline__ void accumulate(
-    float (&acc)[MT][NPW][4], const typename Pol::T* a_t, int pa, int r0,
-    const typename Pol::T* b_t, int pb, int nt0, int npw, int NT) {
-#pragma unroll
-  for (int kk = 0; kk < KDIM; kk += Pol::KS) {
-    typename Pol::A a[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) Pol::load_a(a[m], a_t, pa, r0 + 16 * m, kk);
-#pragma unroll
-    for (int n = 0; n < NPW; n += 2) {
-      const int tile = nt0 + n;
-      if (n >= npw || tile >= NT) break;
-      typename Pol::B b0, b1;
-      const bool pair = tile + 1 < NT;
-      if (pair) Pol::load_bt2(b0, b1, b_t, pb, kk, tile * 8);
-      else Pol::load_bt(b0, b_t, pb, kk, tile * 8);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-        Pol::mma(t0, a[m], b0);
-        if (pair) Pol::mma(t1, a[m], b1);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[m][n][e] += t0[e];
-          if (pair) acc[m][n + 1][e] += t1[e];
-        }
-      }
-    }
-  }
-}
-
-// The warp's share of the D/8 column tiles: an even count, from nt0.
-__device__ __forceinline__ int cols_per_warp(int NT, int slices) {
-  const int n = (NT + slices - 1) / slices;
-  return (n + 1) & ~1;
-}
-
-// acc (rows r0 + g, r0 + g + 8 of a [T, D] matrix, the warp's column
-// tiles) times mul into out; rows past T are not stored
-template <class T, int NPW>
-__device__ __forceinline__ void store_acc(T* out, const float (&acc)[NPW][4],
-                                          int row0, int nt0, int npw, int NT,
-                                          int T_len, int D, float mul) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NPW; ++n) {
-    if (n >= npw || nt0 + n >= NT) continue;
-    const int c = (nt0 + n) * 8 + 2 * t;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row0 + g + 8 * i;
-      if (r >= T_len) continue;
-      const float v0 = acc[n][2 * i] * mul, v1 = acc[n][2 * i + 1] * mul;
-      if constexpr (sizeof(T) == 4) {
-        *reinterpret_cast<float2*>(out + (size_t)r * D + c) =
-            make_float2(v0, v1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D + c) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
 }
 
 // The pair's arguments ([B, H, T, D] tensors, the LSE and delta rows, the
@@ -570,12 +257,15 @@ attn_bwd_dkdv_mma(const BwdArgs<typename Pol::T> a) {
 
   auto stage_q = [&](int qt, int buf) {
     const int q0 = qt * BQ;
-    stage_rows<Pol>(sQ + buf * BQ * P, P, q + base, q0, BQ, T_len, D);
-    stage_rows<Pol>(sDO + buf * BQ * P, P, dout + base, q0, BQ, T_len, D);
-    stage_stats(sL + buf * BQ, sDl + buf * BQ, lse, delta, bh, q0, BQ, T_len);
+    stage_rows<Pol, kThreads>(sQ + buf * BQ * P, P, q + base, q0, BQ, T_len,
+                              D);
+    stage_rows<Pol, kThreads>(sDO + buf * BQ * P, P, dout + base, q0, BQ,
+                              T_len, D);
+    stage_stats<kThreads>(sL + buf * BQ, sDl + buf * BQ, lse, delta, bh, q0,
+                          BQ, T_len);
   };
-  stage_rows<Pol>(sK, P, k + base, k0, BK, T_len, D);
-  stage_rows<Pol>(sV, P, v + base, k0, BK, T_len, D);
+  stage_rows<Pol, kThreads>(sK, P, k + base, k0, BK, T_len, D);
+  stage_rows<Pol, kThreads>(sV, P, v + base, k0, BK, T_len, D);
   stage_q(0, 0);
   cp_async_commit();
 
@@ -676,9 +366,10 @@ attn_bwd_dq_mma(const BwdArgs<typename Pol::T> a) {
 
   // key tiles up to kv_len: the dK/dV pass wrote dS for each (0 past kv_len)
   auto stage = [&](int kt, int buf) {
-    stage_rows<Pol>(sK + buf * BK * P, P, k, kt * BK, BK, T_len, D);
-    stage_cols<Pol, BK>(sDS + buf * BQ * PP, PP, ds, q0, kt * BK, BQ, T_len,
-                        a.ldk);
+    stage_rows<Pol, kThreads>(sK + buf * BK * P, P, k, kt * BK, BK, T_len,
+                              D);
+    stage_cols<Pol, BK, kThreads>(sDS + buf * BQ * PP, PP, ds, q0, kt * BK,
+                                  BQ, T_len, a.ldk);
     cp_async_commit();
   };
   stage(0, 0);

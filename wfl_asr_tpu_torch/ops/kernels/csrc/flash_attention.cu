@@ -702,9 +702,10 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 // Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_bwd_dkdv_kernel and
 // _bwd_dq_kernel (K2b) and flash_attention_bwd.py:_bwd_dkdv_kernel and
 // _bwd_dq_kernel (K1b); the TPU package keeps K1b apart only for grid order.
-// Bias-free calls at head_dim > 128 (K1b on the main path) run the
-// tensor-core pair of attention_bwd_mma.cu instead; these kernels serve
-// every call with a bias and bias-free calls up to head_dim 128.
+// Calls with a bias at head_dim 64 (K2b on the main path) run the
+// tensor-core passes of attention_bwd_bias_mma.cu instead, bias-free calls
+// at head_dim > 128 (K1b) the pair of attention_bwd_mma.cu; these kernels
+// serve the other widths with a bias and bias-free widths up to 128.
 //
 // - dK/dV pass (flash_bwd_dkdv): one block per (key tile, h, b) loops over
 //   the query tiles: S (gated bias, key mask before the exp), P, dP = dO·Vᵀ,

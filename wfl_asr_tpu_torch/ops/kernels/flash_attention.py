@@ -12,10 +12,13 @@ backward.
 - On a CUDA tensor the hand-written kernels of ``csrc/flash_attention.cu``
   run (f32 or bf16 in, f32 softmax and accumulation): the forward, which
   also writes the row logsumexp (LSE) when autograd will need it, and the
-  two backward passes (dK/dV; dQ with dGate and dBias), which recompute
-  P = exp(S − LSE) tile by tile. A bias-free backward at head_dim > 128
-  runs the tensor-core pair of ``csrc/attention_bwd_mma.cu`` instead
-  (:func:`backward_route`). On a CPU tensor the plain twins
+  backward passes, which recompute P = exp(S − LSE) tile by tile. The
+  backward takes one of three routes (:func:`backward_route`): with a bias
+  at head_dim 64 the tensor-core passes of
+  ``csrc/attention_bwd_bias_mma.cu`` (dK/dV, dQ, dBias/dGate); bias-free
+  at head_dim > 128 the tensor-core pair of ``csrc/attention_bwd_mma.cu``;
+  otherwise the FMA pair of ``csrc/flash_attention.cu`` (dK/dV; dQ with
+  dGate and dBias). On a CPU tensor the plain twins
   :func:`attention_plain` and :func:`attention_backward_plain` run. Nothing
   falls back: a kernel that fails to build or launch raises.
 - ``dropout_rate`` > 0 with a ``dropout_seed`` runs strict attention
@@ -44,21 +47,29 @@ launches = 0
 bwd_launches = 0
 dropout_launches = 0
 dropout_bwd_launches = 0
-# Launches of each backward pair, counted in the branch of
+# Launches of each backward route, counted in the branch of
 # launch_backward that runs it: the FMA pair of flash_attention.cu, the
-# mma.sync pair of attention_bwd_mma.cu.
+# mma.sync pair of attention_bwd_mma.cu, the mma.sync passes with a bias of
+# attention_bwd_bias_mma.cu.
 fma_bwd_launches = 0
 mma_bwd_launches = 0
+mma_bias_bwd_launches = 0
 
 # Head widths above this, without a bias, take the mma.sync backward pair.
 MMA_BWD_MIN_D = 128
+# The head width the mma.sync passes with a bias are compiled for.
+MMA_BIAS_BWD_D = 64
 
 
 def backward_route(d: int, has_bias: bool) -> str:
-    """Which backward pair a CUDA call runs: ``"mma"`` (the tensor-core
-    pair of ``csrc/attention_bwd_mma.cu``) for a bias-free call at head_dim
-    > 128, else ``"fma"`` (the FMA pair of ``csrc/flash_attention.cu``)."""
-    return "mma" if not has_bias and d > MMA_BWD_MIN_D else "fma"
+    """Which backward a CUDA call runs: ``"mma_bias"`` (the tensor-core
+    passes of ``csrc/attention_bwd_bias_mma.cu``) for a call with a bias at
+    head_dim 64, ``"mma"`` (the tensor-core pair of
+    ``csrc/attention_bwd_mma.cu``) for a bias-free call at head_dim > 128,
+    else ``"fma"`` (the FMA pair of ``csrc/flash_attention.cu``)."""
+    if has_bias:
+        return "mma_bias" if d == MMA_BIAS_BWD_D else "fma"
+    return "mma" if d > MMA_BWD_MIN_D else "fma"
 
 
 def _prep_kv_len(kv_len, b: int, t: int, device) -> torch.Tensor:
@@ -237,10 +248,10 @@ def _dtype_code(q: torch.Tensor) -> int:
 
 def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
                     dropout_rate: float = 0.0, dropout_seed=None):
-    """Run both backward passes on CUDA tensors: the pair
-    :func:`backward_route` names, with no fallback from one to the other,
-    each counted where it launches (``mma_bwd_launches``,
-    ``fma_bwd_launches``). Same contract as
+    """Run the backward passes on CUDA tensors: the route
+    :func:`backward_route` names, with no fallback from one to another,
+    each counted where it launches (``mma_bias_bwd_launches``,
+    ``mma_bwd_launches``, ``fma_bwd_launches``). Same contract as
     :func:`attention_backward_plain`; ``delta = rowsum(dO·O)`` is a plain
     f32 torch op here, as the JAX package leaves it to XLA."""
     global fma_bwd_launches
@@ -254,15 +265,19 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     kv = _prep_kv_len(kv_len, b, t, q.device)
     lse = lse.contiguous()
     seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
-    if backward_route(d, bias is not None) == "mma":
+    route = backward_route(d, bias is not None)
+    if route == "mma":
         dq, dk, dv = _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr,
                                  drop_scale)
         return dq, dk, dv, None, None
-    lib = _build.library("flash_attention")
     if bias is not None:
         bias = bias.to(q.dtype).contiguous()
     if gate is not None:
         gate = gate.float().contiguous()
+    if route == "mma_bias":
+        return _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv,
+                                seed, thr, drop_scale)
+    lib = _build.library("flash_attention")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = (torch.zeros((h, t, t), dtype=torch.float32, device=q.device)
              if bias is not None else None)
@@ -310,6 +325,41 @@ def _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale):
     _build.check(lib, err, "attention_bwd_mma")
     mma_bwd_launches += 1
     return dq, dk, dv
+
+
+def _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
+                     drop_scale):
+    """The tensor-core backward with a bias of
+    ``csrc/attention_bwd_bias_mma.cu`` on the tensors
+    :func:`launch_backward` has checked and laid out (bias in q's dtype,
+    gate f32 or None; the launcher itself refuses a head_dim other than
+    64). The dK/dV pass leaves dS in a [B, H, T, ⌈T/64⌉·64] workspace of
+    q's dtype, which the dQ pass and the dBias/dGate pass read. Returns
+    (dq, dk, dv, dbias, dgate): dq/dk/dv in q's dtype, dbias [H, T, T] and
+    dgate [B, H, T] (None without gate) in f32."""
+    global mma_bias_bwd_launches
+    b, h, t, d = q.shape
+    lib = _build.library("attention_bwd_bias_mma")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ldk = -(-t // 64) * 64
+    ds = torch.empty((b, h, t, ldk), dtype=q.dtype, device=q.device)
+    dbias = torch.empty((h, t, t), dtype=torch.float32, device=q.device)
+    dgate = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+             if gate is not None else None)
+    fn = lib.wfl_attention_bwd_bias_mma
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+             _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), ds.data_ptr(), dbias.data_ptr(), _ptr(dgate), b,
+             h, t, d, ldk, 1.0 / math.sqrt(d), thr, drop_scale,
+             _dtype_code(q), _build.stream_ptr(q.device))
+    _build.check(lib, err, "attention_bwd_bias_mma")
+    mma_bias_bwd_launches += 1
+    return dq, dk, dv, dbias, dgate
 
 
 def attention_forward(ctx, q, k, v, bias, gate, kv_len, dropout_rate=0.0,
