@@ -17,7 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    unit scale, so every GELU works in its curved range), with median times
    over CUDA-event timings, the plain twin's time, one PyTorch library
    call's time where one computes the same function, and the least time
-   the card could take (``bound_ms``);
+   the card could take (``bound_ms``); the forwards also with their row
+   LSE, each shown by the launch count to take the route
+   ``forward_route`` names (K1: the mma.sync forward of
+   ``attention_fwd_mma.cu``; K2: ``flash_attention.cu``);
 4. the main path: a full-width WavLM-base-plus tagger (random weights from
    a ``torch.Generator`` seed) saved as ``.pt``, 8 synthetic wavs of ≤ 30 s,
    ``infer_folder_batched`` on the card in bf16 with the device decode —
@@ -35,12 +38,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32, batch 8, 6 steps, validation every 3) with the launch counts reset
    just before and read just after (12 K2b launches a step on the
    mma.sync passes with a bias, 2 K1b on the mma.sync pair, none on the
-   FMA pair);
+   FMA pair; 2 K1 a forward, each on the mma.sync forward, as in phases
+   4, 6b and 7);
    step times, audio-seconds trained per second, peak memory, one profiled
    step, ``last_model.pt`` reloaded to the same logits, ``best_model.pt``
    served by ``infer_folder_batched``, a bf16 step;
 7. one train step (f32, TF32 off, full width, B=2×8 s, dropout 0), the
-   card against the CPU: loss ≤ 1e-5 relative, gradients ≤ 1e-3 × max;
+   card against the CPU: loss ≤ 1e-5 relative, gradients ≤ 1e-3 × max,
+   with the card step on the CPU step's ReLU branches (a ReLU input of
+   the other sign above 1e-4 on either device fails);
 8. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
    line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -60,16 +66,18 @@ and without dropout beside SDPA with ``dropout_p`` (the bf16 forward held
 element by element to its rounding bound, and a mask of another seed
 shown to fail the same limit; K1b's and K2b's backwards shown to fail the
 plain twin of seed + 1); the head-width sweep, with bias at 16-512 (64 on
-the mma.sync passes, there also without gate) and bias-free at 144, 384
-and 512; 3d: the mask of each forward variant (f32 FMA, bf16
-``mma.sync``, bf16 WMMA), read off bit for bit at T=1499 over every query
-and key tile, and the kept share at the main shape.
+the mma.sync passes, there also without gate) and bias-free at 144, 256,
+384 and 512 (the mma.sync forward); 3d: the mask of each forward variant
+on the main path (f32 FMA and bf16 ``mma.sync`` of ``flash_attention.cu``
+at D = 64, the mma.sync forward of ``attention_fwd_mma.cu`` in f32 and
+bf16 at D = 384), read off bit for bit at T=1499 over every query and key
+tile, and the kept share at the main shape.
 
 Phase 6 includes 6b: the flagship recipe with
 ``training.strict_attention_dropout: true`` (4 steps, validation at the
 last) with the plain attention twins replaced by stubs that raise; 12 K2 +
 2 K1 dropout forwards and 12 K2b + 2 K1b dropout backwards a step, each
-on its mma.sync route; step times strict against not, on one batch in
+on its mma.sync route (the profiled step's kernel names too); step times strict against not, on one batch in
 turns; peak memory; a profiled strict step; a bf16 strict step. Phase 7 includes 7b: one strict f32 train
 step, the card against the CPU, with fixed attention seeds.
 """
@@ -92,8 +100,8 @@ import numpy as np
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
 # FLOP/s for bf16 on tensor cores and f32 outside them. "tf32x3" is the
 # ceiling of f32 work done as three TF32 products on the tensor cores
-# (495 TFLOP/s over 3), as the f32 routes of the mma backward pairs do it;
-# their f32 bound is taken at that rate.
+# (495 TFLOP/s over 3), as the f32 routes of the mma.sync forward and
+# backward kernels do it; their f32 bound is taken at that rate.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 # INT32 operations/s: 64 INT32 lanes a SM against 128 FP32 ones (Hopper
@@ -110,7 +118,7 @@ DROP_RATES = (0.1, 0.15)
 DROP_SEED = 1234567
 # The profiler's names of the kernels of ops/kernels/csrc/*.cu
 PORT_KERNELS = tuple(f"void (anonymous namespace)::{k}" for k in (
-    "flash_fwd_", "flash_bwd_", "attn_bwd_", "attn_bias_bwd_",
+    "flash_fwd_", "flash_bwd_", "attn_fwd_", "attn_bwd_", "attn_bias_bwd_",
     "conv_chain_kernel"))
 
 # Tolerances of a kernel against its plain twin on the card, as fractions
@@ -126,6 +134,9 @@ ATTN_TOL = {"f32": 1e-4, "bf16": 1e-2}          # × max|out|
 BF16_U = 2.0 ** -8
 BF16_SLACK = 1.02
 BF16_FLOOR = 1e-5
+# The forward's row LSE against the plain twin's, absolute (an LSE is ≈ 10
+# on the inputs below).
+LSE_TOL = 1e-3
 # Backward kernels against the plain twin, per gradient, as fractions of
 # that gradient's largest magnitude: bf16 inputs and outputs round dq/dk/dv
 # (and the forward's bf16 out enters delta = rowsum(dO·O)), so 2e-2.
@@ -136,6 +147,14 @@ CONV_TOL = {"f32": 1e-3, "bf16": 3e-2}          # × max|out|
 # of order 1 — a wrong mask, bias or normalisation moves it by that much.
 Q_SCALE = 3.0
 CROSS_DEVICE_TOL = 1e-3                          # card vs CPU logits, f32
+# Phase 7's step passes one kink, the ReLUs of the dilated conv stack, whose
+# inputs (of order 1) differ between the card and the CPU by rounding (up to
+# 1.24e-5 in f32 on an H100). An input closer to 0 than that may take the
+# other branch on the other device. A branch that differs at an input above
+# RELU_TIE (about 2.4× that gap), or at more than RELU_MAX_PINNED inputs,
+# fails; below both, the card step is run again on the CPU's branches.
+RELU_TIE = 3e-5
+RELU_MAX_PINNED = 4
 
 B, T = 8, 1499          # batch rows and frames of a 30 s chunk
 
@@ -221,6 +240,34 @@ def bwd_rate(d: int, with_bias: bool, dtype: str) -> str:
     return dtype
 
 
+def fwd_rate(d: int, with_bias: bool, dtype: str) -> str:
+    """The ``PEAK_FLOPS`` key of a forward's products, by the same rule
+    through ``forward_route``: the 3×TF32 ceiling for f32 on the mma.sync
+    forward, else the dtype's own."""
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    if dtype == "f32" and fa.forward_route(d, with_bias) == "mma":
+        return "tf32x3"
+    return dtype
+
+
+def fwd_launch(run, d, with_bias, what):
+    """Run one forward (``run()``) and check that it took the route it
+    should: bias-free at head_dim > 128 the mma.sync forward of
+    ``attention_fwd_mma.cu`` (its count, raised in the branch of
+    ``launch_kernel`` that launches it after the launch returned no error,
+    rises by one), else a forward of ``flash_attention.cu`` (the count
+    stays). Returns what ``run()`` did."""
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    before = fa.mma_fwd_launches
+    got = run()
+    rose = fa.mma_fwd_launches - before
+    want = int(fa.forward_route(d, with_bias) == "mma")
+    if rose != want:
+        raise AssertionError(f"{what}: mma.sync forward launches rose by "
+                             f"{rose}, want {want}")
+    return got
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str, int_ops: float = 0.0):
     """The least time, ms: the largest of ``flops`` over the peak of
     ``dtype`` (a ``PEAK_FLOPS`` key),
@@ -272,16 +319,24 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
         def entry():
             return flash_attention_trainable(q, k, v, kv_len)
     with torch.inference_mode():
-        out = entry()
-    ref = fa.attention_plain(q, k, v, bias, gate, kv_len)
+        out = fwd_launch(entry, d, with_bias, f"{name} {dtype}")
+        _, lse = fwd_launch(lambda: fa.launch_kernel(
+            q, k, v, bias, gate, kv_len, return_lse=True), d, with_bias,
+            f"{name} {dtype} with LSE")
+    ref, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
+                                      return_lse=True)
     torch.cuda.synchronize()
     scale = ref.float().abs().max().item()
     mean_abs = ref.float().abs().mean().item()
     err = (out.float() - ref.float()).abs().max().item()
-    ok = err <= ATTN_TOL[dtype] * scale and math.isfinite(err)
+    lse_err = (lse - ref_lse).abs().max().item()
+    ok = (err <= ATTN_TOL[dtype] * scale and math.isfinite(err)
+          and lse_err <= LSE_TOL)
+    del lse, ref_lse
 
     with torch.inference_mode():
         ms = time_ms(entry, iters)
+        by_kernel = device_ms_by_kernel(entry)
     plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, bias, gate,
                                                   kv_len), iters)
     # the one PyTorch call computing the same function (yardstick only)
@@ -300,14 +355,19 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
     nbytes = 4.0 * B * h * T * d * es + B * 4
     if with_bias:
         nbytes += h * T * T * es + B * h * T * 4
-    bms, by = bound_ms(flops, nbytes, dtype)
-    log(f"[kernel] {name} {dtype} [{B},{h},{T},{d}] max_abs_err={err:.3e} "
+    rate = fwd_rate(d, with_bias, dtype)
+    bms, by = bound_ms(flops, nbytes, rate)
+    log(f"[kernel] {name} {dtype} [{B},{h},{T},{d}] route "
+        f"{fa.forward_route(d, with_bias)} max_abs_err={err:.3e} "
         f"(tol {ATTN_TOL[dtype]:g}×{scale:.3g}; mean|out| {mean_abs:.3g}) "
+        f"lse_err={lse_err:.3e} (tol {LSE_TOL:g}) "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-        f"bound_ms={bms:.4f} ({by})")
+        f"bound_ms={bms:.4f} ({by} at {rate}); device ms by kernel "
+        + ", ".join(f"{n} {t:.4f}" for n, t in by_kernel.items()))
     if not ok:
         raise AssertionError(f"{name} {dtype}: max abs diff {err} exceeds "
-                             f"{ATTN_TOL[dtype]}×{scale}")
+                             f"{ATTN_TOL[dtype]}×{scale}, or lse diff "
+                             f"{lse_err} exceeds {LSE_TOL}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms)
 
@@ -398,7 +458,7 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
             if g is not None]
     torch.cuda.synchronize()
     lse_err = (lse - ref_lse).abs().max().item()
-    errs, ok = {}, math.isfinite(lse_err) and lse_err <= 1e-3
+    errs, ok = {}, math.isfinite(lse_err) and lse_err <= LSE_TOL
     for gname, g, w in zip(("dq", "dk", "dv", "dbias", "dgate"), got, want):
         scale = w.float().abs().max().item()
         err = (g.float() - w.float()).abs().max().item()
@@ -552,15 +612,16 @@ def head_dims(gen) -> None:
     runs 64 and 384) with bias, gate and a ragged key length (the backward
     at 64 on the mma.sync passes with a bias, the others on the FMA pair),
     at 64 with a bias and no gate, and bias-free
-    (``flash_attention_trainable``; its backward on the mma.sync pair) at
-    144, 384 and 512, against the plain twins."""
+    (``flash_attention_trainable``; its forward on the mma.sync forward,
+    its backward on the mma.sync pair) at 144, 256, 384 and 512, against
+    the plain twins; each forward's route shown by its launch count."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
         flash_attention_trainable
     cases = ([(d, True, "") for d in (16, 48, 64, 128, 144, 512)]
              + [(64, True, " no gate")]
-             + [(d, False, " bias-free") for d in (144, 384, 512)])
+             + [(d, False, " bias-free") for d in (144, 256, 384, 512)])
     errs = {}
     for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for d, with_bias, kind in cases:
@@ -578,7 +639,7 @@ def head_dims(gen) -> None:
                     return fa.flash_attention(q, k, v, bias, gate, kv)
                 return flash_attention_trainable(q, k, v, kv)
             with torch.inference_mode():
-                out = entry()
+                out = fwd_launch(entry, d, with_bias, f"attention {what}")
             ref, lse = fa.attention_plain(q, k, v, bias, gate, kv,
                                           return_lse=True)
             scale = ref.float().abs().max().item()
@@ -602,7 +663,7 @@ def head_dims(gen) -> None:
                 raise AssertionError(f"attention backward {what}: max diff "
                                      f"{rel} × max|grad|")
     log("[kernel] attention head widths, with bias 16/48/64/128/144/512, "
-        "with bias and no gate 64, bias-free 144/384/512, f32 and bf16: "
+        "with bias and no gate 64, bias-free 144/256/384/512, f32 and bf16: "
         "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
             f"{k}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
 
@@ -694,7 +755,8 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
         return flash_attention_trainable(q, k, v, kv_len, **drop)
 
     with torch.inference_mode():
-        out = entry(rate)
+        out = fwd_launch(lambda: entry(rate), d, with_bias,
+                         f"{name} {dtype} rate {rate}")
     outs = {r: entry(r) for r in (0.0, rate)}       # with autograd
     got = pair_launch(lambda: torch.autograd.grad(
         outs[rate], leaves, dout, retain_graph=True), d, with_bias,
@@ -775,8 +837,8 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
     if with_bias:
         f_bytes += h * T * T * es + B * h * T * 4
         b_bytes += h * T * T * es + h * T * T * 4 + 2 * B * h * T * 4
-    f_bound, f_by = bound_ms(4.0 * valid * d, f_bytes, dtype,
-                             HASH_OPS * valid)
+    f_bound, f_by = bound_ms(4.0 * valid * d, f_bytes,
+                             fwd_rate(d, with_bias, dtype), HASH_OPS * valid)
     b_bound, b_by = bound_ms(10.0 * valid * d, b_bytes,
                              bwd_rate(d, with_bias, dtype),
                              HASH_OPS * valid)
@@ -816,7 +878,10 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
 
 def mask_bits() -> None:
     """3d: each forward variant's dropout mask read off bit for bit at the
-    main length T=1499, over every query and key tile and the ragged tail.
+    main length T=1499, over every query and key tile and the ragged tail
+    (bias-free calls: at D = 64 the forwards of ``flash_attention.cu``, at
+    D = 384 the mma.sync forward of ``attention_fwd_mma.cu``, each shown
+    by the launch count to take that route).
     With q = k = 0 and no bias every row is uniform over its kv_len keys;
     v holds the identity on keys j0..j0+D−1 (one call for each block of D
     keys), so out[b,h,q,j−j0] > 0 exactly when key j is kept. The pattern
@@ -832,9 +897,9 @@ def mask_bits() -> None:
         :, None, None, :]
     found = []
     for variant, dtype, d in (("f32 FMA", torch.float32, 64),
-                              ("f32 FMA", torch.float32, 384),
+                              ("f32 mma.sync fwd", torch.float32, 384),
                               ("bf16 mma.sync", torch.bfloat16, 64),
-                              ("bf16 WMMA", torch.bfloat16, 384)):
+                              ("bf16 mma.sync fwd", torch.bfloat16, 384)):
         q = torch.zeros((b, h, T, d), dtype=dtype, device=dev)
         for rate in DROP_RATES:
             kept = torch.zeros((b, h, T, T), dtype=torch.bool, device=dev)
@@ -843,9 +908,10 @@ def mask_bits() -> None:
                 v = torch.zeros_like(q)
                 v[..., j0:j0 + w, :w] = torch.eye(w, dtype=dtype, device=dev)
                 with torch.inference_mode():
-                    out = fa.flash_attention(q, q, v, kv_len=kv,
-                                             dropout_rate=rate,
-                                             dropout_seed=seed)
+                    out = fwd_launch(lambda: fa.flash_attention(
+                        q, q, v, kv_len=kv, dropout_rate=rate,
+                        dropout_seed=seed), d, False,
+                        f"dropout mask {variant} D={d}")
                 kept[..., j0:j0 + w] = out[..., :w].float() > 0
             want = (dm.mask_grid(seed, b, h, T, T, rate, dev) > 0) & valid
             bad = int((kept != want).sum().item())
@@ -972,10 +1038,13 @@ def phase_main(root: str, iters: int) -> dict:
     log(f"[main] infer_folder_batched on cuda, bf16, device_decode, "
         f"batch_files=8: {len(DURATIONS)} .lab files with {n_segs} segments "
         f"in {wall:.2f} s (first call: position bias + warm-up)")
-    log(f"[main] kernel launches on the main path: {json.dumps(counts)}")
+    log(f"[main] kernel launches on the main path: {json.dumps(counts)}; "
+        f"mma.sync forward {flash_attention.mma_fwd_launches}")
     missing = [k for k, n in counts.items() if n < 1]
     if missing:
         raise AssertionError(f"main path did not launch {missing}")
+    k1_per_forward(flash_attention.mma_fwd_launches, counts["flash_attention"],
+                   counts["flash_attention_trainable"], "phase 4")
 
     # batched forward with gate and median at B=8×30 s, as bench.py
     # defines it: unmasked rows, precomputed position bias, ids to host
@@ -1023,6 +1092,15 @@ def phase_main(root: str, iters: int) -> dict:
             profile_step(step)
             lstm_dtypes(session.model)
     return dict(perf=perf, counts=counts, cfg=cfg, ckpt=ckpt, wav_dir=wav_dir)
+
+
+def k1_per_forward(mma_fwd: int, k2: int, k1: int, what: str) -> None:
+    """Each forward of the tagger runs 12 K2 and 2 K1: K1's launches are
+    a sixth of K2's, and every one of them ran the mma.sync forward."""
+    if not (k1 >= 2 and mma_fwd == k1 and 6 * k1 == k2):
+        raise AssertionError(f"{what}: {mma_fwd} mma.sync forwards, {k1} K1 "
+                             f"and {k2} K2 launches; want 2 K1 a forward, "
+                             f"each on the mma.sync forward")
 
 
 def profile_step(step, what: str = "one bf16 step", top: int = 12) -> None:
@@ -1078,15 +1156,19 @@ def profile_step(step, what: str = "one bf16 step", top: int = 12) -> None:
 
 def profiled_pairs(prof: dict, what: str) -> None:
     """The profiler's kernel names as a second witness of the launch counts:
-    a train step runs each kernel of the bias-free mma.sync pair twice (2
-    K1b backwards), each of the three mma.sync passes with a bias 12 times
-    (12 K2b), and no kernel of the FMA pair."""
-    want = {"attn_bwd_dkdv_mma": 2, "attn_bwd_dq_mma": 2,
-            "attn_bias_bwd_dkdv_mma": 12, "attn_bias_bwd_dq_mma": 12,
-            "attn_bias_bwd_dbias": 12, "flash_bwd_dkdv": 0,
-            "flash_bwd_dq": 0}
+    an f32 train step runs the mma.sync forward twice (2 K1) and no K1 on
+    the forwards of ``flash_attention.cu`` (``flash_fwd_f32<12>``, the f32
+    width of D = 384, and ``flash_fwd_wmma``), each kernel of the
+    bias-free mma.sync pair twice (2 K1b backwards), each of the three
+    mma.sync passes with a bias 12 times (12 K2b), and no kernel of the FMA
+    pair."""
+    want = {"attn_fwd_mma<": 2, "flash_fwd_f32<12,": 0, "flash_fwd_wmma<": 0,
+            "attn_bwd_dkdv_mma<": 2, "attn_bwd_dq_mma<": 2,
+            "attn_bias_bwd_dkdv_mma<": 12, "attn_bias_bwd_dq_mma<": 12,
+            "attn_bias_bwd_dbias<": 12, "flash_bwd_dkdv<": 0,
+            "flash_bwd_dq<": 0}
     got = {part: sum(n for name, (_, n) in prof["kernels"].items()
-                     if f"::{part}<" in name) for part in want}
+                     if f"::{part}" in name) for part in want}
     if got != want:
         raise AssertionError(f"{what}: profiled backward kernels {got}, "
                              f"want {want}")
@@ -1306,10 +1388,13 @@ def phase_train(root: str) -> dict:
               "flash_attention_trainable_bwd": flash_attention_bwd.bwd_launches,
               "mma bias passes": flash_attention.mma_bias_bwd_launches,
               "mma pair": flash_attention.mma_bwd_launches,
-              "fma pair": flash_attention.fma_bwd_launches}
+              "fma pair": flash_attention.fma_bwd_launches,
+              "mma fwd": flash_attention.mma_fwd_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[train] kernel launches over {TRAIN_STEPS} steps + 2 validations: "
         f"{json.dumps(counts)}")
+    k1_per_forward(counts["mma fwd"], counts["flash_attention"],
+                   counts["flash_attention_trainable"], "phase 6")
     want = {"flash_attention_bwd": 12 * TRAIN_STEPS,
             "flash_attention_trainable_bwd": 2 * TRAIN_STEPS,
             "mma bias passes": 12 * TRAIN_STEPS, "mma pair": 2 * TRAIN_STEPS,
@@ -1495,10 +1580,13 @@ def phase_train_strict(root: str, base: dict) -> dict:
             "K1 all": flash_attention_bwd.launches,
             "mma bias passes": flash_attention.mma_bias_bwd_launches,
             "mma pair": flash_attention.mma_bwd_launches,
-            "fma pair": flash_attention.fma_bwd_launches}
+            "fma pair": flash_attention.fma_bwd_launches,
+            "mma fwd": flash_attention.mma_fwd_launches}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[train-strict] kernel launches over {STRICT_STEPS} strict "
             f"steps + 1 validation: {json.dumps(counts)}")
+        k1_per_forward(counts["mma fwd"], counts["K2 all"], counts["K1 all"],
+                       "phase 6b")
         want = {"K2 dropout": 12 * STRICT_STEPS,
                 "K1 dropout": 2 * STRICT_STEPS,
                 "K2b dropout": 12 * STRICT_STEPS,
@@ -1616,7 +1704,20 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
     (``strict``): strict attention dropout at the recipe's rates (WavLM
     0.1, Conformer 0.15) with the same fixed seed for each attention call
     on both devices (the seed helper patched), the heads' generator
-    dropout replaced by a deterministic scaling, every other dropout 0."""
+    dropout replaced by a deterministic scaling, every other dropout 0.
+
+    The step is piecewise smooth: the dilated conv stack's ReLUs are its
+    one kink. Seeded inputs put a few ReLU inputs within 1e-6 of 0, where
+    any change of f32 rounding may take the other branch and move the
+    gradients downstream of it by a discrete step. Both steps record every
+    ReLU input. The card step first takes its own branches; where no input
+    has the other sign on the CPU, its gradients are the ones held to the
+    tolerance. Otherwise it fails if an input of the other sign lies above
+    RELU_TIE on either device, or if more than RELU_MAX_PINNED do; below
+    both, the card step runs again on the CPU's branches (relu(x) = x where
+    the CPU's input was > 0, else 0), so the gradients compare the same
+    piece of the function, and that run is held to the tolerance. The
+    log shows the worst gradient diff of both card runs."""
     import dataclasses
     import torch
     from wfl_asr_tpu_torch.config import Config
@@ -1647,67 +1748,138 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
         return torch.tensor([seeds[len(draws) - 1]], dtype=torch.int32,
                             device=device)
 
+    relu = torch.relu
+    relu_in = {}
+
+    def recorded(dev, pinned):
+        def fn(x):
+            seen = relu_in.setdefault(dev, [])
+            seen.append(x.detach().float().cpu())
+            if not pinned:
+                return relu(x)
+            keep = (relu_in["cpu"][len(seen) - 1] > 0).to(x.device)
+            return torch.where(keep, x, torch.zeros_like(x))
+        return fn
+
+    def step(dev, pinned=False):
+        nonlocal drop_counts, routes, n_draws
+        draws.clear()
+        relu_in.pop(dev, None)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = init_tagger(arch, torch.Generator().manual_seed(3), dev)
+        torch.relu = recorded(dev, pinned)
+        try:
+            m, _, _ = loop.micro_step(model, batch, dev, 1, 0.1, 3.0)
+        finally:
+            torch.relu = relu
+        if dev == "cuda":
+            drop_counts = [flash_attention.dropout_launches,
+                           flash_attention_bwd.dropout_launches,
+                           flash_attention.dropout_bwd_launches,
+                           flash_attention_bwd.dropout_bwd_launches]
+            routes = route_counts() + [flash_attention.mma_fwd_launches]
+            n_draws = len(draws)
+        return (float(m["loss"]), {n: p.grad.float().cpu() for n, p
+                                   in model.named_parameters()},
+                time.perf_counter() - t0)
+
+    def flips():
+        """ReLU inputs of the other sign on the card (CPU, card); fails on
+        one above RELU_TIE or on more than RELU_MAX_PINNED."""
+        if len(relu_in["cuda"]) != len(relu_in["cpu"]):
+            raise AssertionError(f"ReLU calls: card {len(relu_in['cuda'])}, "
+                                 f"CPU {len(relu_in['cpu'])}")
+        out = []
+        for x_card, x_cpu in zip(relu_in["cuda"], relu_in["cpu"]):
+            other = (x_card > 0) != (x_cpu > 0)
+            out += list(zip(x_cpu[other].tolist(), x_card[other].tolist()))
+        far = [(a, c) for a, c in out if max(abs(a), abs(c)) > RELU_TIE]
+        if far or len(out) > RELU_MAX_PINNED:
+            raise AssertionError(
+                f"{len(out)} ReLU inputs of other signs on the card and the "
+                f"CPU (limit {RELU_MAX_PINNED}), {len(far)} above {RELU_TIE} "
+                f"(CPU, card): {(far or out)[:4]}")
+        return out
+
+    def worst_grad(g_card, g_cpu):
+        """The worst gradient diff as a fraction of its max |grad|, and an
+        error for the first gradient out of tolerance (or None)."""
+        gmax = max(g.abs().max().item() for g in g_cpu.values())
+        worst, worst_name, bad = 0.0, "", None
+        for name, g in g_cpu.items():
+            scale = g.abs().max().item()
+            diff = (g_card[name] - g).abs().max().item()
+            if scale <= 1e-6 * gmax:
+                ok = g_card[name].abs().max().item() <= 1e-6 * gmax
+                rel = 0.0
+            else:
+                rel = diff / scale
+                ok = rel <= 1e-3
+            if not ok and bad is None:
+                bad = (f"{name}: card vs CPU gradient diff {diff} (max |g| "
+                       f"{scale})")
+            if rel > worst:
+                worst, worst_name = rel, name
+        return worst, worst_name, bad
+
     saved = layers.attention_dropout_seed, heads.dropout
     if strict:
         layers.attention_dropout_seed, heads.dropout = fixed_seed, \
             _scaled_dropout
-    res, drop_counts = {}, None
+    drop_counts = routes = None
+    n_draws = 0
     try:
-        for dev in ("cuda", "cpu"):
-            draws.clear()
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            model = init_tagger(arch, torch.Generator().manual_seed(3), dev)
-            m, _, _ = loop.micro_step(model, batch, dev, 1, 0.1, 3.0)
-            res[dev] = (float(m["loss"]), {n: p.grad.float().cpu() for n, p
-                                           in model.named_parameters()},
-                        time.perf_counter() - t0)
-            if dev == "cuda":
-                drop_counts = [flash_attention.dropout_launches,
-                               flash_attention_bwd.dropout_launches,
-                               flash_attention.dropout_bwd_launches,
-                               flash_attention_bwd.dropout_bwd_launches]
-                routes = route_counts()
-            n_draws = len(draws)
-            del model
+        l_cpu, g_cpu, s_cpu = step("cpu")
+        l_card, g_card, s_card = step("cuda")
+        flipped = flips()
+        free = worst_grad(g_card, g_cpu)
+        if flipped:
+            l_card, g_card, s_pin = step("cuda", pinned=True)
+            pinned_flips = flips()
+            s_card += s_pin
     finally:
         layers.attention_dropout_seed, heads.dropout = saved
-    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = res["cuda"], res["cpu"]
+    relu_diff = max((a - c).abs().max().item()
+                    for a, c in zip(relu_in["cuda"], relu_in["cpu"]))
+    relu_min = min(x.abs().min().item() for x in relu_in["cpu"])
     want = [12, 2, 12, 2] if strict else [0, 0, 0, 0]
     if drop_counts != want or n_draws != (14 if strict else 0):
         raise AssertionError(f"dropout launches on the card {drop_counts} "
                              f"(want {want}), seeds drawn {n_draws}")
-    if routes != [12, 2, 0]:
+    if routes != [12, 2, 0, 2]:
         raise AssertionError(f"backward routes on the card (mma bias, mma, "
-                             f"fma) {routes}, want [12, 2, 0]")
+                             f"fma) and mma.sync forwards {routes}, want "
+                             f"[12, 2, 0, 2]")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    gmax = max(g.abs().max().item() for g in g_cpu.values())
-    worst, worst_name = 0.0, ""
-    for name, g in g_cpu.items():
-        scale = g.abs().max().item()
-        diff = (g_card[name] - g).abs().max().item()
-        if scale <= 1e-6 * gmax:
-            ok = g_card[name].abs().max().item() <= 1e-6 * gmax
-            rel = 0.0
-        else:
-            rel = diff / scale
-            ok = rel <= 1e-3
-        if not ok:
-            raise AssertionError(f"{name}: card vs CPU gradient diff {diff} "
-                                 f"(max |g| {scale})")
-        if rel > worst:
-            worst, worst_name = rel, name
+    worst, worst_name, bad = worst_grad(g_card, g_cpu) if flipped else free
     what = ("strict attention dropout (WavLM 0.1, Conformer 0.15; fixed "
             "seeds; dropout launches on the card K2/K1/K2b/K1b "
             f"{drop_counts})" if strict else "dropout 0")
-    what += f"; backward routes on the card (mma bias, mma, fma) {routes}"
+    what += (f"; backward routes on the card (mma bias, mma, fma) and "
+             f"mma.sync forwards {routes}; ReLU inputs card vs CPU max diff "
+             f"{relu_diff:.2e}, smallest |input| on the CPU {relu_min:.2e}, "
+             f"{len(flipped)} of other sign on the card's own branches "
+             f"(CPU, card: "
+             + (", ".join(f"{a:.2e}, {c:.2e}" for a, c in flipped)
+                or "none") + f"; limits {RELU_TIE:g}, {RELU_MAX_PINNED})")
+    if flipped:
+        what += (f"; card's own branches: worst {free[0]:.2e} × max|g| "
+                 f"({free[1]}), not held to the tolerance; rerun on the "
+                 f"CPU's branches ({len(pinned_flips)} of other sign on the "
+                 f"card)")
     log(f"[cross-train] one f32 train step (TF32 off), B=2×8 s, {what}: "
         f"loss card {l_card:.7f} vs CPU {l_cpu:.7f} (rel {loss_rel:.2e}, tol "
-        f"1e-5); {len(g_cpu)} gradients, worst {worst:.2e} × max|g| "
+        f"1e-5); {len(g_cpu)} gradients"
+        f"{' on the CPU branches' if flipped else ''}, worst {worst:.2e} × "
+        f"max|g| "
         f"({worst_name}; tol 1e-3); card {s_card:.1f} s, CPU {s_cpu:.1f} s")
     if not loss_rel <= 1e-5:
         raise AssertionError(f"card vs CPU loss rel diff {loss_rel}")
-    return dict(loss_rel=loss_rel, grad_rel=worst)
+    if bad:
+        raise AssertionError(bad)
+    return dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_own=free[0],
+                relu_flips=len(flipped))
 
 
 # ---------------------------------------------------------------------------
@@ -1718,7 +1890,7 @@ KERNEL_ROWS = [
      "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention.py:75"),
     ("K1", "flash_attention_trainable", "flash_attention_trainable",
-     "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_fwd_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
     ("K5a", "fused_conv_chain[1-3]", "fused_conv_chain[1-3]",
      "wfl_asr_tpu_torch/ops/kernels/csrc/conv_fused.cu",

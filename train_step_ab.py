@@ -12,7 +12,7 @@ weights from seed 3) and one batch of 8 wavs of 20-29 s (seed 7), takes 2
 warm-up steps (f32, Prodigy, dropout at the recipe's rates, PyTorch's
 default TF32 flags as ``chip_smoke.py`` phase 6 sets them), times
 ``--steps`` steps with CUDA events, and profiles one more (device busy
-time, idle share, the backward kernels). Its last line is one JSON object.
+time, idle share, the attention kernels, forward and backward). Its last line is one JSON object.
 The A/B run prints each turn's output, then one JSON line with each side's
 medians and idle shares and B's mean median over A's.
 """
@@ -116,13 +116,14 @@ def turn(root: str, steps: int) -> dict:
               "K1b": flash_attention_bwd.bwd_launches,
               "mma pair": getattr(flash_attention, "mma_bwd_launches", None),
               "mma bias passes": getattr(flash_attention,
-                                         "mma_bias_bwd_launches", None)}
+                                         "mma_bias_bwd_launches", None),
+              "mma fwd": getattr(flash_attention, "mma_fwd_launches", None)}
     prof = sm.profile_step(step, what="one f32 train step", top=0)
-    bwd = {}
+    attn = {}
     for name, (us, n) in prof["kernels"].items():
-        if "_bwd_" in name and "::" in name:
+        if ("_bwd_" in name or "_fwd_" in name) and "::" in name:
             short = name.split("::", 1)[1].split("(")[0]
-            acc = bwd.setdefault(short, [0.0, 0])
+            acc = attn.setdefault(short, [0.0, 0])
             acc[0] += us / 1e3
             acc[1] += n
     return {"root": root,
@@ -133,7 +134,7 @@ def turn(root: str, steps: int) -> dict:
             "launches": {k: n // steps if n is not None else None
                          for k, n in counts.items()},
             "profiled": {k: prof[k] for k in ("wall_ms", "busy_ms", "idle")},
-            "bwd_kernels_ms": bwd}
+            "attention_kernels_ms": attn}
 
 
 def main() -> int:

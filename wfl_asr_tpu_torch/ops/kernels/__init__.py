@@ -5,7 +5,8 @@ and training paths, each beside its plain PyTorch twin.
 | --------------------------- | --------------------------- | ------------------------------------------------------------------------ |
 | ``flash_attention``         | ``csrc/flash_attention.cu`` | ``flash_attention.py``: ``_flash_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head widths other than 64) |
 | ``flash_attention``         | ``csrc/attention_bwd_bias_mma.cu`` | ``flash_attention.py``: ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head_dim 64) |
-| ``flash_attention_bwd``     | ``csrc/flash_attention.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel``                              |
+| ``flash_attention_bwd``     | ``csrc/attention_fwd_mma.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel`` (head_dim > 128)           |
+| ``flash_attention_bwd``     | ``csrc/flash_attention.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel`` (head_dim ≤ 128)             |
 | ``flash_attention_bwd``     | ``csrc/attention_bwd_mma.cu`` | ``flash_attention_bwd.py``: ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head_dim > 128) |
 | ``conv_fused``              | ``csrc/conv_fused.cu``      | ``conv_fused.py``: ``_kernel``                                           |
 | ``dropout_mask``            | ``csrc/common.cuh``         | ``dropout_mask.py``: ``uniform24``, ``keep_mask_f32`` (inside the attention kernels) |
@@ -14,7 +15,7 @@ Sources build with ``nvcc`` at first use (``_build.py``); importing these
 modules needs no CUDA.
 """
 
-KERNEL_SOURCES = ("flash_attention", "attention_bwd_mma",
+KERNEL_SOURCES = ("flash_attention", "attention_fwd_mma", "attention_bwd_mma",
                   "attention_bwd_bias_mma", "conv_fused")
 
 
@@ -26,4 +27,5 @@ def reset_launch_counts() -> None:
         mod.dropout_launches = mod.dropout_bwd_launches = 0
     flash_attention.fma_bwd_launches = flash_attention.mma_bwd_launches = 0
     flash_attention.mma_bias_bwd_launches = 0
+    flash_attention.mma_fwd_launches = 0
     conv_fused.launches.clear()

@@ -1,9 +1,10 @@
-// Tensor-core tiles of the attention backward kernels (sm_90a): the operand
-// policies, which lay out shared-memory tiles and run one mma step in bf16
-// (m16n8k16) or in f32 as three TF32 m16n8k8 products of split operands, and
-// the staging, product and store helpers written once over them. Used by
-// attention_bwd_mma.cu (bias-free, head_dim > 128) and
-// attention_bwd_bias_mma.cu (gated bias, head_dim 64).
+// Tensor-core tiles of the attention kernels (sm_90a): the operand policies,
+// which lay out shared-memory tiles and run one mma step in bf16 (m16n8k16)
+// or in f32 as three TF32 m16n8k8 products of split operands, and the
+// staging, product and store helpers written once over them. Used by
+// attention_fwd_mma.cu (bias-free forward, head_dim > 128),
+// attention_bwd_mma.cu (bias-free backward, head_dim > 128) and
+// attention_bwd_bias_mma.cu (gated-bias backward, head_dim 64).
 //
 // Thread-strided loops take the block's thread count as NTHREADS.
 #pragma once
@@ -27,6 +28,10 @@ namespace wfl {
 // - a_from_acc: the A fragment of a score tile the warp holds in
 //   accumulator registers (P and dS of a 16 × 16 tile), with no trip
 //   through shared memory; load_bt2_acc the B fragments in its k order.
+// - store2_split / load_a_split<LO>: a score tile written once and read as
+//   the A operand many times (the forward's P): f32 stores it as TF32 hi
+//   halves in columns [0, LO) and lo halves in [LO, 2·LO), split once, and
+//   reads them with no split; bf16 stores and reads it as it is.
 // ---------------------------------------------------------------------------
 
 struct PolBF16 {
@@ -98,6 +103,16 @@ struct PolBF16 {
   __device__ static void store2(T* t, int p, int r, int c, float v0,
                                 float v1) {
     *reinterpret_cast<unsigned*>(t + at_s(p, r, c)) = pack_bf16(v0, v1);
+  }
+  template <int LO>
+  __device__ static void store2_split(T* t, int p, int r, int c, float v0,
+                                      float v1) {
+    store2(t, p, r, c, v0, v1);
+  }
+  template <int LO>
+  __device__ static void load_a_split(A& a, const T* t, int p, int r0,
+                                      int k0) {
+    load_a(a, t, p, r0, k0);
   }
 };
 
@@ -213,6 +228,24 @@ struct PolF32 {
                                 float v1) {
     *reinterpret_cast<float2*>(t + at_s(p, r, c)) = make_float2(v0, v1);
   }
+  template <int LO>
+  __device__ static void store2_split(T* t, int p, int r, int c, float v0,
+                                      float v1) {
+    unsigned h0, l0, h1, l1;
+    split(v0, h0, l0);
+    split(v1, h1, l1);
+    store2(t, p, r, c, __uint_as_float(h0), __uint_as_float(h1));
+    store2(t, p, r, c + LO, __uint_as_float(l0), __uint_as_float(l1));
+  }
+  // load_a's reads of both halves, without its split
+  template <int LO>
+  __device__ static void load_a_split(A& a, const T* t, int p, int r0,
+                                      int k0) {
+    const int lane = threadIdx.x & 31, m = lane >> 3;
+    const int r = r0 + (lane & 7) + 8 * (m & 1), c = k0 + 4 * (m >> 1);
+    ldsm_x4(a.hi, t + at_s(p, r, c));
+    ldsm_x4(a.lo, t + at_s(p, r, c + LO));
+  }
 };
 
 // rows [row0, row0 + n) of a [T, D] matrix into a tile of pitch p by
@@ -227,6 +260,24 @@ __device__ __forceinline__ void stage_rows(typename Pol::T* dst, int p,
     const bool ok = row0 + r < T_len;
     cp_async16(dst + Pol::at(p, r, c),
                ok ? src + (size_t)(row0 + r) * D + c : src, ok ? 16 : 0);
+  }
+}
+
+// The same by a row a warp at a time, the lanes on consecutive 16-byte
+// chunks: no division by the row length for every chunk, which stalled the
+// forward's warps longer on staging than the copies themselves
+template <class Pol, int NWARPS>
+__device__ __forceinline__ void stage_rows_by_warp(typename Pol::T* dst,
+                                                   int p,
+                                                   const typename Pol::T* src,
+                                                   int row0, int n, int T_len,
+                                                   int D) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < n; r += NWARPS) {
+    const bool ok = row0 + r < T_len;
+    const typename Pol::T* row = ok ? src + (size_t)(row0 + r) * D : src;
+    for (int c = lane * Pol::kVec; c < D; c += 32 * Pol::kVec)
+      cp_async16(dst + Pol::at(p, r, c), ok ? row + c : src, ok ? 16 : 0);
   }
 }
 
@@ -300,20 +351,41 @@ __device__ __forceinline__ void score_part(float (&x)[2][4],
 }
 
 // acc[m][n] += A·B over the KDIM rows of B: A from the tile a_t (rows
-// r0 + 16·m, m < MT), B from the [k][n]-stored tile b_t, the warp's
-// 8-column tiles nt0 + n (n < npw, nt0 + n < NT); each B fragment serves
-// the MT row tiles. Each mma step's product sums into fresh registers and
-// is added to acc in f32 (see score_part), which also keeps the A
-// fragments live; pairs of tiles share one ldmatrix in bf16.
-template <class Pol, int NPW, int KDIM, int MT>
+// r0 + 16·m, m < MT; a score tile read by Pol::load_a, or with LO > 0 one
+// written by store2_split<LO>), B from the [k][n]-stored tile b_t, the
+// warp's 8-column tiles nt0 + n (n < npw, nt0 + n < NT); each B fragment
+// serves the MT row tiles. Each mma step's product sums into fresh
+// registers and is added to acc in f32 (see score_part), which also keeps
+// the A fragments live; pairs of tiles share one ldmatrix in bf16. With
+// ALPHA, acc = acc·α + A·B instead (alpha[m][i] is α of row
+// r0 + 16·m + g + 8·i): f32 folds α into the first step's add; bf16
+// rescales acc and lets the mma add into it, as its adds in fresh
+// registers cost the forward 7 % of its device time and the rounding of a
+// bf16 P dwarfs the truncation.
+template <class Pol, int NPW, int KDIM, int MT, int LO = 0, bool ALPHA = false>
 __device__ __forceinline__ void accumulate(
     float (&acc)[MT][NPW][4], const typename Pol::T* a_t, int pa, int r0,
-    const typename Pol::T* b_t, int pb, int nt0, int npw, int NT) {
+    const typename Pol::T* b_t, int pb, int nt0, int npw, int NT,
+    const float (*alpha)[2] = nullptr) {
+  constexpr bool kInPlace = ALPHA && sizeof(typename Pol::T) == 2;
+  if constexpr (kInPlace) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NPW; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] *= alpha[m][e >> 1];
+  }
 #pragma unroll
   for (int kk = 0; kk < KDIM; kk += Pol::KS) {
     typename Pol::A a[MT];
 #pragma unroll
-    for (int m = 0; m < MT; ++m) Pol::load_a(a[m], a_t, pa, r0 + 16 * m, kk);
+    for (int m = 0; m < MT; ++m) {
+      if constexpr (LO > 0)
+        Pol::template load_a_split<LO>(a[m], a_t, pa, r0 + 16 * m, kk);
+      else
+        Pol::load_a(a[m], a_t, pa, r0 + 16 * m, kk);
+    }
 #pragma unroll
     for (int n = 0; n < NPW; n += 2) {
       const int tile = nt0 + n;
@@ -324,13 +396,24 @@ __device__ __forceinline__ void accumulate(
       else Pol::load_bt(b0, b_t, pb, kk, tile * 8);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-        Pol::mma(t0, a[m], b0);
-        if (pair) Pol::mma(t1, a[m], b1);
+        if constexpr (kInPlace) {
+          Pol::mma(acc[m][n], a[m], b0);
+          if (pair) Pol::mma(acc[m][n + 1], a[m], b1);
+        } else {
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          Pol::mma(t0, a[m], b0);
+          if (pair) Pol::mma(t1, a[m], b1);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[m][n][e] += t0[e];
-          if (pair) acc[m][n + 1][e] += t1[e];
+          for (int e = 0; e < 4; ++e) {
+            if (ALPHA && kk == 0) {
+              const float al = alpha[m][e >> 1];
+              acc[m][n][e] = fmaf(acc[m][n][e], al, t0[e]);
+              if (pair) acc[m][n + 1][e] = fmaf(acc[m][n + 1][e], al, t1[e]);
+            } else {
+              acc[m][n][e] += t0[e];
+              if (pair) acc[m][n + 1][e] += t1[e];
+            }
+          }
         }
       }
     }

@@ -7,9 +7,12 @@
 // Replaces two TPU kernels with one template:
 // - wfl_asr_tpu/ops/pallas/flash_attention.py:_flash_kernel (with bias and
 //   gate; WavLM's gated relative-position attention), and
-// - wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:_fwd_kernel (no bias;
-//   the Conformer attention). The TPU package split them only for grid
-//   order and VMEM; the math is the same.
+// - wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:_fwd_kernel (no bias)
+//   at head_dim ≤ 128. The TPU package split them only for grid order and
+//   VMEM; the math is the same. Bias-free calls at head_dim > 128 (the
+//   Conformer's 384) take the mma.sync forward of attention_fwd_mma.cu, so
+//   the kernels here serve head_dim > 128 only with a bias, which no model
+//   of the repo uses.
 //
 // What bounds it on the card: at WavLM shapes ([8,12,1499,64]) the work is
 // 4·B·H·T²·D ≈ 5.5e10 FLOPs against ≈ 128 MB of bytes (the [H,T,T] bias
@@ -630,8 +633,9 @@ cudaError_t run_wmma(const void* q, const void* k, const void* v,
 }
 
 // Up to D=128 the register-resident mma.sync kernel (its output tile fits
-// in registers); above, the WMMA kernel with 32-key tiles, and 2 warps (32
-// query rows) above D=384, so the staged tiles fit in 227 KB.
+// in registers); above (calls with a bias only), the WMMA kernel with
+// 32-key tiles, and 2 warps (32 query rows) above D=384, so the staged
+// tiles fit in 227 KB.
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                           const void* bias, const void* gate,
                           const void* kv_len, void* out, void* lse, int B,

@@ -9,11 +9,14 @@ backward.
   batch (read per tile by the kernel, never expanded to [B,H,T,T]);
   ``gate`` [B, H, T] is the per-query gate; ``kv_len`` [B] masks padded
   keys (clamped to ≥ 1, as in JAX).
-- On a CUDA tensor the hand-written kernels of ``csrc/flash_attention.cu``
-  run (f32 or bf16 in, f32 softmax and accumulation): the forward, which
-  also writes the row logsumexp (LSE) when autograd will need it, and the
-  backward passes, which recompute P = exp(S − LSE) tile by tile. The
-  backward takes one of three routes (:func:`backward_route`): with a bias
+- On a CUDA tensor hand-written kernels run (f32 or bf16 in, f32 softmax
+  and accumulation): the forward, which also writes the row logsumexp
+  (LSE) when autograd will need it, and the backward passes, which
+  recompute P = exp(S − LSE) tile by tile. The forward takes one of two
+  routes (:func:`forward_route`): bias-free at head_dim > 128 the
+  tensor-core forward of ``csrc/attention_fwd_mma.cu``; otherwise the
+  forwards of ``csrc/flash_attention.cu``. The backward takes one of three
+  routes (:func:`backward_route`): with a bias
   at head_dim 64 the tensor-core passes of
   ``csrc/attention_bwd_bias_mma.cu`` (dK/dV, dQ, dBias/dGate); bias-free
   at head_dim > 128 the tensor-core pair of ``csrc/attention_bwd_mma.cu``;
@@ -54,11 +57,22 @@ dropout_bwd_launches = 0
 fma_bwd_launches = 0
 mma_bwd_launches = 0
 mma_bias_bwd_launches = 0
+# Launches of the mma.sync forward of attention_fwd_mma.cu, counted in the
+# branch of launch_kernel that runs it.
+mma_fwd_launches = 0
 
-# Head widths above this, without a bias, take the mma.sync backward pair.
-MMA_BWD_MIN_D = 128
+# Head widths above this, without a bias, take the mma.sync forward and the
+# mma.sync backward pair.
+MMA_MIN_D = 128
 # The head width the mma.sync passes with a bias are compiled for.
 MMA_BIAS_BWD_D = 64
+
+
+def forward_route(d: int, has_bias: bool) -> str:
+    """Which forward a CUDA call runs: ``"mma"`` (the tensor-core forward
+    of ``csrc/attention_fwd_mma.cu``) for a bias-free call at head_dim >
+    128, else ``"fused"`` (the forwards of ``csrc/flash_attention.cu``)."""
+    return "mma" if not has_bias and d > MMA_MIN_D else "fused"
 
 
 def backward_route(d: int, has_bias: bool) -> str:
@@ -69,7 +83,7 @@ def backward_route(d: int, has_bias: bool) -> str:
     else ``"fma"`` (the FMA pair of ``csrc/flash_attention.cu``)."""
     if has_bias:
         return "mma_bias" if d == MMA_BIAS_BWD_D else "fma"
-    return "mma" if d > MMA_BWD_MIN_D else "fma"
+    return "mma" if d > MMA_MIN_D else "fma"
 
 
 def _prep_kv_len(kv_len, b: int, t: int, device) -> torch.Tensor:
@@ -206,36 +220,67 @@ def _dropout_args(dropout_rate: float, dropout_seed):
 def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
                   return_lse: bool = False, dropout_rate: float = 0.0,
                   dropout_seed=None):
-    """Run the forward of ``csrc/flash_attention.cu`` on CUDA tensors (no
-    launch count); with ``return_lse`` also the row LSE [B, H, T] f32; with
-    ``dropout_rate`` > 0 the in-kernel dropout (K6) of ``dropout_seed``, a
-    one-element int32 tensor on q's device."""
+    """Run the forward on CUDA tensors: the route :func:`forward_route`
+    names, with no fallback from one to the other (the mma.sync forward
+    counted in ``mma_fwd_launches`` where it launches); with
+    ``return_lse`` also the row LSE [B, H, T] f32; with ``dropout_rate`` >
+    0 the in-kernel dropout (K6) of ``dropout_seed``, a one-element int32
+    tensor on q's device."""
     _check(q, k, v, bias, gate)
     if not q.is_cuda:
         raise ValueError("launch_kernel needs CUDA tensors")
     b, h, t, d = q.shape
-    lib = _build.library("flash_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if bias is not None:
-        bias = bias.to(q.dtype).contiguous()
-    if gate is not None:
-        gate = gate.float().contiguous()
     kv = _prep_kv_len(kv_len, b, t, q.device)
-    out = torch.empty_like(q)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
     seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
-    fn = lib.wfl_flash_attention_fwd
+    if forward_route(d, bias is not None) == "mma":
+        out = _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale)
+    else:
+        if bias is not None:
+            bias = bias.to(q.dtype).contiguous()
+        if gate is not None:
+            gate = gate.float().contiguous()
+        lib = _build.library("flash_attention")
+        out = torch.empty_like(q)
+        err = _fwd_launcher(lib.wfl_flash_attention_fwd)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
+            kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
+            1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
+            _build.stream_ptr(q.device))
+        _build.check(lib, err, "flash_attention")
+    return (out, lse) if return_lse else out
+
+
+def _fwd_launcher(fn):
+    """A forward launcher of the shared signature (q, k, v, bias, gate,
+    kv_len, out, lse, seed, B, H, T, D, scale, drop_thr, drop_scale, dtype,
+    stream), typed for ctypes."""
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-             _ptr(gate), kv.data_ptr(), out.data_ptr(), _ptr(lse),
-             _ptr(seed), b, h, t, d, 1.0 / math.sqrt(d), thr, drop_scale,
-             _dtype_code(q), _build.stream_ptr(q.device))
-    _build.check(lib, err, "flash_attention")
-    return (out, lse) if return_lse else out
+    return fn
+
+
+def _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale):
+    """The bias-free tensor-core forward of ``csrc/attention_fwd_mma.cu``
+    on the tensors :func:`launch_kernel` has checked and laid out (the
+    launcher itself refuses a bias and a head_dim outside (128, 512]);
+    writes ``lse`` when it is not None. Returns out in q's dtype."""
+    global mma_fwd_launches
+    b, h, t, d = q.shape
+    lib = _build.library("attention_fwd_mma")
+    out = torch.empty_like(q)
+    err = _fwd_launcher(lib.wfl_attention_fwd_mma)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, kv.data_ptr(),
+        out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
+        1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
+        _build.stream_ptr(q.device))
+    _build.check(lib, err, "attention_fwd_mma")
+    mma_fwd_launches += 1
+    return out
 
 
 def _ptr(x: Optional[torch.Tensor]):

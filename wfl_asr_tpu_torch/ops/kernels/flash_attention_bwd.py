@@ -4,13 +4,15 @@ forward and backward.
 
 The Conformer blocks' attention (head_dim 384 on the main path). The JAX
 package keeps it apart from the gated kernel for TPU grid order and VMEM
-only (flash_attention_bwd.py:18-25); on the card both entry points run the
-same forward of ``csrc/flash_attention.cu`` without bias or gate (with the
-row LSE when autograd needs it). The backward at head_dim > 128 (384 on
-the main path) is the tensor-core pair of ``csrc/attention_bwd_mma.cu``
-(counted in ``flash_attention.mma_bwd_launches``), at smaller widths the
-FMA pair of ``csrc/flash_attention.cu``; both take the strict attention
-dropout (K6) when asked. Each entry point keeps its own launch counts.
+only (flash_attention_bwd.py:18-25); on the card both entry points share
+the routes of ``flash_attention``. At head_dim > 128 (384 on the main
+path) the forward is the tensor-core kernel of ``csrc/attention_fwd_mma.cu``
+(with the row LSE when autograd needs it; counted in
+``flash_attention.mma_fwd_launches``) and the backward the tensor-core pair
+of ``csrc/attention_bwd_mma.cu`` (``flash_attention.mma_bwd_launches``); at
+smaller widths the forward of ``csrc/flash_attention.cu`` without bias or
+gate and its FMA backward pair. All take the strict attention dropout (K6)
+when asked. Each entry point keeps its own launch counts.
 """
 
 from __future__ import annotations
