@@ -117,7 +117,9 @@ def turn(root: str, steps: int) -> dict:
               "mma pair": getattr(flash_attention, "mma_bwd_launches", None),
               "mma bias passes": getattr(flash_attention,
                                          "mma_bias_bwd_launches", None),
-              "mma fwd": getattr(flash_attention, "mma_fwd_launches", None)}
+              "mma fwd": getattr(flash_attention, "mma_fwd_launches", None),
+              "mma bias fwd": getattr(flash_attention,
+                                      "mma_bias_fwd_launches", None)}
     prof = sm.profile_step(step, what="one f32 train step", top=0)
     attn = {}
     for name, (us, n) in prof["kernels"].items():

@@ -509,6 +509,13 @@ class WavLMEncoder(nn.Module):
         x = dropout(x, arch.hidden_dropout, generator, self.training)
         if pos_bias is None:
             pos_bias = self.position_bias(x.shape[1])
+        if pos_bias.is_cuda and not pos_bias.requires_grad:
+            # the CUDA kernels read the bias in the compute dtype, as the
+            # JAX wrapper stores it: cast once a forward, not once a layer
+            # (the plain twin on the CPU reads it as it is). A bias that is
+            # trained stays f32, so that the layers' dBias add up in f32 as
+            # the JAX package's do.
+            pos_bias = pos_bias.to(compute_dtype)
         kv_len = (mask.to(torch.int32).sum(-1) if mask is not None else None)
         layerdrop = arch.layerdrop if self.training else 0.0
         for layer in self.encoder.layers:

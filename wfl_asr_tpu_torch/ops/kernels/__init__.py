@@ -3,6 +3,7 @@ and training paths, each beside its plain PyTorch twin.
 
 | port module                 | kernel source               | TPU kernels replaced (``ops/pallas/``)                                   |
 | --------------------------- | --------------------------- | ------------------------------------------------------------------------ |
+| ``flash_attention``         | ``csrc/attention_fwd_bias_mma.cu`` | ``flash_attention.py``: ``_flash_kernel`` (head_dim 64)               |
 | ``flash_attention``         | ``csrc/flash_attention.cu`` | ``flash_attention.py``: ``_flash_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head widths other than 64) |
 | ``flash_attention``         | ``csrc/attention_bwd_bias_mma.cu`` | ``flash_attention.py``: ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head_dim 64) |
 | ``flash_attention_bwd``     | ``csrc/attention_fwd_mma.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel`` (head_dim > 128)           |
@@ -15,7 +16,8 @@ Sources build with ``nvcc`` at first use (``_build.py``); importing these
 modules needs no CUDA.
 """
 
-KERNEL_SOURCES = ("flash_attention", "attention_fwd_mma", "attention_bwd_mma",
+KERNEL_SOURCES = ("flash_attention", "attention_fwd_mma",
+                  "attention_fwd_bias_mma", "attention_bwd_mma",
                   "attention_bwd_bias_mma", "conv_fused")
 
 
@@ -28,4 +30,5 @@ def reset_launch_counts() -> None:
     flash_attention.fma_bwd_launches = flash_attention.mma_bwd_launches = 0
     flash_attention.mma_bias_bwd_launches = 0
     flash_attention.mma_fwd_launches = 0
+    flash_attention.mma_bias_fwd_launches = 0
     conv_fused.launches.clear()

@@ -150,34 +150,6 @@ __device__ __forceinline__ void stage_gate(float* sG, const float* gate,
   }
 }
 
-// acc += C·B for one 16 × 16 tile C that the warp holds in accumulator
-// registers (rows: its 16 keys; columns: 16 queries from row k0 of the
-// [k][n]-stored tile b_t) and all 64 columns of b_t. Each mma step sums into
-// fresh registers that are added to acc in f32 (see score_part).
-template <class Pol>
-__device__ __forceinline__ void accumulate_held(
-    float (&acc)[kNT][4], const float (&c)[2][4], const typename Pol::T* b_t,
-    int pb, int k0) {
-#pragma unroll
-  for (int st = 0; st < Pol::kStepsAcc; ++st) {
-    typename Pol::A a;
-    Pol::a_from_acc(a, c, st);
-#pragma unroll
-    for (int n = 0; n < kNT; n += 2) {
-      typename Pol::B b0, b1;
-      Pol::load_bt2_acc(b0, b1, b_t, pb, k0 + st * Pol::KS, n * 8);
-      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-      Pol::mma(t0, a, b0);
-      Pol::mma(t1, a, b1);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[n][e] += t0[e];
-        acc[n + 1][e] += t1[e];
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // dK/dV pass: block (b, 64-key tile, h). Warp w owns keys 16·w and all 64
 // columns of dV and dK across the query tiles, and stores its keys' dS.

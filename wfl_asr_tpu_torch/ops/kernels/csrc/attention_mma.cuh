@@ -3,6 +3,7 @@
 // or in f32 as three TF32 m16n8k8 products of split operands, and the
 // staging, product and store helpers written once over them. Used by
 // attention_fwd_mma.cu (bias-free forward, head_dim > 128),
+// attention_fwd_bias_mma.cu (gated-bias forward, head_dim 64),
 // attention_bwd_mma.cu (bias-free backward, head_dim > 128) and
 // attention_bwd_bias_mma.cu (gated-bias backward, head_dim 64).
 //
@@ -265,7 +266,9 @@ __device__ __forceinline__ void stage_rows(typename Pol::T* dst, int p,
 
 // The same by a row a warp at a time, the lanes on consecutive 16-byte
 // chunks: no division by the row length for every chunk, which stalled the
-// forward's warps longer on staging than the copies themselves
+// forward's warps longer on staging than the copies themselves. A row of
+// fewer than 32 chunks (D = 64: 8 in bf16, 16 in f32) is one of several
+// that a warp stages at once, a group of lanes each.
 template <class Pol, int NWARPS>
 __device__ __forceinline__ void stage_rows_by_warp(typename Pol::T* dst,
                                                    int p,
@@ -273,11 +276,61 @@ __device__ __forceinline__ void stage_rows_by_warp(typename Pol::T* dst,
                                                    int row0, int n, int T_len,
                                                    int D) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < n; r += NWARPS) {
+  const int nv = D / Pol::kVec;                  // chunks a row
+  const int rows = nv < 32 ? 32 / nv : 1;        // rows a warp at once
+  const int sub = rows > 1 ? lane / nv : 0;      // this lane's row of them
+  if (sub >= rows) return;                       // lanes past rows · nv
+  const int c0 = (lane - sub * nv) * Pol::kVec;
+  const int step = rows > 1 ? D : 32 * Pol::kVec;
+  for (int r = warp * rows + sub; r < n; r += NWARPS * rows) {
     const bool ok = row0 + r < T_len;
     const typename Pol::T* row = ok ? src + (size_t)(row0 + r) * D : src;
-    for (int c = lane * Pol::kVec; c < D; c += 32 * Pol::kVec)
+    for (int c = c0; c < D; c += step)
       cp_async16(dst + Pol::at(p, r, c), ok ? row + c : src, ok ? 16 : 0);
+  }
+}
+
+// The element offset of p within its 16-byte chunk.
+template <class T>
+__device__ __forceinline__ int span_offset(const T* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
+}
+
+// Columns [c0, c0 + W) of rows [row0, row0 + n) of a row-major matrix of
+// row pitch ld that lies in [begin, end) (the [H, T, T] bias: rows T
+// elements apart, so at odd T no row starts on 16 bytes), by 16-byte
+// cp.async in the caller's copy group. Each row is copied as the 16-byte
+// aligned span that covers its W elements, W·sizeof(T)/16 + 1 chunks, into
+// a row of dst (pitch p, 16-byte rows); its element c0 + j lands at
+// span_offset(&row[c0]) + j. A chunk that reaches past end copies its
+// in-bounds bytes and cp.async's src-size zero-fills the rest; one that
+// starts before begin (a base not on 16 bytes) is copied by plain loads,
+// zero outside; rows past T_len are zero.
+template <class T, int W, int NTHREADS>
+__device__ __forceinline__ void stage_spans(T* dst, int p, const T* src,
+                                            size_t ld, int row0, int c0,
+                                            int n, int T_len, const T* begin,
+                                            const T* end) {
+  constexpr int kEl = 16 / sizeof(T), kChunks = W / kEl + 1;
+  static_assert(W % kEl == 0, "a span is whole chunks");
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(begin);
+  const uintptr_t hi = reinterpret_cast<uintptr_t>(end);
+  for (int idx = threadIdx.x; idx < n * kChunks; idx += NTHREADS) {
+    const int r = idx / kChunks, c = idx - r * kChunks;
+    T* d = dst + r * p + c * kEl;
+    const uintptr_t at = (reinterpret_cast<uintptr_t>(
+        src + (size_t)(row0 + r) * ld + c0) & ~uintptr_t(15)) + 16 * c;
+    if (row0 + r >= T_len || at >= hi) {
+      cp_async16(d, reinterpret_cast<const void*>(lo & ~uintptr_t(15)), 0);
+    } else if (at >= lo) {
+      const int bytes = hi - at < 16 ? static_cast<int>(hi - at) : 16;
+      cp_async16(d, reinterpret_cast<const void*>(at), bytes);
+    } else {
+      const T* x = reinterpret_cast<const T*>(at);
+#pragma unroll
+      for (int j = 0; j < kEl; ++j)
+        d[j] = x + j >= begin && x + j < end ? x[j] : from_f<T>(0.f);
+    }
   }
 }
 
@@ -414,6 +467,40 @@ __device__ __forceinline__ void accumulate(
               if (pair) acc[m][n + 1][e] += t1[e];
             }
           }
+        }
+      }
+    }
+  }
+}
+
+// acc += C·B for one 16 × 16 tile C that the warp holds in accumulator
+// registers (P or dS; its columns are the contraction) and all NT 8-column
+// tiles of the [k][n]-stored tile b_t, rows k0 + [0, 16). By default each
+// mma step sums into fresh registers that are added to acc in f32 (see
+// score_part); IN_PLACE lets the mma add into acc (see accumulate's ALPHA).
+template <class Pol, int NT, bool IN_PLACE = false>
+__device__ __forceinline__ void accumulate_held(
+    float (&acc)[NT][4], const float (&c)[2][4], const typename Pol::T* b_t,
+    int pb, int k0) {
+#pragma unroll
+  for (int st = 0; st < Pol::kStepsAcc; ++st) {
+    typename Pol::A a;
+    Pol::a_from_acc(a, c, st);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      typename Pol::B b0, b1;
+      Pol::load_bt2_acc(b0, b1, b_t, pb, k0 + st * Pol::KS, n * 8);
+      if constexpr (IN_PLACE) {
+        Pol::mma(acc[n], a, b0);
+        Pol::mma(acc[n + 1], a, b1);
+      } else {
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+        Pol::mma(t0, a, b0);
+        Pol::mma(t1, a, b1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[n][e] += t0[e];
+          acc[n + 1][e] += t1[e];
         }
       }
     }

@@ -12,9 +12,10 @@ backward.
 - On a CUDA tensor hand-written kernels run (f32 or bf16 in, f32 softmax
   and accumulation): the forward, which also writes the row logsumexp
   (LSE) when autograd will need it, and the backward passes, which
-  recompute P = exp(S − LSE) tile by tile. The forward takes one of two
-  routes (:func:`forward_route`): bias-free at head_dim > 128 the
-  tensor-core forward of ``csrc/attention_fwd_mma.cu``; otherwise the
+  recompute P = exp(S − LSE) tile by tile. The forward takes one of three
+  routes (:func:`forward_route`): with a bias at head_dim 64 the
+  tensor-core forward of ``csrc/attention_fwd_bias_mma.cu``; bias-free at
+  head_dim > 128 that of ``csrc/attention_fwd_mma.cu``; otherwise the
   forwards of ``csrc/flash_attention.cu``. The backward takes one of three
   routes (:func:`backward_route`): with a bias
   at head_dim 64 the tensor-core passes of
@@ -57,22 +58,29 @@ dropout_bwd_launches = 0
 fma_bwd_launches = 0
 mma_bwd_launches = 0
 mma_bias_bwd_launches = 0
-# Launches of the mma.sync forward of attention_fwd_mma.cu, counted in the
-# branch of launch_kernel that runs it.
+# Launches of the mma.sync forwards, each counted in the branch of
+# launch_kernel that runs it: bias-free (attention_fwd_mma.cu) and with a
+# bias (attention_fwd_bias_mma.cu).
 mma_fwd_launches = 0
+mma_bias_fwd_launches = 0
 
 # Head widths above this, without a bias, take the mma.sync forward and the
 # mma.sync backward pair.
 MMA_MIN_D = 128
-# The head width the mma.sync passes with a bias are compiled for.
-MMA_BIAS_BWD_D = 64
+# The head width the mma.sync forward and backward with a bias are compiled
+# for.
+MMA_BIAS_D = 64
 
 
 def forward_route(d: int, has_bias: bool) -> str:
-    """Which forward a CUDA call runs: ``"mma"`` (the tensor-core forward
-    of ``csrc/attention_fwd_mma.cu``) for a bias-free call at head_dim >
-    128, else ``"fused"`` (the forwards of ``csrc/flash_attention.cu``)."""
-    return "mma" if not has_bias and d > MMA_MIN_D else "fused"
+    """Which forward a CUDA call runs: ``"mma_bias"`` (the tensor-core
+    forward of ``csrc/attention_fwd_bias_mma.cu``) for a call with a bias at
+    head_dim 64, ``"mma"`` (that of ``csrc/attention_fwd_mma.cu``) for a
+    bias-free call at head_dim > 128, else ``"fused"`` (the forwards of
+    ``csrc/flash_attention.cu``)."""
+    if has_bias:
+        return "mma_bias" if d == MMA_BIAS_D else "fused"
+    return "mma" if d > MMA_MIN_D else "fused"
 
 
 def backward_route(d: int, has_bias: bool) -> str:
@@ -82,7 +90,7 @@ def backward_route(d: int, has_bias: bool) -> str:
     ``csrc/attention_bwd_mma.cu``) for a bias-free call at head_dim > 128,
     else ``"fma"`` (the FMA pair of ``csrc/flash_attention.cu``)."""
     if has_bias:
-        return "mma_bias" if d == MMA_BIAS_BWD_D else "fma"
+        return "mma_bias" if d == MMA_BIAS_D else "fma"
     return "mma" if d > MMA_MIN_D else "fma"
 
 
@@ -221,8 +229,9 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
                   return_lse: bool = False, dropout_rate: float = 0.0,
                   dropout_seed=None):
     """Run the forward on CUDA tensors: the route :func:`forward_route`
-    names, with no fallback from one to the other (the mma.sync forward
-    counted in ``mma_fwd_launches`` where it launches); with
+    names, with no fallback from one to another (the mma.sync forwards
+    counted in ``mma_fwd_launches`` and ``mma_bias_fwd_launches`` where they
+    launch); with
     ``return_lse`` also the row LSE [B, H, T] f32; with ``dropout_rate`` >
     0 the in-kernel dropout (K6) of ``dropout_seed``, a one-element int32
     tensor on q's device."""
@@ -235,13 +244,17 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
     seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
-    if forward_route(d, bias is not None) == "mma":
+    route = forward_route(d, bias is not None)
+    if bias is not None:
+        bias = bias.to(q.dtype).contiguous()
+    if gate is not None:
+        gate = gate.float().contiguous()
+    if route == "mma":
         out = _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale)
+    elif route == "mma_bias":
+        out = _launch_mma_bias_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
+                                   drop_scale)
     else:
-        if bias is not None:
-            bias = bias.to(q.dtype).contiguous()
-        if gate is not None:
-            gate = gate.float().contiguous()
         lib = _build.library("flash_attention")
         out = torch.empty_like(q)
         err = _fwd_launcher(lib.wfl_flash_attention_fwd)(
@@ -280,6 +293,27 @@ def _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale):
         _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_fwd_mma")
     mma_fwd_launches += 1
+    return out
+
+
+def _launch_mma_bias_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
+                         drop_scale):
+    """The tensor-core forward with a bias of
+    ``csrc/attention_fwd_bias_mma.cu`` on the tensors :func:`launch_kernel`
+    has checked and laid out (bias in q's dtype, gate f32 or None; the
+    launcher itself refuses a null bias and a head_dim other than 64);
+    writes ``lse`` when it is not None. Returns out in q's dtype."""
+    global mma_bias_fwd_launches
+    b, h, t, d = q.shape
+    lib = _build.library("attention_fwd_bias_mma")
+    out = torch.empty_like(q)
+    err = _fwd_launcher(lib.wfl_attention_fwd_bias_mma)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        _ptr(gate), kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b,
+        h, t, d, 1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
+        _build.stream_ptr(q.device))
+    _build.check(lib, err, "attention_fwd_bias_mma")
+    mma_bias_fwd_launches += 1
     return out
 
 
