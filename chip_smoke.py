@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                 # every phase, as the check runs it
     python3 chip_smoke.py --only kernels  # build + kernel-vs-plain phases only
+    python3 chip_smoke.py --only conv     # build + K5's part of phase 3 only
     python3 chip_smoke.py --only train    # build + training phases 6-7 only
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -21,14 +22,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    LSE, each shown by the launch counts to take the route
    ``forward_route`` names (K1: the mma.sync forward of
    ``attention_fwd_mma.cu``; K2: the mma.sync forward with a bias of
-   ``attention_fwd_bias_mma.cu``);
+   ``attention_fwd_bias_mma.cu``); K5 (``conv_fused.cu``, one launch a
+   layer, shown by ``layer_launches``) with the cuDNN chain (one
+   ``F.conv1d`` + ``F.gelu`` a layer, TF32 off) as its library yardstick,
+   f32 bounds at the 3×TF32 ceiling, each layer's time and layer 1's
+   without the layer-0 norm, and small ragged widths (C = 80 f32, 48 bf16, odd T, 1-2 layers);
 4. the main path: a full-width WavLM-base-plus tagger (random weights from
    a ``torch.Generator`` seed) saved as ``.pt``, 8 synthetic wavs of ≤ 30 s,
    ``infer_folder_batched`` on the card in bf16 with the device decode —
    launch counts reset just before and read just after — then the batched
-   forward with gate and median at B=8×30 s (bench.py's definition), timed,
-   and one bf16 step profiled (12 launches of the mma.sync forward with a
-   bias, none of ``flash_attention.cu``'s ``flash_fwd_mma<64>``);
+   forward with gate and median at B=8×30 s (bench.py's definition), timed
+   with its peak memory, and one bf16 step profiled (12 launches of the
+   mma.sync forward with a bias, none of ``flash_attention.cu``'s
+   ``flash_fwd_mma<64>``, 6 of K5's ``conv_layer_mma``, 3 a chain);
 5. the card against the CPU, f32 (TF32 off): one 30 s utterance through
    ``InferenceSession.forward`` (unmasked), and the 8 wavs of unequal
    length through ``forward_many_decoded`` (sample and frame masks, masked
@@ -129,7 +135,7 @@ DROP_SEED = 1234567
 # The profiler's names of the kernels of ops/kernels/csrc/*.cu
 PORT_KERNELS = tuple(f"void (anonymous namespace)::{k}" for k in (
     "flash_fwd_", "flash_bwd_", "attn_fwd_", "attn_bwd_", "attn_bias_fwd_",
-    "attn_bias_bwd_", "conv_chain_kernel"))
+    "attn_bias_bwd_", "conv_layer_mma"))
 
 # Tolerances of a kernel against its plain twin on the card, as fractions
 # of the reference output's largest magnitude (≈ 1 on the inputs below):
@@ -530,13 +536,27 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
                 bound_by=by, library_ms=library_ms)
 
 
-def _conv_case(name, gen, ks, t_in, with_norm, dtype, iters):
-    import torch
+def conv_launch(run, n_layers, what):
+    """Run one K5 entry point (``run()``) and check that it launched the
+    layer kernel of ``conv_fused.cu`` once a layer (``layer_launches``,
+    raised after each launch returned no error) and counted one chain.
+    Returns what ``run()`` did."""
     from wfl_asr_tpu_torch.ops.kernels import conv_fused as cf
-    dev, c = "cuda", 512
-    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
-    # unit-scale activations: He-scaled weights (std √(2/(C·k))) keep every
-    # layer's GELU input of order 1, where GELU is far from linear
+    layers, chains = cf.layer_launches, sum(cf.launches.values())
+    got = run()
+    rose = (cf.layer_launches - layers, sum(cf.launches.values()) - chains)
+    if rose != (n_layers, 1):
+        raise AssertionError(f"{what}: layer and chain launches rose by "
+                             f"{rose}, want ({n_layers}, 1)")
+    return got
+
+
+def conv_inputs(gen, ks, t_in, c, with_norm, tdt):
+    """x, the weights and the optional layer-0 norm on the card, of unit
+    scale: He-scaled weights (std √(2/(C·k))) keep every layer's GELU input
+    of order 1, where GELU is far from linear."""
+    import torch
+    dev = "cuda"
     x = torch.randn((B, t_in, c), generator=gen, device=dev).to(tdt)
     ws = [torch.randn((c, c, k), generator=gen, device=dev)
           * math.sqrt(2.0 / (c * k)) for k in ks]
@@ -546,39 +566,131 @@ def _conv_case(name, gen, ks, t_in, with_norm, dtype, iters):
                 0.5 + torch.rand((B, c), generator=gen, device=dev),
                 1.0 + 0.2 * torch.randn((c,), generator=gen, device=dev),
                 torch.randn((c,), generator=gen, device=dev) * 0.1)
+    return x, ws, norm
+
+
+def cudnn_chain(x, ws, norm):
+    """The same function as one cuDNN convolution a layer in x's dtype
+    (channels-first, ``F.conv1d(stride=2)`` + ``F.gelu``, the norm as
+    elementwise ops in f32 before it; ``ws`` in x's dtype): K5's
+    yardstick, which the port never calls."""
+    import torch.nn.functional as F
+    h = x
+    if norm is not None:
+        mean, inv, scale, bias = norm
+        h = (h.float() - mean[:, None, :]) * inv[:, None, :]
+        h = F.gelu(h * scale + bias).to(x.dtype)
+    h = h.transpose(1, 2)
+    for w in ws:
+        h = F.gelu(F.conv1d(h, w, stride=2))
+    return h.transpose(1, 2)
+
+
+def _conv_case(name, gen, ks, t_in, with_norm, dtype, iters, c=512,
+               timed=True):
+    import torch
+    from wfl_asr_tpu_torch.ops.kernels import conv_fused as cf
+    dev = "cuda"
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, ws, norm = conv_inputs(gen, ks, t_in, c, with_norm, tdt)
     packed = cf.pack_weights(ws, tdt, dev)
 
     def entry():        # the entry point the WavLM feature encoder calls
         return cf.fused_conv_chain(x, ws, input_norm=norm, packed=packed)
     with torch.inference_mode():
-        out = entry()
+        out = conv_launch(entry, len(ks), f"{name} {dtype}")
     ref = cf.conv_chain_plain(x, ws, norm)
     torch.cuda.synchronize()
     scale = ref.float().abs().max().item()
     mean_abs = ref.float().abs().mean().item()
     err = (out.float() - ref.float()).abs().max().item()
-    ok = err <= CONV_TOL[dtype] * scale and math.isfinite(err)
+    ok = (err <= CONV_TOL[dtype] * scale and math.isfinite(err)
+          and out.shape == ref.shape)
+    t = cf.chain_out_len(t_in, ks)
+    shape = f"ks={ks} [{B},{t_in},{c}]->[{B},{t},{c}]"
+    if not timed:
+        log(f"[kernel] {name} {dtype} {shape} max_abs_err={err:.3e} (tol "
+            f"{CONV_TOL[dtype]:g}×{scale:.3g})")
+    if not ok:
+        diff = (out.float() - ref.float()).abs()
+        bad = diff > CONV_TOL[dtype] * scale
+        where = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+        raise AssertionError(f"{name} {dtype} {shape}: max abs diff {err} "
+                             f"exceeds {CONV_TOL[dtype]}×{scale} at (b, t, "
+                             f"c) {where}; {int(bad.sum())} of "
+                             f"{bad.numel()} elements over")
+    if not timed:
+        return dict(max_abs_err=err)
+    lib_ws = [w.to(tdt) for w in ws]
     with torch.inference_mode():
         ms = time_ms(entry, iters)
+        # each layer's launch alone, and layer 1 without the norm: what the
+        # norm costs it (CUDA events: the profiler's kernel sums have come
+        # out short here)
+        layer_ms, h, nm = [], x, norm
+        for w, p in zip(ws, packed):
+            layer_ms.append(time_ms(lambda h=h, w=w, p=p, nm=nm:
+                                    cf.launch_kernel(h, [w], nm, [p]), iters))
+            h, nm = cf.launch_kernel(h, [w], nm, [p]), None
+        bare_ms = time_ms(lambda: cf.launch_kernel(x, ws[:1], None,
+                                                   packed[:1]), iters)
+        del h
+        lib_err = (cudnn_chain(x, lib_ws, norm).float() - ref.float()).abs() \
+            .max().item()
+        library_ms = time_ms(lambda: cudnn_chain(x, lib_ws, norm), iters)
     plain_ms = time_ms(lambda: cf.conv_chain_plain(x, ws, norm), iters)
 
     es = 4 if dtype == "f32" else 2
-    t, flops = t_in, 0.0
+    tt, flops = t_in, 0.0
     for k in ks:
-        t = (t - k) // 2 + 1
-        flops += 2.0 * B * c * c * k * t
+        tt = (tt - k) // 2 + 1
+        flops += 2.0 * B * c * c * k * tt
     nbytes = (B * t_in * c + B * t * c + sum(ks) * c * c) * es
     if with_norm:
         nbytes += 2 * B * c * 4 + 2 * c * 4
-    bms, by = bound_ms(flops, nbytes, dtype)
-    log(f"[kernel] {name} {dtype} ks={ks} [{B},{t_in},{c}]->[{B},{t},{c}] "
-        f"max_abs_err={err:.3e} (tol {CONV_TOL[dtype]:g}×{scale:.3g}; "
-        f"mean|out| {mean_abs:.3g}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by})")
-    if not ok:
-        raise AssertionError(f"{name} {dtype}: max abs diff {err} exceeds "
-                             f"{CONV_TOL[dtype]}×{scale}")
+    # f32 runs as three TF32 products on the tensor cores
+    rate = "tf32x3" if dtype == "f32" else dtype
+    bms, by = bound_ms(flops, nbytes, rate)
+    log(f"[kernel] {name} {dtype} {shape} max_abs_err={err:.3e} (tol "
+        f"{CONV_TOL[dtype]:g}×{scale:.3g}; mean|out| {mean_abs:.3g}) "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} cudnn_ms={library_ms:.4f} "
+        f"(its max abs diff {lib_err:.3e}) "
+        f"bound_ms={bms:.4f} ({by} at {rate}); ms a layer "
+        + ", ".join(f"{v:.4f}" for v in layer_ms)
+        + (f" (layer 1 without the norm {bare_ms:.4f})" if with_norm
+           else ""))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=library_ms, layer_ms=layer_ms,
+                bare_ms=bare_ms)
+
+
+def phase_conv(gen, iters: int) -> dict:
+    """K5 in both dtypes: the two chains at the main shapes, then the small
+    ragged widths."""
+    import torch
+    res = {}
+    for dtype in ("f32", "bf16"):
+        res[("K5a", dtype)] = _conv_case("fused_conv_chain[1-3]", gen,
+                                         (3, 3, 3), 95999, True, dtype,
+                                         iters)
+        res[("K5b", dtype)] = _conv_case("fused_conv_chain[4-6]", gen,
+                                         (3, 2, 2), 11999, False, dtype,
+                                         iters)
+        torch.cuda.empty_cache()
+    conv_ragged(gen)
+    return res
+
+
+def conv_ragged(gen) -> None:
+    """K5 at small widths against its plain twin: C = 80 in f32 (five K
+    slices of 16 channels) and C = 48 in bf16 (one and a half of 32), both
+    short of one 128-channel N tile, odd T, chains of 1 and 2 layers, with
+    and without the layer-0 norm."""
+    for dtype, c in (("f32", 80), ("bf16", 48)):
+        for ks, t_in, with_norm in (((3,), 301, True), ((2,), 258, False),
+                                    ((3, 2), 517, True)):
+            _conv_case("fused_conv_chain (ragged)", gen, ks, t_in,
+                       with_norm, dtype, 0, c=c, timed=False)
 
 
 def phase_kernels(iters: int) -> dict:
@@ -594,12 +706,6 @@ def phase_kernels(iters: int) -> dict:
                                             dtype, True, kv, iters)
             res[("K1", dtype)] = _attn_case("flash_attention_trainable", gen,
                                             2, 384, dtype, False, kv, iters)
-            res[("K5a", dtype)] = _conv_case("fused_conv_chain[1-3]", gen,
-                                             (3, 3, 3), 95999, True, dtype,
-                                             iters)
-            res[("K5b", dtype)] = _conv_case("fused_conv_chain[4-6]", gen,
-                                             (3, 2, 2), 11999, False, dtype,
-                                             iters)
             torch.cuda.empty_cache()
         # phase 3b: the backward kernels at the training shapes
         with lap("3b"):
@@ -620,6 +726,8 @@ def phase_kernels(iters: int) -> dict:
                     "flash_attention_trainable+dropout", gen, 2, 384, dtype,
                     False, kv, rate, iters)
                 torch.cuda.empty_cache()
+    with lap("3"):
+        res.update(phase_conv(gen, iters))
     with lap("head widths"):
         head_dims(gen)
     with lap("3d"):
@@ -1060,10 +1168,11 @@ def phase_main(root: str, iters: int) -> dict:
                          device="cuda", compute_dtype=bf16)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # K5: the layer kernel's launches of each chain (3 layers each)
     counts = {"flash_attention": flash_attention.launches,
               "flash_attention_trainable": flash_attention_bwd.launches,
-              "fused_conv_chain[1-3]": conv_fused.launches[(3, 3, 3)],
-              "fused_conv_chain[4-6]": conv_fused.launches[(3, 2, 2)]}
+              "fused_conv_chain[1-3]": 3 * conv_fused.launches[(3, 3, 3)],
+              "fused_conv_chain[4-6]": 3 * conv_fused.launches[(3, 2, 2)]}
     n_segs = []
     for i, dur in enumerate(DURATIONS):
         lab = os.path.join(out_dir, f"utt{i}.lab")
@@ -1082,6 +1191,14 @@ def phase_main(root: str, iters: int) -> dict:
     missing = [k for k, n in counts.items() if n < 1]
     if missing:
         raise AssertionError(f"main path did not launch {missing}")
+    chains = dict(conv_fused.launches)
+    if (conv_fused.layer_launches != counts["fused_conv_chain[1-3]"]
+            + counts["fused_conv_chain[4-6]"]
+            or set(chains) != {(3, 3, 3), (3, 2, 2)}
+            or chains[(3, 3, 3)] != chains[(3, 2, 2)]):
+        raise AssertionError(f"K5: {conv_fused.layer_launches} layer "
+                             f"launches for the chains {chains}; want 3 a "
+                             f"chain, chains 1-3 and 4-6 alike")
     per_forward(fwd_counts(), counts["flash_attention"],
                 counts["flash_attention_trainable"], "phase 4")
 
@@ -1106,7 +1223,9 @@ def phase_main(root: str, iters: int) -> dict:
                 ids = median_filter_ids(confidence_gate_ids(logits, 0.5, 0), 3)
             return ids, offsets
 
+        torch.cuda.reset_peak_memory_stats()
         step()[0].cpu()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         sync = []
         for _ in range(iters):
             t0 = time.perf_counter()
@@ -1121,12 +1240,13 @@ def phase_main(root: str, iters: int) -> dict:
         perf[name] = dict(audio_s_per_s=rate, pipelined_ms=pipelined * 1e3,
                           sync_ms_median=float(np.median(sync)) * 1e3,
                           sync_ms_min=float(np.min(sync)) * 1e3,
-                          frames=t_frames)
+                          frames=t_frames, peak_gb=peak_gb)
         log(f"[perf] batched forward + gate + median, B={B}×"
             f"{samples / 16000:g} s {name}: {rate:.2f} audio-s/s "
             f"(pipelined step {pipelined * 1e3:.2f} ms; sync step median "
             f"{np.median(sync) * 1e3:.2f} ms, min {np.min(sync) * 1e3:.2f} "
-            f"ms; {iters} steps each)")
+            f"ms; {iters} steps each; peak memory of a step {peak_gb:.3f} "
+            f"GiB)")
         if name == "bf16":
             profiled_forwards(profile_step(step), "phase 4, bf16 serving")
             lstm_dtypes(session.model)
@@ -1147,10 +1267,15 @@ def per_forward(mma_fwd: list, k2: int, k1: int, what: str) -> None:
 def profiled_forwards(prof: dict, what: str) -> None:
     """The profiler's kernel names as a second witness of the launch counts
     of one bf16 serving step: 12 launches of the mma.sync forward with a
-    bias, none of ``flash_attention.cu``'s bf16 forward at D = 64."""
-    want = {"attn_bias_fwd_mma<": 12, "flash_fwd_mma<64": 0}
-    got = {part: sum(n for name, (_, n) in prof["kernels"].items()
-                     if f"::{part}" in name) for part in want}
+    bias, none of ``flash_attention.cu``'s bf16 forward at D = 64, and 6 of
+    the conv layer kernel (K5: feature-encoder layers 1-6, the first with
+    the layer-0 norm)."""
+    want = {"attn_bias_fwd_mma<": 12, "flash_fwd_mma<64": 0,
+            "conv_layer_mma<": 6, "conv_layer_mma<OpBF16, 3, true>": 1}
+    names = [(name.replace("<(anonymous namespace)::", "<"), n)
+             for name, (_, n) in prof["kernels"].items()]
+    got = {part: sum(n for name, n in names if f"::{part}" in name)
+           for part in want}
     if got != want:
         raise AssertionError(f"{what}: profiled forward kernels {got}, want "
                              f"{want}")
@@ -1995,7 +2120,8 @@ def k6_row(kern: dict, strict: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "train"), default=None)
+    ap.add_argument("--only", choices=("kernels", "conv", "train"),
+                    default=None)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
 
@@ -2010,8 +2136,9 @@ def main() -> int:
     log(f"[device] {card} | torch {torch.__version__} | "
         f"CUDA {torch.version.cuda} | {sys.version.split()[0]}")
     with lap("build"):
-        logs = _build.build_all(list(KERNEL_SOURCES))
-    log(f"[build] {', '.join(KERNEL_SOURCES)} in {LAPS['build']:.1f} s")
+        logs = _build.build_all(["conv_fused"] if args.only == "conv"
+                                else list(KERNEL_SOURCES))
+    log(f"[build] {', '.join(logs)} in {LAPS['build']:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(text):
             log(f"[ptxas] {name}: {line}")
@@ -2028,6 +2155,13 @@ def main() -> int:
                                                     strict=True)
         return trained, strict, cross_train, cross_strict
 
+    if args.only == "conv":      # K5's part of phase 3 alone
+        torch.backends.cudnn.allow_tf32 = False
+        with lap("3"):
+            phase_conv(torch.Generator(device="cuda").manual_seed(0),
+                       args.iters)
+        log_laps()
+        return 0
     if args.only == "train":     # phases 6 and 7 alone, for iterating
         root = tempfile.mkdtemp(prefix="wfl_smoke_")
         try:
@@ -2067,7 +2201,9 @@ def main() -> int:
                      "library_ms": r["library_ms"]})
     rows.append(k6_row(kern, strict))
     log(f"[summary] bf16 B=8x30 s: {perf['bf16']['audio_s_per_s']:.2f} "
-        f"audio-s/s, f32: {perf['f32']['audio_s_per_s']:.2f} audio-s/s; "
+        f"audio-s/s, f32: {perf['f32']['audio_s_per_s']:.2f} audio-s/s "
+        f"(peak memory {perf['bf16']['peak_gb']:.3f} / "
+        f"{perf['f32']['peak_gb']:.3f} GiB); "
         f"card vs CPU logits {cross['max_abs_err']:.3e}; training f32 "
         f"{trained['step_ms']:.1f} ms a step, {trained['audio_s_per_s']:.2f} "
         f"audio-s/s, {trained['peak_gb']:.2f} GiB peak; card vs CPU train "

@@ -5,6 +5,9 @@ that a kernel is never quietly replaced by its twin.
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 each one against its twin there."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from wfl_asr_tpu_torch.ops.kernels import _build, conv_fused, \
     flash_attention, flash_attention_bwd, reset_launch_counts
 
 TOL = 1e-5
+SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -135,15 +139,29 @@ def test_attention_rejects_unsupported_head_dim(d):
         flash_attention_bwd.flash_attention_trainable(x, x, x)
 
 
-def test_conv_chain_tile_fits_shared_memory():
-    """The tile per dtype keeps the staged rows within a Hopper block's
-    shared memory at WavLM-base width."""
-    for ks in ((3, 3, 3), (3, 2, 2)):
-        for esize in (2, 4):
-            tile = conv_fused.pick_tile(ks, 512, esize)
-            assert tile >= 1
-            assert conv_fused.smem_bytes(tile, ks, 512, esize) \
-                <= conv_fused.SMEM_LIMIT
+@pytest.mark.parametrize("c", [512, 80, 48])
+@pytest.mark.parametrize("f32", [True, False])
+def test_conv_chain_tile_fits_shared_memory(f32, c):
+    """The conv layer kernel's stage ring (``Tiles`` and ``Cfg`` in
+    ``csrc/conv_fused.cu``: per stage the 2·bm + 1 input rows and 3·bn
+    weight rows of one 64-byte K slice, two rows a 128-byte line, each on
+    1024 bytes) and its
+    epilogue tile fit a Hopper block's shared memory, at WavLM-base width
+    and the smoke's small widths; each width is whole 16-byte chunks, so a
+    chunk never straddles C (the kernel's zero fill is by whole chunks)."""
+    text = (Path(conv_fused.__file__).parent / "csrc"
+            / "conv_fused.cu").read_text()
+    bm, bn, stages = map(int, re.search(
+        r"struct Tiles<%s> \{ static constexpr int bm = (\d+), bn = (\d+), "
+        r"wn = \d+, stages = (\d+)," % ("OpF32" if f32 else "OpBF16"),
+        text).groups())
+    es = 4 if f32 else 2
+    a_bytes = -(-((2 * bm + 2) // 2 * 128) // 1024) * 1024
+    ring = stages * (a_bytes + 3 * bn // 2 * 128)
+    assert stages >= 3
+    assert ring <= SMEM_LIMIT
+    assert bm * (bn + 8) * 4 <= ring          # the f32 epilogue tile
+    assert c * es % 16 == 0 and c % (4 if f32 else 16) == 0
 
 
 # ---------------------------------------------------------------------------

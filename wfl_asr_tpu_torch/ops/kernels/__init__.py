@@ -9,7 +9,7 @@ and training paths, each beside its plain PyTorch twin.
 | ``flash_attention_bwd``     | ``csrc/attention_fwd_mma.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel`` (head_dim > 128)           |
 | ``flash_attention_bwd``     | ``csrc/flash_attention.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel`` (head_dim ≤ 128)             |
 | ``flash_attention_bwd``     | ``csrc/attention_bwd_mma.cu`` | ``flash_attention_bwd.py``: ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head_dim > 128) |
-| ``conv_fused``              | ``csrc/conv_fused.cu``      | ``conv_fused.py``: ``_kernel``                                           |
+| ``conv_fused``              | ``csrc/conv_fused.cu``      | ``conv_fused.py``: ``_kernel``, ``_kernel_packed`` (one launch a layer)  |
 | ``dropout_mask``            | ``csrc/common.cuh``         | ``dropout_mask.py``: ``uniform24``, ``keep_mask_f32`` (inside the attention kernels) |
 
 Sources build with ``nvcc`` at first use (``_build.py``); importing these
@@ -32,3 +32,4 @@ def reset_launch_counts() -> None:
     flash_attention.mma_fwd_launches = 0
     flash_attention.mma_bias_fwd_launches = 0
     conv_fused.launches.clear()
+    conv_fused.layer_launches = 0

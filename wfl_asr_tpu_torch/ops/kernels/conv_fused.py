@@ -4,10 +4,11 @@
 A chain of ≤ 3 VALID Conv1d layers (C → C, k ∈ {2, 3}, stride 2, no
 bias), exact GELU after each, on channels-last [B, T, C]; optionally the
 layer-0 GroupNorm application ``gelu(((x − mean)·inv)·scale + bias)`` on
-the input. On a CUDA tensor one launch of ``csrc/conv_fused.cu`` runs the
-whole chain, keeping the intermediate layers in shared memory; on a CPU
-tensor the plain twin :func:`conv_chain_plain` (``F.conv1d`` + GELU) runs.
-Nothing falls back. Inference only.
+the input. On a CUDA tensor ``csrc/conv_fused.cu`` runs each layer as one
+launch of a tensor-core implicit GEMM, the intermediate layers in device
+memory in the activation dtype (so each is rounded to it, as on the TPU);
+on a CPU tensor the plain twin :func:`conv_chain_plain` (``F.conv1d`` +
+GELU) runs. Nothing falls back. Inference only.
 """
 
 from __future__ import annotations
@@ -22,12 +23,12 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_CHAIN = 3
-MAX_TILE = 16
-SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
-BF16_WARPS = 16      # warps of a bf16 block (Threads<bf16> in the source)
 
-# Launches of the CUDA kernel, per chain (keyed by its kernel sizes).
+# Launches of the entry point on CUDA, per chain (keyed by its kernel sizes).
 launches: Counter = Counter()
+# Launches of the layer kernel (one a layer of a chain), each counted after
+# its launcher returned no error.
+layer_launches = 0
 
 
 def chain_out_len(t_in: int, ks: Sequence[int]) -> int:
@@ -37,48 +38,13 @@ def chain_out_len(t_in: int, ks: Sequence[int]) -> int:
     return t
 
 
-def stage_rows(tile: int, ks: Sequence[int]) -> list:
-    """Rows of every stage for ``tile`` output rows, composed backwards
-    (n_in = 2·(n_out − 1) + k): [input rows, layer-1 rows, ..., tile]."""
-    rows = [tile]
-    for k in reversed(ks):
-        rows.append(2 * (rows[-1] - 1) + k)
-    return rows[::-1]
-
-
-def smem_bytes(tile: int, ks: Sequence[int], c: int, esize: int) -> int:
-    """Shared memory of one block (``plan`` in csrc/conv_fused.cu): the
-    staged rows of every layer's input. bf16 (the tensor-core path) pads
-    each stage to whole 16-row tiles and an even row count, pitches rows at
-    C + 16, and adds 1 KB of f32 scratch for each of its warps."""
-    rows = stage_rows(tile, ks)
-    total = 0
-    for layer, k in enumerate(ks):
-        alloc = rows[layer]
-        if esize == 2:
-            padded_out = -(-rows[layer + 1] // 16) * 16
-            alloc = max(alloc, 2 * (padded_out - 1) + k)
-            alloc += alloc % 2
-        total += alloc
-    if esize == 2:
-        return total * (c + 16) * esize + BF16_WARPS * 256 * 4
-    return total * c * esize
-
-
-def pick_tile(ks: Sequence[int], c: int, esize: int) -> int:
-    """Largest tile ≤ MAX_TILE whose staged rows fit in shared memory."""
-    for tile in range(MAX_TILE, 0, -1):
-        if smem_bytes(tile, ks, c, esize) <= SMEM_LIMIT:
-            return tile
-    raise ValueError(f"conv chain {tuple(ks)} at C={c} does not fit in "
-                     f"shared memory")
-
-
 def pack_weights(weights: Sequence[torch.Tensor], dtype: torch.dtype,
                  device=None) -> list:
-    """Torch-layout [C_out, C_in, k] weights → the kernel's [k, C_in, C_out]
-    at the activation dtype. Done once per dtype by the owning module."""
-    return [w.detach().to(device=device, dtype=dtype).permute(2, 1, 0)
+    """Torch-layout [C_out, C_in, k] weights → the kernel's [k, C_out, C_in]
+    (tap, output channel, input channel: the [n][k] rows its B fragments
+    read) at the activation dtype. Done once per dtype by the owning
+    module."""
+    return [w.detach().to(device=device, dtype=dtype).permute(2, 0, 1)
             .contiguous() for w in weights]
 
 
@@ -123,40 +89,59 @@ def conv_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 def launch_kernel(x: torch.Tensor, weights: Sequence[torch.Tensor],
                   input_norm=None, packed: Optional[list] = None
                   ) -> torch.Tensor:
-    """Run ``csrc/conv_fused.cu`` on CUDA tensors (no launch count)."""
+    """Run ``csrc/conv_fused.cu`` on CUDA tensors, one launch a layer; each
+    layer's output is a new tensor in x's dtype. Counts each layer's
+    launch in ``layer_launches``, not the chain's."""
     _check(x, weights)
     if not x.is_cuda:
         raise ValueError("launch_kernel needs CUDA tensors")
-    b, t_in, c = x.shape
-    ks = [int(w.shape[2]) for w in weights]
-    t_out = chain_out_len(t_in, ks)
+    c = x.shape[-1]
     if packed is None:
         packed = pack_weights(weights, x.dtype, x.device)
-    if any(p.dtype != x.dtype for p in packed):
-        raise ValueError("packed weights must match the activation dtype")
+    if len(packed) != len(weights) or any(
+            p.dtype != x.dtype or p.device != x.device
+            or tuple(p.shape) != (w.shape[2], c, c) or not p.is_contiguous()
+            or p.data_ptr() % 16 for p, w in zip(packed, weights)):
+        raise ValueError("packed weights must be pack_weights(weights) in "
+                         "the activation's dtype and device")
     x = x.contiguous()
-    esize = x.element_size()
-    tile = pick_tile(ks, c, esize)
-    out = torch.empty((b, t_out, c), dtype=x.dtype, device=x.device)
-    norm = [None] * 4
-    if input_norm is not None:
-        mean, inv, scale, bias = input_norm
-        norm = [mean.float().contiguous(), inv.float().contiguous(),
-                scale.float().contiguous(), bias.float().contiguous()]
-    ptrs = [p.data_ptr() for p in packed] + [None] * (MAX_CHAIN - len(packed))
-    kk = ks + [0] * (MAX_CHAIN - len(ks))
-    lib = _build.library("conv_fused")
-    fn = lib.wfl_conv_chain_fwd
+    if x.data_ptr() % 16:          # 16-byte copies need an aligned base
+        x = x.clone()
+    norm = None
+    if input_norm is not None:     # f32, rows read 16 bytes at a time
+        norm = [t.to(device=x.device, dtype=torch.float32).contiguous()
+                for t in input_norm]
+        norm = [t.clone() if t.data_ptr() % 16 else t for t in norm]
+    return _launch_layers(x, packed, norm)
+
+
+def _launch_layers(x: torch.Tensor, packed: Sequence[torch.Tensor],
+                   norm: Optional[list], lib: Optional[ctypes.CDLL] = None
+                   ) -> torch.Tensor:
+    """One ``wfl_conv_layer_fwd`` launch for each packed layer, the input
+    norm (mean, inv, scale, bias in f32) on the first. ``lib``: a build of
+    the source other than the port's own (``kernel_variants_ab.py``)."""
+    global layer_launches
+    if lib is None:
+        lib = _build.library("conv_fused")
+    fn = lib.wfl_conv_layer_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
-    err = fn(x.data_ptr(), out.data_ptr(), *ptrs, *kk, len(ks), b, t_in,
-             t_out, c, tile,
-             *[n.data_ptr() if n is not None else None for n in norm],
-             0 if x.dtype == torch.float32 else 1,
-             _build.stream_ptr(x.device))
-    _build.check(lib, err, "conv_fused")
-    return out
+    stream = _build.stream_ptr(x.device)
+    b, _, c = x.shape
+    for p in packed:
+        k, t_in = int(p.shape[0]), x.shape[1]
+        out = torch.empty((b, chain_out_len(t_in, [k]), c), dtype=x.dtype,
+                          device=x.device)
+        ptrs = [None] * 4 if norm is None else [t.data_ptr() for t in norm]
+        err = fn(x.data_ptr(), p.data_ptr(), out.data_ptr(), b, t_in,
+                 out.shape[1], c, k, *ptrs,
+                 0 if x.dtype == torch.float32 else 1, stream)
+        _build.check(lib, err, "conv_fused")
+        layer_launches += 1
+        x, norm = out, None
+    return x
 
 
 class _FusedConvChain(torch.autograd.Function):
