@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only kernels  # build + kernel-vs-plain phases only
     python3 chip_smoke.py --only conv     # build + K5's part of phase 3 only
     python3 chip_smoke.py --only train    # build + training phases 6-7 only
+    python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9b only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -60,7 +61,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    printed, and a rerun on the CPU's branches is held to both
    tolerances; more than RELU_MAX_PINNED = 4 such inputs, or one above
    RELU_TIE = 3e-5 on either device, fails;
-8. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
+8. Whisper-base serving (``encoder_type: whisper``, the flagship heads):
+   the tagger saved as .pt and served by ``infer_folder_batched`` on the
+   card in bf16 over a copy of phase 4's wavs, the launch counts set to 0 just
+   before and read just after (a forward: 6 K1 on the fused forward of
+   ``flash_attention.cu`` at D = 64, 2 on the bias-free mma.sync forward);
+   the batched forward timed at B=8×30 s in bf16 and f32 with its peak
+   memory; one bf16 step profiled; one bf16 forward of the ``large-v3``
+   preset at full width (its Conformer at 4 heads), timed;
+   8b. the card against the CPU as in phase 5, for Whisper-base and for the
+   ``none`` encoder at full width (80 mels; unequal lengths take the
+   host's reflect padding and the precentered STFT);
+9. Whisper-base training: preprocess and train on phase 6's corpus (f32,
+   batch 8, 4 steps, validation after the last) with the plain attention
+   twins stubbed to raise; a step: 6 K1b on the FMA pair, 2 on the
+   mma.sync pair; step times, audio-s/s, peak memory, a profiled step,
+   ``last_model.pt`` reloaded to the same logits; 9b. one f32 Whisper-base
+   train step at B=2×30 s, the card against the CPU, under phase 7's
+   rules;
+10. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
    line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -87,7 +106,12 @@ unit gate; bias-free, the f32 FMA and bf16 ``mma.sync`` forwards of
 ``flash_attention.cu`` at D = 64 and the mma.sync forward of
 ``attention_fwd_mma.cu`` at D = 384; each in f32 and bf16), read off bit
 for bit at T=1499 over every query and key tile, and the kept share at the
-main shape.
+main shape; 3e: K1 and K1b at this slice's shapes, bias-free, in f32 and
+bf16, at [8, 8, 1500, 64] (Whisper-base's layers: the fused forward and
+the FMA pair of ``flash_attention.cu``) and [8, 2, 1500, 40] (the
+``none`` encoder's Conformer, padded to 48 by the entry point), against
+the plain twins, timed beside SDPA (without a mask where every key is
+valid) and the bound. The head-width sweep also runs bias-free 40 and 64.
 
 Phase 6 includes 6b: the flagship recipe with
 ``training.strict_attention_dropout: true`` (4 steps, validation at the
@@ -269,29 +293,31 @@ def fwd_rate(d: int, with_bias: bool, dtype: str) -> str:
 
 
 def fwd_counts():
-    """The launch counts of the two mma.sync forwards: (with a bias,
-    bias-free)."""
+    """The launch counts of the three forward routes: (the mma.sync forward
+    with a bias, the bias-free mma.sync forward, the forwards of
+    ``flash_attention.cu``)."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
-    return [fa.mma_bias_fwd_launches, fa.mma_fwd_launches]
+    return [fa.mma_bias_fwd_launches, fa.mma_fwd_launches,
+            fa.fused_fwd_launches]
 
 
 def fwd_launch(run, d, with_bias, what):
     """Run one forward (``run()``) and check that it took the route it
     should, once: with a bias at head_dim 64 the mma.sync forward of
     ``attention_fwd_bias_mma.cu``, bias-free at head_dim > 128 that of
-    ``attention_fwd_mma.cu`` (each count is raised in the branch of
-    ``launch_kernel`` that launches it, after the launch returned no
-    error), else a forward of ``flash_attention.cu`` (both counts stay).
-    Returns what ``run()`` did."""
+    ``attention_fwd_mma.cu``, else a forward of ``flash_attention.cu``
+    (each count is raised in the branch of ``launch_kernel`` that launches
+    it, after the launch returned no error). Returns what ``run()`` did."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     before = fwd_counts()
     got = run()
     rose = [n - m for n, m in zip(fwd_counts(), before)]
     route = fa.forward_route(d, with_bias)
-    want = [int(route == "mma_bias"), int(route == "mma")]
+    want = [int(route == r) for r in ("mma_bias", "mma", "fused")]
     if rose != want:
-        raise AssertionError(f"{what}: mma.sync forward launches (with a "
-                             f"bias, bias-free) rose by {rose}, want {want}")
+        raise AssertionError(f"{what}: forward launches (mma.sync with a "
+                             f"bias, mma.sync bias-free, fused) rose by "
+                             f"{rose}, want {want}")
     return got
 
 
@@ -327,7 +353,12 @@ def attn_inputs(gen, shape, dtype, with_bias):
     return q.to(dtype), k.to(dtype), v.to(dtype), bias, gate
 
 
-def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
+def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters, t=T):
+    """One forward entry point (``flash_attention`` with bias and gate, or
+    ``flash_attention_trainable``) against ``attention_plain`` at [B, h, t,
+    d], its LSE (through ``launch_kernel`` on the inputs the entry point
+    pads to a multiple of 16) against the plain twin's, timed beside the
+    plain twin, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
@@ -335,7 +366,7 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
         flash_attention_trainable
     dev = "cuda"
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
-    q, k, v, bias, gate = attn_inputs(gen, (B, h, T, d), tdt, with_bias)
+    q, k, v, bias, gate = attn_inputs(gen, (B, h, t, d), tdt, with_bias)
     kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
 
     # the entry point the model calls: K2 with bias and gate, K1 without
@@ -347,9 +378,11 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
             return flash_attention_trainable(q, k, v, kv_len)
     with torch.inference_mode():
         out = fwd_launch(entry, d, with_bias, f"{name} {dtype}")
+        qp, kp, vp, _, scale = fa.pad_head_dim(q, k, v)
         _, lse = fwd_launch(lambda: fa.launch_kernel(
-            q, k, v, bias, gate, kv_len, return_lse=True), d, with_bias,
-            f"{name} {dtype} with LSE")
+            qp, kp, vp, bias, gate, kv_len, return_lse=True, scale=scale),
+            d, with_bias, f"{name} {dtype} with LSE")
+        del qp, kp, vp
     ref, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
                                       return_lse=True)
     torch.cuda.synchronize()
@@ -367,24 +400,20 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
     plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, bias, gate,
                                                   kv_len), iters)
     # the one PyTorch call computing the same function (yardstick only)
-    keep = torch.arange(T, device=dev)[None, :] < kv_len[:, None]
-    mask = torch.zeros((B, h, T, T), dtype=tdt, device=dev)
-    if with_bias:
-        mask += (gate[..., None] * bias.float()[None]).to(tdt)
-    mask.masked_fill_(~keep[:, None, None, :], -1e30)
+    mask = sdpa_mask(t, h, tdt, kv_len, bias, gate)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask), iters)
     del mask
 
     es = 4 if dtype == "f32" else 2
     valid_keys = float(sum(kv))
-    flops = 4.0 * h * T * valid_keys * d
-    nbytes = 4.0 * B * h * T * d * es + B * 4
+    flops = 4.0 * h * t * valid_keys * d
+    nbytes = 4.0 * B * h * t * d * es + B * 4
     if with_bias:
-        nbytes += h * T * T * es + B * h * T * 4
+        nbytes += h * t * t * es + B * h * t * 4
     rate = fwd_rate(d, with_bias, dtype)
     bms, by = bound_ms(flops, nbytes, rate)
-    log(f"[kernel] {name} {dtype} [{B},{h},{T},{d}] route "
+    log(f"[kernel] {name} {dtype} [{B},{h},{t},{d}] route "
         f"{fa.forward_route(d, with_bias)} max_abs_err={err:.3e} "
         f"(tol {ATTN_TOL[dtype]:g}×{scale:.3g}; mean|out| {mean_abs:.3g}) "
         f"lse_err={lse_err:.3e} (tol {LSE_TOL:g}) "
@@ -397,6 +426,21 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters):
                              f"{lse_err} exceeds {LSE_TOL}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms)
+
+
+def sdpa_mask(t, h, tdt, kv_len, bias, gate):
+    """SDPA's ``attn_mask`` for the same function: gate·bias and the key
+    mask materialized as [B, h, t, t] in ``tdt``, or None where there is no
+    bias and every key is valid (then SDPA may take its flash kernel)."""
+    import torch
+    keep = torch.arange(t, device="cuda")[None, :] < kv_len[:, None]
+    if bias is None and bool(keep.all()):
+        return None
+    mask = torch.zeros((B, h, t, t), dtype=tdt, device="cuda")
+    if bias is not None:
+        mask += (gate.detach()[..., None] * bias.detach().float()[None]
+                 ).to(tdt)
+    return mask.masked_fill_(~keep[:, None, None, :], -1e30)
 
 
 def route_counts():
@@ -446,12 +490,12 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
     return out
 
 
-def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
+def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters, t=T):
     """One backward entry point (``flash_attention(...)`` or
     ``flash_attention_trainable(...)`` followed by ``.backward``) against
     ``attention_backward_plain`` on the same inputs, at the training
-    shapes: q, k, v (and bias f32, gate f32) need gradients, as in the
-    model."""
+    shapes (or [B, h, t, d]): q, k, v (and bias f32, gate f32) need
+    gradients, as in the model."""
     import torch
     import torch.nn.functional as F
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
@@ -459,13 +503,13 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
         flash_attention_trainable
     dev = "cuda"
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
-    q, k, v, bias, gate = attn_inputs(gen, (B, h, T, d), tdt, with_bias)
+    q, k, v, bias, gate = attn_inputs(gen, (B, h, t, d), tdt, with_bias)
     if with_bias:
         bias = bias.float()
     leaves = [x.requires_grad_() for x in (q, k, v, bias, gate)
               if x is not None]
     kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
-    dout = (torch.rand((B, h, T, d), generator=gen, device=dev) * 2 - 1
+    dout = (torch.rand((B, h, t, d), generator=gen, device=dev) * 2 - 1
             ).to(tdt)
     if with_bias:
         out = fa.flash_attention(q, k, v, bias, gate, kv_len)
@@ -478,8 +522,10 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
     with torch.no_grad():
         ref_out, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
                                               return_lse=True)
-        _, lse = fa.launch_kernel(q, k, v, bias, gate, kv_len,
-                                  return_lse=True)
+        qp, kp, vp, _, scale = fa.pad_head_dim(q, k, v)
+        _, lse = fa.launch_kernel(qp, kp, vp, bias, gate, kv_len,
+                                  return_lse=True, scale=scale)
+        del qp, kp, vp
         want = [g for g in fa.attention_backward_plain(
             q, k, v, bias, gate, kv_len, ref_out, ref_lse, dout)
             if g is not None]
@@ -502,11 +548,7 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
     # the one PyTorch call computing the same gradients (yardstick only):
     # autograd of SDPA with gate·bias materialized as an attn_mask that
     # needs a gradient
-    keep = torch.arange(T, device=dev)[None, :] < kv_len[:, None]
-    mask = torch.zeros((B, h, T, T), dtype=tdt, device=dev)
-    if with_bias:
-        mask += (gate.detach()[..., None] * bias.detach()[None]).to(tdt)
-    mask.masked_fill_(~keep[:, None, None, :], -1e30)
+    mask = sdpa_mask(t, h, tdt, kv_len, bias, gate)
     sdpa_in = [q, k, v] + ([mask.requires_grad_()] if with_bias else [])
     sdpa_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     library_ms = time_ms(lambda: torch.autograd.grad(
@@ -516,12 +558,12 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters):
 
     es = 4 if dtype == "f32" else 2
     valid_keys = float(sum(kv))
-    flops = 5 * 2.0 * h * T * valid_keys * d       # S, dP, dV, dK, dQ
-    nbytes = 8.0 * B * h * T * d * es + 2 * B * h * T * 4 + B * 4
+    flops = 5 * 2.0 * h * t * valid_keys * d       # S, dP, dV, dK, dQ
+    nbytes = 8.0 * B * h * t * d * es + 2 * B * h * t * 4 + B * 4
     if with_bias:    # bias read in q's dtype; dbias f32; gate, dgate
-        nbytes += h * T * T * es + h * T * T * 4 + 2 * B * h * T * 4
+        nbytes += h * t * t * es + h * t * t * 4 + 2 * B * h * t * 4
     bms, by = bound_ms(flops, nbytes, bwd_rate(d, with_bias, dtype))
-    log(f"[kernel] {name} {dtype} [{B},{h},{T},{d}] lse_err={lse_err:.3e} "
+    log(f"[kernel] {name} {dtype} [{B},{h},{t},{d}] lse_err={lse_err:.3e} "
         + " ".join(f"{n}={e:.3e}/{sc:.3g}" for n, (e, sc) in errs.items())
         + f" (tol {GRAD_TOL[dtype]:g}×max) ms={ms:.4f} plain_ms="
         f"{plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={bms:.4f} "
@@ -732,6 +774,37 @@ def phase_kernels(iters: int) -> dict:
         head_dims(gen)
     with lap("3d"):
         mask_bits()
+    with lap("3e"):
+        res.update(phase_whisper_kernels(gen, iters))
+    return res
+
+
+WHISPER_T = 1500        # the Whisper encoder's frames (30 s)
+
+
+def phase_whisper_kernels(gen, iters: int) -> dict:
+    """3e: K1 and K1b at this slice's shapes, bias-free and without a key
+    mask, in f32 (TF32 off) and bf16, each against its plain twin, timed
+    beside SDPA and the bound, its route shown by the launch counts:
+    [8, 8, 1500, 64], Whisper-base's layers (the fused forward and the FMA
+    pair of ``flash_attention.cu``), and [8, 2, 1500, 40], the ``none``
+    encoder's Conformer at hidden 80, through the public entry point
+    (which pads D to 48; the same routes)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kv = [WHISPER_T] * B
+    res = {}
+    for dtype in ("f32", "bf16"):
+        for key, h, d in (("w", 8, 64), ("n", 2, 40)):
+            what = "Whisper" if key == "w" else "none, D=40"
+            res[("K1" + key, dtype)] = _attn_case(
+                f"flash_attention_trainable ({what})", gen, h, d, dtype,
+                False, kv, iters, t=WHISPER_T)
+            res[("K1b" + key, dtype)] = _attn_bwd_case(
+                f"flash_attention_trainable_bwd ({what})", gen, h, d, dtype,
+                False, kv, iters, t=WHISPER_T)
+            torch.cuda.empty_cache()
     return res
 
 
@@ -742,16 +815,18 @@ def head_dims(gen) -> None:
     mma.sync forward and passes with a bias, the others on the forwards and
     the FMA pair of flash_attention.cu), at 64 with a bias and no gate, at
     64 with a bias in q's dtype whose base is not 16-byte aligned, and
-    bias-free (``flash_attention_trainable``; its forward on the mma.sync forward,
-    its backward on the mma.sync pair) at 144, 256, 384 and 512, against
-    the plain twins; each forward's route shown by its launch count."""
+    bias-free (``flash_attention_trainable``) at 40 (padded to 48 inside)
+    and 64 (Whisper's width; the fused forward and the FMA pair) and at
+    144, 256, 384 and 512 (the mma.sync forward and pair), against the
+    plain twins; each forward's route shown by its launch count."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
         flash_attention_trainable
     cases = ([(d, True, "") for d in (16, 48, 64, 128, 144, 512)]
              + [(64, True, " no gate"), (64, True, " unaligned bias")]
-             + [(d, False, " bias-free") for d in (144, 256, 384, 512)])
+             + [(d, False, " bias-free")
+                for d in (40, 64, 144, 256, 384, 512)])
     errs = {}
     for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for d, with_bias, kind in cases:
@@ -800,7 +875,8 @@ def head_dims(gen) -> None:
                                      f"{rel} × max|grad|")
     log("[kernel] attention head widths, with bias 16/48/64/128/144/512 (64 "
         "on the mma.sync forward with a bias), with bias and no gate 64, "
-        "with an unaligned bias 64, bias-free 144/256/384/512, f32 and bf16: "
+        "with an unaligned bias 64, bias-free 40/64/144/256/384/512, f32 and "
+        "bf16: "
         "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
             f"{k}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
 
@@ -1090,16 +1166,24 @@ def mask_bits() -> None:
 DURATIONS = (30.0, 27.3, 24.1, 19.8, 15.2, 11.7, 6.4, 2.9)
 
 
-def make_run(root: str):
+ENCODER_NAMES = {"wavlm": "WavLM-base-plus", "whisper": "Whisper-base",
+                 "none": "the mel front end (80 mels)"}
+
+
+def make_run(root: str, encoder: str = "wavlm"):
     """A save_dir (73 labels, 2 languages), a Config built from a dict, a
-    random-init WavLM-base-plus tagger saved as .pt, and 8 wavs of ≤ 30 s."""
+    random-init tagger (``encoder``: WavLM-base-plus, Whisper-base or the
+    mel front end, with the flagship heads) saved as .pt, and 8 wavs of ≤
+    30 s, the same for every encoder, in a folder of the encoder's own (a
+    folder's ``.wfl_cache`` is keyed by file name alone, the reference's
+    layout, so another model's cached logits would be served)."""
     import torch
     from wfl_asr_tpu_torch.checkpoint import save_model_checkpoint
     from wfl_asr_tpu_torch.config import Config
     from wfl_asr_tpu_torch.data.audio import write_wav
     from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
 
-    save_dir = os.path.join(root, "save")
+    save_dir = os.path.join(root, f"save_{encoder}")
     os.makedirs(save_dir)
     phonemes = [f"p{i}" for i in range(35)] + ["SP"]
     labels = ["O"] + [f"{t}-{p}" for p in phonemes for t in ("B", "I")]
@@ -1109,7 +1193,8 @@ def make_run(root: str):
     with open(os.path.join(save_dir, "langs.txt"), "w") as f:
         f.write("en,0\nja,1\n")
     model_cfg = {
-        "encoder_type": "wavlm", "wavlm_model": "microsoft/wavlm-base-plus",
+        "encoder_type": encoder, "wavlm_model": "microsoft/wavlm-base-plus",
+        "whisper_model": "openai/whisper-base",
         "num_languages": 2, "lang_emb_dim": 64, "enable_bilstm": True,
         "bilstm_num_layer": 2, "num_conformer_layers": 2,
         "conformer_heads": 2, "conformer_ff_expansion": 2,
@@ -1128,7 +1213,7 @@ def make_run(root: str):
     n_params = sum(p.numel() for p in model.parameters())
     del model
 
-    wav_dir = os.path.join(root, "wavs")
+    wav_dir = os.path.join(root, f"wavs_{encoder}")
     os.makedirs(wav_dir)
     rng = np.random.RandomState(0)
     for i, dur in enumerate(DURATIONS):
@@ -1139,10 +1224,70 @@ def make_run(root: str):
         write_wav(os.path.join(wav_dir, f"utt{i}.wav"),
                   tone * (0.5 + 0.5 * np.sin(2 * np.pi * 0.7 * t))
                   + rng.randn(n) * 0.02, 16000)
-    log(f"[main] tagger WavLM-base-plus: {n_params} parameters, "
+    log(f"[main] tagger {ENCODER_NAMES[encoder]}: {n_params} parameters, "
         f"{len(labels)} labels, 2 languages; {len(DURATIONS)} wavs of "
         f"{min(DURATIONS)}-{max(DURATIONS)} s")
     return cfg, ckpt, wav_dir
+
+
+def serving_perf(cfg, ckpt: str, iters: int, what: str):
+    """The batched forward with gate and median at B=8×30 s, as bench.py
+    defines it (unmasked rows, WavLM's position bias precomputed, ids to
+    the host), in bf16 and f32: audio-seconds per second, pipelined and
+    synchronous step times, the peak memory of a step. Returns the numbers
+    by dtype and the bf16 step."""
+    import torch
+    from wfl_asr_tpu_torch.infer.pipeline import _get_session
+    from wfl_asr_tpu_torch.ops.postprocess import confidence_gate_ids, \
+        median_filter_ids
+    perf, steps = {}, {}
+    samples = 30 * 16000
+    rng = np.random.RandomState(0)
+    audio = torch.from_numpy((rng.randn(B, samples) * 0.1).astype(np.float32)
+                             ).to("cuda")
+    lang = torch.zeros(B, dtype=torch.int64, device="cuda")
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        session = _get_session(cfg, ckpt, "cuda", dtype)
+        t_frames = session.num_frames_for(samples)
+        pos_bias = session._pos_bias_for(t_frames)
+
+        def step(session=session, dtype=dtype, pos_bias=pos_bias):
+            with torch.inference_mode():
+                logits, offsets = session.model(audio, lang,
+                                                compute_dtype=dtype,
+                                                pos_bias=pos_bias)
+                ids = median_filter_ids(confidence_gate_ids(logits, 0.5, 0), 3)
+            return ids, offsets
+
+        resident_gb = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        step()[0].cpu()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        sync = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            step()[0].cpu()
+            sync.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        outs = [step() for _ in range(iters)]
+        for o in outs:
+            o[0].cpu()
+        del outs
+        pipelined = (time.perf_counter() - t0) / iters
+        rate = B * samples / 16000.0 / pipelined
+        perf[name] = dict(audio_s_per_s=rate, pipelined_ms=pipelined * 1e3,
+                          sync_ms_median=float(np.median(sync)) * 1e3,
+                          sync_ms_min=float(np.min(sync)) * 1e3,
+                          frames=t_frames, peak_gb=peak_gb,
+                          resident_gb=resident_gb)
+        steps[name] = step
+        log(f"[perf] {what}: batched forward + gate + median, B={B}×"
+            f"{samples / 16000:g} s {name}: {rate:.2f} audio-s/s "
+            f"(pipelined step {pipelined * 1e3:.2f} ms; sync step median "
+            f"{np.median(sync) * 1e3:.2f} ms, min {np.min(sync) * 1e3:.2f} "
+            f"ms; {iters} steps each; peak memory of a step {peak_gb:.3f} "
+            f"GiB, {resident_gb:.3f} of it resident before the step)")
+    return perf, steps["bf16"]
 
 
 def phase_main(root: str, iters: int) -> dict:
@@ -1153,8 +1298,6 @@ def phase_main(root: str, iters: int) -> dict:
     from wfl_asr_tpu_torch.ops import kernels
     from wfl_asr_tpu_torch.ops.kernels import conv_fused, flash_attention, \
         flash_attention_bwd
-    from wfl_asr_tpu_torch.ops.postprocess import confidence_gate_ids, \
-        median_filter_ids
 
     cfg, ckpt, wav_dir = make_run(root)
     out_dir = os.path.join(root, "labs")
@@ -1187,7 +1330,8 @@ def phase_main(root: str, iters: int) -> dict:
         f"in {wall:.2f} s (first call: position bias + warm-up)")
     log(f"[main] kernel launches on the main path: {json.dumps(counts)}; "
         f"mma.sync forwards with a bias {flash_attention.mma_bias_fwd_launches}"
-        f", bias-free {flash_attention.mma_fwd_launches}")
+        f", bias-free {flash_attention.mma_fwd_launches}, fused "
+        f"{flash_attention.fused_fwd_launches}")
     missing = [k for k, n in counts.items() if n < 1]
     if missing:
         raise AssertionError(f"main path did not launch {missing}")
@@ -1203,65 +1347,23 @@ def phase_main(root: str, iters: int) -> dict:
                 counts["flash_attention_trainable"], "phase 4")
 
     # batched forward with gate and median at B=8×30 s, as bench.py
-    # defines it: unmasked rows, precomputed position bias, ids to host
-    perf = {}
-    samples = 30 * 16000
-    rng = np.random.RandomState(0)
-    audio = torch.from_numpy((rng.randn(B, samples) * 0.1).astype(np.float32)
-                             ).to("cuda")
-    lang = torch.zeros(B, dtype=torch.int64, device="cuda")
-    for name, dtype in (("bf16", bf16), ("f32", torch.float32)):
-        session = _get_session(cfg, ckpt, "cuda", dtype)
-        t_frames = session.num_frames_for(samples)
-        pos_bias = session._pos_bias_for(t_frames)
-
-        def step():
-            with torch.inference_mode():
-                logits, offsets = session.model(audio, lang,
-                                                compute_dtype=dtype,
-                                                pos_bias=pos_bias)
-                ids = median_filter_ids(confidence_gate_ids(logits, 0.5, 0), 3)
-            return ids, offsets
-
-        torch.cuda.reset_peak_memory_stats()
-        step()[0].cpu()
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        sync = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            step()[0].cpu()
-            sync.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        outs = [step() for _ in range(iters)]
-        for o in outs:
-            o[0].cpu()
-        pipelined = (time.perf_counter() - t0) / iters
-        rate = B * samples / 16000.0 / pipelined
-        perf[name] = dict(audio_s_per_s=rate, pipelined_ms=pipelined * 1e3,
-                          sync_ms_median=float(np.median(sync)) * 1e3,
-                          sync_ms_min=float(np.min(sync)) * 1e3,
-                          frames=t_frames, peak_gb=peak_gb)
-        log(f"[perf] batched forward + gate + median, B={B}×"
-            f"{samples / 16000:g} s {name}: {rate:.2f} audio-s/s "
-            f"(pipelined step {pipelined * 1e3:.2f} ms; sync step median "
-            f"{np.median(sync) * 1e3:.2f} ms, min {np.min(sync) * 1e3:.2f} "
-            f"ms; {iters} steps each; peak memory of a step {peak_gb:.3f} "
-            f"GiB)")
-        if name == "bf16":
-            profiled_forwards(profile_step(step), "phase 4, bf16 serving")
-            lstm_dtypes(session.model)
+    # defines it
+    perf, step = serving_perf(cfg, ckpt, iters, "WavLM-base-plus")
+    profiled_forwards(profile_step(step), "phase 4, bf16 serving")
+    lstm_dtypes(_get_session(cfg, ckpt, "cuda", bf16).model)
     return dict(perf=perf, counts=counts, cfg=cfg, ckpt=ckpt, wav_dir=wav_dir)
 
 
-def per_forward(mma_fwd: list, k2: int, k1: int, what: str) -> None:
-    """Each forward of the tagger runs 12 K2 and 2 K1: K1's launches are a
-    sixth of K2's, every K2 ran the mma.sync forward with a bias and every
-    K1 the bias-free one (``mma_fwd``: their counts, as ``fwd_counts``)."""
-    if not (k1 >= 2 and mma_fwd == [k2, k1] and 6 * k1 == k2):
-        raise AssertionError(f"{what}: mma.sync forwards (with a bias, "
-                             f"bias-free) {mma_fwd}, {k2} K2 and {k1} K1 "
-                             f"launches; want 12 K2 and 2 K1 a forward, "
-                             f"each on its mma.sync forward")
+def per_forward(fwd: list, k2: int, k1: int, what: str) -> None:
+    """Each forward of the WavLM tagger runs 12 K2 and 2 K1: K1's launches
+    are a sixth of K2's, every K2 ran the mma.sync forward with a bias and
+    every K1 the bias-free one, none a forward of ``flash_attention.cu``
+    (``fwd``: the counts of the three routes, as ``fwd_counts``)."""
+    if not (k1 >= 2 and fwd == [k2, k1, 0] and 6 * k1 == k2):
+        raise AssertionError(f"{what}: forwards (mma.sync with a bias, "
+                             f"mma.sync bias-free, fused) {fwd}, {k2} K2 and "
+                             f"{k1} K1 launches; want 12 K2 and 2 K1 a "
+                             f"forward, each on its mma.sync forward")
 
 
 def profiled_forwards(prof: dict, what: str) -> None:
@@ -1380,10 +1482,12 @@ def lstm_dtypes(model) -> None:
 # Phase 5: the card against the CPU
 # ---------------------------------------------------------------------------
 
-def phase_cross_device(cfg, ckpt: str, wav_dir: str) -> dict:
+def phase_cross_device(cfg, ckpt: str, wav_dir: str,
+                       what: str = "WavLM-base-plus") -> dict:
     """The card against the CPU in f32 (TF32 off): one 30 s utterance
     through ``forward`` (one full bucket, no masks), then the 8 wavs of
-    unequal length in one masked batch through ``forward_many_decoded``."""
+    unequal length in one masked batch through ``forward_many_decoded``
+    (Whisper pads every row to 30 s and runs them unmasked)."""
     import torch
     from wfl_asr_tpu_torch.data.audio import peak_normalize, read_wav
     from wfl_asr_tpu_torch.infer.pipeline import InferenceSession, \
@@ -1427,7 +1531,8 @@ def phase_cross_device(cfg, ckpt: str, wav_dir: str) -> dict:
         err = float(np.abs(card[0] - cpu[0]).max())
         off_err = float(np.abs(card[1] - cpu[1]).max())
         d, n, shown = lines_differing(card[2], cpu[2])
-        log(f"[cross] {name}: {n_frames} valid frames, logits max_abs_diff="
+        log(f"[cross] {what} {name}: {n_frames} valid frames, logits "
+            f"max_abs_diff="
             f"{err:.3e}, offsets {off_err:.3e}, .lab lines differing {d} of "
             f"{n}" + "".join(f"; card {x!r} vs CPU {y!r}" for x, y in shown))
         if not err <= CROSS_DEVICE_TOL:
@@ -1435,7 +1540,8 @@ def phase_cross_device(cfg, ckpt: str, wav_dir: str) -> dict:
                                  f"(tol {CROSS_DEVICE_TOL})")
         worst, worst_off = max(worst, err), max(worst_off, off_err)
         diff, n_lines = diff + d, n_lines + n
-    log(f"[cross] card vs CPU, f32 (TF32 off), every row's valid frames: "
+    log(f"[cross] {what}: card vs CPU, f32 (TF32 off), every row's valid "
+        f"frames: "
         f"logits max_abs_diff={worst:.3e} (tol {CROSS_DEVICE_TOL}), offsets "
         f"{worst_off:.3e}; .lab lines differing: {diff} of {n_lines} (card "
         f"{secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s incl. load)")
@@ -1480,16 +1586,20 @@ def write_corpus(data_dir: str, n_per_lang: int = 12) -> float:
     return total
 
 
-def train_config(root: str) -> dict:
+def train_config(root: str, encoder: str = "wavlm") -> dict:
     """The default config.yaml's training recipe on the flagship
     (WavLM-base-plus, BiLSTM ×2, Conformer ×2 at 2 heads, dilated ×2),
-    cut to 6 steps at batch 8 with validation every 3."""
+    cut to 6 steps at batch 8 with validation every 3; with
+    ``encoder="whisper"`` the encoder is Whisper-base (config.yaml's
+    ``whisper_model``)."""
     return {
         "data": {"data_dir": os.path.join(root, "data"), "sample_rate": 16000,
                  "num_val_files": 4, "max_seq_len": None,
                  "frame_duration": 0.02},
         "model": {
-            "encoder_type": "wavlm", "wavlm_model": "microsoft/wavlm-base-plus",
+            "encoder_type": encoder,
+            "wavlm_model": "microsoft/wavlm-base-plus",
+            "whisper_model": "openai/whisper-base",
             "freeze_encoder": False, "enable_bilstm": True,
             "bilstm_num_layer": 2, "enable_dilated_conv": True,
             "dilated_conv_depth": 2, "dilated_conv_kernel": 3,
@@ -1570,23 +1680,25 @@ def phase_train(root: str) -> dict:
               "mma pair": flash_attention.mma_bwd_launches,
               "fma pair": flash_attention.fma_bwd_launches,
               "mma bias fwd": flash_attention.mma_bias_fwd_launches,
-              "mma fwd": flash_attention.mma_fwd_launches}
+              "mma fwd": flash_attention.mma_fwd_launches,
+              "fused fwd": flash_attention.fused_fwd_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[train] kernel launches over {TRAIN_STEPS} steps + 2 validations: "
         f"{json.dumps(counts)}")
-    per_forward([counts["mma bias fwd"], counts["mma fwd"]],
+    per_forward([counts["mma bias fwd"], counts["mma fwd"],
+                 counts["fused fwd"]],
                 counts["flash_attention"],
                 counts["flash_attention_trainable"], "phase 6")
     want = {"flash_attention_bwd": 12 * TRAIN_STEPS,
             "flash_attention_trainable_bwd": 2 * TRAIN_STEPS,
             "mma bias passes": 12 * TRAIN_STEPS, "mma pair": 2 * TRAIN_STEPS,
-            "fma pair": 0}
+            "fma pair": 0, "fused fwd": 0}
     if any(counts[k] != n for k, n in want.items()) or min(
-            n for k, n in counts.items() if k != "fma pair") < 1:
+            n for k, n in counts.items() if k not in want) < 1:
         raise AssertionError(f"training launches {counts}: want every "
                              f"kernel > 0 and per step 12 K2b (mma.sync "
                              f"passes with a bias), 2 K1b (mma.sync pair), "
-                             f"0 on the FMA pair")
+                             f"0 on the FMA pair and the fused forwards")
 
     with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
         events = [json.loads(line) for line in f]
@@ -1764,11 +1876,13 @@ def phase_train_strict(root: str, base: dict) -> dict:
             "mma pair": flash_attention.mma_bwd_launches,
             "fma pair": flash_attention.fma_bwd_launches,
             "mma bias fwd": flash_attention.mma_bias_fwd_launches,
-            "mma fwd": flash_attention.mma_fwd_launches}
+            "mma fwd": flash_attention.mma_fwd_launches,
+            "fused fwd": flash_attention.fused_fwd_launches}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[train-strict] kernel launches over {STRICT_STEPS} strict "
             f"steps + 1 validation: {json.dumps(counts)}")
-        per_forward([counts["mma bias fwd"], counts["mma fwd"]],
+        per_forward([counts["mma bias fwd"], counts["mma fwd"],
+                     counts["fused fwd"]],
                     counts["K2 all"], counts["K1 all"], "phase 6b")
         want = {"K2 dropout": 12 * STRICT_STEPS,
                 "K1 dropout": 2 * STRICT_STEPS,
@@ -1878,7 +1992,8 @@ def _scaled_dropout(x, rate, generator=None, training=True):
     return x if not training or rate <= 0.0 else x * (1.0 - rate)
 
 
-def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
+def phase_train_cross_device(labels: int, strict: bool = False,
+                             encoder: str = "wavlm") -> dict:
     """f32 with TF32 off, the flagship at full width, the same weights and
     batch: loss ≤ 1e-5 relative, every gradient ≤ 1e-3 × its max |grad|
     (one whose CPU value is below 1e-6 × the largest gradient is 0 in
@@ -1901,7 +2016,10 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
     the CPU's input was > 0, else 0), so the gradients compare the same
     piece of the function, and that run is held to the tolerance; the
     loss, continuous across the kink, is held to 1e-5 on both card runs.
-    The log shows the worst gradient diff of both card runs."""
+    The log shows the worst gradient diff of both card runs.
+
+    ``encoder="whisper"`` (phase 9b): Whisper-base with the same heads, at
+    B=2×30 s (the encoder pads to 30 s anyway), its dropout 0."""
     import dataclasses
     import torch
     from wfl_asr_tpu_torch.config import Config
@@ -1913,16 +2031,29 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
     from wfl_asr_tpu_torch.train import loop
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    raw = train_config("/nonexistent")
+    raw = train_config("/nonexistent", encoder)
     raw["training"]["strict_attention_dropout"] = strict
     cfg = Config(raw)
     cfg.num_languages = 2
     arch = TaggerArch.from_config(cfg, labels)
     arch = dataclasses.replace(
-        arch, conformer_dropout=arch.conformer_dropout if strict else 0.0,
-        wavlm=dataclasses.replace(arch.wavlm, hidden_dropout=0.0,
-                                  feat_proj_dropout=0.0, layerdrop=0.0))
-    batch = train_batch(labels)
+        arch, conformer_dropout=arch.conformer_dropout if strict else 0.0)
+    if encoder == "whisper":
+        seconds = 30.0
+        arch = dataclasses.replace(arch, whisper=dataclasses.replace(
+            arch.whisper, dropout=0.0, activation_dropout=0.0,
+            layerdrop=0.0))
+        # backward routes (mma bias, mma, fma), forwards (mma bias, mma,
+        # fused): 2 Conformer blocks on the mma.sync pair and forward, 6
+        # Whisper layers on the FMA pair and the fused forward
+        want_routes = [0, 2, 6, 0, 2, 6]
+    else:
+        seconds = 8.0
+        arch = dataclasses.replace(arch, wavlm=dataclasses.replace(
+            arch.wavlm, hidden_dropout=0.0, feat_proj_dropout=0.0,
+            layerdrop=0.0))
+        want_routes = [12, 2, 0, 12, 2, 0]
+    batch = train_batch(labels, seconds)
     seeds = [int(s) for s in np.random.RandomState(11).randint(
         -2 ** 31, 2 ** 31 - 1, size=64)]
     draws = []
@@ -2032,17 +2163,19 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
     if drop_counts != want or n_draws != (14 if strict else 0):
         raise AssertionError(f"dropout launches on the card {drop_counts} "
                              f"(want {want}), seeds drawn {n_draws}")
-    if routes != [12, 2, 0, 12, 2]:
+    if routes != want_routes:
         raise AssertionError(f"backward routes on the card (mma bias, mma, "
-                             f"fma) and mma.sync forwards (with a bias, "
-                             f"bias-free) {routes}, want [12, 2, 0, 12, 2]")
+                             f"fma) and forwards (mma.sync with a bias, "
+                             f"mma.sync bias-free, fused) {routes}, want "
+                             f"{want_routes}")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     worst, worst_name, bad = worst_grad(g_card, g_cpu) if flipped else free
     what = ("strict attention dropout (WavLM 0.1, Conformer 0.15; fixed "
             "seeds; dropout launches on the card K2/K1/K2b/K1b "
             f"{drop_counts})" if strict else "dropout 0")
     what += (f"; backward routes on the card (mma bias, mma, fma) and "
-             f"mma.sync forwards (with a bias, bias-free) {routes}; ReLU "
+             f"forwards (mma.sync with a bias, mma.sync bias-free, fused) "
+             f"{routes}; ReLU "
              f"inputs card vs CPU max diff "
              f"{relu_diff:.2e}, smallest |input| on the CPU {relu_min:.2e}, "
              f"{len(flipped)} of other sign on the card's own branches "
@@ -2054,7 +2187,8 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
                  f"1e-5), worst {free[0]:.2e} × max|g| ({free[1]}), not held "
                  f"to the tolerance; rerun on the CPU's branches "
                  f"({len(pinned_flips)} of other sign on the card)")
-    log(f"[cross-train] one f32 train step (TF32 off), B=2×8 s, {what}: "
+    log(f"[cross-train] {encoder}: one f32 train step (TF32 off), B=2×"
+        f"{seconds:g} s, {what}: "
         f"loss card {l_card:.7f} vs CPU {l_cpu:.7f} (rel {loss_rel:.2e}, tol "
         f"1e-5); {len(g_cpu)} gradients"
         f"{' on the CPU branches' if flipped else ''}, worst {worst:.2e} × "
@@ -2067,6 +2201,307 @@ def phase_train_cross_device(labels: int, strict: bool = False) -> dict:
         raise AssertionError(bad)
     return dict(loss_rel=loss_rel, loss_rel_own=loss_own, grad_rel=worst,
                 grad_rel_own=free[0], relu_flips=len(flipped))
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-9b: the Whisper encoder and the mel front end
+# ---------------------------------------------------------------------------
+
+WHISPER_LAYERS = 6      # Whisper-base; its attention runs K1 at D = 64
+WHISPER_STEPS = 4       # phase 9, validation after the last
+
+
+def whisper_fwd_counts(what: str, flash_fwd: int, n_layers: int = 0
+                       ) -> int:
+    """Each forward of the Whisper-base tagger runs K1 on the fused forward
+    of ``flash_attention.cu`` in each of its 6 layers (bias-free, D = 64)
+    and on the bias-free mma.sync forward in each of the 2 Conformer blocks
+    (D = 256), and no forward with a bias: ``flash_fwd`` launches of the
+    entry point, split so. Returns the number of tagger forwards."""
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    got = fwd_counts()
+    n = got[1] // 2
+    want = [0, 2 * n, WHISPER_LAYERS * n]
+    if n < 1 or got != want or flash_fwd != 8 * n or fa.launches:
+        raise AssertionError(f"{what}: forwards (mma.sync with a bias, "
+                             f"mma.sync bias-free, fused) {got}, "
+                             f"{flash_fwd} K1 and {fa.launches} K2 launches; "
+                             f"want 6 fused and 2 mma.sync K1 a forward, no "
+                             f"K2")
+    return n
+
+
+def phase_whisper_serving(root: str, iters: int) -> dict:
+    """8: Whisper-base with the flagship heads, saved as .pt, served by
+    ``infer_folder_batched`` on the card in bf16 over a copy of phase 4's
+    wavs, the launch counts set to 0 just before and read just after; the
+    batched forward timed at B=8×30 s in bf16 and f32 with its peak
+    memory; one bf16 step profiled (its kernel names as a second witness); one bf16
+    forward of the ``large-v3`` preset at full width (128 mels, 32 layers
+    of 1280, 20 heads), timed, its logits finite."""
+    import torch
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.infer.pipeline import infer_folder_batched
+    from wfl_asr_tpu_torch.labels import parse_lab
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import conv_fused, \
+        flash_attention_bwd
+
+    cfg, ckpt, wav_dir = make_run(root, "whisper")
+    out_dir = os.path.join(root, "labs_whisper")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    infer_folder_batched(wav_dir, cfg, ckpt, out_dir, lang_id=0,
+                         confidence_threshold=0.0, batch_files=8,
+                         device="cuda", compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = flash_attention_bwd.launches
+    n_fwd = whisper_fwd_counts("phase 8", k1)
+    fused = fwd_counts()[2]
+    if conv_fused.layer_launches:
+        raise AssertionError(f"phase 8 launched K5 "
+                             f"{conv_fused.layer_launches} times")
+    n_segs = []
+    for i in range(len(DURATIONS)):
+        lab = os.path.join(out_dir, f"utt{i}.lab")
+        segs = parse_lab(lab) if os.path.exists(lab) else []
+        # the Whisper window is 30 s whatever the file's length
+        if not segs or segs[-1][1] > 30.05:
+            raise AssertionError(f"{lab}: {len(segs)} segments, bad span")
+        n_segs.append(len(segs))
+    log(f"[whisper] infer_folder_batched on cuda, bf16, device_decode, "
+        f"batch_files=8: {len(DURATIONS)} .lab files with {n_segs} segments "
+        f"in {wall:.2f} s; K1 launches {k1} over {n_fwd} forward(s): "
+        f"forwards (mma.sync with a bias, mma.sync bias-free, fused) "
+        f"{fwd_counts()}")
+
+    perf, step = serving_perf(cfg, ckpt, iters, "Whisper-base")
+    prof = profile_step(step, "one bf16 Whisper-base serving step")
+    want = {"flash_fwd_mma<64": WHISPER_LAYERS, "attn_fwd_mma<": 2,
+            "attn_bias_fwd_mma<": 0, "conv_layer_mma<": 0}
+    got = {part: sum(n for name, (_, n) in prof["kernels"].items()
+                     if f"::{part}" in name) for part in want}
+    if got != want:
+        raise AssertionError(f"phase 8: profiled forward kernels {got}, "
+                             f"want {want}")
+
+    # large-v3 at full width: 4 Conformer heads (head_dim 320; at 2 heads
+    # 640 is above the kernels' 512)
+    raw = {"data": {"sample_rate": 16000, "frame_duration": 0.02},
+           "model": dict(cfg.raw["model"],
+                         whisper_model="openai/whisper-large-v3",
+                         conformer_heads=4)}
+    arch = TaggerArch.from_config(Config(raw), 73)
+    t0 = time.perf_counter()
+    model = init_tagger(arch, torch.Generator().manual_seed(0), "cuda")
+    init_s = time.perf_counter() - t0
+    audio = torch.from_numpy((np.random.RandomState(1).randn(B, 480000)
+                              * 0.1).astype(np.float32)).cuda()
+    lang = torch.zeros(B, dtype=torch.int64, device="cuda")
+
+    def large():
+        with torch.inference_mode():
+            return model(audio, lang, compute_dtype=torch.bfloat16)[0]
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    logits = large()
+    whisper_counts = [flash_attention_bwd.launches] + fwd_counts()
+    large_ms = time_ms(large, iters=3, warmup=1)
+    large_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in model.parameters())
+    finite = bool(torch.isfinite(logits.float()).all())
+    log(f"[whisper] large-v3 tagger ({n_params} parameters, 128 mels, 32 "
+        f"layers of 1280, 20 heads; Conformer 4 heads), bf16 forward at "
+        f"B={B}×30 s: {large_ms:.2f} ms ({B * 30 / large_ms * 1e3:.2f} "
+        f"audio-s/s), peak memory {large_peak:.3f} GiB ({resident:.3f} "
+        f"resident before), logits "
+        f"{tuple(logits.shape)} finite {finite}; K1 launches and forwards "
+        f"(mma.sync with a bias, mma.sync bias-free, fused) {whisper_counts}"
+        f"; built in {init_s:.1f} s")
+    if not finite or whisper_counts != [34, 0, 2, 32]:
+        raise AssertionError(f"large-v3: logits finite {finite}, launches "
+                             f"{whisper_counts}, want [34, 0, 2, 32]")
+    del model, logits
+    torch.cuda.empty_cache()
+    return dict(perf=perf, fused=fused, cfg=cfg, ckpt=ckpt, wav_dir=wav_dir,
+                large_ms=large_ms, large_peak_gb=large_peak)
+
+
+def phase_whisper_cross_device(root: str, run: dict) -> dict:
+    """8b: the card against the CPU in f32 (TF32 off), phase 5's checks:
+    Whisper-base (one 30 s utterance through ``forward``, the 8 wavs
+    through ``forward_many_decoded``), then the ``none`` encoder at full
+    width (80 mels, hidden 80, Conformer head_dim 40) over the same wavs,
+    whose unequal lengths take the host's reflect padding and the
+    ``precentered`` STFT."""
+    cross = {"whisper": phase_cross_device(run["cfg"], run["ckpt"],
+                                           run["wav_dir"], "Whisper-base")}
+    cfg, ckpt, wav_dir = make_run(root, "none")
+    cross["none"] = phase_cross_device(cfg, ckpt, wav_dir, "none")
+    return cross
+
+
+def phase_whisper_train(root: str) -> dict:
+    """9: preprocess and train Whisper-base with the flagship heads on
+    phase 6's corpus, the default recipe in f32, batch 8, 4 steps,
+    validation after the last, the plain attention twins replaced by stubs
+    that raise; the launch counts set to 0 just before ``train`` and read
+    just after (a step: 6 K1b on the FMA pair, 2 on the mma.sync pair; a
+    forward: 6 fused and 2 mma.sync K1); step times, audio-s/s trained,
+    peak memory; one profiled step; ``last_model.pt`` reloaded to the same
+    logits."""
+    import torch
+    from wfl_asr_tpu_torch.checkpoint import load_model_checkpoint
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.data.dataset import BatchLoader, PhonemeDataset, \
+        split_dataset
+    from wfl_asr_tpu_torch.labels import load_phoneme_list
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention, \
+        flash_attention_bwd
+    from wfl_asr_tpu_torch.preprocess import preprocess
+    from wfl_asr_tpu_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    if not os.path.isdir(os.path.join(root, "data")):
+        write_corpus(os.path.join(root, "data"))
+    raw = train_config(root, "whisper")
+    save = os.path.join(root, "whisper_run")
+    raw["output"]["save_dir"] = save
+    raw["training"].update(max_steps=WHISPER_STEPS,
+                           val_check_interval=WHISPER_STEPS,
+                           log_dir=os.path.join(save, "logs"))
+    preprocess(raw["data"]["data_dir"], raw)
+    cfg = Config.load(os.path.join(save, "config.yaml"))
+    labels = load_phoneme_list(os.path.join(save, "phonemes.txt"))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain attention twin ran on the card path")
+    saved = flash_attention.attention_plain, \
+        flash_attention.attention_backward_plain
+    flash_attention.attention_plain = refuse
+    flash_attention.attention_backward_plain = refuse
+    try:
+        marks = []
+
+        def on_update(step, batches):
+            torch.cuda.synchronize()
+            audio_s = sum(len(w) for b in batches for w in b["wavs"]) / 16000
+            marks.append((step, time.perf_counter(), audio_s))
+
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = loop.train(cfg, device="cuda", on_update=on_update)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"K1": flash_attention_bwd.launches,
+                  "K1b": flash_attention_bwd.bwd_launches,
+                  "mma bias passes": flash_attention.mma_bias_bwd_launches,
+                  "mma pair": flash_attention.mma_bwd_launches,
+                  "fma pair": flash_attention.fma_bwd_launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_fwd = whisper_fwd_counts("phase 9", counts["K1"])
+        log(f"[whisper-train] kernel launches over {WHISPER_STEPS} steps + "
+            f"1 validation ({n_fwd} forwards): {json.dumps(counts)}")
+        want = {"K1b": 8 * WHISPER_STEPS, "mma bias passes": 0,
+                "mma pair": 2 * WHISPER_STEPS,
+                "fma pair": WHISPER_LAYERS * WHISPER_STEPS}
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"Whisper training launches {counts}: want "
+                                 f"per step 6 K1b on the FMA pair and 2 on "
+                                 f"the mma.sync pair")
+        with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        losses = [e["loss"] for e in events if e["event"] == "train"]
+        vals = [e["loss"] for e in events if e["event"] == "val"]
+        if len(losses) != WHISPER_STEPS or len(vals) != 1 or not all(
+                map(math.isfinite, losses + vals)):
+            raise AssertionError(f"Whisper train losses {losses}, val {vals}")
+        times = [(t1 - t0_) * 1e3 for (_, t0_, _), (_, t1, _) in
+                 zip(marks, marks[1:])]
+        step_ms = float(np.median(times))
+        rate = sum(a for _, _, a in marks[1:]) / (sum(times) / 1e3)
+        log(f"[whisper-train] f32, batch 8: losses "
+            f"{[round(x, 4) for x in losses]}, val {vals[0]:.4f}; median "
+            f"step {step_ms:.2f} ms over {', '.join(f'{t:.1f}' for t in times)}"
+            f" ms, {rate:.2f} audio-s trained per s, peak memory "
+            f"{peak_gb:.2f} GiB, whole run {wall:.1f} s")
+
+        ds = PhonemeDataset(os.path.join(save, "dataset.json"), labels,
+                            cfg.max_seq_len, cfg.augmentation, 16000)
+        train_idx, _ = split_dataset(len(ds), cfg.num_val_files, cfg.seed)
+        batch = next(iter(BatchLoader(ds, train_idx, 8, seed=0,
+                                      shuffle=False).epoch_batches(0)))
+        arch = TaggerArch.from_config(cfg, len(labels))
+        audio = torch.from_numpy(batch["audio"][:2]).cuda()
+        lang = torch.tensor([0, 1], device="cuda")
+        model.eval()
+        last = load_model_checkpoint(os.path.join(save, "last_model.pt"),
+                                     arch, "cuda")
+        mem = model.state_dict()
+        same_weights = all(torch.equal(v, mem[k])
+                           for k, v in last.state_dict().items())
+        with torch.no_grad():
+            trained = model(audio, lang)[0]
+            reloaded = last(audio, lang)[0]
+        reload_diff = (trained - reloaded).abs().max().item()
+        del last
+        if not same_weights or \
+                reload_diff > 1e-5 * trained.abs().max().item():
+            raise AssertionError(f"last_model.pt: weights equal "
+                                 f"{same_weights}, logits differ by "
+                                 f"{reload_diff}")
+        log(f"[whisper-train] last_model.pt reloads to the in-memory "
+            f"weights exactly, logits max diff {reload_diff:.3e} of max "
+            f"{trained.abs().max().item():.3g}")
+
+        opt = loop.make_optimizer(cfg, model.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(1)
+
+        def step():
+            m, _, _ = loop.train_step(model, opt, batch, "cuda", 0.1, 3.0,
+                                      generator=gen)
+            return m["loss"], m
+        step()
+        prof = profile_step(step, what="one f32 Whisper-base train step "
+                            f"(batch {batch['audio'].shape})", top=24)
+        want = {"flash_fwd_f32<2,": WHISPER_LAYERS, "attn_fwd_mma<": 2,
+                "flash_bwd_dkdv<": WHISPER_LAYERS,
+                "flash_bwd_dq<": WHISPER_LAYERS, "attn_bwd_dkdv_mma<": 2,
+                "attn_bwd_dq_mma<": 2, "attn_bias_fwd_mma<": 0}
+        got = {part: sum(n for name, (_, n) in prof["kernels"].items()
+                         if f"::{part}" in name) for part in want}
+        if got != want:
+            raise AssertionError(f"phase 9: profiled kernels {got}, want "
+                                 f"{want}")
+    finally:
+        flash_attention.attention_plain, \
+            flash_attention.attention_backward_plain = saved
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_ms=step_ms, audio_s_per_s=rate,
+                peak_gb=peak_gb, labels=len(labels))
+
+
+def whisper_phases(root: str, iters: int) -> dict:
+    """Phases 8, 8b, 9 and 9b under ``root``."""
+    with lap("8"):
+        serving = phase_whisper_serving(root, iters)
+    with lap("8b"):
+        cross = phase_whisper_cross_device(root, serving)
+    with lap("9"):
+        trained = phase_whisper_train(root)
+    with lap("9b"):
+        cross_train = phase_train_cross_device(trained["labels"],
+                                               encoder="whisper")
+    return dict(serving=serving, cross=cross, trained=trained,
+                cross_train=cross_train)
 
 
 # ---------------------------------------------------------------------------
@@ -2091,12 +2526,20 @@ KERNEL_ROWS = [
     ("K1b", "flash_attention_trainable_bwd", "flash_attention_trainable_bwd",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
+    # K1 and K1b at Whisper-base's layers (bias-free, D = 64): the fused
+    # forward and the FMA pair, launched on phases 8 and 9
+    ("K1w", "flash_attention_trainable [Whisper, D=64]", "whisper K1",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
+    ("K1bw", "flash_attention_trainable_bwd [Whisper, D=64]", "whisper K1b",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
 ]
 # The inference kernels report their bf16 case (the served path's dtype),
 # the backward kernels their f32 case (the default training dtype), and
 # each its launches on its own main path: inference (phase 4) or training
-# (phase 6).
-ROW_DTYPE = {"K2b": "f32", "K1b": "f32"}
+# (phase 6), or on the Whisper paths (phases 8 and 9).
+ROW_DTYPE = {"K2b": "f32", "K1b": "f32", "K1bw": "f32"}
 
 
 def k6_row(kern: dict, strict: dict) -> dict:
@@ -2120,7 +2563,7 @@ def k6_row(kern: dict, strict: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "conv", "train"),
+    ap.add_argument("--only", choices=("kernels", "conv", "train", "whisper"),
                     default=None)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
@@ -2135,9 +2578,11 @@ def main() -> int:
     card = card_line()
     log(f"[device] {card} | torch {torch.__version__} | "
         f"CUDA {torch.version.cuda} | {sys.version.split()[0]}")
+    sources = {"conv": ["conv_fused"],
+               "whisper": ["flash_attention", "attention_fwd_mma",
+                           "attention_bwd_mma"]}
     with lap("build"):
-        logs = _build.build_all(["conv_fused"] if args.only == "conv"
-                                else list(KERNEL_SOURCES))
+        logs = _build.build_all(sources.get(args.only, list(KERNEL_SOURCES)))
     log(f"[build] {', '.join(logs)} in {LAPS['build']:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(text):
@@ -2162,10 +2607,17 @@ def main() -> int:
                        args.iters)
         log_laps()
         return 0
-    if args.only == "train":     # phases 6 and 7 alone, for iterating
+    if args.only in ("train", "whisper"):   # for iterating
         root = tempfile.mkdtemp(prefix="wfl_smoke_")
         try:
-            train_phases(root)
+            if args.only == "train":        # phases 6-7b
+                train_phases(root)
+            else:                           # phases 3e and 8-9b
+                with lap("3e"):
+                    phase_whisper_kernels(
+                        torch.Generator(device="cuda").manual_seed(0),
+                        args.iters)
+                whisper_phases(root, args.iters)
         finally:
             shutil.rmtree(root, ignore_errors=True)
         log_laps()
@@ -2186,6 +2638,9 @@ def main() -> int:
         trained, strict, cross_train, cross_strict = train_phases(root)
         counts.update({k: n for k, n in trained["counts"].items()
                        if k.endswith("_bwd")})
+        whisper = whisper_phases(root, args.iters)
+        counts["whisper K1"] = whisper["serving"]["fused"]
+        counts["whisper K1b"] = whisper["trained"]["counts"]["fma pair"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log_laps()
@@ -2214,6 +2669,19 @@ def main() -> int:
         f"{strict['same_batch_ms'][1]:.1f} ms; card vs CPU strict step loss "
         f"{cross_strict['loss_rel']:.2e}, grads {cross_strict['grad_rel']:.2e}"
         f" × max")
+    wperf, wtrain = whisper["serving"]["perf"], whisper["trained"]
+    log(f"[summary] Whisper-base bf16 B=8x30 s: "
+        f"{wperf['bf16']['audio_s_per_s']:.2f} audio-s/s, f32: "
+        f"{wperf['f32']['audio_s_per_s']:.2f} (peak memory "
+        f"{wperf['bf16']['peak_gb']:.3f} / {wperf['f32']['peak_gb']:.3f} "
+        f"GiB); large-v3 bf16 {whisper['serving']['large_ms']:.2f} ms a "
+        f"forward; card vs CPU logits Whisper "
+        f"{whisper['cross']['whisper']['max_abs_err']:.3e}, none "
+        f"{whisper['cross']['none']['max_abs_err']:.3e}; training f32 "
+        f"{wtrain['step_ms']:.1f} ms a step, {wtrain['audio_s_per_s']:.2f} "
+        f"audio-s/s, {wtrain['peak_gb']:.2f} GiB peak; card vs CPU train "
+        f"step loss {whisper['cross_train']['loss_rel']:.2e}, grads "
+        f"{whisper['cross_train']['grad_rel']:.2e} × max")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

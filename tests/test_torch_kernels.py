@@ -132,8 +132,11 @@ def test_attention_rejects_unported_options(kwargs, exc):
         flash_attention.flash_attention(x, x, x, **kwargs)
 
 
-@pytest.mark.parametrize("d", [8, 24, 528])
+@pytest.mark.parametrize("d", [520, 528, 1024])
 def test_attention_rejects_unsupported_head_dim(d):
+    """Widths above 512 (after padding to a multiple of 16) are refused;
+    narrower ones that are no multiple of 16 are padded, and are held
+    against the JAX kernel in tests/test_torch_whisper.py."""
     x = torch.randn(1, 1, 4, d)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_bwd.flash_attention_trainable(x, x, x)

@@ -307,13 +307,6 @@ def test_init_tagger_is_seeded():
     assert not torch.equal(a["classifier.weight"], c["classifier.weight"])
 
 
-def test_unported_encoders_raise():
-    arch = port_arch(graft._flagship_arch(tiny=True))
-    for enc in ("whisper", "none"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PT.BIOPhonemeTagger(dataclasses.replace(arch, encoder_type=enc))
-
-
 def test_arch_from_config_matches_jax():
     """The same config dict gives the JAX arch's values in every field the
     port keeps, the dropout, LayerDrop and freeze fields included. JAX-only

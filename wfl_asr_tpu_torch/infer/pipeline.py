@@ -49,6 +49,7 @@ from ..ops.postprocess import (bio_tables, confidence_gate_ids,
 FRAME_DURATION = 0.02          # reference infer.py:12
 MAX_SEGMENT_DURATION = 30.0    # reference infer.py:13
 BUCKET_SECONDS = 1.0           # padding granularity of the bucketed forward
+MEL_CENTER_PAD = 200           # n_fft // 2 of the mel front end's STFT
 
 ConfigLike = Union[str, Config, dict]
 
@@ -121,9 +122,12 @@ class InferenceSession:
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(x)).to(self.device)
 
-    def _pos_bias_for(self, t_pad: int) -> torch.Tensor:
-        """Position bias for a bucket length, computed once per session at
-        the largest length seen and sliced for shorter ones (bounded)."""
+    def _pos_bias_for(self, t_pad: int) -> Optional[torch.Tensor]:
+        """WavLM's position bias for a bucket length, computed once per
+        session at the largest length seen and sliced for shorter ones
+        (bounded); None for the other encoders."""
+        if self.arch.encoder_type != "wavlm":
+            return None
         if t_pad > self._pos_bias_len:
             with torch.inference_mode():
                 bias = self.model.encoder.position_bias(t_pad)
@@ -144,11 +148,11 @@ class InferenceSession:
         return self._pos_bias_slices[t_pad]
 
     def run_batch(self, audio: np.ndarray, lang_ids: np.ndarray,
-                  sample_mask: Optional[np.ndarray] = None,
-                  frame_mask: Optional[np.ndarray] = None):
+                  sample_mask: Optional[np.ndarray],
+                  frame_mask: Optional[np.ndarray], t_pad: int):
         """One forward over bucketed rows → DEVICE (logits, offsets) at the
-        compute dtype. audio [R, S] f32, lang_ids [R]; masks or None."""
-        t_pad = self.num_frames_for(audio.shape[-1])
+        compute dtype. audio [R, S] f32 (rows from :meth:`_row`), lang_ids
+        [R]; masks or None; ``t_pad`` the bucket's frames."""
         with torch.inference_mode():
             return self.model(
                 self._to_device(audio.astype(np.float32)),
@@ -158,12 +162,35 @@ class InferenceSession:
                 frame_mask=(self._to_device(frame_mask)
                             if frame_mask is not None else None),
                 compute_dtype=self.compute_dtype,
-                pos_bias=self._pos_bias_for(t_pad))
+                pos_bias=self._pos_bias_for(t_pad),
+                precentered=self.arch.encoder_type == "none")
 
     def num_frames_for(self, num_samples: int) -> int:
-        """Frames the reference model emits for this exact length, clamped
-        at 0 (the recurrence goes negative below one receptive field)."""
-        return max(self.arch.wavlm.feature_lengths(num_samples), 0)
+        """Frames the reference model emits for this exact length: Whisper
+        always 1500 (30 s); WavLM its conv recurrence, clamped at 0 (it
+        goes negative below one receptive field); the mel front end
+        ``S // hop + 1`` (0 for no samples)."""
+        if self.arch.encoder_type == "whisper":
+            return self.arch.whisper.max_source_positions
+        if self.arch.encoder_type == "wavlm":
+            return max(self.arch.wavlm.feature_lengths(num_samples), 0)
+        hop = int(self.arch.frame_duration * self.sr)
+        return num_samples // hop + 1 if num_samples > 0 else 0
+
+    def _row(self, audio: np.ndarray, bucket: int) -> np.ndarray:
+        """One row of a bucketed batch: the audio zero-filled to the bucket;
+        for the mel front end first reflect-padded by 200 at its exact
+        length (the centring the device STFT then skips), so the tail
+        frames equal an exact-length run (pipeline.py:339-348)."""
+        if self.arch.encoder_type == "none":
+            buf = np.zeros(bucket + 2 * MEL_CENTER_PAD, np.float32)
+            centered = np.pad(np.asarray(audio, np.float32), MEL_CENTER_PAD,
+                              mode="reflect")
+        else:
+            buf = np.zeros(bucket, np.float32)
+            centered = audio
+        buf[:len(centered)] = centered
+        return buf
 
     def _bucket(self, num_samples: int) -> int:
         unit = int(BUCKET_SECONDS * self.sr)
@@ -181,16 +208,17 @@ class InferenceSession:
             return (np.zeros((n, 0, self.arch.num_labels), np.float32),
                     np.zeros((n, 0, 2), np.float32))
         bucket = self._bucket(s_true)
-        buf = np.zeros(bucket, np.float32)
-        buf[:s_true] = audio
-        batch = np.broadcast_to(buf, (n, bucket))
+        buf = self._row(audio, bucket)
+        batch = np.broadcast_to(buf, (n, len(buf)))
         t_pad = self.num_frames_for(bucket)
         sample_mask = np.broadcast_to(np.arange(bucket) < s_true, (n, bucket))
         frame_mask = np.broadcast_to(np.arange(t_pad) < t_ref, (n, t_pad))
-        masked = s_true != bucket
+        # Whisper pads every row to 30 s itself and runs unmasked
+        masked = self.arch.encoder_type != "whisper" and s_true != bucket
         logits, offsets = self.run_batch(
             batch, np.asarray(lang_ids, np.int64),
-            sample_mask if masked else None, frame_mask if masked else None)
+            sample_mask if masked else None, frame_mask if masked else None,
+            t_pad)
         return (logits[:, :t_ref].float().cpu().numpy(),
                 offsets[:, :t_ref].float().cpu().numpy())
 
@@ -203,8 +231,7 @@ class InferenceSession:
         t_pad = self.num_frames_for(bucket)
         rows_audio, rows_lang, row_owner = [], [], []
         for i, (audio, langs) in enumerate(zip(audios, lang_ids_per_item)):
-            buf = np.zeros(bucket, np.float32)
-            buf[:len(audio)] = audio
+            buf = self._row(audio, bucket)
             for lang in langs:
                 rows_audio.append(buf)
                 rows_lang.append(lang)
@@ -214,9 +241,11 @@ class InferenceSession:
                        < np.array([s_true[o] for o in row_owner])[:, None])
         frame_mask = (np.arange(t_pad)[None, :]
                       < np.array([t_refs[o] for o in row_owner])[:, None])
+        masked = self.arch.encoder_type != "whisper"
         logits, offsets = self.run_batch(
             np.stack(rows_audio), np.array(rows_lang, np.int64),
-            sample_mask, frame_mask)
+            sample_mask if masked else None, frame_mask if masked else None,
+            t_pad)
         return logits, offsets, t_refs
 
     def forward_many(self, audios: Sequence[np.ndarray],

@@ -6,7 +6,9 @@ The port's own copy of ``wfl_asr_tpu/models/convert.py:239-388``
 (``export_tagger`` and its helpers). It takes the JAX ``(params, state)``
 pytrees with numpy (or any array-like) leaves — no JAX import — and returns
 torch tensors under the reference's keys (HF WavLM nests its encoder, so
-encoder keys read ``encoder.encoder.layers.{i}.attention.q_proj.weight``).
+encoder keys read ``encoder.encoder.layers.{i}.attention.q_proj.weight``;
+HF Whisper's read ``encoder.layers.{i}.self_attn.q_proj.weight``; the
+``none`` encoder has no keys).
 """
 
 from __future__ import annotations
@@ -81,16 +83,38 @@ def export_wavlm(params) -> Dict:
     return out
 
 
+def export_whisper_encoder(params) -> Dict:
+    """Whisper pytree → bare HF ``WhisperEncoder`` keys (numpy values);
+    ``k_proj`` has no bias."""
+    out: Dict = {}
+    put_linear = functools.partial(_put_linear, out)
+    put_ln = functools.partial(_put_ln, out)
+
+    for name in ("conv1", "conv2"):
+        _put_conv(out, name, params[name])
+    out["embed_positions.weight"] = np.asarray(params["embed_positions"])
+    put_ln("layer_norm", params["ln_post"])
+    for i, layer in enumerate(params["layers"]):
+        pre = f"layers.{i}"
+        put_ln(f"{pre}.self_attn_layer_norm", layer["attn_ln"])
+        for name, key in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                          ("out_proj", "out")):
+            put_linear(f"{pre}.self_attn.{name}", layer[key])
+        put_ln(f"{pre}.final_layer_norm", layer["final_ln"])
+        put_linear(f"{pre}.fc1", layer["ff_in"])
+        put_linear(f"{pre}.fc2", layer["ff_out"])
+    return out
+
+
 def export_tagger(params, state, encoder_type: str) -> Dict:
     """Tagger pytrees → reference ``BIOPhonemeTagger`` keys (numpy values).
     The encoder sits under ``encoder.`` (reference model.py:70/80)."""
     out: Dict = {}
-    if encoder_type == "wavlm" and "encoder" in params:
-        for k, v in export_wavlm(params["encoder"]).items():
+    export = {"wavlm": export_wavlm,
+              "whisper": export_whisper_encoder}.get(encoder_type)
+    if export is not None and "encoder" in params:
+        for k, v in export(params["encoder"]).items():
             out[f"encoder.{k}"] = v
-    elif encoder_type == "whisper":
-        raise NotImplementedError(
-            "the Whisper encoder is not ported yet (ROADMAP.md Queue 1)")
 
     put_linear = functools.partial(_put_linear, out)
     put_ln = functools.partial(_put_ln, out)

@@ -7,6 +7,9 @@ BatchNorm batch statistics):
 
     audio [B, S], lang_id [B]
         → wav2vec2 normalize → WavLM encoder
+          | Whisper log-mel → Whisper encoder
+          | mel spectrogram (``encoder_type: none``: the mels are the
+            hidden states, hidden size = n_mels)
         → trim-or-pad time to max_label_len (model.py:166-174)
         → lang embed concat + proj → BiLSTM → Conformer × N → dilated conv
         → logits [B, T, n_tags], offsets [B, T, 2]
@@ -15,8 +18,8 @@ BatchNorm batch statistics):
 gradient reaches it, and the forward-only fused conv chains may run); the
 train loop also leaves its parameters out of the optimizer, so they take
 no update and no weight decay (apply_tagger :310-325 and the optax mask).
-Only ``encoder_type: wavlm`` is ported; ``whisper`` and ``none`` raise
-``NotImplementedError`` (ROADMAP.md Queue 1).
+With ``encoder_type: none`` there is no encoder, and ``freeze_encoder``
+changes nothing.
 """
 
 from __future__ import annotations
@@ -29,14 +32,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.frontend import wav2vec2_normalize, wav2vec2_normalize_masked
+from ..ops.frontend import mel_spectrogram, wav2vec2_normalize, \
+    wav2vec2_normalize_masked, whisper_log_mel
 from . import heads as H
 from .layers import linear
 from .wavlm import WavLMArch, WavLMEncoder
-
-ENCODER_TODO = ("encoder_type {!r} is not ported yet: only 'wavlm' runs in "
-                "wfl_asr_tpu_torch (ROADMAP.md Queue 1: Whisper and the mel "
-                "encoder)")
+from .whisper import WhisperArch, WhisperEncoder, whisper_arch_from_name
 
 # Known WavLM checkpoint families → architecture presets (no network). The
 # regularizer fields are the hub config.json values (feat_proj_dropout and
@@ -55,10 +56,10 @@ WAVLM_PRESETS = {
                        layerdrop=0.1),
 }
 
-# Fields of the JAX package's WavLMArch that the port does not carry: the
-# kernel switches (the port always runs its kernels). An
+# Fields of the JAX package's WavLMArch and WhisperArch that the port does
+# not carry: the kernel switches (the port always runs its kernels). An
 # ``encoder_arch_overrides`` entry naming one is dropped; any other key that
-# is not a WavLMArch field raises.
+# is not a field of the encoder's arch raises.
 JAX_ONLY_ARCH_KEYS = frozenset({"use_flash_attention", "use_fused_conv"})
 
 
@@ -87,7 +88,7 @@ def wavlm_arch_from_name(model_name: str) -> WavLMArch:
 @dataclass(frozen=True)
 class TaggerArch:
     """All static hyperparameters of the tagger."""
-    encoder_type: str                 # "wavlm" (ported) | "whisper" | "none"
+    encoder_type: str                 # "wavlm" | "whisper" | "none"
     num_labels: int
     num_languages: int
     hidden_size: int
@@ -108,43 +109,40 @@ class TaggerArch:
     # training, in-kernel (K6), instead of the post-projection substitute;
     # inference is unaffected
     strict_attention_dropout: bool = False
+    sample_rate: int = 16000
+    frame_duration: float = 0.02
+    n_mels: int = 80
     wavlm: Optional[WavLMArch] = None
+    whisper: Optional[WhisperArch] = None
 
     @classmethod
     def from_config(cls, cfg, num_labels: int) -> "TaggerArch":
         """Build from a ``Config`` (defaults mirror the reference's
         model.py:57-142 ``.get`` sites)."""
         enc = cfg.encoder_type
+        wavlm = whisper = None
         strict_attn = bool(cfg.raw.get("training", {})
                            .get("strict_attention_dropout", False))
         overrides = cfg.raw.get("model", {}).get("encoder_arch_overrides") or {}
-        if enc != "wavlm":
-            raise NotImplementedError(ENCODER_TODO.format(enc))
-        try:
-            wavlm = wavlm_arch_from_name(cfg.encoder_name)
-        except ValueError:
-            if not overrides:
-                raise
-            print(f"[WARN] Unknown wavlm model {cfg.encoder_name!r}: "
-                  f"building from the WavLMArch defaults + "
-                  f"model.encoder_arch_overrides — overrides must name "
-                  f"every field that differs from the defaults.")
-            wavlm = WavLMArch()
-        if overrides:
-            known = {f.name for f in fields(WavLMArch)}
-            unknown = set(overrides) - known - JAX_ONLY_ARCH_KEYS
-            if unknown:
-                raise ValueError(
-                    f"model.encoder_arch_overrides: unknown WavLMArch "
-                    f"field(s) {sorted(unknown)}")
-            wavlm = replace(wavlm, **{
-                k: tuple(v) if isinstance(v, list) else v
-                for k, v in overrides.items() if k in known})
-        if strict_attn:
-            wavlm = replace(wavlm, strict_attention_dropout=True)
+        if enc == "whisper":
+            whisper = _encoder_arch(enc, cfg.encoder_name, overrides,
+                                    whisper_arch_from_name, WhisperArch)
+            hidden = whisper.d_model
+        elif enc == "wavlm":
+            wavlm = _encoder_arch(enc, cfg.encoder_name, overrides,
+                                  wavlm_arch_from_name, WavLMArch)
+            if strict_attn:
+                wavlm = replace(wavlm, strict_attention_dropout=True)
+            hidden = wavlm.hidden_size
+        elif enc in ("none", "null"):
+            enc = "none"
+            hidden = cfg.n_mels
+        else:
+            raise ValueError(
+                "Unsupported encoder type. Use 'whisper', 'wavlm', or 'none'.")
         return cls(
             encoder_type=enc, num_labels=num_labels,
-            num_languages=cfg.num_languages, hidden_size=wavlm.hidden_size,
+            num_languages=cfg.num_languages, hidden_size=hidden,
             lang_emb_dim=cfg.lang_emb_dim,
             enable_bilstm=cfg.enable_bilstm,
             bilstm_num_layers=cfg.bilstm_num_layers,
@@ -157,8 +155,37 @@ class TaggerArch:
             dilated_depth=cfg.dilated_conv_depth,
             dilated_kernel=cfg.dilated_conv_kernel,
             freeze_encoder=cfg.freeze_encoder,
-            strict_attention_dropout=strict_attn, wavlm=wavlm,
+            strict_attention_dropout=strict_attn,
+            sample_rate=cfg.sample_rate, frame_duration=cfg.frame_duration,
+            n_mels=cfg.n_mels, wavlm=wavlm, whisper=whisper,
         )
+
+
+def _encoder_arch(enc: str, name: str, overrides: dict, from_name, cls):
+    """The encoder's arch: the named preset (or a local HF directory's
+    config.json) with ``model.encoder_arch_overrides`` applied; an unknown
+    name with overrides builds on the family default, with a warning."""
+    try:
+        arch = from_name(name)
+    except ValueError:
+        if not overrides:
+            raise
+        print(f"[WARN] Unknown {enc} model {name!r}: building from the "
+              f"{cls.__name__} defaults + model.encoder_arch_overrides — "
+              f"overrides must name every field that differs from the "
+              f"defaults.")
+        arch = cls()
+    if overrides:
+        known = {f.name for f in fields(cls)}
+        unknown = set(overrides) - known - JAX_ONLY_ARCH_KEYS
+        if unknown:
+            raise ValueError(
+                f"model.encoder_arch_overrides: unknown {cls.__name__} "
+                f"field(s) {sorted(unknown)}")
+        arch = replace(arch, **{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in overrides.items() if k in known})
+    return arch
 
 
 def _trim_or_pad(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -178,11 +205,14 @@ class BIOPhonemeTagger(nn.Module):
 
     def __init__(self, arch: TaggerArch):
         super().__init__()
-        if arch.encoder_type != "wavlm":
-            raise NotImplementedError(ENCODER_TODO.format(arch.encoder_type))
         self.arch = arch
         hd = arch.hidden_size
-        self.encoder = WavLMEncoder(arch.wavlm)
+        if arch.encoder_type == "wavlm":
+            self.encoder = WavLMEncoder(arch.wavlm)
+        elif arch.encoder_type == "whisper":
+            self.encoder = WhisperEncoder(arch.whisper)
+        elif arch.encoder_type != "none":
+            raise ValueError(f"unknown encoder_type {arch.encoder_type!r}")
         self.lang_emb = nn.Embedding(max(arch.num_languages, 1),
                                      arch.lang_emb_dim)
         self.lang_proj = nn.Linear(hd + arch.lang_emb_dim, hd)
@@ -210,12 +240,26 @@ class BIOPhonemeTagger(nn.Module):
         return out
 
     def encode(self, audio, sample_mask=None, frame_mask=None,
-               compute_dtype=torch.float32, pos_bias=None,
-               generator=None) -> torch.Tensor:
+               compute_dtype=torch.float32, pos_bias=None, generator=None,
+               precentered: bool = False) -> torch.Tensor:
         """Front end + encoder → hidden states [B, T_enc, H]; under
-        ``freeze_encoder`` without autograd."""
+        ``freeze_encoder`` without autograd. The masks and ``pos_bias``
+        reach the WavLM encoder only; ``precentered`` (rows the host
+        reflect-padded at their exact length) the mel front end of
+        ``encoder_type: none`` only."""
+        arch = self.arch
+        if arch.encoder_type == "none":
+            hop = int(arch.frame_duration * arch.sample_rate)
+            return mel_spectrogram(audio, arch.sample_rate, 400, hop,
+                                   arch.n_mels, center=not precentered
+                                   ).to(compute_dtype)
         with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and not self.arch.freeze_encoder):
+                                    and not arch.freeze_encoder):
+            if arch.encoder_type == "whisper":
+                feats = whisper_log_mel(audio,
+                                        n_mels=arch.whisper.num_mel_bins)
+                return self.encoder(feats, compute_dtype=compute_dtype,
+                                    generator=generator)
             if sample_mask is not None:
                 normed = wav2vec2_normalize_masked(audio, sample_mask)
             else:
@@ -231,15 +275,16 @@ class BIOPhonemeTagger(nn.Module):
                 frame_mask: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.float32,
                 pos_bias: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                precentered: bool = False):
         """Returns (logits [B, T, n_tags], offsets [B, T, 2]) at the compute
         dtype. ``sample_mask`` [B, S] / ``frame_mask`` [B, T_enc]: bucketed
         inference with exact-length numerics on valid frames.
         ``generator``: the dropout draws in training mode (on the
-        model's device)."""
+        model's device). ``precentered``: see :meth:`encode`."""
         arch = self.arch
         hidden = self.encode(audio, sample_mask, frame_mask, compute_dtype,
-                             pos_bias, generator)
+                             pos_bias, generator, precentered)
         if max_label_len is not None:
             hidden = _trim_or_pad(hidden, int(max_label_len))
             if frame_mask is not None:
@@ -267,7 +312,8 @@ def init_tagger(arch: TaggerArch, generator: torch.Generator,
     """A tagger with random weights drawn from ``generator`` (torch default
     init bounds: U(±1/√fan_in) for linears and convs, U(±1/√hidden) for the
     LSTM, N(0, 1) for the language embedding, N(0, 0.02) for the bucket
-    table; norms at 1/0), built on ``device``."""
+    table; norms at 1/0; Whisper's position table its sinusoids, as in
+    JAX), built on ``device``."""
     model = BIOPhonemeTagger(arch)
 
     def uniform_(t, bound):
@@ -283,6 +329,8 @@ def init_tagger(arch: TaggerArch, generator: torch.Generator,
             for p in mod.parameters():
                 uniform_(p, 1.0 / math.sqrt(mod.hidden_size))
         elif isinstance(mod, nn.Embedding):
+            if name.endswith("embed_positions"):
+                continue            # the sinusoids WhisperEncoder set
             std = 0.02 if name.endswith("rel_attn_embed") else 1.0
             mod.weight.copy_(torch.randn(mod.weight.shape,
                                          generator=generator) * std)

@@ -31,5 +31,6 @@ def reset_launch_counts() -> None:
     flash_attention.mma_bias_bwd_launches = 0
     flash_attention.mma_fwd_launches = 0
     flash_attention.mma_bias_fwd_launches = 0
+    flash_attention.fused_fwd_launches = 0
     conv_fused.launches.clear()
     conv_fused.layer_launches = 0

@@ -29,6 +29,10 @@ backward.
   dropout (K6) inside those kernels, with the JAX package's hash mask
   (``dropout_mask``): the forward masks P after the row sum, the backward
   recomputes the same mask; the seed stays on the device.
+- The kernels take head widths that are multiples of 16 up to 512; both
+  entry points zero-pad any other width up to the next multiple of 16 on
+  every device (:func:`pad_head_dim`), scale by the true ``1/√d``, and
+  slice the output back (autograd slices the gradients).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .dropout_mask import check_rate, keep_scale, keep_threshold, mask_grid
@@ -63,6 +68,9 @@ mma_bias_bwd_launches = 0
 # bias (attention_fwd_bias_mma.cu).
 mma_fwd_launches = 0
 mma_bias_fwd_launches = 0
+# Launches of the forwards of flash_attention.cu (the "fused" route),
+# counted in the branch of launch_kernel that runs them.
+fused_fwd_launches = 0
 
 # Head widths above this, without a bias, take the mma.sync forward and the
 # mma.sync backward pair.
@@ -104,10 +112,26 @@ def _prep_kv_len(kv_len, b: int, t: int, device) -> torch.Tensor:
     return kv.expand(b).clamp(1, t).contiguous()
 
 
-def _scores_plain(q, k, bias, gate, kv) -> torch.Tensor:
+def _scale(q, scale: Optional[float]) -> float:
+    """The score scale: ``scale``, or 1/√d of q's head width."""
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def pad_head_dim(q, k, v):
+    """(q, k, v zero-padded on D to the next multiple of 16, the true D,
+    its 1/√D): zero columns add nothing to q·kᵀ and give zero output
+    columns, which the caller slices off."""
+    d = q.shape[-1]
+    pad = -d % 16
+    if pad:
+        q, k, v = (F.pad(x, (0, pad)) for x in (q, k, v))
+    return q, k, v, d, 1.0 / math.sqrt(d)
+
+
+def _scores_plain(q, k, bias, gate, kv, scale=None) -> torch.Tensor:
     """f32 scores (q·scale)·kᵀ + gate·bias with keys ≥ kv set to −1e30."""
-    t, d = q.shape[2], q.shape[3]
-    s = torch.matmul(q.float() * (1.0 / math.sqrt(d)),
+    t = q.shape[2]
+    s = torch.matmul(q.float() * _scale(q, scale),
                      k.float().transpose(-1, -2))
     if bias is not None:
         bf = bias.float()[None]
@@ -129,14 +153,17 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     gate: Optional[torch.Tensor] = None,
                     kv_len=None, return_lse: bool = False,
-                    dropout_rate: float = 0.0, dropout_seed=None):
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    scale: Optional[float] = None):
     """Plain PyTorch twin: materialized f32 scores, the kernel's exact
     math (``layers.attention_core`` with the gated bias and key mask, and
     with ``dropout_rate`` > 0 the kernels' dropout mask on the normalized
     probabilities). With ``return_lse`` also the row logsumexp [B, H, T]
-    f32 (of the undropped scores)."""
+    f32 (of the undropped scores). ``scale``: of the scores, 1/√d of q's
+    width when None."""
     b, h, t, d = q.shape
-    s = _scores_plain(q, k, bias, gate, _prep_kv_len(kv_len, b, t, q.device))
+    s = _scores_plain(q, k, bias, gate, _prep_kv_len(kv_len, b, t, q.device),
+                      scale)
     p = torch.softmax(s, dim=-1)
     mask = _dropout_plain(q, dropout_rate, dropout_seed)
     if mask is not None:
@@ -148,7 +175,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_backward_plain(q, k, v, bias, gate, kv_len, out, lse, dout,
-                             dropout_rate: float = 0.0, dropout_seed=None):
+                             dropout_rate: float = 0.0, dropout_seed=None,
+                             scale: Optional[float] = None):
     """Plain twin of the backward kernels, step by step from the saved LSE
     as they work: P = exp(S − LSE), dP = dO·Vᵀ, delta = rowsum(dO·O),
     dS = P·(dP − delta); dQ = dS·K·scale, dK = dSᵀ·(Q·scale), dV = Pᵀ·dO,
@@ -157,9 +185,9 @@ def attention_backward_plain(q, k, v, bias, gate, kv_len, out, lse, dout,
     dv, dbias, dgate): dq/dk/dv in q's dtype, dbias [H,T,T] and dgate
     [B,H,T] in f32 (None where there is no bias or gate)."""
     b, h, t, d = q.shape
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(q, scale)
     kv = _prep_kv_len(kv_len, b, t, q.device)
-    s = _scores_plain(q, k, bias, gate, kv)
+    s = _scores_plain(q, k, bias, gate, kv, scale)
     p = torch.exp(s - lse.float()[..., None])
     do = dout.float()
     dp = torch.matmul(do, v.float().transpose(-1, -2))
@@ -227,18 +255,20 @@ def _dropout_args(dropout_rate: float, dropout_seed):
 
 def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
                   return_lse: bool = False, dropout_rate: float = 0.0,
-                  dropout_seed=None):
+                  dropout_seed=None, scale: Optional[float] = None):
     """Run the forward on CUDA tensors: the route :func:`forward_route`
     names, with no fallback from one to another (the mma.sync forwards
     counted in ``mma_fwd_launches`` and ``mma_bias_fwd_launches`` where they
     launch); with
     ``return_lse`` also the row LSE [B, H, T] f32; with ``dropout_rate`` >
     0 the in-kernel dropout (K6) of ``dropout_seed``, a one-element int32
-    tensor on q's device."""
+    tensor on q's device; ``scale`` of the scores, 1/√d when None."""
+    global fused_fwd_launches
     _check(q, k, v, bias, gate)
     if not q.is_cuda:
         raise ValueError("launch_kernel needs CUDA tensors")
     b, h, t, d = q.shape
+    scale = _scale(q, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     kv = _prep_kv_len(kv_len, b, t, q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -250,19 +280,21 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
     if gate is not None:
         gate = gate.float().contiguous()
     if route == "mma":
-        out = _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale)
+        out = _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale,
+                              scale)
     elif route == "mma_bias":
         out = _launch_mma_bias_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
-                                   drop_scale)
+                                   drop_scale, scale)
     else:
         lib = _build.library("flash_attention")
         out = torch.empty_like(q)
         err = _fwd_launcher(lib.wfl_flash_attention_fwd)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
             kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
-            1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
+            scale, thr, drop_scale, _dtype_code(q),
             _build.stream_ptr(q.device))
         _build.check(lib, err, "flash_attention")
+        fused_fwd_launches += 1
     return (out, lse) if return_lse else out
 
 
@@ -277,7 +309,7 @@ def _fwd_launcher(fn):
     return fn
 
 
-def _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale):
+def _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
     """The bias-free tensor-core forward of ``csrc/attention_fwd_mma.cu``
     on the tensors :func:`launch_kernel` has checked and laid out (the
     launcher itself refuses a bias and a head_dim outside (128, 512]);
@@ -288,16 +320,15 @@ def _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale):
     out = torch.empty_like(q)
     err = _fwd_launcher(lib.wfl_attention_fwd_mma)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, kv.data_ptr(),
-        out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
-        1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
-        _build.stream_ptr(q.device))
+        out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d, _scale(q, scale),
+        thr, drop_scale, _dtype_code(q), _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_fwd_mma")
     mma_fwd_launches += 1
     return out
 
 
 def _launch_mma_bias_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
-                         drop_scale):
+                         drop_scale, scale=None):
     """The tensor-core forward with a bias of
     ``csrc/attention_fwd_bias_mma.cu`` on the tensors :func:`launch_kernel`
     has checked and laid out (bias in q's dtype, gate f32 or None; the
@@ -310,7 +341,7 @@ def _launch_mma_bias_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
     err = _fwd_launcher(lib.wfl_attention_fwd_bias_mma)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         _ptr(gate), kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b,
-        h, t, d, 1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
+        h, t, d, _scale(q, scale), thr, drop_scale, _dtype_code(q),
         _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_fwd_bias_mma")
     mma_bias_fwd_launches += 1
@@ -326,7 +357,8 @@ def _dtype_code(q: torch.Tensor) -> int:
 
 
 def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
-                    dropout_rate: float = 0.0, dropout_seed=None):
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    scale: Optional[float] = None):
     """Run the backward passes on CUDA tensors: the route
     :func:`backward_route` names, with no fallback from one to another,
     each counted where it launches (``mma_bias_bwd_launches``,
@@ -338,6 +370,7 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     if not q.is_cuda:
         raise ValueError("launch_backward needs CUDA tensors")
     b, h, t, d = q.shape
+    scale = _scale(q, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = dout.to(q.dtype).contiguous()
     delta = (dout.float() * out.float()).sum(-1).contiguous()
@@ -347,7 +380,7 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     route = backward_route(d, bias is not None)
     if route == "mma":
         dq, dk, dv = _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr,
-                                 drop_scale)
+                                 drop_scale, scale)
         return dq, dk, dv, None, None
     if bias is not None:
         bias = bias.to(q.dtype).contiguous()
@@ -355,7 +388,7 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
         gate = gate.float().contiguous()
     if route == "mma_bias":
         return _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv,
-                                seed, thr, drop_scale)
+                                seed, thr, drop_scale, scale)
     lib = _build.library("flash_attention")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = (torch.zeros((h, t, t), dtype=torch.float32, device=q.device)
@@ -370,15 +403,15 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
              _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t, d,
-             1.0 / math.sqrt(d), thr, drop_scale, _dtype_code(q),
-             _build.stream_ptr(q.device))
+             dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t, d, scale,
+             thr, drop_scale, _dtype_code(q), _build.stream_ptr(q.device))
     _build.check(lib, err, "flash_attention backward")
     fma_bwd_launches += 1
     return dq, dk, dv, dbias, dgate
 
 
-def _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale):
+def _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale,
+                scale=None):
     """The bias-free tensor-core backward pair of
     ``csrc/attention_bwd_mma.cu`` on the tensors :func:`launch_backward`
     has checked and laid out (the launcher itself refuses a head_dim
@@ -399,7 +432,7 @@ def _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), kv.data_ptr(), _ptr(seed),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ds.data_ptr(), b,
-             h, t, d, ldk, 1.0 / math.sqrt(d), thr, drop_scale,
+             h, t, d, ldk, _scale(q, scale), thr, drop_scale,
              _dtype_code(q), _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_bwd_mma")
     mma_bwd_launches += 1
@@ -407,7 +440,7 @@ def _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale):
 
 
 def _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
-                     drop_scale):
+                     drop_scale, scale=None):
     """The tensor-core backward with a bias of
     ``csrc/attention_bwd_bias_mma.cu`` on the tensors
     :func:`launch_backward` has checked and laid out (bias in q's dtype,
@@ -434,7 +467,7 @@ def _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
              _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), ds.data_ptr(), dbias.data_ptr(), _ptr(dgate), b,
-             h, t, d, ldk, 1.0 / math.sqrt(d), thr, drop_scale,
+             h, t, d, ldk, _scale(q, scale), thr, drop_scale,
              _dtype_code(q), _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_bwd_bias_mma")
     mma_bias_bwd_launches += 1
@@ -442,7 +475,7 @@ def _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
 
 
 def attention_forward(ctx, q, k, v, bias, gate, kv_len, dropout_rate=0.0,
-                      seed=None) -> torch.Tensor:
+                      seed=None, scale=None) -> torch.Tensor:
     """The forward of both autograd Functions: the kernel on CUDA, the
     plain twin on the CPU. The LSE is made, and everything the backward
     reads is saved (the seed tensor too, as JAX keeps it as a residual),
@@ -450,11 +483,11 @@ def attention_forward(ctx, q, k, v, bias, gate, kv_len, dropout_rate=0.0,
     want_lse = any(ctx.needs_input_grad[:5])
     fn = launch_kernel if q.is_cuda else attention_plain
     res = fn(q, k, v, bias, gate, kv_len, return_lse=want_lse,
-             dropout_rate=dropout_rate, dropout_seed=seed)
+             dropout_rate=dropout_rate, dropout_seed=seed, scale=scale)
     out, lse = res if want_lse else (res, None)
     if want_lse:
         b, _, t, _ = q.shape
-        ctx.dropout_rate = dropout_rate
+        ctx.dropout_rate, ctx.scale = dropout_rate, scale
         ctx.save_for_backward(q, k, v, bias, gate,
                               _prep_kv_len(kv_len, b, t, q.device), out, lse,
                               seed)
@@ -469,7 +502,7 @@ def attention_backward(ctx, dout):
     fn = launch_backward if q.is_cuda else attention_backward_plain
     dq, dk, dv, dbias, dgate = fn(q, k, v, bias, gate, kv, out, lse, dout,
                                   dropout_rate=ctx.dropout_rate,
-                                  dropout_seed=seed)
+                                  dropout_seed=seed, scale=ctx.scale)
     if dbias is not None:
         dbias = dbias.to(bias.dtype)
     return dq, dk, dv, dbias, dgate
@@ -477,10 +510,11 @@ def attention_backward(ctx, dout):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, gate, kv_len, dropout_rate, seed):
+    def forward(ctx, q, k, v, bias, gate, kv_len, dropout_rate, seed,
+                scale):
         global launches, dropout_launches
         out = attention_forward(ctx, q, k, v, bias, gate, kv_len,
-                                dropout_rate, seed)
+                                dropout_rate, seed, scale)
         launches += q.is_cuda
         dropout_launches += q.is_cuda and dropout_rate > 0.0
         return out
@@ -491,7 +525,7 @@ class _FlashAttention(torch.autograd.Function):
         grads = attention_backward(ctx, dout)
         bwd_launches += dout.is_cuda
         dropout_bwd_launches += dout.is_cuda and ctx.dropout_rate > 0.0
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -507,9 +541,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch semantics (K6), its mask a hash of (seed, b, h, q, k).
 
     A CUDA tensor runs the kernels, a CPU tensor the plain twins; both are
-    differentiable in every tensor argument but ``kv_len``."""
+    differentiable in every tensor argument but ``kv_len``. Any head width
+    up to 512 (:func:`pad_head_dim`)."""
+    q, k, v, d, scale = pad_head_dim(q, k, v)
     rate, seed = check_entry(q, k, v, bias, gate, dropout_rate, dropout_seed)
-    return _FlashAttention.apply(q, k, v, bias, gate, kv_len, rate, seed)
+    return _FlashAttention.apply(q, k, v, bias, gate, kv_len, rate, seed,
+                                 scale)[..., :d]
 
 
 def check_entry(q, k, v, bias, gate, dropout_rate: float, dropout_seed):

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import attention_backward, attention_forward, \
-    check_entry
+    check_entry, pad_head_dim
 
 # Launches of the CUDA kernels through this entry point (forward, and the
 # backward pair), and of those the ones with dropout.
@@ -32,10 +32,10 @@ dropout_bwd_launches = 0
 
 class _FlashAttentionTrainable(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kv_len, dropout_rate, seed):
+    def forward(ctx, q, k, v, kv_len, dropout_rate, seed, scale):
         global launches, dropout_launches
         out = attention_forward(ctx, q, k, v, None, None, kv_len,
-                                dropout_rate, seed)
+                                dropout_rate, seed, scale)
         launches += q.is_cuda
         dropout_launches += q.is_cuda and dropout_rate > 0.0
         return out
@@ -46,7 +46,7 @@ class _FlashAttentionTrainable(torch.autograd.Function):
         dq, dk, dv, _, _ = attention_backward(ctx, dout)
         bwd_launches += dout.is_cuda
         dropout_bwd_launches += dout.is_cuda and ctx.dropout_rate > 0.0
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
@@ -57,6 +57,9 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
     ``dropout_rate``/``dropout_seed``: strict attention dropout (K6), as
     :func:`~.flash_attention.flash_attention` takes them. A CUDA tensor
     runs the kernels, a CPU tensor the plain twins; both are differentiable
-    in q, k and v."""
+    in q, k and v. Any head width up to 512: others than multiples of 16
+    are zero-padded (``flash_attention.pad_head_dim``)."""
+    q, k, v, d, scale = pad_head_dim(q, k, v)
     rate, seed = check_entry(q, k, v, None, None, dropout_rate, dropout_seed)
-    return _FlashAttentionTrainable.apply(q, k, v, kv_len, rate, seed)
+    return _FlashAttentionTrainable.apply(q, k, v, kv_len, rate, seed,
+                                          scale)[..., :d]

@@ -353,7 +353,7 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
                         device=device)
     if cfg.finetuning_enable:
         finetune_surgery(model, arch, cfg, label_list, generator)
-    if arch.freeze_encoder:
+    if arch.freeze_encoder and arch.encoder_type != "none":
         model.encoder.requires_grad_(False)
     optimizer = make_optimizer(
         cfg, [p for p in model.parameters() if p.requires_grad])
