@@ -64,18 +64,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. Whisper-base serving (``encoder_type: whisper``, the flagship heads):
    the tagger saved as .pt and served by ``infer_folder_batched`` on the
    card in bf16 over a copy of phase 4's wavs, the launch counts set to 0 just
-   before and read just after (a forward: 6 K1 on the fused forward of
-   ``flash_attention.cu`` at D = 64, 2 on the bias-free mma.sync forward);
-   the batched forward timed at B=8×30 s in bf16 and f32 with its peak
-   memory; one bf16 step profiled; one bf16 forward of the ``large-v3``
-   preset at full width (its Conformer at 4 heads), timed;
+   before and read just after (a forward: 6 K1 on the bias-free
+   instantiation of the D = 64 forward of ``attention_fwd_bias_mma.cu``,
+   2 on the bias-free mma.sync forward of ``attention_fwd_mma.cu``, none
+   on the fused forwards); the batched forward timed at B=8×30 s in bf16
+   and f32 with its peak memory; one bf16 step profiled; one bf16 forward
+   of the ``large-v3`` preset at full width (its Conformer at the
+   config's 2 heads, head_dim 640: 2 forwards on the wide route of
+   ``attention_wide.cu``, 32 on the D = 64 one), timed;
    8b. the card against the CPU as in phase 5, for Whisper-base and for the
    ``none`` encoder at full width (80 mels; unequal lengths take the
    host's reflect padding and the precentered STFT);
 9. Whisper-base training: preprocess and train on phase 6's corpus (f32,
    batch 8, 4 steps, validation after the last) with the plain attention
-   twins stubbed to raise; a step: 6 K1b on the FMA pair, 2 on the
-   mma.sync pair; step times, audio-s/s, peak memory, a profiled step,
+   twins stubbed to raise; a step: 6 K1b on the bias-free D = 64 passes
+   of ``attention_bwd_bias_mma.cu``, 2 on the mma.sync pair, none on the
+   FMA pair; step times, audio-s/s, peak memory, a profiled step,
    ``last_model.pt`` reloaded to the same logits; 9b. one f32 Whisper-base
    train step at B=2×30 s, the card against the CPU, under phase 7's
    rules;
@@ -89,29 +93,38 @@ Phase 3 includes 3b: the backward kernels (K2b, K1b) through
 ``attention_backward_plain``, each shown by the launch counts to run the
 route ``backward_route`` names (K1b: the mma.sync pair of
 ``attention_bwd_mma.cu``; K2b: the three mma.sync passes of
-``attention_bwd_bias_mma.cu``, dK/dV, dQ and dBias/dGate; other widths
-with a bias: the FMA pair of ``flash_attention.cu``), with the device
-time of each kernel of the call; 3c: strict attention dropout (K6) inside
+``attention_bwd_bias_mma.cu``, dK/dV, dQ and dBias/dGate; bias-free at
+head_dim ≤ 64 their bias-free instantiation, dK/dV and dQ; above 512 the
+passes of ``attention_wide.cu``; other widths up to 512 with a bias, and
+bias-free 80-128: the FMA pair of ``flash_attention.cu``), with the
+device time of each kernel of the call; 3c: strict attention dropout (K6) inside
 all four, forward and backward, at the main shapes in f32 and bf16 at
 rates 0.1 and 0.15 against the plain twins with the same mask, timed with
 and without dropout beside SDPA with ``dropout_p`` (the bf16 forward held
 element by element to its rounding bound, and a mask of another seed
 shown to fail the same limit; K1b's and K2b's backwards shown to fail the
-plain twin of seed + 1); the head-width sweep, with bias at 16-512 (64 on
-the mma.sync forward with a bias and the mma.sync passes, there also
-without gate and with a bias whose base is not 16-byte aligned) and
-bias-free at 144, 256, 384 and 512 (the mma.sync forward); 3d: the mask of each forward variant (the mma.sync forward with
-a bias of ``attention_fwd_bias_mma.cu`` at D = 64, with a zero bias and a
-unit gate; bias-free, the f32 FMA and bf16 ``mma.sync`` forwards of
-``flash_attention.cu`` at D = 64 and the mma.sync forward of
-``attention_fwd_mma.cu`` at D = 384; each in f32 and bf16), read off bit
-for bit at T=1499 over every query and key tile, and the kept share at the
-main shape; 3e: K1 and K1b at this slice's shapes, bias-free, in f32 and
-bf16, at [8, 8, 1500, 64] (Whisper-base's layers: the fused forward and
-the FMA pair of ``flash_attention.cu``) and [8, 2, 1500, 40] (the
-``none`` encoder's Conformer, padded to 48 by the entry point), against
+plain twin of seed + 1); the head-width sweep (``head_dims``), with bias
+at 16-512 (64 on the mma.sync forward with a bias and the mma.sync
+passes, there also without gate and with a bias whose base is not
+16-byte aligned) and at 528-1280 (the wide route), bias-free at 16-64
+(the bias-free D = 64 route), 96 (fused), 144-512 (mma.sync) and
+528-1280 (wide), and strict dropout bias-free at 64 and 640, each
+forward's and backward's route shown by the launch counts; 3d: the mask
+of each forward variant (the mma.sync forward of
+``attention_fwd_bias_mma.cu`` at D = 64 with a zero bias and a unit gate,
+and its bias-free instantiation; the f32 FMA and bf16 ``mma.sync``
+forwards of ``flash_attention.cu`` at D = 48 with a zero bias; the
+mma.sync forward of ``attention_fwd_mma.cu`` at D = 384; the wide forward
+of ``attention_wide.cu`` at D = 640, bias-free in f32 and with a zero
+bias in bf16; the others in f32 and bf16), read off bit for bit at
+T=1499 over every query and key tile, and the kept share at the main
+shape; 3e: K1 and K1b at the Whisper paths' shapes, bias-free, in f32
+and bf16, at [8, 8, 1500, 64] (Whisper-base's layers) and [8, 2, 1500,
+40] (the ``none`` encoder's Conformer, padded to 48 by the entry point
+and to 64 by the route), both on the bias-free D = 64 route, and at [8,
+2, 1500, 640] (large-v3's Conformer at 2 heads, the wide route), against
 the plain twins, timed beside SDPA (without a mask where every key is
-valid) and the bound. The head-width sweep also runs bias-free 40 and 64.
+valid) and the bound, with the device time of each kernel.
 
 Phase 6 includes 6b: the flagship recipe with
 ``training.strict_attention_dropout: true`` (4 steps, validation at the
@@ -129,6 +142,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -159,7 +173,7 @@ DROP_SEED = 1234567
 # The profiler's names of the kernels of ops/kernels/csrc/*.cu
 PORT_KERNELS = tuple(f"void (anonymous namespace)::{k}" for k in (
     "flash_fwd_", "flash_bwd_", "attn_fwd_", "attn_bwd_", "attn_bias_fwd_",
-    "attn_bias_bwd_", "conv_layer_mma"))
+    "attn_bias_bwd_", "attn_wide_", "conv_layer_mma"))
 
 # Tolerances of a kernel against its plain twin on the card, as fractions
 # of the reference output's largest magnitude (≈ 1 on the inputs below):
@@ -292,32 +306,38 @@ def fwd_rate(d: int, with_bias: bool, dtype: str) -> str:
     return dtype
 
 
+# The forward routes in the order of ``fwd_counts``, and the backward
+# routes in that of ``route_counts``
+FWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fused")
+BWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fma")
+
+
 def fwd_counts():
-    """The launch counts of the three forward routes: (the mma.sync forward
-    with a bias, the bias-free mma.sync forward, the forwards of
-    ``flash_attention.cu``)."""
+    """The launch counts of the five forward routes, in ``FWD_ROUTES``
+    order: the mma.sync forward with a bias, the bias-free mma.sync forward
+    of ``attention_fwd_mma.cu``, the bias-free instantiation of the D = 64
+    forward, the wide forward of ``attention_wide.cu``, the forwards of
+    ``flash_attention.cu``."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     return [fa.mma_bias_fwd_launches, fa.mma_fwd_launches,
+            fa.mma64_fwd_launches, fa.wide_fwd_launches,
             fa.fused_fwd_launches]
 
 
 def fwd_launch(run, d, with_bias, what):
-    """Run one forward (``run()``) and check that it took the route it
-    should, once: with a bias at head_dim 64 the mma.sync forward of
-    ``attention_fwd_bias_mma.cu``, bias-free at head_dim > 128 that of
-    ``attention_fwd_mma.cu``, else a forward of ``flash_attention.cu``
-    (each count is raised in the branch of ``launch_kernel`` that launches
-    it, after the launch returned no error). Returns what ``run()`` did."""
+    """Run one forward (``run()``) and check that it took the route
+    ``forward_route`` names, once, and no other (each count is raised in
+    the branch of ``launch_kernel`` that launches it, after the launch
+    returned no error). Returns what ``run()`` did."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     before = fwd_counts()
     got = run()
     rose = [n - m for n, m in zip(fwd_counts(), before)]
     route = fa.forward_route(d, with_bias)
-    want = [int(route == r) for r in ("mma_bias", "mma", "fused")]
+    want = [int(route == r) for r in FWD_ROUTES]
     if rose != want:
-        raise AssertionError(f"{what}: forward launches (mma.sync with a "
-                             f"bias, mma.sync bias-free, fused) rose by "
-                             f"{rose}, want {want}")
+        raise AssertionError(f"{what}: forward launches {FWD_ROUTES} rose "
+                             f"by {rose}, want {want}")
     return got
 
 
@@ -444,31 +464,30 @@ def sdpa_mask(t, h, tdt, kv_len, bias, gate):
 
 
 def route_counts():
-    """The launch counts of the three backward routes: (the mma.sync
-    passes with a bias, the bias-free mma.sync pair, the FMA pair)."""
+    """The launch counts of the five backward routes, in ``BWD_ROUTES``
+    order: the mma.sync passes with a bias, the bias-free mma.sync pair of
+    ``attention_bwd_mma.cu``, the bias-free instantiation of the D = 64
+    passes, the wide passes of ``attention_wide.cu``, the FMA pair."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     return [fa.mma_bias_bwd_launches, fa.mma_bwd_launches,
+            fa.mma64_bwd_launches, fa.wide_bwd_launches,
             fa.fma_bwd_launches]
 
 
 def pair_launch(grad, d, with_bias, what):
     """Run one backward (``grad()``) and check that it launched the route
-    it should, once, and no other: with a bias at head_dim 64 the mma.sync
-    passes of ``attention_bwd_bias_mma.cu``, bias-free at head_dim > 128
-    the mma.sync pair of ``attention_bwd_mma.cu``, else the FMA pair of
-    ``flash_attention.cu``. Each route's count rises in the branch of
-    ``launch_backward`` that calls its library, after the launch returned
-    no error. Returns what ``grad()`` did."""
+    ``backward_route`` names, once, and no other. Each route's count rises
+    in the branch of ``launch_backward`` that calls its library, after the
+    launch returned no error. Returns what ``grad()`` did."""
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     before = route_counts()
     got = grad()
     rose = [n - m for n, m in zip(route_counts(), before)]
-    if with_bias:
-        want = [1, 0, 0] if d == 64 else [0, 0, 1]
-    else:
-        want = [0, 1, 0] if d > 128 else [0, 0, 1]
+    route = fa.backward_route(d, with_bias)
+    want = [int(route == r) for r in BWD_ROUTES]
     if rose != want:
-        raise AssertionError(f"{what}: backward launches (mma bias, mma, "
-                             f"fma) rose by {rose}, want {want}")
+        raise AssertionError(f"{what}: backward launches {BWD_ROUTES} rose "
+                             f"by {rose}, want {want}")
     return got
 
 
@@ -563,7 +582,8 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters, t=T):
     if with_bias:    # bias read in q's dtype; dbias f32; gate, dgate
         nbytes += h * t * t * es + h * t * t * 4 + 2 * B * h * t * 4
     bms, by = bound_ms(flops, nbytes, bwd_rate(d, with_bias, dtype))
-    log(f"[kernel] {name} {dtype} [{B},{h},{t},{d}] lse_err={lse_err:.3e} "
+    log(f"[kernel] {name} {dtype} [{B},{h},{t},{d}] route "
+        f"{fa.backward_route(d, with_bias)} lse_err={lse_err:.3e} "
         + " ".join(f"{n}={e:.3e}/{sc:.3g}" for n, (e, sc) in errs.items())
         + f" (tol {GRAD_TOL[dtype]:g}×max) ms={ms:.4f} plain_ms="
         f"{plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={bms:.4f} "
@@ -783,21 +803,24 @@ WHISPER_T = 1500        # the Whisper encoder's frames (30 s)
 
 
 def phase_whisper_kernels(gen, iters: int) -> dict:
-    """3e: K1 and K1b at this slice's shapes, bias-free and without a key
-    mask, in f32 (TF32 off) and bf16, each against its plain twin, timed
-    beside SDPA and the bound, its route shown by the launch counts:
-    [8, 8, 1500, 64], Whisper-base's layers (the fused forward and the FMA
-    pair of ``flash_attention.cu``), and [8, 2, 1500, 40], the ``none``
-    encoder's Conformer at hidden 80, through the public entry point
-    (which pads D to 48; the same routes)."""
+    """3e: K1 and K1b at the Whisper paths' shapes, bias-free and without a
+    key mask, in f32 (TF32 off) and bf16, each against its plain twin,
+    timed beside SDPA and the bound, with its device time by kernel, its
+    route shown by the launch counts: [8, 8, 1500, 64], Whisper-base's
+    layers, and [8, 2, 1500, 40], the ``none`` encoder's Conformer at
+    hidden 80, through the public entry point (which pads D to 48, and the
+    route to 64): both the bias-free instantiations of the D = 64 forward
+    and passes ("mma64"); [8, 2, 1500, 640], large-v3's Conformer at its
+    default 2 heads, on the wide route of ``attention_wide.cu``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kv = [WHISPER_T] * B
     res = {}
     for dtype in ("f32", "bf16"):
-        for key, h, d in (("w", 8, 64), ("n", 2, 40)):
-            what = "Whisper" if key == "w" else "none, D=40"
+        for key, h, d in (("w", 8, 64), ("n", 2, 40), ("wide", 2, 640)):
+            what = {"w": "Whisper", "n": "none, D=40",
+                    "wide": "large-v3 Conformer, D=640"}[key]
             res[("K1" + key, dtype)] = _attn_case(
                 f"flash_attention_trainable ({what})", gen, h, d, dtype,
                 False, kv, iters, t=WHISPER_T)
@@ -808,25 +831,36 @@ def phase_whisper_kernels(gen, iters: int) -> dict:
     return res
 
 
+SWEEP_WIDE = (528, 640, 1024, 1280)
+
+
 def head_dims(gen) -> None:
     """Every kernel variant of the attention, forward and backward, at a
-    small shape: bf16 and f32 at head widths from 16 to 512 (the main path
-    runs 64 and 384) with bias, gate and a ragged key length (at 64 the
-    mma.sync forward and passes with a bias, the others on the forwards and
-    the FMA pair of flash_attention.cu), at 64 with a bias and no gate, at
-    64 with a bias in q's dtype whose base is not 16-byte aligned, and
-    bias-free (``flash_attention_trainable``) at 40 (padded to 48 inside)
-    and 64 (Whisper's width; the fused forward and the FMA pair) and at
-    144, 256, 384 and 512 (the mma.sync forward and pair), against the
-    plain twins; each forward's route shown by its launch count."""
+    small shape, against the plain twins, each forward's and backward's
+    route shown by its launch count: bf16 and f32 with bias, gate and a
+    ragged key length at head widths 16-512 (at 64 the mma.sync forward and
+    passes with a bias, the others on the forwards and the FMA pair of
+    flash_attention.cu) and at 528, 640, 1024 and 1280 (the wide route), at
+    64 with a bias and no gate, at 64 with a bias in q's dtype whose base is
+    not 16-byte aligned; bias-free (``flash_attention_trainable``) at 16,
+    32, 40, 48 and 64 (the bias-free D = 64 forward and passes, narrower
+    widths zero-padded to 64; 40 first to 48 by the entry point), 96 (the
+    fused forward and the FMA pair), 144, 256, 384 and 512 (the mma.sync
+    forward and pair) and 528-1280 (the wide route); strict dropout
+    (rate 0.1) bias-free at 64 and 640, against the plain twins with the
+    same mask."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
         flash_attention_trainable
-    cases = ([(d, True, "") for d in (16, 48, 64, 128, 144, 512)]
+    cases = ([(d, True, "") for d in (16, 48, 64, 128, 144, 512)
+              + SWEEP_WIDE]
              + [(64, True, " no gate"), (64, True, " unaligned bias")]
              + [(d, False, " bias-free")
-                for d in (40, 64, 144, 256, 384, 512)])
+                for d in (16, 32, 40, 48, 64, 96, 144, 256, 384, 512)
+                + SWEEP_WIDE]
+             + [(d, False, " dropout") for d in (64, 640)])
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device="cuda")
     errs = {}
     for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for d, with_bias, kind in cases:
@@ -844,15 +878,17 @@ def head_dims(gen) -> None:
             if kind == " no gate":
                 gate = None
             kv = torch.tensor([203, 77], dtype=torch.int32, device="cuda")
+            drop = (dict(dropout_rate=DROP_RATES[0], dropout_seed=seed)
+                    if kind == " dropout" else {})
 
             def entry():
                 if with_bias:
-                    return fa.flash_attention(q, k, v, bias, gate, kv)
-                return flash_attention_trainable(q, k, v, kv)
+                    return fa.flash_attention(q, k, v, bias, gate, kv, **drop)
+                return flash_attention_trainable(q, k, v, kv, **drop)
             with torch.inference_mode():
                 out = fwd_launch(entry, d, with_bias, f"attention {what}")
             ref, lse = fa.attention_plain(q, k, v, bias, gate, kv,
-                                          return_lse=True)
+                                          return_lse=True, **drop)
             scale = ref.float().abs().max().item()
             err = (out.float() - ref.float()).abs().max().item()
             if not err <= ATTN_TOL[dtype] * scale:
@@ -865,7 +901,7 @@ def head_dims(gen) -> None:
                                                           dout),
                               d, with_bias, f"attention backward {what}")
             want = fa.attention_backward_plain(q, k, v, bias, gate, kv, ref,
-                                               lse, dout)
+                                               lse, dout, **drop)
             rel = max((g.float() - w.float()).abs().max().item()
                       / w.float().abs().max().item()
                       for g, w in zip(got, want))
@@ -874,8 +910,10 @@ def head_dims(gen) -> None:
                 raise AssertionError(f"attention backward {what}: max diff "
                                      f"{rel} × max|grad|")
     log("[kernel] attention head widths, with bias 16/48/64/128/144/512 (64 "
-        "on the mma.sync forward with a bias), with bias and no gate 64, "
-        "with an unaligned bias 64, bias-free 40/64/144/256/384/512, f32 and "
+        "on the mma.sync forward with a bias) and 528/640/1024/1280 (wide), "
+        "with bias and no gate 64, with an unaligned bias 64, bias-free "
+        "16/32/40/48/64 (mma64), 96 (fused), 144/256/384/512 (mma) and "
+        "528/640/1024/1280 (wide), dropout 0.1 bias-free 64/640, f32 and "
         "bf16: "
         "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
             f"{k}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
@@ -1092,11 +1130,12 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
 def mask_bits() -> None:
     """3d: each forward variant's dropout mask read off bit for bit at the
     main length T=1499, over every query and key tile and the ragged tail:
-    at D = 64 with a bias the mma.sync forward of
-    ``attention_fwd_bias_mma.cu`` (a zero bias and a unit gate), bias-free
-    at D = 64 the forwards of ``flash_attention.cu`` and at D = 384 the
-    mma.sync forward of ``attention_fwd_mma.cu``, each shown by the launch
-    counts to take that route.
+    at D = 64 the mma.sync forward of ``attention_fwd_bias_mma.cu`` with a
+    bias (a zero bias and a unit gate) and its bias-free instantiation; at
+    D = 48 with a zero bias the forwards of ``flash_attention.cu``; at
+    D = 384 the mma.sync forward of ``attention_fwd_mma.cu``; at D = 640
+    the wide forward of ``attention_wide.cu`` bias-free (f32) and with a
+    zero bias (bf16); each shown by the launch counts to take that route.
     With q = k = 0 and a zero bias every row is uniform over its kv_len keys;
     v holds the identity on keys j0..j0+D−1 (one call for each block of D
     keys), so out[b,h,q,j−j0] > 0 exactly when key j is kept. The pattern
@@ -1114,10 +1153,14 @@ def mask_bits() -> None:
     for variant, dtype, d, with_bias in (
             ("f32 mma.sync bias fwd", torch.float32, 64, True),
             ("bf16 mma.sync bias fwd", torch.bfloat16, 64, True),
-            ("f32 FMA", torch.float32, 64, False),
+            ("f32 mma.sync bias-free D=64 fwd", torch.float32, 64, False),
+            ("bf16 mma.sync bias-free D=64 fwd", torch.bfloat16, 64, False),
+            ("f32 FMA", torch.float32, 48, True),
+            ("bf16 mma.sync", torch.bfloat16, 48, True),
             ("f32 mma.sync fwd", torch.float32, 384, False),
-            ("bf16 mma.sync", torch.bfloat16, 64, False),
-            ("bf16 mma.sync fwd", torch.bfloat16, 384, False)):
+            ("bf16 mma.sync fwd", torch.bfloat16, 384, False),
+            ("f32 wide fwd", torch.float32, 640, False),
+            ("bf16 wide fwd", torch.bfloat16, 640, True)):
         q = torch.zeros((b, h, T, d), dtype=dtype, device=dev)
         bias = gate = None
         if with_bias:
@@ -1329,9 +1372,7 @@ def phase_main(root: str, iters: int) -> dict:
         f"batch_files=8: {len(DURATIONS)} .lab files with {n_segs} segments "
         f"in {wall:.2f} s (first call: position bias + warm-up)")
     log(f"[main] kernel launches on the main path: {json.dumps(counts)}; "
-        f"mma.sync forwards with a bias {flash_attention.mma_bias_fwd_launches}"
-        f", bias-free {flash_attention.mma_fwd_launches}, fused "
-        f"{flash_attention.fused_fwd_launches}")
+        f"forwards {dict(zip(FWD_ROUTES, fwd_counts()))}")
     missing = [k for k, n in counts.items() if n < 1]
     if missing:
         raise AssertionError(f"main path did not launch {missing}")
@@ -1357,12 +1398,11 @@ def phase_main(root: str, iters: int) -> dict:
 def per_forward(fwd: list, k2: int, k1: int, what: str) -> None:
     """Each forward of the WavLM tagger runs 12 K2 and 2 K1: K1's launches
     are a sixth of K2's, every K2 ran the mma.sync forward with a bias and
-    every K1 the bias-free one, none a forward of ``flash_attention.cu``
-    (``fwd``: the counts of the three routes, as ``fwd_counts``)."""
-    if not (k1 >= 2 and fwd == [k2, k1, 0] and 6 * k1 == k2):
-        raise AssertionError(f"{what}: forwards (mma.sync with a bias, "
-                             f"mma.sync bias-free, fused) {fwd}, {k2} K2 and "
-                             f"{k1} K1 launches; want 12 K2 and 2 K1 a "
+    every K1 the bias-free one of ``attention_fwd_mma.cu``, none another
+    route (``fwd``: the counts of the five routes, as ``fwd_counts``)."""
+    if not (k1 >= 2 and fwd == [k2, k1, 0, 0, 0] and 6 * k1 == k2):
+        raise AssertionError(f"{what}: forwards {FWD_ROUTES} {fwd}, {k2} K2 "
+                             f"and {k1} K1 launches; want 12 K2 and 2 K1 a "
                              f"forward, each on its mma.sync forward")
 
 
@@ -1678,27 +1718,25 @@ def phase_train(root: str) -> dict:
               "flash_attention_trainable_bwd": flash_attention_bwd.bwd_launches,
               "mma bias passes": flash_attention.mma_bias_bwd_launches,
               "mma pair": flash_attention.mma_bwd_launches,
-              "fma pair": flash_attention.fma_bwd_launches,
-              "mma bias fwd": flash_attention.mma_bias_fwd_launches,
-              "mma fwd": flash_attention.mma_fwd_launches,
-              "fused fwd": flash_attention.fused_fwd_launches}
+              "mma64 passes": flash_attention.mma64_bwd_launches,
+              "wide passes": flash_attention.wide_bwd_launches,
+              "fma pair": flash_attention.fma_bwd_launches}
+    fwd = fwd_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[train] kernel launches over {TRAIN_STEPS} steps + 2 validations: "
-        f"{json.dumps(counts)}")
-    per_forward([counts["mma bias fwd"], counts["mma fwd"],
-                 counts["fused fwd"]],
-                counts["flash_attention"],
+        f"{json.dumps(counts)}; forwards {dict(zip(FWD_ROUTES, fwd))}")
+    per_forward(fwd, counts["flash_attention"],
                 counts["flash_attention_trainable"], "phase 6")
     want = {"flash_attention_bwd": 12 * TRAIN_STEPS,
             "flash_attention_trainable_bwd": 2 * TRAIN_STEPS,
             "mma bias passes": 12 * TRAIN_STEPS, "mma pair": 2 * TRAIN_STEPS,
-            "fma pair": 0, "fused fwd": 0}
+            "mma64 passes": 0, "wide passes": 0, "fma pair": 0}
     if any(counts[k] != n for k, n in want.items()) or min(
             n for k, n in counts.items() if k not in want) < 1:
         raise AssertionError(f"training launches {counts}: want every "
                              f"kernel > 0 and per step 12 K2b (mma.sync "
                              f"passes with a bias), 2 K1b (mma.sync pair), "
-                             f"0 on the FMA pair and the fused forwards")
+                             f"0 on the other backward routes")
 
     with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
         events = [json.loads(line) for line in f]
@@ -1874,23 +1912,22 @@ def phase_train_strict(root: str, base: dict) -> dict:
             "K1 all": flash_attention_bwd.launches,
             "mma bias passes": flash_attention.mma_bias_bwd_launches,
             "mma pair": flash_attention.mma_bwd_launches,
-            "fma pair": flash_attention.fma_bwd_launches,
-            "mma bias fwd": flash_attention.mma_bias_fwd_launches,
-            "mma fwd": flash_attention.mma_fwd_launches,
-            "fused fwd": flash_attention.fused_fwd_launches}
+            "mma64 passes": flash_attention.mma64_bwd_launches,
+            "wide passes": flash_attention.wide_bwd_launches,
+            "fma pair": flash_attention.fma_bwd_launches}
+        fwd = fwd_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[train-strict] kernel launches over {STRICT_STEPS} strict "
-            f"steps + 1 validation: {json.dumps(counts)}")
-        per_forward([counts["mma bias fwd"], counts["mma fwd"],
-                     counts["fused fwd"]],
-                    counts["K2 all"], counts["K1 all"], "phase 6b")
+            f"steps + 1 validation: {json.dumps(counts)}; forwards "
+            f"{dict(zip(FWD_ROUTES, fwd))}")
+        per_forward(fwd, counts["K2 all"], counts["K1 all"], "phase 6b")
         want = {"K2 dropout": 12 * STRICT_STEPS,
                 "K1 dropout": 2 * STRICT_STEPS,
                 "K2b dropout": 12 * STRICT_STEPS,
                 "K1b dropout": 2 * STRICT_STEPS,
                 "mma bias passes": 12 * STRICT_STEPS,
                 "mma pair": 2 * STRICT_STEPS,
-                "fma pair": 0}
+                "mma64 passes": 0, "wide passes": 0, "fma pair": 0}
         if any(counts[k] != n for k, n in want.items()):
             raise AssertionError(f"strict training launches {counts}: want "
                                  f"per step 12 K2, 2 K1, 12 K2b (mma.sync "
@@ -2043,16 +2080,16 @@ def phase_train_cross_device(labels: int, strict: bool = False,
         arch = dataclasses.replace(arch, whisper=dataclasses.replace(
             arch.whisper, dropout=0.0, activation_dropout=0.0,
             layerdrop=0.0))
-        # backward routes (mma bias, mma, fma), forwards (mma bias, mma,
-        # fused): 2 Conformer blocks on the mma.sync pair and forward, 6
-        # Whisper layers on the FMA pair and the fused forward
-        want_routes = [0, 2, 6, 0, 2, 6]
+        # backward routes (BWD_ROUTES), forwards (FWD_ROUTES): 2 Conformer
+        # blocks on the mma.sync pair and forward, 6 Whisper layers on the
+        # bias-free D = 64 passes and forward
+        want_routes = [0, 2, 6, 0, 0, 0, 2, 6, 0, 0]
     else:
         seconds = 8.0
         arch = dataclasses.replace(arch, wavlm=dataclasses.replace(
             arch.wavlm, hidden_dropout=0.0, feat_proj_dropout=0.0,
             layerdrop=0.0))
-        want_routes = [12, 2, 0, 12, 2, 0]
+        want_routes = [12, 2, 0, 0, 0, 12, 2, 0, 0, 0]
     batch = train_batch(labels, seconds)
     seeds = [int(s) for s in np.random.RandomState(11).randint(
         -2 ** 31, 2 ** 31 - 1, size=64)]
@@ -2164,18 +2201,16 @@ def phase_train_cross_device(labels: int, strict: bool = False,
         raise AssertionError(f"dropout launches on the card {drop_counts} "
                              f"(want {want}), seeds drawn {n_draws}")
     if routes != want_routes:
-        raise AssertionError(f"backward routes on the card (mma bias, mma, "
-                             f"fma) and forwards (mma.sync with a bias, "
-                             f"mma.sync bias-free, fused) {routes}, want "
+        raise AssertionError(f"backward routes on the card {BWD_ROUTES} "
+                             f"and forwards {FWD_ROUTES} {routes}, want "
                              f"{want_routes}")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     worst, worst_name, bad = worst_grad(g_card, g_cpu) if flipped else free
     what = ("strict attention dropout (WavLM 0.1, Conformer 0.15; fixed "
             "seeds; dropout launches on the card K2/K1/K2b/K1b "
             f"{drop_counts})" if strict else "dropout 0")
-    what += (f"; backward routes on the card (mma bias, mma, fma) and "
-             f"forwards (mma.sync with a bias, mma.sync bias-free, fused) "
-             f"{routes}; ReLU "
+    what += (f"; backward routes on the card {BWD_ROUTES} and forwards "
+             f"{FWD_ROUTES} {routes}; ReLU "
              f"inputs card vs CPU max diff "
              f"{relu_diff:.2e}, smallest |input| on the CPU {relu_min:.2e}, "
              f"{len(flipped)} of other sign on the card's own branches "
@@ -2213,22 +2248,29 @@ WHISPER_STEPS = 4       # phase 9, validation after the last
 
 def whisper_fwd_counts(what: str, flash_fwd: int, n_layers: int = 0
                        ) -> int:
-    """Each forward of the Whisper-base tagger runs K1 on the fused forward
-    of ``flash_attention.cu`` in each of its 6 layers (bias-free, D = 64)
-    and on the bias-free mma.sync forward in each of the 2 Conformer blocks
-    (D = 256), and no forward with a bias: ``flash_fwd`` launches of the
-    entry point, split so. Returns the number of tagger forwards."""
+    """Each forward of the Whisper-base tagger runs K1 on the bias-free
+    instantiation of the D = 64 forward in each of its 6 layers and on the
+    bias-free mma.sync forward of ``attention_fwd_mma.cu`` in each of the 2
+    Conformer blocks (D = 256), and no forward with a bias, none on the
+    fused forwards: ``flash_fwd`` launches of the entry point, split so.
+    Returns the number of tagger forwards."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     got = fwd_counts()
     n = got[1] // 2
-    want = [0, 2 * n, WHISPER_LAYERS * n]
+    want = [0, 2 * n, WHISPER_LAYERS * n, 0, 0]
     if n < 1 or got != want or flash_fwd != 8 * n or fa.launches:
-        raise AssertionError(f"{what}: forwards (mma.sync with a bias, "
-                             f"mma.sync bias-free, fused) {got}, "
+        raise AssertionError(f"{what}: forwards {FWD_ROUTES} {got}, "
                              f"{flash_fwd} K1 and {fa.launches} K2 launches; "
-                             f"want 6 fused and 2 mma.sync K1 a forward, no "
+                             f"want 6 mma64 and 2 mma.sync K1 a forward, no "
                              f"K2")
     return n
+
+
+def bias_free_d64(prof: dict) -> int:
+    """Launches of the bias-free instantiation of the D = 64 forward in a
+    profiled step (its second template argument, BIAS, false)."""
+    return sum(n for name, (_, n) in prof["kernels"].items()
+               if re.search(r"::attn_bias_fwd_mma<[^,<>]*, false,", name))
 
 
 def phase_whisper_serving(root: str, iters: int) -> dict:
@@ -2238,7 +2280,8 @@ def phase_whisper_serving(root: str, iters: int) -> dict:
     batched forward timed at B=8×30 s in bf16 and f32 with its peak
     memory; one bf16 step profiled (its kernel names as a second witness); one bf16
     forward of the ``large-v3`` preset at full width (128 mels, 32 layers
-    of 1280, 20 heads), timed, its logits finite."""
+    of 1280, 20 heads; the Conformer at the config's 2 heads, head_dim 640,
+    on the wide route), timed, its logits finite."""
     import torch
     from wfl_asr_tpu_torch.config import Config
     from wfl_asr_tpu_torch.infer.pipeline import infer_folder_batched
@@ -2259,7 +2302,7 @@ def phase_whisper_serving(root: str, iters: int) -> dict:
     wall = time.perf_counter() - t0
     k1 = flash_attention_bwd.launches
     n_fwd = whisper_fwd_counts("phase 8", k1)
-    fused = fwd_counts()[2]
+    mma64 = fwd_counts()[FWD_ROUTES.index("mma64")]
     if conv_fused.layer_launches:
         raise AssertionError(f"phase 8 launched K5 "
                              f"{conv_fused.layer_launches} times")
@@ -2274,25 +2317,23 @@ def phase_whisper_serving(root: str, iters: int) -> dict:
     log(f"[whisper] infer_folder_batched on cuda, bf16, device_decode, "
         f"batch_files=8: {len(DURATIONS)} .lab files with {n_segs} segments "
         f"in {wall:.2f} s; K1 launches {k1} over {n_fwd} forward(s): "
-        f"forwards (mma.sync with a bias, mma.sync bias-free, fused) "
-        f"{fwd_counts()}")
+        f"forwards {dict(zip(FWD_ROUTES, fwd_counts()))}")
 
     perf, step = serving_perf(cfg, ckpt, iters, "Whisper-base")
     prof = profile_step(step, "one bf16 Whisper-base serving step")
-    want = {"flash_fwd_mma<64": WHISPER_LAYERS, "attn_fwd_mma<": 2,
-            "attn_bias_fwd_mma<": 0, "conv_layer_mma<": 0}
+    want = {"flash_fwd_mma<64": 0, "flash_fwd_wmma<": 0, "attn_fwd_mma<": 2,
+            "attn_bias_fwd_mma<": WHISPER_LAYERS, "conv_layer_mma<": 0}
     got = {part: sum(n for name, (_, n) in prof["kernels"].items()
                      if f"::{part}" in name) for part in want}
-    if got != want:
+    if got != want or bias_free_d64(prof) != WHISPER_LAYERS:
         raise AssertionError(f"phase 8: profiled forward kernels {got}, "
-                             f"want {want}")
+                             f"bias-free D = 64 {bias_free_d64(prof)}, want "
+                             f"{want}, all bias-free")
 
-    # large-v3 at full width: 4 Conformer heads (head_dim 320; at 2 heads
-    # 640 is above the kernels' 512)
+    # large-v3 at full width, the Conformer at the config's 2 heads
     raw = {"data": {"sample_rate": 16000, "frame_duration": 0.02},
            "model": dict(cfg.raw["model"],
-                         whisper_model="openai/whisper-large-v3",
-                         conformer_heads=4)}
+                         whisper_model="openai/whisper-large-v3")}
     arch = TaggerArch.from_config(Config(raw), 73)
     t0 = time.perf_counter()
     model = init_tagger(arch, torch.Generator().manual_seed(0), "cuda")
@@ -2314,20 +2355,23 @@ def phase_whisper_serving(root: str, iters: int) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     finite = bool(torch.isfinite(logits.float()).all())
     log(f"[whisper] large-v3 tagger ({n_params} parameters, 128 mels, 32 "
-        f"layers of 1280, 20 heads; Conformer 4 heads), bf16 forward at "
+        f"layers of 1280, 20 heads; Conformer {arch.conformer_heads} heads, "
+        f"head_dim {1280 // arch.conformer_heads}), bf16 forward at "
         f"B={B}×30 s: {large_ms:.2f} ms ({B * 30 / large_ms * 1e3:.2f} "
         f"audio-s/s), peak memory {large_peak:.3f} GiB ({resident:.3f} "
         f"resident before), logits "
         f"{tuple(logits.shape)} finite {finite}; K1 launches and forwards "
-        f"(mma.sync with a bias, mma.sync bias-free, fused) {whisper_counts}"
-        f"; built in {init_s:.1f} s")
-    if not finite or whisper_counts != [34, 0, 2, 32]:
+        f"{FWD_ROUTES} {whisper_counts}; built in {init_s:.1f} s")
+    if not finite or whisper_counts != [34, 0, 0, 32, 2, 0] \
+            or arch.conformer_heads != 2:
         raise AssertionError(f"large-v3: logits finite {finite}, launches "
-                             f"{whisper_counts}, want [34, 0, 2, 32]")
+                             f"{whisper_counts}, want [34, 0, 0, 32, 2, 0], "
+                             f"Conformer heads {arch.conformer_heads}")
     del model, logits
     torch.cuda.empty_cache()
-    return dict(perf=perf, fused=fused, cfg=cfg, ckpt=ckpt, wav_dir=wav_dir,
-                large_ms=large_ms, large_peak_gb=large_peak)
+    return dict(perf=perf, mma64=mma64, wide=whisper_counts[4], cfg=cfg,
+                ckpt=ckpt, wav_dir=wav_dir, large_ms=large_ms,
+                large_peak_gb=large_peak)
 
 
 def phase_whisper_cross_device(root: str, run: dict) -> dict:
@@ -2349,8 +2393,9 @@ def phase_whisper_train(root: str) -> dict:
     phase 6's corpus, the default recipe in f32, batch 8, 4 steps,
     validation after the last, the plain attention twins replaced by stubs
     that raise; the launch counts set to 0 just before ``train`` and read
-    just after (a step: 6 K1b on the FMA pair, 2 on the mma.sync pair; a
-    forward: 6 fused and 2 mma.sync K1); step times, audio-s/s trained,
+    just after (a step: 6 K1b on the bias-free D = 64 passes, 2 on the
+    mma.sync pair, none on the FMA pair; a forward: 6 bias-free D = 64 and
+    2 mma.sync K1); step times, audio-s/s trained,
     peak memory; one profiled step; ``last_model.pt`` reloaded to the same
     logits."""
     import torch
@@ -2404,6 +2449,8 @@ def phase_whisper_train(root: str) -> dict:
                   "K1b": flash_attention_bwd.bwd_launches,
                   "mma bias passes": flash_attention.mma_bias_bwd_launches,
                   "mma pair": flash_attention.mma_bwd_launches,
+                  "mma64 passes": flash_attention.mma64_bwd_launches,
+                  "wide passes": flash_attention.wide_bwd_launches,
                   "fma pair": flash_attention.fma_bwd_launches}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         n_fwd = whisper_fwd_counts("phase 9", counts["K1"])
@@ -2411,11 +2458,13 @@ def phase_whisper_train(root: str) -> dict:
             f"1 validation ({n_fwd} forwards): {json.dumps(counts)}")
         want = {"K1b": 8 * WHISPER_STEPS, "mma bias passes": 0,
                 "mma pair": 2 * WHISPER_STEPS,
-                "fma pair": WHISPER_LAYERS * WHISPER_STEPS}
+                "mma64 passes": WHISPER_LAYERS * WHISPER_STEPS,
+                "wide passes": 0, "fma pair": 0}
         if any(counts[k] != n for k, n in want.items()):
             raise AssertionError(f"Whisper training launches {counts}: want "
-                                 f"per step 6 K1b on the FMA pair and 2 on "
-                                 f"the mma.sync pair")
+                                 f"per step 6 K1b on the bias-free D = 64 "
+                                 f"passes, 2 on the mma.sync pair, 0 on the "
+                                 f"FMA pair")
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             events = [json.loads(line) for line in f]
         losses = [e["loss"] for e in events if e["event"] == "train"]
@@ -2471,15 +2520,20 @@ def phase_whisper_train(root: str) -> dict:
         step()
         prof = profile_step(step, what="one f32 Whisper-base train step "
                             f"(batch {batch['audio'].shape})", top=24)
-        want = {"flash_fwd_f32<2,": WHISPER_LAYERS, "attn_fwd_mma<": 2,
-                "flash_bwd_dkdv<": WHISPER_LAYERS,
-                "flash_bwd_dq<": WHISPER_LAYERS, "attn_bwd_dkdv_mma<": 2,
-                "attn_bwd_dq_mma<": 2, "attn_bias_fwd_mma<": 0}
+        want = {"flash_fwd_f32<2,": 0, "attn_fwd_mma<": 2,
+                "attn_bias_fwd_mma<": WHISPER_LAYERS,
+                "flash_bwd_dkdv<": 0, "flash_bwd_dq<": 0,
+                "attn_bwd_dkdv_mma<": 2, "attn_bwd_dq_mma<": 2,
+                "attn_bias_bwd_dkdv_mma<": WHISPER_LAYERS,
+                "attn_bias_bwd_dq_mma<": WHISPER_LAYERS,
+                "attn_bias_bwd_dbias<": 0}
         got = {part: sum(n for name, (_, n) in prof["kernels"].items()
                          if f"::{part}" in name) for part in want}
-        if got != want:
-            raise AssertionError(f"phase 9: profiled kernels {got}, want "
-                                 f"{want}")
+        if got != want or bias_free_d64(prof) != WHISPER_LAYERS:
+            raise AssertionError(f"phase 9: profiled kernels {got}, "
+                                 f"bias-free D = 64 forwards "
+                                 f"{bias_free_d64(prof)}, want {want}, all "
+                                 f"bias-free")
     finally:
         flash_attention.attention_plain, \
             flash_attention.attention_backward_plain = saved
@@ -2526,14 +2580,23 @@ KERNEL_ROWS = [
     ("K1b", "flash_attention_trainable_bwd", "flash_attention_trainable_bwd",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
-    # K1 and K1b at Whisper-base's layers (bias-free, D = 64): the fused
-    # forward and the FMA pair, launched on phases 8 and 9
-    ("K1w", "flash_attention_trainable [Whisper, D=64]", "whisper K1",
-     "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+    # K1 and K1b at Whisper-base's layers (bias-free, D = 64): the bias-free
+    # instantiations of the D = 64 forward and passes, launched on phases 8
+    # and 9
+    ("K1w", "flash_attention_trainable [Whisper, D=64, bias-free mma64]",
+     "whisper K1",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_fwd_bias_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
-    ("K1bw", "flash_attention_trainable_bwd [Whisper, D=64]", "whisper K1b",
-     "wfl_asr_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+    ("K1bw", "flash_attention_trainable_bwd [Whisper, D=64, bias-free mma64]",
+     "whisper K1b",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_bias_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
+    # K1 above head_dim 512: the wide forward, launched by the large-v3
+    # forward of phase 8 (its Conformer at head_dim 640)
+    ("K1wide", "flash_attention_trainable [large-v3 Conformer, D=640, "
+     "wide]", "wide K1",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wide.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
 ]
 # The inference kernels report their bf16 case (the served path's dtype),
 # the backward kernels their f32 case (the default training dtype), and
@@ -2579,8 +2642,9 @@ def main() -> int:
     log(f"[device] {card} | torch {torch.__version__} | "
         f"CUDA {torch.version.cuda} | {sys.version.split()[0]}")
     sources = {"conv": ["conv_fused"],
-               "whisper": ["flash_attention", "attention_fwd_mma",
-                           "attention_bwd_mma"]}
+               "whisper": ["attention_fwd_mma", "attention_bwd_mma",
+                           "attention_fwd_bias_mma",
+                           "attention_bwd_bias_mma", "attention_wide"]}
     with lap("build"):
         logs = _build.build_all(sources.get(args.only, list(KERNEL_SOURCES)))
     log(f"[build] {', '.join(logs)} in {LAPS['build']:.1f} s")
@@ -2639,8 +2703,9 @@ def main() -> int:
         counts.update({k: n for k, n in trained["counts"].items()
                        if k.endswith("_bwd")})
         whisper = whisper_phases(root, args.iters)
-        counts["whisper K1"] = whisper["serving"]["fused"]
-        counts["whisper K1b"] = whisper["trained"]["counts"]["fma pair"]
+        counts["whisper K1"] = whisper["serving"]["mma64"]
+        counts["whisper K1b"] = whisper["trained"]["counts"]["mma64 passes"]
+        counts["wide K1"] = whisper["serving"]["wide"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log_laps()

@@ -1,19 +1,32 @@
 """Time variants of a kernel source on one card, in turns.
 
-    python3 kernel_variants_ab.py [--kernel k2|k5] [--iters N]
+    python3 kernel_variants_ab.py [--kernel k2|k1w|k5] [--iters N]
 
 Each variant is the kernel's source with some of its tile constants
 replaced as text (``K2_VARIANTS``: ``csrc/attention_fwd_bias_mma.cu``, the
-gated-bias attention forward; ``K5_VARIANTS``: ``csrc/conv_fused.cu``, the
-conv layer). Every variant builds with the port's ``nvcc`` flags into a
-library of its own (all started together), runs at the main shapes (K2:
-[8, 12, 1499, 64] with its LSE, kv_len 1499 − 100·b, bias and gate; K5:
-chain 1 [8, 95999, 512] → [8, 11999, 512] with the layer-0 norm, and
-chain 2 [8, 11999, 512] → [8, 1499, 512]), is held against the plain twin
-within ``chip_smoke.py``'s tolerances, and is timed with CUDA events (the
-median of ``--iters`` calls of its launcher) in turns: the variants of a
-dtype in order, then in reverse. Prints each variant's ``[ptxas]`` lines,
-one line a variant, and a last JSON line of the mean times.
+gated-bias attention forward; ``K1W_VARIANTS``: the same source's bias-free
+instantiation, the Whisper layers' K1; ``K5_VARIANTS``:
+``csrc/conv_fused.cu``, the conv layer). Every variant builds with the
+port's ``nvcc`` flags into a library of its own (all started together),
+runs at the main shapes (K2: [8, 12, 1499, 64] with its LSE, kv_len 1499 −
+100·b, bias and gate; K1w: Whisper-base's [8, 8, 1500, 64] with its LSE,
+every key valid, no bias; K5: chain 1 [8, 95999, 512] → [8, 11999, 512]
+with the layer-0 norm, and chain 2 [8, 11999, 512] → [8, 1499, 512]), is
+held against the plain twin within ``chip_smoke.py``'s tolerances, and is
+timed with CUDA events (the median of ``--iters`` calls of its launcher)
+in turns: the variants of a dtype in order, then in reverse. Prints each
+variant's ``[ptxas]`` lines, one line a variant, and a last JSON line of
+the mean times.
+
+K1w also runs the ``clocks`` variants, which add per-phase ``clock64``
+counters to the forward's key loop (wait and barrier; issuing the next
+tile's copies; S = Q·Kᵀ; the softmax; O += P·V), each phase ended by a
+read of its last result so that the mma pipeline's latency falls in the
+phase that issued it; lane 0 of each warp adds its cycles to a device
+array, read back once. And it times each backward route's dK/dV pass at
+the same shape by device time (torch.profiler): the FMA pair of
+``flash_attention.cu`` (the earlier route at this width), forced through
+``backward_route``, against the bias-free D = 64 passes.
 """
 
 from __future__ import annotations
@@ -126,7 +139,185 @@ K5_VARIANTS = {
         NORM_PASS_AT, NORM_PASS_AT + NORM_PASS)]),
 }
 
+# K1w: per-phase clocks, as text put into the forward's key loop. Each mark
+# first reads a register of the phase's last result (an empty asm that
+# takes it as an operand: the warp waits for it), then clock64.
+CLK_DECL = "constexpr float kLn2 = 0.6931471805599453f;\n"
+CLK_GLOBAL = CLK_DECL + """__device__ unsigned long long wfl_clk[5];
+#define WFL_MARK(i, dep)                                        \\
+  {                                                             \\
+    float wfl_d = (dep);                                        \\
+    asm volatile("" : "+f"(wfl_d));                             \\
+    const long long wfl_n = clock64();                          \\
+    wfl_c[i] += wfl_n - wfl_t;                                  \\
+    wfl_t = wfl_n;                                              \\
+  }
+"""
+CLK_START = "  const int n_kt = (kvl + BK - 1) / BK;\n"
+CLK_WAIT = ("      __syncthreads();    // this tile is in; every warp is done "
+            "with kt − 1\n    }\n")
+CLK_STAGE = "      stage(kt + 1, buf ^ 1);\n      cp_async_commit();\n    }\n"
+CLK_S = "    scores<Pol, NJ>(s, qa, sK + buf * BK * P, P);\n"
+CLK_SOFT = "    // O += P·V, P straight from the score registers, 16 keys at a time\n"
+CLK_PV = ("      accumulate_held<Pol, kNT, kInPlace>(o, s[j], tV, P, 16 * j);\n"
+          "  }\n")
+CLK_END = "  // the row sum over the quad, the LSE and 1/l\n"
+CLK_READ = """
+extern "C" int wfl_read_clocks(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, wfl_clk, sizeof(wfl_clk));
+  if (err != cudaSuccess) return err;
+  unsigned long long zero[5] = {0, 0, 0, 0, 0};
+  return cudaMemcpyToSymbol(wfl_clk, zero, sizeof(zero));
+}
+"""
+CLK_PHASES = ("wait+barrier", "issue copies", "S=QK^T", "softmax", "O+=PV")
+
+
+def clocks(wait: str = CLK_WAIT) -> list:
+    """The clock marks, the wait phase ending after the text ``wait``."""
+    return [
+        (CLK_DECL, CLK_GLOBAL),
+        (CLK_START, CLK_START + "  long long wfl_c[5] = {0, 0, 0, 0, 0};\n"
+         "  long long wfl_t = clock64();\n"),
+        (wait, wait + "    WFL_MARK(0, 0.f)\n")] + CLOCK_MARKS
+
+
+CLOCK_MARKS = [
+    (CLK_STAGE, CLK_STAGE + "    WFL_MARK(1, 0.f)\n"),
+    (CLK_S, CLK_S + "    WFL_MARK(2, s[NJ - 1][1][3])\n"),
+    (CLK_SOFT, "    WFL_MARK(3, o[kNT - 1][3] + s[NJ - 1][1][3])\n"
+     + CLK_SOFT),
+    (CLK_PV, CLK_PV.replace("  }\n", "    WFL_MARK(4, o[kNT - 1][3])\n  }\n")),
+    (CLK_END, "  if (lane == 0)\n    for (int i = 0; i < 5; ++i)\n"
+     "      atomicAdd(&wfl_clk[i], (unsigned long long)wfl_c[i]);\n"
+     + CLK_END),
+    ("}  // namespace\n\nusing namespace wfl;\n",
+     "}  // namespace\n\nusing namespace wfl;\n" + CLK_READ),
+]
+CLOCKS = clocks()
+# The next tile's copies issued after S = Q·Kᵀ instead of right after the
+# barrier (their buffer is free then too)
+STAGE_NEXT = ("    if (kt + 1 < n_kt) {\n      stage(kt + 1, buf ^ 1);\n"
+              "      cp_async_commit();\n    }\n")
+AFTER_S = [(STAGE_NEXT, ""), (CLK_S, CLK_S + STAGE_NEXT)]
+# K and V by bulk copies (the Tensor Memory Accelerator): warp 0 issues
+# one cp.async.bulk a row into the padded rows, completing on an mbarrier a
+# buffer, in place of 16-byte cp.async in every thread
+BULK_HELPERS = r"""
+// Bulk copies (the Tensor Memory Accelerator, sm_90): one instruction
+// copies a contiguous run of bytes global → shared and reports the bytes
+// to an mbarrier in shared memory; a thread that expects them arrives with
+// their count (mbar_expect_tx), and the consumers wait for the barrier's
+// phase (mbar_wait). Addresses and sizes are multiples of 16 bytes.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count));
+}
+
+// make the initialised barriers visible to the async proxy
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the barrier's phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WFL_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WFL_WAIT;\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+"""
+BULK_STAGE_FROM = (
+    "  auto stage = [&](int kt, int buf) {\n    const int k0 = kt * BK;\n"
+    "    stage_rows_by_warp<Pol, NW>(sK + buf * BK * P, P, k, k0, BK, T_len, "
+    "kD);\n    stage_rows_by_warp<Pol, NW>(sV + buf * BK * P, P, v, k0, BK, "
+    "T_len, kD);\n")
+BULK_STAGE = r"""  // K and V of a key tile: warp 0 issues one bulk copy a row
+  // (128 bytes in bf16, 256 in f32) into the padded rows, lane 0 first
+  // arriving on the buffer's barrier with their bytes; rows past T are
+  // zero-filled by plain stores (a V row of garbage times P = 0 could be
+  // NaN), which the next iteration's barrier publishes.
+  __shared__ __align__(8) uint64_t bars[2];
+  auto stage = [&](int kt, int buf) {
+    const int k0 = kt * BK;
+    {
+      const int rows = min(BK, T_len - k0);
+      T* dK = sK + buf * BK * P;
+      T* dV = sV + buf * BK * P;
+      if (warp == 0) {
+        constexpr unsigned kRow = kD * sizeof(T);
+        if (lane == 0) mbar_expect_tx(&bars[buf], 2 * rows * kRow);
+        __syncwarp();
+        for (int r = lane; r < rows; r += 32) {
+          bulk_g2s(dK + Pol::at(P, r, 0), k + (size_t)(k0 + r) * kD, kRow,
+                   &bars[buf]);
+          bulk_g2s(dV + Pol::at(P, r, 0), v + (size_t)(k0 + r) * kD, kRow,
+                   &bars[buf]);
+        }
+      }
+      for (int idx = threadIdx.x; idx < (BK - rows) * kD;
+           idx += Cfg::threads) {
+        const int r = rows + idx / kD, c = idx % kD;
+        dK[Pol::at(P, r, c)] = from_f<T>(0.f);
+        dV[Pol::at(P, r, c)] = from_f<T>(0.f);
+      }
+    }
+"""
+BULK_INIT_AT = "  stage_rows_by_warp<Pol, NW>(sQ, P, a.q + base, q0, BQ, T_len, kD);\n"
+BULK_INIT = """  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+"""
+BULK_WAIT = "    mbar_wait(&bars[buf], (kt >> 1) & 1);\n"
+BULK_KV = [(CLK_DECL, CLK_DECL + BULK_HELPERS),
+           (BULK_STAGE_FROM, BULK_STAGE),
+           (BULK_INIT_AT, BULK_INIT + BULK_INIT_AT),
+           (CLK_WAIT, CLK_WAIT + BULK_WAIT)]
+K1W_VARIANTS = {
+    "bf16 8 warps": ("bf16", []),
+    "bf16 8 warps, clocks": ("bf16", CLOCKS),
+    "bf16 8 warps, bulk K/V": ("bf16", BULK_KV),
+    "bf16 8 warps, bulk K/V, clocks": ("bf16", BULK_KV + clocks(BULK_WAIT)),
+    "bf16 8 warps, copies after S": ("bf16", AFTER_S),
+    "bf16 4 warps": ("bf16", [("int warps = kF32 ? 4 : 8;",
+                               "int warps = kF32 ? 4 : 4;")]),
+    "bf16 8 warps, 128-key tiles": ("bf16", [(
+        "int bk = kF32 ? 32 : 64;", "int bk = kF32 ? 32 : BIAS ? 64 : 128;")]),
+    "f32 4 warps": ("f32", []),
+    "f32 4 warps, clocks": ("f32", CLOCKS),
+    "f32 4 warps, bulk K/V": ("f32", BULK_KV),
+    "f32 4 warps, bulk K/V, clocks": ("f32", BULK_KV + clocks(BULK_WAIT)),
+}
+
+K2_VARIANTS.update({
+    "bf16 8 warps, bulk K/V": ("bf16", BULK_KV),
+    "f32 4 warps, bulk K/V": ("f32", BULK_KV),
+})
+
 KERNELS = {"k2": ("attention_fwd_bias_mma.cu", K2_VARIANTS),
+           "k1w": ("attention_fwd_bias_mma.cu", K1W_VARIANTS),
            "k5": ("conv_fused.cu", K5_VARIANTS)}
 
 
@@ -226,6 +417,101 @@ def run_k2(libs: dict, iters: int) -> dict:
     return means
 
 
+def run_k1w(libs: dict, iters: int) -> dict:
+    """The bias-free D = 64 forward's variants at Whisper-base's shape: the
+    times in turns, each clocks variant's cycle shares by phase (from one
+    more call after its timing), then each backward route's dK/dV pass."""
+    import torch
+    import chip_smoke as sm
+    from wfl_asr_tpu_torch.ops.kernels import _build, flash_attention as fa
+    cdlls = {name: ctypes.CDLL(lib) for name, (lib, _) in libs.items()}
+    fns = {name: fa._fwd_launcher(lib.wfl_attention_fwd_bias_mma)
+           for name, lib in cdlls.items()}
+    b, h, t, d = sm.B, 8, sm.WHISPER_T, 64
+    kv = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    means, shares = {}, {}
+    for dtype, tdt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        q, k, v, _, _ = sm.attn_inputs(gen, (b, h, t, d), tdt, False)
+        ref, ref_lse = fa.attention_plain(q, k, v, None, None, kv,
+                                          return_lse=True)
+        scale = ref.float().abs().max().item()
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, t), device="cuda")
+
+        def run_one(n):
+            def run(fn=fns[n]):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                         None, kv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                         None, b, h, t, d, 1.0 / math.sqrt(d), 0, 1.0,
+                         0 if dtype == "f32" else 1,
+                         _build.stream_ptr(q.device))
+                if err:
+                    raise SystemExit(f"{n}: launch failed, error {err}")
+            out.zero_()
+            run()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            ok = (err <= sm.ATTN_TOL[dtype] * scale
+                  and lse_err <= sm.LSE_TOL)
+            ms = sm.time_ms(run, iters)
+            if "clocks" in n and n not in shares:
+                read = cdlls[n].wfl_read_clocks
+                read.restype = ctypes.c_int
+                read.argtypes = [ctypes.c_void_p]
+                buf = (ctypes.c_ulonglong * 5)()
+                if read(buf):
+                    raise SystemExit(f"{n}: reading the clocks failed")
+                run()
+                torch.cuda.synchronize()
+                if read(buf):
+                    raise SystemExit(f"{n}: reading the clocks failed")
+                total = float(sum(buf))
+                shares[n] = {p: buf[i] / total
+                             for i, p in enumerate(CLK_PHASES)}
+                print(f"[clocks] {n}: cycle shares of the key loop, summed "
+                      f"over warps ({total:.4g} cycles): " + ", ".join(
+                          f"{p} {x:.3f}" for p, x in shares[n].items()),
+                      flush=True)
+            print(f"[variant] {n}: ms={ms:.4f} max_abs_err={err:.3e} "
+                  f"(tol {sm.ATTN_TOL[dtype]:g}×{scale:.3g}) "
+                  f"lse_err={lse_err:.3e}{'' if ok else ' FAILED'}",
+                  flush=True)
+            return ms if ok else None
+        turns = in_turns([n for n, (dt, _) in K1W_VARIANTS.items()
+                          if dt == dtype], run_one)
+        if not turns:
+            return {}
+        means.update({n: float(np.mean(ms)) for n, ms in turns.items()})
+
+        # each backward route's passes at this shape, by device time
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        dout = (torch.rand((b, h, t, d), generator=gen, device="cuda") * 2
+                - 1).to(tdt)
+        from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
+            flash_attention_trainable
+        route = fa.backward_route
+        try:
+            for name in ("fma", "mma64"):
+                fa.backward_route = lambda d_, b_, r=name: r
+                y = flash_attention_trainable(*leaves, kv)
+                by = sm.device_ms_by_kernel(lambda: torch.autograd.grad(
+                    y, leaves, dout, retain_graph=True))
+                means[f"{dtype} backward {name}"] = by
+                print(f"[dkdv] {dtype} [{b},{h},{t},{d}] backward route "
+                      f"{name}: device ms by kernel " + ", ".join(
+                          f"{k_} {ms:.4f}" for k_, ms in by.items()),
+                      flush=True)
+                del y
+        finally:
+            fa.backward_route = route
+        del q, k, v, ref, ref_lse, out, lse, leaves, dout
+        torch.cuda.empty_cache()
+    means["clock shares"] = shares
+    return means
+
+
 def run_k5(libs: dict, iters: int) -> dict:
     """Both chains of each variant through the port's layer loop
     (``conv_fused._launch_layers``) on the variant's library: the ms of
@@ -308,12 +594,14 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="wfl_variants_")
     try:
         libs = build(tmp, source, variants)
-        kernel_name = {"k2": "attn_bias_fwd", "k5": "conv_layer_mma"}
+        kernel_name = {"k2": "attn_bias_fwd", "k1w": "attn_bias_fwd",
+                       "k5": "conv_layer_mma"}
         for name, (_, log) in libs.items():
             for line in sm.ptxas_summary(log):
                 if kernel_name[args.kernel] in line:
                     print(f"[ptxas] {name}: {line}", flush=True)
-        means = (run_k2 if args.kernel == "k2" else run_k5)(libs, args.iters)
+        means = {"k2": run_k2, "k1w": run_k1w,
+                 "k5": run_k5}[args.kernel](libs, args.iters)
         if not means:
             return 1
     finally:

@@ -45,12 +45,12 @@ def _source_ints(pattern: str) -> tuple:
                  .groups())
 
 
-def bias_bwd_tiles(f32: bool) -> dict:
-    """Mirror of ``BiasTiles`` in ``csrc/attention_bwd_bias_mma.cu``: the
-    shared memory of the dK/dV and dQ passes in bytes, with the head
-    width, the warps, the key and query tiles, and the per-dtype queries
-    of the dK/dV pass's streamed tile and dK/dV blocks a SM read out of the
-    source."""
+def bias_bwd_tiles(f32: bool, bias: bool = True) -> dict:
+    """Mirror of ``BiasTiles`` in ``csrc/attention_bwd_bias_mma.cu`` (with
+    a bias, or its bias-free instantiation): the shared memory of the dK/dV
+    and dQ passes in bytes, with the head width, the warps, the key and
+    query tiles, and the per-dtype queries of the dK/dV pass's streamed
+    tile and dK/dV blocks a SM read out of the source."""
     es = 4 if f32 else 2
     (d,) = _source_ints(r"constexpr int kD = (\d+);")
     (warps,) = _source_ints(r"constexpr int kWarps = (\d+);")
@@ -68,9 +68,9 @@ def bias_bwd_tiles(f32: bool) -> dict:
     p = pitch(d)
     pst = 16 + 16 // es                 # a warp's dS staging rows
     # K, V; two buffers of Q and dO; each warp's 16-row dS staging tile;
-    # LSE, delta and gate rows
+    # LSE, delta and (with a bias) gate rows
     dkdv = es * (2 * bk * p + 2 * 2 * bq * p + warps * 16 * pst) \
-        + 4 * 3 * 2 * bq
+        + 4 * (3 if bias else 2) * 2 * bq
     dq = es * 2 * (bk * p + bq_dq * pitch_s(bk))  # two buffers of K and dS
     return dict(bq=bq, blocks=blocks, dkdv_smem=dkdv, dq_smem=dq)
 
@@ -85,6 +85,20 @@ def test_bias_tiles_fit_shared_memory(f32):
     assert t["blocks"] * (t["dkdv_smem"] + BLOCK_RESERVED) <= SM_SMEM, t
     assert t["dq_smem"] <= BLOCK_SMEM, t
     assert (t["blocks"] + 1) * (t["dkdv_smem"] + BLOCK_RESERVED) > SM_SMEM
+
+
+@pytest.mark.parametrize("f32", [True, False])
+def test_bias_free_tiles_fit_shared_memory(f32):
+    """The bias-free instantiation's dK/dV pass drops only the gate rows, so
+    it fits the same blocks a SM as the pass with a bias, and its dQ pass
+    is the same."""
+    t, with_bias = bias_bwd_tiles(f32, bias=False), bias_bwd_tiles(f32)
+    assert with_bias["dkdv_smem"] - t["dkdv_smem"] == 4 * 2 * t["bq"]
+    assert t["blocks"] * (t["dkdv_smem"] + BLOCK_RESERVED) <= SM_SMEM, t
+    assert t["dq_smem"] == with_bias["dq_smem"] <= BLOCK_SMEM
+    text = SOURCE.read_text()
+    assert "+ sizeof(float) * (BIAS ? 3 : 2) * 2 * bq;" in text
+    assert "if (err != cudaSuccess || !BIAS) return err;" in text
 
 
 def dbias_dgate_emulated(ds, bias, gate, kv_len, t):
@@ -241,5 +255,49 @@ def test_mma_bias_passes_counted_where_they_launch(monkeypatch, err,
     assert (calls[0][4] is None) == (calls[0][15] is None) == (not with_gate)
     assert calls[0][16:21] == (2, 3, 70, 64, 128)        # B, H, T, D, ldk
     assert flash_attention.mma_bias_bwd_launches == (0 if err else 1)
+    assert flash_attention.mma_bwd_launches == 0
+    assert flash_attention.fma_bwd_launches == 0
+
+
+@pytest.mark.parametrize("err", [0, 2])
+@pytest.mark.parametrize("d", [64, 48])
+def test_mma64_passes_counted_where_they_launch(monkeypatch, err, d):
+    """``mma64_bwd_launches`` rises in the bias-free D = 64 branch, after
+    the launcher of ``attention_bwd_bias_mma.cu`` returned no error: once a
+    call, not when the launch failed, and no other route's count moves.
+    The launcher gets null bias, gate, dBias and dGate pointers, head_dim
+    64 (narrower inputs zero-padded to it) and a workspace row of 64; the
+    gradients come back at the caller's width. (A stand-in library takes
+    the launch on the CPU.)"""
+    from wfl_asr_tpu_torch.ops.kernels import _build
+    libs, calls = [], []
+
+    class Library:
+        def __getattr__(self, name):
+            if name == "wfl_error_string":
+                return lambda code: b"invalid argument"
+            assert name == "wfl_attention_bwd_bias_mma"
+            return lambda *args: calls.append(args) or err
+    monkeypatch.setattr(_build, "library",
+                        lambda name: libs.append(name) or Library())
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    reset_launch_counts()
+    x = torch.randn(2, 3, 60, d)
+    lse = delta = torch.zeros(2, 3, 60)
+    kv = torch.tensor([60, 33], dtype=torch.int32)
+    args = (x, x, x, x, lse, delta, kv, None, 0, 1.0)
+    if err:
+        with pytest.raises(_build.KernelBuildError, match="invalid"):
+            flash_attention._launch_mma64(*args)
+    else:
+        grads = flash_attention._launch_mma64(*args)
+        assert [g.shape for g in grads] == [x.shape] * 3
+    assert libs == ["attention_bwd_bias_mma"] and len(calls) == 1
+    a = calls[0]
+    assert len(a) == 26
+    assert a[3] is None and a[4] is None and a[14] is None and a[15] is None
+    assert a[16:21] == (2, 3, 60, 64, 64)        # B, H, T, D, ldk
+    assert flash_attention.mma64_bwd_launches == (0 if err else 1)
+    assert flash_attention.mma_bias_bwd_launches == 0
     assert flash_attention.mma_bwd_launches == 0
     assert flash_attention.fma_bwd_launches == 0

@@ -37,13 +37,13 @@ def _setup():
 @pytest.mark.parametrize("d", [64, 128, 144, 384, 512])
 def test_backward_route(d, has_bias):
     """Bias-free above head_dim 128 → the mma pair; with a bias at head_dim
-    64 → the mma passes with a bias (attention_bwd_bias_mma.cu); every
-    other call with a bias and every bias-free width up to 128 → the FMA
-    pair."""
+    64 → the mma passes with a bias (attention_bwd_bias_mma.cu), bias-free
+    at 64 their bias-free instantiation; every other call with a bias and
+    every bias-free width from 80 to 128 → the FMA pair."""
     if has_bias:
         want = "mma_bias" if d == 64 else "fma"
     else:
-        want = "mma" if d > 128 else "fma"
+        want = "mma" if d > 128 else "mma64" if d == 64 else "fma"
     assert flash_attention.backward_route(d, has_bias) == want
 
 

@@ -40,21 +40,28 @@ def _setup():
 
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_forward_route(has_bias):
-    """Every head width the wrapper takes (multiples of 16 up to 512): with
-    a bias, 64 → the mma.sync forward with a bias, the others → the
-    forwards of flash_attention.cu; bias-free, above 128 → the mma.sync
-    forward, the others → flash_attention.cu. The mma.sync routes with a
-    bias forward and backward share one width, so a call's LSE and its
-    gradients come from one design."""
-    for d in range(16, 513, 16):
-        if has_bias:
+    """Head widths from 16 to 1280 in steps of 16: above 512, with or
+    without a bias → the wide forward of attention_wide.cu; with a bias, 64
+    → the mma.sync forward with a bias, the others → the forwards of
+    flash_attention.cu; bias-free, ≤ 64 → the bias-free instantiation of
+    the D = 64 forward ("mma64"), 80-128 → flash_attention.cu, above 128 →
+    the mma.sync forward of attention_fwd_mma.cu. Each forward route has
+    the backward of the same design ("fused" ↔ the FMA pair), so a call's
+    LSE and its gradients come from one design."""
+    pair = {"fused": "fma"}
+    for d in range(16, 1281, 16):
+        if d > 512:
+            want = "wide"
+        elif has_bias:
             want = "mma_bias" if d == 64 else "fused"
         else:
-            want = "mma" if d > 128 else "fused"
+            want = ("mma64" if d <= 64 else "fused" if d <= 128
+                    else "mma")
         assert flash_attention.forward_route(d, has_bias) == want, d
-        if want == "mma_bias":
-            assert flash_attention.backward_route(d, has_bias) == "mma_bias"
+        assert flash_attention.backward_route(d, has_bias) == \
+            pair.get(want, want), d
     assert flash_attention.MMA_BIAS_D == 64
+    assert flash_attention.WIDE_MIN_D == 512
 
 
 def _source_ints(pattern: str) -> tuple:
@@ -64,11 +71,12 @@ def _source_ints(pattern: str) -> tuple:
                  .groups())
 
 
-def fwd_bias_tiles(f32: bool) -> dict:
-    """Mirror of ``FwdBiasTiles`` in ``csrc/attention_fwd_bias_mma.cu``,
-    with the head width, the per-dtype warps and key tile, and the blocks a
-    SM read out of the source: the query tile, the bias span's chunks and
-    pitch, and the shared memory of a block in bytes."""
+def fwd_bias_tiles(f32: bool, bias: bool = True) -> dict:
+    """Mirror of ``FwdBiasTiles`` in ``csrc/attention_fwd_bias_mma.cu``
+    (with a bias, or its bias-free instantiation), with the head width, the
+    per-dtype warps and key tile, and the blocks a SM read out of the
+    source: the query tile, the bias span's chunks and pitch, and the shared
+    memory of a block in bytes."""
     es = 4 if f32 else 2
     (d,) = _source_ints(r"constexpr int kD = (\d+);")
     warps = _source_ints(r"int warps = kF32 \? (\d+) : (\d+);")[0 if f32
@@ -79,8 +87,8 @@ def fwd_bias_tiles(f32: bool) -> dict:
     p = (d + 31) // 32 * 32 + 8 if f32 else d + 8   # attention_mma.cuh
     chunks = bk * es // 16 + 1          # 16-byte chunks of a bias span
     pb = chunks * 16 // es
-    # Q; two buffers of K and V; two of the bias spans
-    smem = es * (bq * p + 2 * 2 * bk * p + 2 * bq * pb)
+    # Q; two buffers of K and V; with a bias two of the bias spans
+    smem = es * (bq * p + 2 * 2 * bk * p + (2 * bq * pb if bias else 0))
     return dict(warps=warps, bk=bk, bq=bq, blocks=blocks, chunks=chunks,
                 pb=pb, smem=smem)
 
@@ -100,12 +108,28 @@ def test_bias_fwd_tiles_fit_shared_memory(f32):
     assert (t["bk"], t["bq"]) == ((32, 64) if f32 else (64, 128))
 
 
+@pytest.mark.parametrize("f32", [True, False])
+def test_bias_free_fwd_tiles_fit_shared_memory(f32):
+    """The bias-free instantiation's tiles: the bias spans' share of shared
+    memory goes (a third in bf16, a quarter in f32), so the blocks a SM its
+    launch bounds name fit with room to spare, and the registers, not
+    shared memory, bound them (at least 3 blocks would fit)."""
+    t, with_bias = fwd_bias_tiles(f32, bias=False), fwd_bias_tiles(f32)
+    assert t["smem"] < with_bias["smem"]
+    assert with_bias["smem"] - t["smem"] == \
+        (4 if f32 else 2) * 2 * t["bq"] * t["pb"]
+    assert 3 * (t["smem"] + BLOCK_RESERVED) <= SM_SMEM, t
+    assert t["blocks"] >= 2
+
+
 def test_launcher_refuses_what_the_route_does_not_send():
-    """The launcher's own refusals match :func:`forward_route`: a null bias,
-    and any head width but the one the route sends."""
+    """The launcher's own refusals match :func:`forward_route`: any head
+    width but the one the route sends (the bias-free route pads narrower
+    widths to it), and a gate without a bias; a null bias alone is the
+    bias-free forward."""
     text = SOURCE.read_text()
-    assert "if (bias == nullptr || D != kD) return cudaErrorInvalidValue;" \
-        in text
+    assert "if (D != kD || (bias == nullptr && gate != nullptr))\n" \
+        "    return cudaErrorInvalidValue;" in text
     assert _source_ints(r"constexpr int kD = (\d+);") == \
         (flash_attention.MMA_BIAS_D,)
 
@@ -289,3 +313,63 @@ def test_mma_bias_forward_counted_where_it_launches(monkeypatch, err,
     assert [a[9:13] for a in calls] == [(2, 3, 45, 64)] * 2
     assert flash_attention.mma_bias_fwd_launches == (0 if err else 2)
     assert flash_attention.mma_fwd_launches == 0
+
+
+@pytest.mark.parametrize("err", [0, 2])
+@pytest.mark.parametrize("d", [64, 48, 16])
+def test_mma64_forward_counted_where_it_launches(monkeypatch, err, d):
+    """``mma64_fwd_launches`` rises in the bias-free D = 64 branch, after
+    the launcher of ``attention_fwd_bias_mma.cu`` returned no error: once a
+    call, not when the launch failed, and no other forward count moves. The
+    launcher gets null bias and gate pointers and head_dim 64, narrower
+    inputs zero-padded to it, the true 1/√d as the scale, and the output
+    comes back at the caller's width. (A stand-in library takes the launch
+    on the CPU.)"""
+    libs, calls = [], []
+
+    class Library:
+        def __getattr__(self, name):
+            if name == "wfl_error_string":
+                return lambda code: b"invalid argument"
+            assert name == "wfl_attention_fwd_bias_mma"
+            return lambda *args: calls.append(args) or err
+    monkeypatch.setattr(_build, "library",
+                        lambda name: libs.append(name) or Library())
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    reset_launch_counts()
+    x = torch.randn(2, 3, 45, d)
+    kv = torch.tensor([45, 20], dtype=torch.int32)
+    lse = torch.zeros(2, 3, 45)
+    args = (x, x, x, kv, lse, None, 0, 1.0)
+    if err:
+        with pytest.raises(_build.KernelBuildError, match="invalid"):
+            flash_attention._launch_mma64_fwd(*args)
+    else:
+        out = flash_attention._launch_mma64_fwd(*args)
+        assert out.shape == x.shape and out.dtype == x.dtype
+    assert libs == ["attention_fwd_bias_mma"] and len(calls) == 1
+    a = calls[0]
+    assert len(a) == 18 and a[3] is None and a[4] is None
+    assert a[9:13] == (2, 3, 45, 64)
+    assert a[13] == pytest.approx(1 / np.sqrt(d))
+    assert flash_attention.mma64_fwd_launches == (0 if err else 1)
+    assert flash_attention.mma_bias_fwd_launches == 0
+    assert flash_attention.fused_fwd_launches == 0
+    assert flash_attention.mma_fwd_launches == 0
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k1w", "k5"])
+def test_kernel_variants_apply_to_the_source(kernel):
+    """Every textual variant of ``kernel_variants_ab.py`` (tile constants,
+    the copies' placement, bulk copies, the per-phase clocks) finds each
+    text it replaces once in the kernel's source as it stands, so the A/B
+    tool cannot drift from the kernel it times."""
+    import kernel_variants_ab as kv
+    source, variants = kv.KERNELS[kernel]
+    text = (Path(_build.CSRC) / source).read_text()
+    for name, (_, subs) in variants.items():
+        varied = text
+        for old, new in subs:
+            assert varied.count(old) == 1, (name, old[:60])
+            varied = varied.replace(old, new)
+        assert (varied == text) == (not subs), name

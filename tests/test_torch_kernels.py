@@ -133,13 +133,40 @@ def test_attention_rejects_unported_options(kwargs, exc):
 
 
 @pytest.mark.parametrize("d", [520, 528, 1024])
-def test_attention_rejects_unsupported_head_dim(d):
-    """Widths above 512 (after padding to a multiple of 16) are refused;
-    narrower ones that are no multiple of 16 are padded, and are held
-    against the JAX kernel in tests/test_torch_whisper.py."""
-    x = torch.randn(1, 1, 4, d)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_bwd.flash_attention_trainable(x, x, x)
+def test_attention_takes_head_dims_above_512(d):
+    """Widths above 512 (the wide route on the card; 520 padded to 528 on
+    every device) run: forward and backward of both entry points match the
+    plain twins on the unpadded inputs, with a ragged key length, bias-free
+    and with a bias and a gate. (The JAX kernels are the reference in
+    tests/test_torch_wide.py.)"""
+    rng = np.random.RandomState(d)
+    b, h, t = 2, 1, 12
+    q, k, v, dout = (torch.from_numpy(rng.randn(b, h, t, d)
+                                      .astype(np.float32)) for _ in range(4))
+    bias = torch.from_numpy(rng.randn(h, t, t).astype(np.float32))
+    gate = torch.from_numpy((rng.rand(b, h, t) + 0.5).astype(np.float32))
+    kv = torch.tensor([t, 7], dtype=torch.int32)
+    for with_bias in (False, True):
+        extra = (bias, gate) if with_bias else (None, None)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v) + extra
+                  if x is not None]
+        if with_bias:
+            out = flash_attention.flash_attention(*leaves, kv_len=kv)
+        else:
+            out = flash_attention_bwd.flash_attention_trainable(*leaves, kv)
+        got = torch.autograd.grad(out, leaves, dout)
+        ref, lse = flash_attention.attention_plain(q, k, v, *extra, kv,
+                                                   return_lse=True)
+        want = [g for g in flash_attention.attention_backward_plain(
+            q, k, v, *extra, kv, ref, lse, dout) if g is not None]
+        assert out.shape == (b, h, t, d)
+        np.testing.assert_allclose(out.detach().numpy(), ref.numpy(),
+                                   atol=TOL, rtol=0)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g.numpy(), w.numpy(),
+                                       atol=TOL * w.abs().max().item(),
+                                       rtol=0)
 
 
 @pytest.mark.parametrize("c", [512, 80, 48])

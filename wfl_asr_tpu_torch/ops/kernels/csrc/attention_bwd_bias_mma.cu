@@ -5,11 +5,19 @@
 //   out[b,h,q,:] = softmax_k( (q·kᵀ)·scale + gate[b,h,q]·bias[h,q,k],
 //                             keys k >= kv_len[b] set to -1e30 ) · v
 //
-// from the forward's row logsumexp (LSE) and delta = rowsum(dO·O).
+// from the forward's row logsumexp (LSE) and delta = rowsum(dO·O). Without
+// a bias (BIAS = false: null bias, gate, dBias and dGate) dQ, dK and dV of
+// the bias-free attention, for bias-free calls at head_dim ≤ 64 (Whisper's
+// layers, the `none` encoder's Conformer; narrower widths zero-padded to 64
+// by the caller).
 //
 // Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_bwd_dkdv_kernel
-// (:262) and _bwd_dq_kernel (:342), the kernels of _bwd_impl (:417) (K2b).
-// Other head widths with a bias keep the FMA pair of flash_attention.cu.
+// (:262) and _bwd_dq_kernel (:342), the kernels of _bwd_impl (:417) (K2b),
+// and, without a bias, wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:
+// _bwd_dkdv_kernel (:106) and _bwd_dq_kernel (:171) (K1b) at head_dim ≤ 64.
+// Other head widths up to 512 with a bias keep the FMA pair of
+// flash_attention.cu; wider calls take attention_wide.cu, which runs this
+// file's dBias/dGate pass (wfl_attention_bias_dbias) for its bias.
 //
 // What bounds it on the card: 5 products of 2·H·T·Σkv_len·D FLOPs (S = Q·Kᵀ,
 // dP = dO·Vᵀ, dV += (P·M)ᵀ·dO, dK += dSᵀ·Q, dQ += dS·K; 105.8 GFLOP at
@@ -68,6 +76,9 @@
 //   twice, ≈ 0.6 ms at 3.35 TB/s; bf16 rounds dS in the workspace where the
 //   dQ product's operand would anyway, and dBias and dGate add the rounded
 //   values in f32.
+// - Without a bias (BIAS = false) the dK/dV pass reads no bias and no gate
+//   rows, and the dBias/dGate pass does not launch; the dS workspace stays,
+//   as the dQ pass reads it.
 // - Strict attention dropout (K6) as a DROP template flag, in the dK/dV pass
 //   only, the only one that computes scores: wfl::drop_keep on the absolute
 //   (b, h, q, k) of each accumulator element (rows of the transposed tile
@@ -94,10 +105,11 @@ constexpr float kNegInf = -1e30f;
 
 // Shared memory of the two product passes. The dK/dV pass holds K and V
 // (64 × D), two buffers of the streamed Q and dO tiles and their LSE, delta
-// and gate rows, and each warp's 16 × 16 dS staging tile; f32 streams 32
-// queries (78 KB, two blocks a SM), bf16 64 (59 KB, three a SM). The dQ
-// pass holds two buffers of K (64 keys) and of dS (64 queries × 64 keys).
-template <class Pol>
+// and gate rows (no gate rows without a bias), and each warp's 16 × 16 dS
+// staging tile; f32 streams 32 queries (78 KB, two blocks a SM), bf16 64
+// (59 KB, three a SM). The dQ pass holds two buffers of K (64 keys) and of
+// dS (64 queries × 64 keys).
+template <class Pol, bool BIAS = true>
 struct BiasTiles {
   static constexpr bool kF32 = sizeof(typename Pol::T) == 4;
   static constexpr int es = sizeof(typename Pol::T);
@@ -110,7 +122,7 @@ struct BiasTiles {
   static constexpr int pq = Pol::pitch_s(kBK);   // the dQ pass's dS tile
   static constexpr size_t dkdv_smem =
       (size_t)es * (2 * kBK * p + 2 * 2 * bq * p + kWarps * 16 * pst)
-      + sizeof(float) * 3 * 2 * bq;
+      + sizeof(float) * (BIAS ? 3 : 2) * 2 * bq;
   static constexpr size_t dq_smem = (size_t)es * 2 * (kBK * p + kBQ * pq);
   // 228 KB a SM, 1 KB of it reserved per block
   static_assert(blocks * (dkdv_smem + 1024) <= 233472,
@@ -155,11 +167,11 @@ __device__ __forceinline__ void stage_gate(float* sG, const float* gate,
 // columns of dV and dK across the query tiles, and stores its keys' dS.
 // ---------------------------------------------------------------------------
 
-template <class Pol, bool DROP>
-__global__ void __launch_bounds__(kThreads, BiasTiles<Pol>::blocks)
+template <class Pol, bool BIAS, bool DROP>
+__global__ void __launch_bounds__(kThreads, BiasTiles<Pol, BIAS>::blocks)
 attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
   using T = typename Pol::T;
-  using Cfg = BiasTiles<Pol>;
+  using Cfg = BiasTiles<Pol, BIAS>;
   constexpr int BQ = Cfg::bq, P = Cfg::p, PST = Cfg::pst;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);      // [BK][P]
@@ -169,7 +181,7 @@ attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
   T* sSt = sDO + 2 * BQ * P;                     // [warps][16 q][PST] dS
   float* sL = reinterpret_cast<float*>(sSt + kWarps * 16 * PST);  // [2][BQ]
   float* sDl = sL + 2 * BQ;                                        // [2][BQ]
-  float* sG = sDl + 2 * BQ;                                        // [2][BQ]
+  float* sG = sDl + 2 * BQ;                               // [2][BQ] (BIAS)
 
   const int b = blockIdx.x, k0 = blockIdx.y * kBK, h = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -189,7 +201,8 @@ attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
     return;
   }
   const uint32_t dbase = DROP ? drop_base(a.drop, b, h) : 0u;
-  const T* __restrict__ bias = a.bias + (size_t)h * T_len * T_len;
+  const T* __restrict__ bias =
+      BIAS ? a.bias + (size_t)h * T_len * T_len : nullptr;
   T* __restrict__ ds = a.ds + bh * T_len * ldk;
   T* st = sSt + warp * 16 * PST;                 // this warp's dS tile
 
@@ -201,7 +214,7 @@ attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
                               T_len, kD);
     stage_stats<kThreads>(sL + buf * BQ, sDl + buf * BQ, a.lse, a.delta, bh,
                           q0, BQ, T_len);
-    stage_gate(sG + buf * BQ, a.gate, bh, q0, BQ, T_len);
+    if constexpr (BIAS) stage_gate(sG + buf * BQ, a.gate, bh, q0, BQ, T_len);
   };
   stage_rows<Pol, kThreads>(sK, P, a.k + base, k0, kBK, T_len, kD);
   stage_rows<Pol, kThreads>(sV, P, a.v + base, k0, kBK, T_len, kD);
@@ -226,7 +239,7 @@ attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
       for (int e = 0; e < 4; ++e) {
         const int kj = k0 + r0 + g + 8 * (e >> 1);
         const int qi = qc + 8 * n + 2 * t4 + (e & 1);
-        bv[n][e] = (qi < T_len && kj < kvl)
+        bv[n][e] = (BIAS && qi < T_len && kj < kvl)
             ? to_f(bias[(size_t)qi * T_len + kj]) : 0.f;
       }
   };
@@ -266,7 +279,9 @@ attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
           // mask before the exp: a masked key's raw score may exceed the
           // LSE by more than 88, and exp → inf, times 0, is NaN
           const float sv = kj < kvl
-              ? s[n][x] * scale + tG[c0 + ql] * bv[n][x] : kNegInf;
+              ? (BIAS ? s[n][x] * scale + tG[c0 + ql] * bv[n][x]
+                      : s[n][x] * scale)
+              : kNegInf;
           const float p = qi < T_len ? expf(sv - tL[c0 + ql]) : 0.f;
           // K6: dV takes P·M, dS = P·(M·dP − delta)
           const float ks = (DROP && qi < T_len && kj < kvl)
@@ -428,32 +443,40 @@ attn_bias_bwd_dbias(const BiasArgs<T> a) {
   }
 }
 
-// The three passes in turn on one stream: dK/dV (which writes dS), then dQ
-// and dBias/dGate (which read it).
-template <class Pol, bool DROP>
+template <class T>
+cudaError_t run_dbias(const BiasArgs<T>& a, cudaStream_t stream) {
+  return wfl::launch(attn_bias_bwd_dbias<T>,
+                     dim3((a.T_len + kRows - 1) / kRows, a.H),
+                     dim3(kBiasThreads), sizeof(float) * kRows * a.B, stream,
+                     a);
+}
+
+// The passes in turn on one stream: dK/dV (which writes dS), then dQ and,
+// with a bias, dBias/dGate (which read it).
+template <class Pol, bool BIAS, bool DROP>
 cudaError_t run_passes(const BiasArgs<typename Pol::T>& a,
                        cudaStream_t stream) {
-  using Cfg = BiasTiles<Pol>;
+  using Cfg = BiasTiles<Pol, BIAS>;
   const int n_kt = (a.T_len + kBK - 1) / kBK;
-  cudaError_t err = wfl::launch(attn_bias_bwd_dkdv_mma<Pol, DROP>,
+  cudaError_t err = wfl::launch(attn_bias_bwd_dkdv_mma<Pol, BIAS, DROP>,
                                 dim3(a.B, n_kt, a.H), dim3(kThreads),
                                 Cfg::dkdv_smem, stream, a);
   if (err != cudaSuccess) return err;
   err = wfl::launch(attn_bias_bwd_dq_mma<Pol>,
                     dim3((a.T_len + kBQ - 1) / kBQ, a.H, a.B),
                     dim3(kThreads), Cfg::dq_smem, stream, a);
-  if (err != cudaSuccess) return err;
-  return wfl::launch(attn_bias_bwd_dbias<typename Pol::T>,
-                     dim3((a.T_len + kRows - 1) / kRows, a.H),
-                     dim3(kBiasThreads), sizeof(float) * kRows * a.B, stream,
-                     a);
+  if (err != cudaSuccess || !BIAS) return err;
+  return run_dbias(a, stream);
 }
 
-// The dropout hash only with a seed.
+// The bias terms only with a bias, the dropout hash only with a seed.
 template <class Pol>
 cudaError_t dispatch(const BiasArgs<typename Pol::T>& a, cudaStream_t s) {
-  return a.drop.seed ? run_passes<Pol, true>(a, s)
-                     : run_passes<Pol, false>(a, s);
+  if (a.bias != nullptr)
+    return a.drop.seed ? run_passes<Pol, true, true>(a, s)
+                       : run_passes<Pol, true, false>(a, s);
+  return a.drop.seed ? run_passes<Pol, false, true>(a, s)
+                     : run_passes<Pol, false, false>(a, s);
 }
 
 template <class T>
@@ -477,15 +500,35 @@ cudaError_t dispatch_dtype(const void* q, const void* k, const void* v,
   else return dispatch<PolBF16>(a, s);
 }
 
+template <class T>
+cudaError_t dbias_alone(const void* ds, const void* bias, const void* gate,
+                        const void* kv_len, void* dbias, void* dgate, int B,
+                        int H, int T_len, int ldk, cudaStream_t s) {
+  BiasArgs<T> a{};
+  a.bias = static_cast<const T*>(bias);
+  a.ds = static_cast<T*>(const_cast<void*>(ds));
+  a.gate = static_cast<const float*>(gate);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.dbias = static_cast<float*>(dbias);
+  a.dgate = static_cast<float*>(dgate);
+  a.B = B;
+  a.H = H;
+  a.T_len = T_len;
+  a.ldk = ldk;
+  return run_dbias(a, s);
+}
+
 }  // namespace
 
 using namespace wfl;
 
 // dQ, dK, dV, dBias and dGate of the gated-bias attention at head_dim 64
-// (the forward wfl_flash_attention_fwd with a bias): the dK/dV pass, the dQ
-// pass, the dBias/dGate pass. q, k, v, dout, dq, dk, dv: [B, H, T, D]
-// contiguous of the dtype (0 = f32 as 3×TF32, 1 = bf16), D = 64; bias [H,
-// T, T] of the dtype; gate [B, H, T] f32 or null; lse and delta =
+// (the forward wfl_attention_fwd_bias_mma): the dK/dV pass, the dQ pass, the
+// dBias/dGate pass; with a null bias (gate, dbias and dgate null too) dQ,
+// dK and dV of the bias-free attention, by the first two. q, k, v, dout,
+// dq, dk, dv: [B, H, T, D] contiguous of the dtype (0 = f32 as 3×TF32, 1 =
+// bf16), D = 64; bias [H, T, T] of the dtype or null; gate [B, H, T] f32 or
+// null; lse and delta =
 // rowsum(dO·O) [B, H, T] f32; kv_len [B] int32 in [1, T]; ds a workspace
 // [B, H, T, ldk] of the dtype, ldk ≥ T a multiple of 64 (its contents on
 // return are dS where a key tile is below kv_len); dbias [H, T, T] f32 and
@@ -500,10 +543,11 @@ extern "C" int wfl_attention_bwd_bias_mma(
     int ldk, float scale, int drop_thr, float drop_scale, int dtype,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != kD || bias == nullptr || dbias == nullptr) {
+  if (D != kD || (bias == nullptr) != (dbias == nullptr)) {
     return cudaErrorInvalidValue;
   }
   if ((gate == nullptr) != (dgate == nullptr)) return cudaErrorInvalidValue;
+  if (bias == nullptr && gate != nullptr) return cudaErrorInvalidValue;
   if (ldk % kBK != 0 || ldk < T_len) return cudaErrorInvalidValue;
   const Dropout drop{static_cast<const int*>(seed), drop_thr, drop_scale};
   if (dtype == kF32)
@@ -514,5 +558,30 @@ extern "C" int wfl_attention_bwd_bias_mma(
     return dispatch_dtype<bf16>(q, k, v, bias, gate, dout, lse, delta,
                                 kv_len, dq, dk, dv, ds, dbias, dgate, B, H,
                                 T_len, ldk, scale, drop, s);
+  return cudaErrorInvalidValue;
+}
+
+// The dBias/dGate pass alone, for a backward that leaves dS in a workspace
+// of this layout by other passes (attention_wide.cu at head_dim > 512): ds
+// [B, H, T, ldk] of the dtype, ldk ≥ T, holding dS for every key below
+// kv_len[b] and every query row below T; bias [H, T, T] of the dtype; gate
+// [B, H, T] f32 or null; kv_len [B] int32 in [1, T]; dbias [H, T, T] f32 and
+// dgate [B, H, T] f32 (null without gate), every element written. No head
+// width enters. Returns the launch's cudaError_t.
+extern "C" int wfl_attention_bias_dbias(const void* ds, const void* bias,
+                                        const void* gate, const void* kv_len,
+                                        void* dbias, void* dgate, int B,
+                                        int H, int T_len, int ldk, int dtype,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias == nullptr || dbias == nullptr || ldk < T_len)
+    return cudaErrorInvalidValue;
+  if ((gate == nullptr) != (dgate == nullptr)) return cudaErrorInvalidValue;
+  if (dtype == kF32)
+    return dbias_alone<float>(ds, bias, gate, kv_len, dbias, dgate, B, H,
+                              T_len, ldk, s);
+  if (dtype == kBF16)
+    return dbias_alone<bf16>(ds, bias, gate, kv_len, dbias, dgate, B, H,
+                             T_len, ldk, s);
   return cudaErrorInvalidValue;
 }

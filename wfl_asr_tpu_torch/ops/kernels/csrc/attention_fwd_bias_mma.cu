@@ -7,12 +7,16 @@
 //
 // and, when asked, the row logsumexp LSE = m + log(max(l, 1e-30)) (natural
 // log) that the backward (attention_bwd_bias_mma.cu) reads. A null gate is
-// read as 1.
+// read as 1. A null bias (with a null gate) drops the gated term: the
+// bias-free instantiation (BIAS = false), which serves bias-free calls at
+// head_dim ≤ 64 (Whisper's layers, the `none` encoder's Conformer; narrower
+// widths zero-padded to 64 by the caller, with the true 1/√d).
 //
 // Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_flash_kernel (:75),
-// the kernel of _fwd_impl (:189) (K2). Calls with a bias at other widths keep
-// the forwards of flash_attention.cu; bias-free calls take those or
-// attention_fwd_mma.cu.
+// the kernel of _fwd_impl (:189) (K2), and, without a bias,
+// wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:_fwd_kernel (:49) (K1) at
+// head_dim ≤ 64. Calls with a bias at other widths up to 512 keep the
+// forwards of flash_attention.cu; wider calls take attention_wide.cu.
 //
 // What bounds it on the card: 2 products of 2·H·T·Σkv_len·D FLOPs (S = Q·Kᵀ,
 // O = P·V; 4.2e10 at [8, 12, 1499, 64] with kv_len 1499 − 100·b) against the
@@ -55,6 +59,9 @@
 //   a tile.
 // - The softmax in base 2: log2(e) is folded into the scale and the gate,
 //   so each score costs one exp2f; the LSE is written in natural log.
+// - Without a bias (BIAS = false) the bias spans, their share of shared
+//   memory and the gate go; the tile that remains is the FlashAttention-2
+//   layout alone (FwdBiasTiles<Pol, false>).
 // - Masking: key tiles wholly past kv_len[b] are skipped (key 0 is always
 //   valid, kv_len ≥ 1), keys past kv_len are set to -1e30 before the row
 //   max; ragged K/V tiles and query rows past T are zero-filled, rows past T
@@ -71,6 +78,15 @@
 //   steps no faster than 4). f32 splits K and V on use, in every warp:
 //   splitting each tile once into hi/lo halves in shared memory, for a
 //   second barrier and 36 KB, was 13 % slower.
+//
+// What still bounds it (kernel_variants_ab.py --kernel k1w: clock64 per
+// phase of the key loop, the bias-free instantiation at [8, 8, 1500, 64]):
+// in bf16, issuing the next tile's cp.async copies takes 36 % of the warps'
+// cycles, the softmax (exp2f among it) 25 %, S 20 %, P·V 16 %, waiting for
+// the tile 3 %; in f32 40, 8, 23, 27 and 2 %. Issuing the copies after S
+// saves 0-4 %; one bulk copy a row (cp.async.bulk on an mbarrier, issued by
+// one warp) nearly doubled the time. A TMA tensor map with a swizzled,
+// unpadded tile, one copy a tile, is the next step.
 #include "common.cuh"
 #include "attention_mma.cuh"
 
@@ -87,8 +103,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // Tiles by dtype: warps of 16 query rows, keys a tile, and blocks a SM the
 // registers are bounded for. Shared memory holds Q (BQ rows), two buffers
-// of K and V (BK rows each) and two of the bias spans (BQ rows of PB).
-template <class Pol>
+// of K and V (BK rows each) and, with a bias, two of the bias spans (BQ
+// rows of PB). Without a bias the registers, not shared memory, bound the
+// blocks a SM.
+template <class Pol, bool BIAS>
 struct FwdBiasTiles {
   static constexpr bool kF32 = sizeof(typename Pol::T) == 4;
   static constexpr int es = sizeof(typename Pol::T);
@@ -100,7 +118,7 @@ struct FwdBiasTiles {
   static constexpr int p = Pol::pitch(kD);
   static constexpr int pb = (bk * es / 16 + 1) * 16 / es;
   static constexpr size_t smem =
-      (size_t)es * (bq * p + 2 * 2 * bk * p + 2 * bq * pb);
+      (size_t)es * (bq * p + 2 * 2 * bk * p + (BIAS ? 2 * bq * pb : 0));
   static_assert(bk * es % 16 == 0, "a key tile moves the spans by chunks");
   // 228 KB a SM, 1 KB of it reserved per block
   static_assert(blocks * (smem + 1024) <= 233472,
@@ -164,12 +182,12 @@ __device__ __forceinline__ void scores(
 // and keys 8·n + 2t + {0, 1} of each 8-key score tile n.
 // ---------------------------------------------------------------------------
 
-template <class Pol, bool DROP>
-__global__ void __launch_bounds__(FwdBiasTiles<Pol>::threads,
-                                  FwdBiasTiles<Pol>::blocks)
+template <class Pol, bool BIAS, bool DROP>
+__global__ void __launch_bounds__(FwdBiasTiles<Pol, BIAS>::threads,
+                                  FwdBiasTiles<Pol, BIAS>::blocks)
 attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
   using T = typename Pol::T;
-  using Cfg = FwdBiasTiles<Pol>;
+  using Cfg = FwdBiasTiles<Pol, BIAS>;
   constexpr int NW = Cfg::warps, BQ = Cfg::bq, BK = Cfg::bk, P = Cfg::p;
   constexpr int PB = Cfg::pb, KD = kD / Pol::KS, NJ = BK / 16;
   constexpr bool kInPlace = !Cfg::kF32;
@@ -178,6 +196,7 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
   T* sK = sQ + BQ * P;                            // [2][BK][P]
   T* sV = sK + 2 * BK * P;                        // [2][BK][P]
   T* sB = sV + 2 * BK * P;                        // [2][BQ][PB] bias spans
+                                                  // (with a bias)
 
   const int b = blockIdx.x, q0 = blockIdx.y * BQ, h = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -187,8 +206,8 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
   const size_t base = bh * T_len * kD;
   const T* __restrict__ k = a.k + base;
   const T* __restrict__ v = a.v + base;
-  const T* bias = a.bias + (size_t)h * T_len * T_len;
-  const T* bias_end = a.bias + (size_t)a.H * T_len * T_len;
+  const T* bias = BIAS ? a.bias + (size_t)h * T_len * T_len : nullptr;
+  const T* bias_end = BIAS ? a.bias + (size_t)a.H * T_len * T_len : nullptr;
   const int kvl = a.kv_len[b];
   const uint32_t dbase = DROP ? drop_base(a.drop, b, h) : 0u;
 
@@ -196,8 +215,9 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
     const int k0 = kt * BK;
     stage_rows_by_warp<Pol, NW>(sK + buf * BK * P, P, k, k0, BK, T_len, kD);
     stage_rows_by_warp<Pol, NW>(sV + buf * BK * P, P, v, k0, BK, T_len, kD);
-    stage_spans<T, BK, Cfg::threads>(sB + buf * BQ * PB, PB, bias, T_len,
-                                     q0, k0, BQ, T_len, a.bias, bias_end);
+    if constexpr (BIAS)
+      stage_spans<T, BK, Cfg::threads>(sB + buf * BQ * PB, PB, bias, T_len,
+                                       q0, k0, BQ, T_len, a.bias, bias_end);
   };
   stage_rows_by_warp<Pol, NW>(sQ, P, a.q + base, q0, BQ, T_len, kD);
   stage(0, 0);
@@ -216,7 +236,8 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
     const bool ok = qrow[i] < T_len;
     gl[i] = kLog2e * (a.gate != nullptr && ok ? a.gate[bh * T_len + qrow[i]]
                                               : 1.f);
-    brow[i] = lr * PB + (ok ? span_offset(bias + (size_t)qrow[i] * T_len) : 0);
+    brow[i] = BIAS && ok
+        ? lr * PB + span_offset(bias + (size_t)qrow[i] * T_len) : lr * PB;
     m_row[i] = kNegInf;
     l_row[i] = 0.f;
   }
@@ -259,8 +280,9 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1, col = 16 * j + 8 * n + 2 * t4 + (e & 1);
-          const float x = fmaf(s[j][n][e], sc,
-                               gl[i] * to_f(tB[brow[i] + col]));
+          const float x = BIAS ? fmaf(s[j][n][e], sc,
+                                      gl[i] * to_f(tB[brow[i] + col]))
+                               : s[j][n][e] * sc;
           s[j][n][e] = k0 + col < kvl ? x : kNegInf;
           mx[i] = fmaxf(mx[i], s[j][n][e]);
         }
@@ -325,16 +347,26 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
   store_acc<T, kNT>(a.out + base, o, q0 + r0, 0, kNT, kNT, T_len, kD, 1.f);
 }
 
-template <class Pol, bool DROP>
+template <class Pol, bool BIAS, bool DROP>
 cudaError_t run_fwd(const FwdBiasArgs<typename Pol::T>& a, int B,
                     cudaStream_t stream) {
-  using Cfg = FwdBiasTiles<Pol>;
-  return wfl::launch(attn_bias_fwd_mma<Pol, DROP>,
+  using Cfg = FwdBiasTiles<Pol, BIAS>;
+  return wfl::launch(attn_bias_fwd_mma<Pol, BIAS, DROP>,
                      dim3(B, (a.T_len + Cfg::bq - 1) / Cfg::bq, a.H),
                      dim3(Cfg::threads), Cfg::smem, stream, a);
 }
 
-// The dropout hash only with a seed.
+// The bias term only with a bias, the dropout hash only with a seed.
+template <class Pol>
+cudaError_t dispatch(const FwdBiasArgs<typename Pol::T>& a, int B,
+                     cudaStream_t s) {
+  if (a.bias != nullptr)
+    return a.drop.seed ? run_fwd<Pol, true, true>(a, B, s)
+                       : run_fwd<Pol, true, false>(a, B, s);
+  return a.drop.seed ? run_fwd<Pol, false, true>(a, B, s)
+                     : run_fwd<Pol, false, false>(a, B, s);
+}
+
 template <class T>
 cudaError_t dispatch_dtype(const void* q, const void* k, const void* v,
                            const void* bias, const void* gate,
@@ -348,24 +380,19 @@ cudaError_t dispatch_dtype(const void* q, const void* k, const void* v,
                          static_cast<const int*>(kv_len),
                          static_cast<T*>(out), static_cast<float*>(lse), H,
                          T_len, scale, drop};
-  if constexpr (sizeof(T) == 4) {
-    return drop.seed ? run_fwd<PolF32, true>(a, B, s)
-                     : run_fwd<PolF32, false>(a, B, s);
-  } else {
-    return drop.seed ? run_fwd<PolBF16, true>(a, B, s)
-                     : run_fwd<PolBF16, false>(a, B, s);
-  }
+  if constexpr (sizeof(T) == 4) return dispatch<PolF32>(a, B, s);
+  else return dispatch<PolBF16>(a, B, s);
 }
 
 }  // namespace
 
 using namespace wfl;
 
-// The forward with a bias at head_dim 64 (wfl_flash_attention_fwd's
-// arguments, which it shares): q, k, v, out [B, H, T, D] contiguous of the
-// dtype (0 = f32 as 3×TF32, 1 = bf16), D = 64; bias [H, T, T] of the dtype,
-// at any address (a null bias is refused); gate [B, H, T] f32 or null (read
-// as 1); kv_len [B] int32 in [1, T]; lse [B, H, T] f32, written when not
+// The forward at head_dim 64 (wfl_flash_attention_fwd's arguments, which it
+// shares): q, k, v, out [B, H, T, D] contiguous of the dtype (0 = f32 as
+// 3×TF32, 1 = bf16), D = 64; bias [H, T, T] of the dtype, at any address, or
+// null for the bias-free forward; gate [B, H, T] f32 or null (read as 1; a
+// gate without a bias is refused); kv_len [B] int32 in [1, T]; lse [B, H, T] f32, written when not
 // null; seed (one int32 on the device, or null), drop_thr and drop_scale as
 // the other forwards'. Returns the launch's cudaError_t.
 extern "C" int wfl_attention_fwd_bias_mma(const void* q, const void* k,
@@ -378,7 +405,8 @@ extern "C" int wfl_attention_fwd_bias_mma(const void* q, const void* k,
                                           float drop_scale, int dtype,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bias == nullptr || D != kD) return cudaErrorInvalidValue;
+  if (D != kD || (bias == nullptr && gate != nullptr))
+    return cudaErrorInvalidValue;
   const Dropout drop{static_cast<const int*>(seed), drop_thr, drop_scale};
   if (dtype == kF32)
     return dispatch_dtype<float>(q, k, v, bias, gate, kv_len, out, lse, B, H,

@@ -12,15 +12,20 @@ backward.
 - On a CUDA tensor hand-written kernels run (f32 or bf16 in, f32 softmax
   and accumulation): the forward, which also writes the row logsumexp
   (LSE) when autograd will need it, and the backward passes, which
-  recompute P = exp(S − LSE) tile by tile. The forward takes one of three
-  routes (:func:`forward_route`): with a bias at head_dim 64 the
-  tensor-core forward of ``csrc/attention_fwd_bias_mma.cu``; bias-free at
-  head_dim > 128 that of ``csrc/attention_fwd_mma.cu``; otherwise the
-  forwards of ``csrc/flash_attention.cu``. The backward takes one of three
-  routes (:func:`backward_route`): with a bias
-  at head_dim 64 the tensor-core passes of
-  ``csrc/attention_bwd_bias_mma.cu`` (dK/dV, dQ, dBias/dGate); bias-free
-  at head_dim > 128 the tensor-core pair of ``csrc/attention_bwd_mma.cu``;
+  recompute P = exp(S − LSE) tile by tile. The forward takes one of five
+  routes (:func:`forward_route`): above head_dim 512, with or without a
+  bias, the column-split forward of ``csrc/attention_wide.cu``; with a bias
+  at head_dim 64 the tensor-core forward of
+  ``csrc/attention_fwd_bias_mma.cu``, and bias-free at head_dim ≤ 64 its
+  bias-free instantiation (narrower widths zero-padded to 64); bias-free at
+  head_dim > 128 the forward of ``csrc/attention_fwd_mma.cu``; otherwise
+  the forwards of ``csrc/flash_attention.cu``. The backward takes the
+  matching one of five (:func:`backward_route`): the dK/dV and dQ passes of
+  ``csrc/attention_wide.cu`` above 512 (with a bias then also the
+  dBias/dGate pass of ``csrc/attention_bwd_bias_mma.cu``); the tensor-core
+  passes of ``csrc/attention_bwd_bias_mma.cu`` with a bias at head_dim 64
+  (dK/dV, dQ, dBias/dGate) and bias-free at ≤ 64 (dK/dV, dQ); bias-free at
+  head_dim > 128 the tensor-core pair of ``csrc/attention_bwd_mma.cu``;
   otherwise the FMA pair of ``csrc/flash_attention.cu`` (dK/dV; dQ with
   dGate and dBias). On a CPU tensor the plain twins
   :func:`attention_plain` and :func:`attention_backward_plain` run. Nothing
@@ -29,10 +34,10 @@ backward.
   dropout (K6) inside those kernels, with the JAX package's hash mask
   (``dropout_mask``): the forward masks P after the row sum, the backward
   recomputes the same mask; the seed stays on the device.
-- The kernels take head widths that are multiples of 16 up to 512; both
-  entry points zero-pad any other width up to the next multiple of 16 on
-  every device (:func:`pad_head_dim`), scale by the true ``1/√d``, and
-  slice the output back (autograd slices the gradients).
+- The kernels take any head width that is a multiple of 16; both entry
+  points zero-pad any other width up to the next multiple of 16 on every
+  device (:func:`pad_head_dim`), scale by the true ``1/√d``, and slice the
+  output back (autograd slices the gradients).
 """
 
 from __future__ import annotations
@@ -71,35 +76,52 @@ mma_bias_fwd_launches = 0
 # Launches of the forwards of flash_attention.cu (the "fused" route),
 # counted in the branch of launch_kernel that runs them.
 fused_fwd_launches = 0
+# Launches of the bias-free instantiations of the D = 64 mma.sync forward
+# and passes ("mma64"), and of attention_wide.cu's forward and backward
+# ("wide"), each counted in the branch that runs it.
+mma64_fwd_launches = 0
+mma64_bwd_launches = 0
+wide_fwd_launches = 0
+wide_bwd_launches = 0
 
 # Head widths above this, without a bias, take the mma.sync forward and the
 # mma.sync backward pair.
 MMA_MIN_D = 128
 # The head width the mma.sync forward and backward with a bias are compiled
-# for.
+# for; bias-free calls at widths up to it run their bias-free instantiation,
+# zero-padded to it.
 MMA_BIAS_D = 64
+# Head widths above this, with or without a bias, take attention_wide.cu.
+WIDE_MIN_D = 512
 
 
 def forward_route(d: int, has_bias: bool) -> str:
-    """Which forward a CUDA call runs: ``"mma_bias"`` (the tensor-core
-    forward of ``csrc/attention_fwd_bias_mma.cu``) for a call with a bias at
-    head_dim 64, ``"mma"`` (that of ``csrc/attention_fwd_mma.cu``) for a
-    bias-free call at head_dim > 128, else ``"fused"`` (the forwards of
-    ``csrc/flash_attention.cu``)."""
+    """Which forward a CUDA call at head_dim ``d`` (a multiple of 16) runs:
+    ``"wide"`` (``csrc/attention_wide.cu``) above 512; with a bias,
+    ``"mma_bias"`` (the tensor-core forward of
+    ``csrc/attention_fwd_bias_mma.cu``) at 64; bias-free, ``"mma64"`` (its
+    bias-free instantiation) at ≤ 64 and ``"mma"`` (that of
+    ``csrc/attention_fwd_mma.cu``) above 128; else ``"fused"`` (the
+    forwards of ``csrc/flash_attention.cu``)."""
+    if d > WIDE_MIN_D:
+        return "wide"
     if has_bias:
         return "mma_bias" if d == MMA_BIAS_D else "fused"
+    if d <= MMA_BIAS_D:
+        return "mma64"
     return "mma" if d > MMA_MIN_D else "fused"
 
 
 def backward_route(d: int, has_bias: bool) -> str:
-    """Which backward a CUDA call runs: ``"mma_bias"`` (the tensor-core
-    passes of ``csrc/attention_bwd_bias_mma.cu``) for a call with a bias at
-    head_dim 64, ``"mma"`` (the tensor-core pair of
-    ``csrc/attention_bwd_mma.cu``) for a bias-free call at head_dim > 128,
-    else ``"fma"`` (the FMA pair of ``csrc/flash_attention.cu``)."""
-    if has_bias:
-        return "mma_bias" if d == MMA_BIAS_D else "fma"
-    return "mma" if d > MMA_MIN_D else "fma"
+    """Which backward a CUDA call runs, by the forward's table: ``"wide"``
+    (the passes of ``csrc/attention_wide.cu``) above 512; ``"mma_bias"``
+    (the tensor-core passes of ``csrc/attention_bwd_bias_mma.cu``) with a
+    bias at 64 and ``"mma64"`` (their bias-free instantiation) bias-free at
+    ≤ 64; ``"mma"`` (the tensor-core pair of ``csrc/attention_bwd_mma.cu``)
+    bias-free above 128; else ``"fma"`` (the FMA pair of
+    ``csrc/flash_attention.cu``)."""
+    route = forward_route(d, has_bias)
+    return "fma" if route == "fused" else route
 
 
 def _prep_kv_len(kv_len, b: int, t: int, device) -> torch.Tensor:
@@ -215,9 +237,9 @@ def _check(q, k, v, bias, gate):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     d = q.shape[-1]
-    if d % 16 or d > 512:
-        raise ValueError(f"head_dim {d} unsupported: a multiple of 16 up to "
-                         f"512 is required")
+    if d % 16:
+        raise ValueError(f"head_dim {d} unsupported: a multiple of 16 is "
+                         f"required")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype {q.dtype} unsupported (float32, bfloat16)")
     if gate is not None and bias is None:
@@ -257,9 +279,10 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
                   return_lse: bool = False, dropout_rate: float = 0.0,
                   dropout_seed=None, scale: Optional[float] = None):
     """Run the forward on CUDA tensors: the route :func:`forward_route`
-    names, with no fallback from one to another (the mma.sync forwards
-    counted in ``mma_fwd_launches`` and ``mma_bias_fwd_launches`` where they
-    launch); with
+    names, with no fallback from one to another (each route counted where
+    it launches: ``mma_fwd_launches``, ``mma_bias_fwd_launches``,
+    ``mma64_fwd_launches``, ``wide_fwd_launches``, ``fused_fwd_launches``);
+    with
     ``return_lse`` also the row LSE [B, H, T] f32; with ``dropout_rate`` >
     0 the in-kernel dropout (K6) of ``dropout_seed``, a one-element int32
     tensor on q's device; ``scale`` of the scores, 1/√d when None."""
@@ -285,6 +308,12 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
     elif route == "mma_bias":
         out = _launch_mma_bias_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
                                    drop_scale, scale)
+    elif route == "mma64":
+        out = _launch_mma64_fwd(q, k, v, kv, lse, seed, thr, drop_scale,
+                                scale)
+    elif route == "wide":
+        out = _launch_wide_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
+                               drop_scale, scale)
     else:
         lib = _build.library("flash_attention")
         out = torch.empty_like(q)
@@ -327,24 +356,76 @@ def _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
     return out
 
 
-def _launch_mma_bias_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
-                         drop_scale, scale=None):
-    """The tensor-core forward with a bias of
-    ``csrc/attention_fwd_bias_mma.cu`` on the tensors :func:`launch_kernel`
-    has checked and laid out (bias in q's dtype, gate f32 or None; the
-    launcher itself refuses a null bias and a head_dim other than 64);
-    writes ``lse`` when it is not None. Returns out in q's dtype."""
-    global mma_bias_fwd_launches
+def _fwd_d64(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale, scale):
+    """The D = 64 tensor-core forward of ``csrc/attention_fwd_bias_mma.cu``
+    (bias in q's dtype or None, gate f32 or None; the launcher itself
+    refuses a head_dim other than 64 and a gate without a bias); writes
+    ``lse`` when it is not None. Returns out in q's dtype; counts nothing."""
     b, h, t, d = q.shape
     lib = _build.library("attention_fwd_bias_mma")
     out = torch.empty_like(q)
     err = _fwd_launcher(lib.wfl_attention_fwd_bias_mma)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        _ptr(gate), kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b,
-        h, t, d, _scale(q, scale), thr, drop_scale, _dtype_code(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
+        kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
+        _scale(q, scale), thr, drop_scale, _dtype_code(q),
         _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_fwd_bias_mma")
+    return out
+
+
+def _launch_mma_bias_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
+                         drop_scale, scale=None):
+    """The tensor-core forward with a bias of
+    ``csrc/attention_fwd_bias_mma.cu`` on the tensors :func:`launch_kernel`
+    has checked and laid out (bias in q's dtype, gate f32 or None, head_dim
+    64); writes ``lse`` when it is not None. Returns out in q's dtype."""
+    global mma_bias_fwd_launches
+    out = _fwd_d64(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
+                   scale)
     mma_bias_fwd_launches += 1
+    return out
+
+
+def _pad64(*xs):
+    """Zero-pad [B, H, T, d] tensors on D to 64 (zero columns add nothing to
+    q·kᵀ and give zero output and gradient columns), contiguous."""
+    return [F.pad(x, (0, MMA_BIAS_D - x.shape[-1])).contiguous() for x in xs]
+
+
+def _launch_mma64_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
+    """The bias-free instantiation of the D = 64 tensor-core forward on the
+    tensors :func:`launch_kernel` has checked and laid out, at head_dim
+    ≤ 64 (zero-padded to 64 here, scaled by q's own 1/√d when ``scale`` is
+    None); writes ``lse`` when it is not None. Returns out in q's dtype and
+    width."""
+    global mma64_fwd_launches
+    scale, d = _scale(q, scale), q.shape[-1]
+    if d < MMA_BIAS_D:
+        q, k, v = _pad64(q, k, v)
+    out = _fwd_d64(q, k, v, None, None, kv, lse, seed, thr, drop_scale,
+                   scale)
+    mma64_fwd_launches += 1
+    return out[..., :d] if d < MMA_BIAS_D else out
+
+
+def _launch_wide_fwd(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
+                     scale=None):
+    """The column-split forward of ``csrc/attention_wide.cu`` on the
+    tensors :func:`launch_kernel` has checked and laid out (bias in q's
+    dtype or None, gate f32 or None; the launcher itself refuses a head_dim
+    of 512 or less); writes ``lse`` when it is not None. Returns out in q's
+    dtype."""
+    global wide_fwd_launches
+    b, h, t, d = q.shape
+    lib = _build.library("attention_wide")
+    out = torch.empty_like(q)
+    err = _fwd_launcher(lib.wfl_attention_wide_fwd)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
+        kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
+        _scale(q, scale), thr, drop_scale, _dtype_code(q),
+        _build.stream_ptr(q.device))
+    _build.check(lib, err, "attention_wide")
+    wide_fwd_launches += 1
     return out
 
 
@@ -362,7 +443,8 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     """Run the backward passes on CUDA tensors: the route
     :func:`backward_route` names, with no fallback from one to another,
     each counted where it launches (``mma_bias_bwd_launches``,
-    ``mma_bwd_launches``, ``fma_bwd_launches``). Same contract as
+    ``mma_bwd_launches``, ``mma64_bwd_launches``, ``wide_bwd_launches``,
+    ``fma_bwd_launches``). Same contract as
     :func:`attention_backward_plain`; ``delta = rowsum(dO·O)`` is a plain
     f32 torch op here, as the JAX package leaves it to XLA."""
     global fma_bwd_launches
@@ -378,9 +460,10 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     lse = lse.contiguous()
     seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
     route = backward_route(d, bias is not None)
-    if route == "mma":
-        dq, dk, dv = _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr,
-                                 drop_scale, scale)
+    if route in ("mma", "mma64"):
+        launch = _launch_mma if route == "mma" else _launch_mma64
+        dq, dk, dv = launch(q, k, v, dout, lse, delta, kv, seed, thr,
+                            drop_scale, scale)
         return dq, dk, dv, None, None
     if bias is not None:
         bias = bias.to(q.dtype).contiguous()
@@ -389,6 +472,9 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     if route == "mma_bias":
         return _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv,
                                 seed, thr, drop_scale, scale)
+    if route == "wide":
+        return _launch_wide(q, k, v, bias, gate, dout, lse, delta, kv, seed,
+                            thr, drop_scale, scale)
     lib = _build.library("flash_attention")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = (torch.zeros((h, t, t), dtype=torch.float32, device=q.device)
@@ -439,23 +525,22 @@ def _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale,
     return dq, dk, dv
 
 
-def _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
-                     drop_scale, scale=None):
-    """The tensor-core backward with a bias of
-    ``csrc/attention_bwd_bias_mma.cu`` on the tensors
-    :func:`launch_backward` has checked and laid out (bias in q's dtype,
-    gate f32 or None; the launcher itself refuses a head_dim other than
-    64). The dK/dV pass leaves dS in a [B, H, T, ⌈T/64⌉·64] workspace of
-    q's dtype, which the dQ pass and the dBias/dGate pass read. Returns
-    (dq, dk, dv, dbias, dgate): dq/dk/dv in q's dtype, dbias [H, T, T] and
-    dgate [B, H, T] (None without gate) in f32."""
-    global mma_bias_bwd_launches
+def _bwd_d64(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
+             drop_scale, scale):
+    """The D = 64 tensor-core passes of ``csrc/attention_bwd_bias_mma.cu``
+    (bias in q's dtype or None, gate f32 or None; the launcher itself
+    refuses a head_dim other than 64). The dK/dV pass leaves dS in a [B, H,
+    T, ⌈T/64⌉·64] workspace of q's dtype, which the dQ pass and, with a
+    bias, the dBias/dGate pass read. Returns (dq, dk, dv, dbias, dgate):
+    dq/dk/dv in q's dtype, dbias [H, T, T] (None without bias) and dgate
+    [B, H, T] (None without gate) in f32; counts nothing."""
     b, h, t, d = q.shape
     lib = _build.library("attention_bwd_bias_mma")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     ldk = -(-t // 64) * 64
     ds = torch.empty((b, h, t, ldk), dtype=q.dtype, device=q.device)
-    dbias = torch.empty((h, t, t), dtype=torch.float32, device=q.device)
+    dbias = (torch.empty((h, t, t), dtype=torch.float32, device=q.device)
+             if bias is not None else None)
     dgate = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
              if gate is not None else None)
     fn = lib.wfl_attention_bwd_bias_mma
@@ -463,14 +548,91 @@ def _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
     fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
              _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), ds.data_ptr(), dbias.data_ptr(), _ptr(dgate), b,
-             h, t, d, ldk, _scale(q, scale), thr, drop_scale,
-             _dtype_code(q), _build.stream_ptr(q.device))
+             dv.data_ptr(), ds.data_ptr(), _ptr(dbias), _ptr(dgate), b, h, t,
+             d, ldk, _scale(q, scale), thr, drop_scale, _dtype_code(q),
+             _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_bwd_bias_mma")
+    return dq, dk, dv, dbias, dgate
+
+
+def _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
+                     drop_scale, scale=None):
+    """The tensor-core backward with a bias of
+    ``csrc/attention_bwd_bias_mma.cu`` on the tensors
+    :func:`launch_backward` has checked and laid out (bias in q's dtype,
+    gate f32 or None, head_dim 64): dK/dV, dQ and dBias/dGate. Returns (dq,
+    dk, dv, dbias, dgate): dq/dk/dv in q's dtype, dbias [H, T, T] and dgate
+    [B, H, T] (None without gate) in f32."""
+    global mma_bias_bwd_launches
+    grads = _bwd_d64(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
+                     drop_scale, scale)
     mma_bias_bwd_launches += 1
+    return grads
+
+
+def _launch_mma64(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale,
+                  scale=None):
+    """The bias-free instantiation of the D = 64 tensor-core passes (dK/dV,
+    dQ) on the tensors :func:`launch_backward` has checked and laid out, at
+    head_dim ≤ 64 (zero-padded to 64 here, scaled by q's own 1/√d when
+    ``scale`` is None). Returns (dq, dk, dv) in q's dtype and width."""
+    global mma64_bwd_launches
+    scale, d = _scale(q, scale), q.shape[-1]
+    if d < MMA_BIAS_D:
+        q, k, v, dout = _pad64(q, k, v, dout)
+    dq, dk, dv, _, _ = _bwd_d64(q, k, v, None, None, dout, lse, delta, kv,
+                                seed, thr, drop_scale, scale)
+    mma64_bwd_launches += 1
+    if d < MMA_BIAS_D:
+        return dq[..., :d], dk[..., :d], dv[..., :d]
+    return dq, dk, dv
+
+
+def _launch_wide(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
+                 drop_scale, scale=None):
+    """The backward of ``csrc/attention_wide.cu`` on the tensors
+    :func:`launch_backward` has checked and laid out (bias in q's dtype or
+    None, gate f32 or None; the launcher itself refuses a head_dim of 512
+    or less): its dK/dV pass leaves dS in a [B, H, T, ⌈T/64⌉·64] workspace
+    of q's dtype, which its dQ pass reads and, with a bias, the dBias/dGate
+    pass of ``csrc/attention_bwd_bias_mma.cu``. Returns (dq, dk, dv, dbias,
+    dgate) as :func:`_launch_mma_bias` does (dbias None without bias)."""
+    global wide_bwd_launches
+    b, h, t, d = q.shape
+    lib = _build.library("attention_wide")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ldk = -(-t // 64) * 64
+    ds = torch.empty((b, h, t, ldk), dtype=q.dtype, device=q.device)
+    fn = lib.wfl_attention_wide_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+    stream = _build.stream_ptr(q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+             _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), ds.data_ptr(), b, h, t, d, ldk, _scale(q, scale),
+             thr, drop_scale, _dtype_code(q), stream)
+    _build.check(lib, err, "attention_wide backward")
+    dbias = dgate = None
+    if bias is not None:
+        dbias = torch.empty((h, t, t), dtype=torch.float32, device=q.device)
+        dgate = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+                 if gate is not None else None)
+        blib = _build.library("attention_bwd_bias_mma")
+        fn = blib.wfl_attention_bias_dbias
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        err = fn(ds.data_ptr(), bias.data_ptr(), _ptr(gate), kv.data_ptr(),
+                 dbias.data_ptr(), _ptr(dgate), b, h, t, ldk,
+                 _dtype_code(q), stream)
+        _build.check(blib, err, "attention_bias_dbias")
+    wide_bwd_launches += 1
     return dq, dk, dv, dbias, dgate
 
 
@@ -542,7 +704,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CUDA tensor runs the kernels, a CPU tensor the plain twins; both are
     differentiable in every tensor argument but ``kv_len``. Any head width
-    up to 512 (:func:`pad_head_dim`)."""
+    (:func:`pad_head_dim`)."""
     q, k, v, d, scale = pad_head_dim(q, k, v)
     rate, seed = check_entry(q, k, v, bias, gate, dropout_rate, dropout_seed)
     return _FlashAttention.apply(q, k, v, bias, gate, kv_len, rate, seed,

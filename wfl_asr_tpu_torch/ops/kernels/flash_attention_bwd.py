@@ -2,17 +2,21 @@
 ``wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:flash_attention_trainable``,
 forward and backward.
 
-The Conformer blocks' attention (head_dim 384 on the main path). The JAX
-package keeps it apart from the gated kernel for TPU grid order and VMEM
-only (flash_attention_bwd.py:18-25); on the card both entry points share
-the routes of ``flash_attention``. At head_dim > 128 (384 on the main
-path) the forward is the tensor-core kernel of ``csrc/attention_fwd_mma.cu``
-(with the row LSE when autograd needs it; counted in
-``flash_attention.mma_fwd_launches``) and the backward the tensor-core pair
-of ``csrc/attention_bwd_mma.cu`` (``flash_attention.mma_bwd_launches``); at
-smaller widths the forward of ``csrc/flash_attention.cu`` without bias or
-gate and its FMA backward pair. All take the strict attention dropout (K6)
-when asked. Each entry point keeps its own launch counts.
+The Conformer blocks' attention (head_dim 384 on the main path) and the
+Whisper encoder's (head_dim 64). The JAX package keeps it apart from the
+gated kernel for TPU grid order and VMEM only (flash_attention_bwd.py:18-25);
+on the card both entry points share the routes of ``flash_attention``
+(``forward_route``, ``backward_route``), by head width: ≤ 64 the bias-free
+instantiations of the D = 64 tensor-core forward and passes
+(``csrc/attention_fwd_bias_mma.cu``, ``csrc/attention_bwd_bias_mma.cu``;
+narrower widths zero-padded to 64; ``flash_attention.mma64_fwd_launches``,
+``mma64_bwd_launches``); 80-128 the forward of ``csrc/flash_attention.cu``
+and its FMA backward pair; 144-512 the tensor-core forward of
+``csrc/attention_fwd_mma.cu`` and pair of ``csrc/attention_bwd_mma.cu``
+(``mma_fwd_launches``, ``mma_bwd_launches``); above 512 the column-split
+forward and passes of ``csrc/attention_wide.cu`` (``wide_fwd_launches``,
+``wide_bwd_launches``). All take the strict attention dropout (K6) when
+asked. Each entry point keeps its own launch counts.
 """
 
 from __future__ import annotations
@@ -57,8 +61,8 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
     ``dropout_rate``/``dropout_seed``: strict attention dropout (K6), as
     :func:`~.flash_attention.flash_attention` takes them. A CUDA tensor
     runs the kernels, a CPU tensor the plain twins; both are differentiable
-    in q, k and v. Any head width up to 512: others than multiples of 16
-    are zero-padded (``flash_attention.pad_head_dim``)."""
+    in q, k and v. Any head width: others than multiples of 16 are
+    zero-padded (``flash_attention.pad_head_dim``)."""
     q, k, v, d, scale = pad_head_dim(q, k, v)
     rate, seed = check_entry(q, k, v, None, None, dropout_rate, dropout_seed)
     return _FlashAttentionTrainable.apply(q, k, v, kv_len, rate, seed,
