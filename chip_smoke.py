@@ -4,7 +4,7 @@
     python3 chip_smoke.py --only kernels  # build + kernel-vs-plain phases only
     python3 chip_smoke.py --only conv     # build + K5's part of phase 3 only
     python3 chip_smoke.py --only train    # build + training phases 6-7 only
-    python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9b only
+    python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9c only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -82,7 +82,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    FMA pair; step times, audio-s/s, peak memory, a profiled step,
    ``last_model.pt`` reloaded to the same logits; 9b. one f32 Whisper-base
    train step at B=2×30 s, the card against the CPU, under phase 7's
-   rules;
+   rules; 9c. the ``large-v3`` preset at full width (Conformer at 2 heads,
+   head_dim 640; encoder trained) takes 2 f32 Prodigy steps through
+   ``loop.train_step`` at B=2×30 s: finite loss and gradients, 2 forwards
+   and 2 backwards on the wide route of ``attention_wide.cu`` and 32 of
+   each on the D = 64 one in the first step, the step's ms and peak
+   memory;
 10. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
    line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -106,9 +111,9 @@ shown to fail the same limit; K1b's and K2b's backwards shown to fail the
 plain twin of seed + 1); the head-width sweep (``head_dims``), with bias
 at 16-512 (64 on the mma.sync forward with a bias and the mma.sync
 passes, there also without gate and with a bias whose base is not
-16-byte aligned) and at 528-1280 (the wide route), bias-free at 16-64
+16-byte aligned) and at 528-2048 (the wide route), bias-free at 16-64
 (the bias-free D = 64 route), 96 (fused), 144-512 (mma.sync) and
-528-1280 (wide), and strict dropout bias-free at 64 and 640, each
+528-2048 (wide), and strict dropout bias-free at 64 and 640, each
 forward's and backward's route shown by the launch counts; 3d: the mask
 of each forward variant (the mma.sync forward of
 ``attention_fwd_bias_mma.cu`` at D = 64 with a zero bias and a unit gate,
@@ -122,9 +127,12 @@ shape; 3e: K1 and K1b at the Whisper paths' shapes, bias-free, in f32
 and bf16, at [8, 8, 1500, 64] (Whisper-base's layers) and [8, 2, 1500,
 40] (the ``none`` encoder's Conformer, padded to 48 by the entry point
 and to 64 by the route), both on the bias-free D = 64 route, and at [8,
-2, 1500, 640] (large-v3's Conformer at 2 heads, the wide route), against
-the plain twins, timed beside SDPA (without a mask where every key is
-valid) and the bound, with the device time of each kernel.
+2, 1500, 640] (large-v3's Conformer at 2 heads, the wide route), and at
+[8, 4, 1500, 128] (Whisper-base's Conformer under 4 heads, the fused
+forward and the FMA pair), against the plain twins, timed beside SDPA
+(without a mask where every key is valid) and the bound, with the device
+time of each kernel. After the build, ``[cluster]`` lines give the wide
+route's cluster plan and resident clusters of each instantiation.
 
 Phase 6 includes 6b: the flagship recipe with
 ``training.strict_attention_dropout: true`` (4 steps, validation at the
@@ -339,6 +347,42 @@ def fwd_launch(run, d, with_bias, what):
         raise AssertionError(f"{what}: forward launches {FWD_ROUTES} rose "
                              f"by {rose}, want {want}")
     return got
+
+
+def cluster_plans() -> None:
+    """The wide route's cluster plan (``wfl_attention_wide_plan``) of every
+    instantiation at D = 640, and of the bias-free ones without dropout at
+    528, 1280 and 2048: the CTAs of a cluster, the width of a rank's D
+    slice, the shared memory a block, and how many of its clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``; the dQ pass, which
+    runs no clusters: its blocks a SM). Fails where a pass cannot be
+    resident."""
+    import ctypes
+    from wfl_asr_tpu_torch.ops.kernels import _build
+    lib = _build.library("attention_wide")
+    fn = lib.wfl_attention_wide_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for d in (528, 640, 1280, 2048):
+        parts = []
+        for dtype, code in (("bf16", 1), ("f32", 0)):
+            for npass, name in enumerate(("fwd", "dkdv", "dq")):
+                for bias, drop in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                    if (bias or drop) and (d != 640 or npass == 2):
+                        continue
+                    out = (ctypes.c_int * 4)()
+                    _build.check(lib, fn(d, code, npass, bias, drop, out),
+                                 f"wide plan D={d} {dtype} {name}")
+                    kind = "bias" * bias + "+" * (bias and drop) \
+                        + "drop" * drop or "plain"
+                    unit = "blocks/SM" if npass == 2 else "clusters"
+                    parts.append(f"{dtype} {name} {kind}: {out[0]} × "
+                                 f"{out[1]} cols, {out[2]} B, {out[3]} "
+                                 f"{unit}")
+                    if out[3] < 1:
+                        raise AssertionError(f"wide {name} {dtype} {kind} "
+                                             f"at D={d}: no cluster fits")
+        log(f"[cluster] wide route D={d}: " + "; ".join(parts))
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str, int_ops: float = 0.0):
@@ -811,16 +855,21 @@ def phase_whisper_kernels(gen, iters: int) -> dict:
     hidden 80, through the public entry point (which pads D to 48, and the
     route to 64): both the bias-free instantiations of the D = 64 forward
     and passes ("mma64"); [8, 2, 1500, 640], large-v3's Conformer at its
-    default 2 heads, on the wide route of ``attention_wide.cu``."""
+    default 2 heads, on the wide route of ``attention_wide.cu``; [8, 4,
+    1500, 128], Whisper-base's Conformer under 4 heads (no default
+    configuration runs it), on the fused forward and the FMA pair of
+    ``flash_attention.cu``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kv = [WHISPER_T] * B
     res = {}
     for dtype in ("f32", "bf16"):
-        for key, h, d in (("w", 8, 64), ("n", 2, 40), ("wide", 2, 640)):
+        for key, h, d in (("w", 8, 64), ("n", 2, 40), ("wide", 2, 640),
+                          ("128", 4, 128)):
             what = {"w": "Whisper", "n": "none, D=40",
-                    "wide": "large-v3 Conformer, D=640"}[key]
+                    "wide": "large-v3 Conformer, D=640",
+                    "128": "Whisper-base Conformer at 4 heads, D=128"}[key]
             res[("K1" + key, dtype)] = _attn_case(
                 f"flash_attention_trainable ({what})", gen, h, d, dtype,
                 False, kv, iters, t=WHISPER_T)
@@ -831,7 +880,7 @@ def phase_whisper_kernels(gen, iters: int) -> dict:
     return res
 
 
-SWEEP_WIDE = (528, 640, 1024, 1280)
+SWEEP_WIDE = (528, 640, 1024, 1280, 2048)
 
 
 def head_dims(gen) -> None:
@@ -840,13 +889,13 @@ def head_dims(gen) -> None:
     route shown by its launch count: bf16 and f32 with bias, gate and a
     ragged key length at head widths 16-512 (at 64 the mma.sync forward and
     passes with a bias, the others on the forwards and the FMA pair of
-    flash_attention.cu) and at 528, 640, 1024 and 1280 (the wide route), at
-    64 with a bias and no gate, at 64 with a bias in q's dtype whose base is
-    not 16-byte aligned; bias-free (``flash_attention_trainable``) at 16,
+    flash_attention.cu) and at 528, 640, 1024, 1280 and 2048 (the wide
+    route), at 64 with a bias and no gate, at 64 with a bias in q's dtype
+    whose base is not 16-byte aligned; bias-free (``flash_attention_trainable``) at 16,
     32, 40, 48 and 64 (the bias-free D = 64 forward and passes, narrower
     widths zero-padded to 64; 40 first to 48 by the entry point), 96 (the
     fused forward and the FMA pair), 144, 256, 384 and 512 (the mma.sync
-    forward and pair) and 528-1280 (the wide route); strict dropout
+    forward and pair) and 528-2048 (the wide route); strict dropout
     (rate 0.1) bias-free at 64 and 640, against the plain twins with the
     same mask."""
     import torch
@@ -910,11 +959,11 @@ def head_dims(gen) -> None:
                 raise AssertionError(f"attention backward {what}: max diff "
                                      f"{rel} × max|grad|")
     log("[kernel] attention head widths, with bias 16/48/64/128/144/512 (64 "
-        "on the mma.sync forward with a bias) and 528/640/1024/1280 (wide), "
-        "with bias and no gate 64, with an unaligned bias 64, bias-free "
-        "16/32/40/48/64 (mma64), 96 (fused), 144/256/384/512 (mma) and "
-        "528/640/1024/1280 (wide), dropout 0.1 bias-free 64/640, f32 and "
-        "bf16: "
+        "on the mma.sync forward with a bias) and 528/640/1024/1280/2048 "
+        "(wide), with bias and no gate 64, with an unaligned bias 64, "
+        "bias-free 16/32/40/48/64 (mma64), 96 (fused), 144/256/384/512 "
+        "(mma) and 528/640/1024/1280/2048 (wide), dropout 0.1 bias-free "
+        "64/640, f32 and bf16: "
         "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
             f"{k}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
 
@@ -2239,7 +2288,7 @@ def phase_train_cross_device(labels: int, strict: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# Phases 8-9b: the Whisper encoder and the mel front end
+# Phases 8-9c: the Whisper encoder and the mel front end
 # ---------------------------------------------------------------------------
 
 WHISPER_LAYERS = 6      # Whisper-base; its attention runs K1 at D = 64
@@ -2543,8 +2592,93 @@ def phase_whisper_train(root: str) -> dict:
                 peak_gb=peak_gb, labels=len(labels))
 
 
+LARGE_STEPS = 2         # phase 9c: the counted step, then a timed one
+
+
+def phase_large_v3_train(labels: int) -> dict:
+    """9c: the wide backward on a training path. The ``large-v3`` preset at
+    full width (random weights from a seed; 128 mels, 32 layers of 1280, 20
+    heads; the Conformer at the config's 2 heads, so head_dim 640; the
+    encoder trained, ``freeze_encoder: false``), the default recipe in f32
+    with TF32 off, takes LARGE_STEPS Prodigy steps through
+    ``loop.train_step`` on one batch of B = 2 × 30 s. The launch counts are
+    set to 0 just before the first step and read just after: 2 forwards
+    and 2 backwards on the wide route of ``attention_wide.cu``, 32 of each
+    on the bias-free D = 64 route, none elsewhere. Every gradient is
+    finite when the optimizer steps (a step pre-hook), the losses are
+    finite; the second step's ms and the peak memory are printed."""
+    import torch
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw = train_config("/nonexistent", "whisper")
+    raw["model"].update(whisper_model="openai/whisper-large-v3",
+                        freeze_encoder=False)
+    cfg = Config(raw)
+    cfg.num_languages = 2
+    arch = TaggerArch.from_config(cfg, labels)
+    t0 = time.perf_counter()
+    model = init_tagger(arch, torch.Generator().manual_seed(5), "cuda")
+    opt = loop.make_optimizer(cfg, model.parameters())
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    checked = []
+
+    def grads_finite(optimizer, args, kwargs):
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        checked.append((len(grads), all(
+            bool(torch.isfinite(g).all()) for g in grads)))
+    hook = opt.register_step_pre_hook(grads_finite)
+    batch = train_batch(labels, 30.0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, counts = [], [], None
+    try:
+        for i in range(LARGE_STEPS):
+            if i == 0:
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            m, _, _ = loop.train_step(model, opt, batch, "cuda", 0.1, 3.0,
+                                      generator=gen)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                counts = route_counts() + fwd_counts()
+    finally:
+        hook.remove()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # backward routes (BWD_ROUTES), forwards (FWD_ROUTES): the 2 Conformer
+    # blocks on the wide route, the 32 Whisper layers on mma64
+    want = [0, 0, 32, 2, 0, 0, 0, 32, 2, 0]
+    ok_grads = len(checked) == LARGE_STEPS and all(
+        n > 0 and finite for n, finite in checked)
+    log(f"[large-v3-train] f32 (TF32 off), Prodigy, B=2×30 s, encoder "
+        f"trained, Conformer {arch.conformer_heads} heads (head_dim "
+        f"{arch.hidden_size // arch.conformer_heads}); {n_params} "
+        f"parameters, built in {init_s:.1f} s: losses "
+        f"{[round(x, 4) for x in losses]}, (gradients, all finite) at each "
+        f"step {checked}; step ms {', '.join(f'{x:.1f}' for x in times)} "
+        f"(the first allocates the optimizer state), peak memory "
+        f"{peak:.2f} GiB; launches of the first step: backward routes "
+        f"{BWD_ROUTES} and forwards {FWD_ROUTES} {counts}")
+    if counts != want or not ok_grads or not all(
+            map(math.isfinite, losses)) or arch.conformer_heads != 2:
+        raise AssertionError(f"large-v3 train step: launches {counts} (want "
+                             f"{want}), gradients {checked}, losses "
+                             f"{losses}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_ms=times[-1], peak_gb=peak,
+                wide=counts[BWD_ROUTES.index("wide")])
+
+
 def whisper_phases(root: str, iters: int) -> dict:
-    """Phases 8, 8b, 9 and 9b under ``root``."""
+    """Phases 8, 8b, 9, 9b and 9c under ``root``."""
     with lap("8"):
         serving = phase_whisper_serving(root, iters)
     with lap("8b"):
@@ -2554,8 +2688,10 @@ def whisper_phases(root: str, iters: int) -> dict:
     with lap("9b"):
         cross_train = phase_train_cross_device(trained["labels"],
                                                encoder="whisper")
+    with lap("9c"):
+        large = phase_large_v3_train(trained["labels"])
     return dict(serving=serving, cross=cross, trained=trained,
-                cross_train=cross_train)
+                cross_train=cross_train, large=large)
 
 
 # ---------------------------------------------------------------------------
@@ -2597,12 +2733,18 @@ KERNEL_ROWS = [
      "wide]", "wide K1",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wide.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
+    # K1b above head_dim 512: the wide dK/dV and dQ passes, launched by the
+    # large-v3 train step of phase 9c
+    ("K1bwide", "flash_attention_trainable_bwd [large-v3 Conformer, D=640, "
+     "wide]", "wide K1b",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wide.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
 ]
 # The inference kernels report their bf16 case (the served path's dtype),
 # the backward kernels their f32 case (the default training dtype), and
 # each its launches on its own main path: inference (phase 4) or training
-# (phase 6), or on the Whisper paths (phases 8 and 9).
-ROW_DTYPE = {"K2b": "f32", "K1b": "f32", "K1bw": "f32"}
+# (phase 6), or on the Whisper paths (phases 8, 9 and 9c).
+ROW_DTYPE = {"K2b": "f32", "K1b": "f32", "K1bw": "f32", "K1bwide": "f32"}
 
 
 def k6_row(kern: dict, strict: dict) -> dict:
@@ -2651,6 +2793,8 @@ def main() -> int:
     for name, text in logs.items():
         for line in ptxas_summary(text):
             log(f"[ptxas] {name}: {line}")
+    if "attention_wide" in logs:
+        cluster_plans()
 
     def train_phases(root):
         with lap("6"):
@@ -2676,7 +2820,7 @@ def main() -> int:
         try:
             if args.only == "train":        # phases 6-7b
                 train_phases(root)
-            else:                           # phases 3e and 8-9b
+            else:                           # phases 3e and 8-9c
                 with lap("3e"):
                     phase_whisper_kernels(
                         torch.Generator(device="cuda").manual_seed(0),
@@ -2706,6 +2850,7 @@ def main() -> int:
         counts["whisper K1"] = whisper["serving"]["mma64"]
         counts["whisper K1b"] = whisper["trained"]["counts"]["mma64 passes"]
         counts["wide K1"] = whisper["serving"]["wide"]
+        counts["wide K1b"] = whisper["large"]["wide"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log_laps()
@@ -2746,7 +2891,9 @@ def main() -> int:
         f"{wtrain['step_ms']:.1f} ms a step, {wtrain['audio_s_per_s']:.2f} "
         f"audio-s/s, {wtrain['peak_gb']:.2f} GiB peak; card vs CPU train "
         f"step loss {whisper['cross_train']['loss_rel']:.2e}, grads "
-        f"{whisper['cross_train']['grad_rel']:.2e} × max")
+        f"{whisper['cross_train']['grad_rel']:.2e} × max; large-v3 f32 train "
+        f"step B=2x30 s {whisper['large']['step_ms']:.1f} ms, "
+        f"{whisper['large']['peak_gb']:.2f} GiB peak")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

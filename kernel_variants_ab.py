@@ -1,6 +1,7 @@
 """Time variants of a kernel source on one card, in turns.
 
     python3 kernel_variants_ab.py [--kernel k2|k1w|k5] [--iters N]
+    python3 kernel_variants_ab.py --kernel wide --baseline OLD.cu [--iters N]
 
 Each variant is the kernel's source with some of its tile constants
 replaced as text (``K2_VARIANTS``: ``csrc/attention_fwd_bias_mma.cu``, the
@@ -27,6 +28,14 @@ array, read back once. And it times each backward route's dK/dV pass at
 the same shape by device time (torch.profiler): the FMA pair of
 ``flash_attention.cu`` (the earlier route at this width), forced through
 ``backward_route``, against the bias-free D = 64 passes.
+
+``--kernel wide`` builds this tree's ``csrc/attention_wide.cu`` and the
+file given by ``--baseline`` (an earlier version of it, with the same C
+entry points) and times both at large-v3's Conformer shape [8, 2, 1500,
+640], bias-free, in bf16 and f32, in turns: the forward (CUDA events), and
+the device ms of the forward, the dK/dV pass and the dQ pass, each held to
+the plain twins; its ``clocks`` variants print the cycle shares of the
+forward's key loop by phase (``WIDE_PHASES``).
 """
 
 from __future__ import annotations
@@ -316,20 +325,94 @@ K2_VARIANTS.update({
     "f32 4 warps, bulk K/V": ("f32", BULK_KV),
 })
 
+# The wide route (attention_wide.cu): this tree's cluster kernels, with and
+# without per-phase clocks in the forward's key loop, against a baseline
+# source given by --baseline (the variants named in WIDE_BASELINE take that
+# file in place of the source).
+WIDE_PHASES = ("A wait", "reduce-scatter", "B arrive",
+               "copy wait+CTA barrier", "copies+partial S",
+               "B wait+all-gather", "softmax", "A arrive", "P.V")
+WIDE_CLK_GLOBAL = CLK_GLOBAL.replace("wfl_clk[5]",
+                                     f"wfl_clk[{len(WIDE_PHASES)}]")
+WIDE_LOOP = ("  for (int kt = 0; kt < n_kt; ++kt) {\n    const int k0 = kt * BK;"
+             "\n    float* const buf")
+WIDE_WAIT_A = "    cluster_wait();       // A(kt)\n"
+WIDE_REDUCE = "    reduce_own<32 * NW>(buf, kChunks, rank, a.ranks);\n"
+WIDE_ARRIVE_B = "    cluster_arrive();     // B(kt)\n"
+WIDE_SYNC = ("    __syncthreads();      // V(kt), K(kt + 1) are in; every warp is "
+             "done with\n                          // kt − 1\n")
+WIDE_PARTIAL = "      partial(kt + 1);\n    }\n"
+WIDE_GATHER = ("    gather_sums<NJ>(s, slot + (kt & 1) * kPartBuf, 2 * NJ * warp, "
+               "a.ranks);\n")
+WIDE_ARRIVE_A = "    if (kt + 1 < n_kt) cluster_arrive();   // A(kt + 1)\n"
+WIDE_PV = ("      accumulate_slice<Pol, NTMAX, kInPlace>(o, s[j], tV, P, 16 * "
+           "j, nt);\n  }\n")
+WIDE_END = "  // the row sum over the quad, the LSE (rank 0) and 1/l\n"
+_ZEROS = ", ".join("0" * len(WIDE_PHASES))
+WIDE_READ = CLK_READ.replace("[5]", f"[{len(WIDE_PHASES)}]").replace(
+    "{0, 0, 0, 0, 0}", "{" + _ZEROS + "}")
+WIDE_CLOCKS = [
+    (CLK_DECL, WIDE_CLK_GLOBAL),
+    (WIDE_LOOP, f"  long long wfl_c[{len(WIDE_PHASES)}] = {{{_ZEROS}}};\n"
+     "  long long wfl_t = clock64();\n" + WIDE_LOOP),
+    (WIDE_WAIT_A, WIDE_WAIT_A + "    WFL_MARK(0, 0.f)\n"),
+    (WIDE_REDUCE, WIDE_REDUCE + "    WFL_MARK(1, 0.f)\n"),
+    (WIDE_ARRIVE_B, WIDE_ARRIVE_B + "    WFL_MARK(2, 0.f)\n"),
+    (WIDE_SYNC, WIDE_SYNC + "    WFL_MARK(3, 0.f)\n"),
+    (WIDE_PARTIAL, WIDE_PARTIAL + "    WFL_MARK(4, 0.f)\n"),
+    (WIDE_GATHER, WIDE_GATHER + "    WFL_MARK(5, s[NJ - 1][1][3])\n"),
+    (WIDE_ARRIVE_A, "    WFL_MARK(6, s[NJ - 1][1][3] + l_row[0])\n"
+     + WIDE_ARRIVE_A + "    WFL_MARK(7, 0.f)\n"),
+    (WIDE_PV, WIDE_PV.replace("  }\n", "    WFL_MARK(8, o[NTMAX - 1][3])\n"
+                              "  }\n")),
+    (WIDE_END, f"  if (lane == 0)\n    for (int i = 0; i < {len(WIDE_PHASES)}; "
+     "++i)\n      atomicAdd(&wfl_clk[i], (unsigned long long)wfl_c[i]);\n"
+     + WIDE_END),
+    ("}  // namespace\n\nusing namespace wfl;\n",
+     "}  // namespace\n\nusing namespace wfl;\n" + WIDE_READ),
+]
+# The forward at 4 warps (64 queries) a CTA and 2 CTAs a SM, so that two
+# clusters' phases interleave on a SM; shorter key tiles keep two blocks'
+# shared memory in a SM (bf16 48 keys, f32 16)
+WIDE_4WARPS = [("constexpr int kFwdWarps = 8;", "constexpr int kFwdWarps = 4;"),
+               ("constexpr int kFwdBlocks = 1;",
+                "constexpr int kFwdBlocks = 2;"),
+               ("constexpr int kFwdKeys[2] = {64, 48};",
+                "constexpr int kFwdKeys[2] = {48, 16};")]
+WIDE_VARIANTS = {
+    "bf16 cluster": ("bf16", []),
+    "bf16 cluster, clocks": ("bf16", WIDE_CLOCKS),
+    "bf16 4 warps, 48-key tiles, 2 blocks a SM": ("bf16", WIDE_4WARPS),
+    "bf16 baseline": ("bf16", []),
+    "f32 cluster": ("f32", []),
+    "f32 cluster, clocks": ("f32", WIDE_CLOCKS),
+    "f32 4 warps, 16-key tiles, 2 blocks a SM": ("f32", WIDE_4WARPS),
+    "f32 32-key tiles": ("f32", [("constexpr int kFwdKeys[2] = {64, 48};",
+                                  "constexpr int kFwdKeys[2] = {64, 32};")]),
+    "f32 baseline": ("f32", []),
+}
+WIDE_BASELINE = ("bf16 baseline", "f32 baseline")
+
 KERNELS = {"k2": ("attention_fwd_bias_mma.cu", K2_VARIANTS),
            "k1w": ("attention_fwd_bias_mma.cu", K1W_VARIANTS),
-           "k5": ("conv_fused.cu", K5_VARIANTS)}
+           "k5": ("conv_fused.cu", K5_VARIANTS),
+           "wide": ("attention_wide.cu", WIDE_VARIANTS)}
 
 
-def build(tmp: str, source: str, variants: dict) -> dict:
+def build(tmp: str, source: str, variants: dict, baseline: str = None,
+          baseline_names=()) -> dict:
     """One library per variant from a copy of ``csrc/`` with the variant's
-    replacements; returns {name: (library path, nvcc output)}."""
+    replacements (the variants in ``baseline_names`` with the file
+    ``baseline`` in place of the source first); returns {name: (library
+    path, nvcc output)}."""
     from wfl_asr_tpu_torch.ops.kernels import _build
     procs = {}
     for i, (name, (_, subs)) in enumerate(variants.items()):
         src = os.path.join(tmp, f"v{i}")
         shutil.copytree(_build.CSRC, src)
         path = os.path.join(src, source)
+        if name in baseline_names:
+            shutil.copyfile(baseline, path)
         with open(path) as f:
             text = f.read()
         for old, new in subs:
@@ -512,6 +595,126 @@ def run_k1w(libs: dict, iters: int) -> dict:
     return means
 
 
+def run_wide(libs: dict, iters: int) -> dict:
+    """The wide route's variants at large-v3's Conformer shape [8, 2, 1500,
+    640], bias-free, every key valid, in bf16 and f32: each variant's
+    forward (its LSE too) and backward against the plain twins, then in
+    turns the forward's ms (CUDA events over its launcher, one kernel) and
+    the device ms of the forward, the dK/dV pass and the dQ pass
+    (torch.profiler); each clocks variant's cycle shares by phase of the
+    forward's key loop."""
+    import torch
+    import chip_smoke as sm
+    from wfl_asr_tpu_torch.ops.kernels import _build, flash_attention as fa
+    cdlls = {name: ctypes.CDLL(lib) for name, (lib, _) in libs.items()}
+    b, h, t, d = sm.B, 2, sm.WHISPER_T, 640
+    kv = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    ldk = -(-t // 64) * 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    means, shares = {}, {}
+    for dtype, tdt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        code = 0 if dtype == "f32" else 1
+        q, k, v, _, _ = sm.attn_inputs(gen, (b, h, t, d), tdt, False)
+        dout = (torch.rand((b, h, t, d), generator=gen, device="cuda") * 2
+                - 1).to(tdt)
+        ref, ref_lse = fa.attention_plain(q, k, v, None, None, kv,
+                                          return_lse=True)
+        want = fa.attention_backward_plain(q, k, v, None, None, kv, ref,
+                                           ref_lse, dout)[:3]
+        scale = ref.float().abs().max().item()
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, t), device="cuda")
+        grads = [torch.empty_like(q) for _ in range(3)]
+        ds = torch.empty((b, h, t, ldk), dtype=tdt, device="cuda")
+        delta = torch.empty((b, h, t), device="cuda")
+
+        def run_one(n):
+            lib = cdlls[n]
+            fwd = fa._fwd_launcher(lib.wfl_attention_wide_fwd)
+            bwd = lib.wfl_attention_wide_bwd
+            bwd.restype = ctypes.c_int
+            bwd.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+                            + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                               ctypes.c_int, ctypes.c_void_p])
+            stream = _build.stream_ptr(q.device)
+
+            def forward():
+                err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                          None, kv.data_ptr(), out.data_ptr(),
+                          lse.data_ptr(), None, b, h, t, d,
+                          1.0 / math.sqrt(d), 0, 1.0, code, stream)
+                if err:
+                    raise SystemExit(f"{n}: forward failed, error {err}")
+
+            def backward():
+                err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                          None, dout.data_ptr(), lse.data_ptr(),
+                          delta.data_ptr(), kv.data_ptr(), None,
+                          *[g.data_ptr() for g in grads], ds.data_ptr(), b,
+                          h, t, d, ldk, 1.0 / math.sqrt(d), 0, 1.0, code,
+                          stream)
+                if err:
+                    raise SystemExit(f"{n}: backward failed, error {err}")
+            out.zero_()
+            forward()
+            delta.copy_((dout.float() * out.float()).sum(-1))
+            backward()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            rel = max((g.float() - w.float()).abs().max().item()
+                      / w.float().abs().max().item()
+                      for g, w in zip(grads, want))
+            ok = (err <= sm.ATTN_TOL[dtype] * scale
+                  and lse_err <= sm.LSE_TOL and rel <= sm.GRAD_TOL[dtype])
+            ms = sm.time_ms(forward, iters)
+            by = sm.device_ms_by_kernel(lambda: (forward(), backward()))
+            got = {"fwd_ms": ms}
+            for part in ("fwd", "bwd_dkdv", "bwd_dq"):
+                got[part + "_device_ms"] = sum(
+                    x for kname, x in by.items()
+                    if kname.startswith(f"attn_wide_{part}<"))
+            if "clocks" in n and n not in shares:
+                read = lib.wfl_read_clocks
+                read.restype = ctypes.c_int
+                read.argtypes = [ctypes.c_void_p]
+                buf = (ctypes.c_ulonglong * len(WIDE_PHASES))()
+                if read(buf):
+                    raise SystemExit(f"{n}: reading the clocks failed")
+                forward()
+                torch.cuda.synchronize()
+                if read(buf):
+                    raise SystemExit(f"{n}: reading the clocks failed")
+                total = float(sum(buf))
+                shares[n] = {p: buf[i] / total
+                             for i, p in enumerate(WIDE_PHASES)}
+                print(f"[clocks] {n}: cycle shares of the forward's key "
+                      f"loop, summed over warps ({total:.4g} cycles): "
+                      + ", ".join(f"{p} {x:.3f}"
+                                  for p, x in shares[n].items()),
+                      flush=True)
+            print(f"[variant] {n} [{b},{h},{t},{d}]: fwd ms={ms:.4f} device "
+                  f"fwd {got['fwd_device_ms']:.4f} dK/dV "
+                  f"{got['bwd_dkdv_device_ms']:.4f} dQ "
+                  f"{got['bwd_dq_device_ms']:.4f}; max_abs_err={err:.3e} "
+                  f"(tol {sm.ATTN_TOL[dtype]:g}×{scale:.3g}) lse_err="
+                  f"{lse_err:.3e} grads {rel:.3e} × max (tol "
+                  f"{sm.GRAD_TOL[dtype]:g}){'' if ok else ' FAILED'}",
+                  flush=True)
+            return got if ok else None
+        turns = in_turns([n for n, (dt, _) in WIDE_VARIANTS.items()
+                          if dt == dtype], run_one)
+        if not turns:
+            return {}
+        means.update({n: {key: float(np.mean([x[key] for x in runs]))
+                          for key in runs[0]}
+                      for n, runs in turns.items()})
+        del q, k, v, dout, ref, ref_lse, want, out, lse, grads, ds, delta
+        torch.cuda.empty_cache()
+    means["clock shares"] = shares
+    return means
+
+
 def run_k5(libs: dict, iters: int) -> dict:
     """Both chains of each variant through the port's layer loop
     (``conv_fused._launch_layers``) on the variant's library: the ms of
@@ -582,7 +785,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=tuple(KERNELS), default="k2")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--baseline", default=None,
+                    help="--kernel wide: the attention_wide.cu to time "
+                         "against this tree's")
     args = ap.parse_args()
+    if args.kernel == "wide" and not args.baseline:
+        ap.error("--kernel wide needs --baseline PATH")
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants_ab: no CUDA device", file=sys.stderr)
@@ -593,15 +801,15 @@ def main() -> int:
     print(f"[device] {sm.card_line()}", flush=True)
     tmp = tempfile.mkdtemp(prefix="wfl_variants_")
     try:
-        libs = build(tmp, source, variants)
+        libs = build(tmp, source, variants, args.baseline, WIDE_BASELINE)
         kernel_name = {"k2": "attn_bias_fwd", "k1w": "attn_bias_fwd",
-                       "k5": "conv_layer_mma"}
+                       "k5": "conv_layer_mma", "wide": "attn_wide_"}
         for name, (_, log) in libs.items():
             for line in sm.ptxas_summary(log):
                 if kernel_name[args.kernel] in line:
                     print(f"[ptxas] {name}: {line}", flush=True)
-        means = {"k2": run_k2, "k1w": run_k1w,
-                 "k5": run_k5}[args.kernel](libs, args.iters)
+        means = {"k2": run_k2, "k1w": run_k1w, "k5": run_k5,
+                 "wide": run_wide}[args.kernel](libs, args.iters)
         if not means:
             return 1
     finally:

@@ -358,7 +358,7 @@ def test_mma64_forward_counted_where_it_launches(monkeypatch, err, d):
     assert flash_attention.mma_fwd_launches == 0
 
 
-@pytest.mark.parametrize("kernel", ["k2", "k1w", "k5"])
+@pytest.mark.parametrize("kernel", ["k2", "k1w", "k5", "wide"])
 def test_kernel_variants_apply_to_the_source(kernel):
     """Every textual variant of ``kernel_variants_ab.py`` (tile constants,
     the copies' placement, bulk copies, the per-phase clocks) finds each

@@ -1,10 +1,12 @@
-"""Attention above head_dim 512 (the ``"wide"`` route: the column-split
-forward and backward of ``csrc/attention_wide.cu``) on the CPU: the entry
-points against the JAX kernels (interpret mode) at widths 528, 640 and 1280
-with ragged key lengths, bias-free and with bias and gate, with strict
-dropout at 640; a Conformer block at large-v3's head shape (dim 1280, 2
-heads) against the JAX block; the kernel's tile table at D = 1280; what its
-launcher refuses; where its launch counters rise.
+"""Attention above head_dim 512 (the ``"wide"`` route: the cluster forward
+and backward of ``csrc/attention_wide.cu``, the contraction over D split
+across a thread-block cluster) on the CPU: the entry points against the JAX
+kernels (interpret mode) at widths 528, 640 and 1280 with ragged key
+lengths, bias-free and with bias and gate, with strict dropout at 640; a
+Conformer block at large-v3's head shape (dim 1280, 2 heads) against the
+JAX block; the kernel's tile table and cluster plan at 528-2048; what its
+launcher refuses and where the route stops; where its launch counters
+rise.
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 them against the plain twins there."""
@@ -211,67 +213,177 @@ def _source_ints(pattern: str) -> tuple:
                  .groups())
 
 
-def wide_tiles(d: int, f32: bool) -> dict:
-    """Mirror of ``WideTiles`` and the grids of ``csrc/attention_wide.cu``
-    at head_dim ``d``, with the chunk, column block and tile sizes read out
-    of the source: the column blocks, the D chunks of a score product, the
-    output columns of the last block, and each pass's shared memory in
-    bytes."""
-    es = 4 if f32 else 2
-    (dc,) = _source_ints(r"constexpr int kDC = (\d+);")
-    (cb,) = _source_ints(r"constexpr int kCB = (\d+);")
-    fbq, fbk = _source_ints(r"constexpr int kFwdBQ = (\d+), kFwdBK = (\d+);")
-    kbk, kbq = _source_ints(r"constexpr int kKvBK = (\d+), kKvBQ = (\d+);")
-    qbq, qbk = _source_ints(r"constexpr int kDqBQ = (\d+), kDqBK = (\d+);")
+def _pitch(cols: int, f32: bool) -> int:
+    """``Pol::pitch`` of attention_mma.cuh."""
+    return (cols + 31) // 32 * 32 + 8 if f32 else cols + 8
 
-    def pitch(cols):                    # attention_mma.cuh
-        return (cols + 31) // 32 * 32 + 8 if f32 else cols + 8
 
-    def pitch_s(cols):
-        return (cols + 31) // 32 * 32 if f32 else cols + 8
-    pc, pv = pitch(dc), pitch(cb)
-    fwd = (es * ((fbq + fbk) * pc + fbk * pv
-                 + fbq * pitch_s(2 * fbk if f32 else fbk))
-           + 4 * (fbq * (fbk + 4) + 2 * fbq))
-    dkdv = (es * (2 * (kbk + kbq) * pc + 2 * kbq * pv + 2 * kbk * pitch_s(kbq))
-            + 4 * 2 * kbq)
-    dq = es * (qbq * pitch_s(qbk) + qbk * pv)
-    return dict(col_blocks=-(-d // cb), chunks=-(-d // dc),
-                last_cols=d - (-(-d // cb) - 1) * cb, cb=cb, dc=dc,
-                fwd_smem=fwd, dkdv_smem=dkdv, dq_smem=dq)
+def _pitch_s(cols: int, f32: bool) -> int:
+    """``Pol::pitch_s`` of attention_mma.cuh."""
+    return (cols + 31) // 32 * 32 if f32 else cols + 8
+
+
+def wide_tiles(f32: bool) -> dict:
+    """Mirror of ``WideTiles`` of ``csrc/attention_wide.cu``, with the slice
+    width, warps, tile sizes and ring stages read out of the source: each
+    pass's dynamic shared memory in bytes, and the blocks a SM its launch
+    bounds ask for."""
+    es, i = (4, 1) if f32 else (2, 0)
+    (slice_w,) = _source_ints(r"constexpr int kSliceW = (\d+);")
+    (fwd_warps,) = _source_ints(r"constexpr int kFwdWarps = (\d+);")
+    (fwd_blocks,) = _source_ints(r"constexpr int kFwdBlocks = (\d+);")
+    fwd_bk = _source_ints(r"constexpr int kFwdKeys\[2\] = \{(\d+), (\d+)\};")[i]
+    (fwd_stages,) = _source_ints(r"constexpr int kFwdStages = (\d+);")
+    (kv_bk,) = _source_ints(r"constexpr int kKvKeys = (\d+);")
+    kv_bq = _source_ints(
+        r"constexpr int kKvQueries\[2\] = \{(\d+), (\d+)\};")[i]
+    (kv_stages,) = _source_ints(r"constexpr int kKvStages = (\d+);")
+    dq_bq, dq_bk = _source_ints(r"constexpr int kDqBQ = (\d+), kDqBK = (\d+);")
+    p = _pitch(slice_w, f32)
+    fwd_bq = 16 * fwd_warps
+    fwd = es * (fwd_bq + fwd_stages * 2 * fwd_bk) * p + 4 * 2 * fwd_bq * fwd_bk
+    dkdv = (es * (2 * kv_bk * p + kv_stages * 2 * kv_bq * p
+                  + 2 * kv_bk * _pitch_s(kv_bq, f32))
+            + 4 * (kv_stages * 2 * kv_bq + 2 * 2 * kv_bk * kv_bq))
+    dq = es * 2 * (dq_bq * _pitch_s(dq_bk, f32) + dq_bk * p)
+    blocks = {name: _source_ints(r"__launch_bounds__\(kThreads, (\d+)\)\n"
+                                 rf"attn_wide_{name}\(")[0]
+              for name in ("bwd_dkdv", "bwd_dq")}
+    assert "__launch_bounds__(32 * kFwdWarps, kFwdBlocks)\nattn_wide_fwd(" \
+        in SOURCE.read_text()
+    blocks["fwd"] = fwd_blocks
+    return dict(fwd_smem=fwd, dkdv_smem=dkdv, dq_smem=dq, blocks=blocks,
+                fwd_bk=fwd_bk, kv_bq=kv_bq)
+
+
+def cluster_plan(d: int) -> list:
+    """Mirror of ``plan_of`` of ``csrc/attention_wide.cu``: the columns
+    [start, end) of D that each rank of the cluster owns, in rank order
+    (⌈D / 128⌉ ranks, the 16-column steps shared as evenly as whole
+    slices of ⌈steps / ranks⌉ steps allow)."""
+    (slice_w,) = _source_ints(r"constexpr int kSliceW = (\d+);")
+    steps, most = d // 16, slice_w // 16
+    c = -(-steps // most)
+    per = -(-steps // c)
+    ranks, width = -(-steps // per), 16 * per
+    return [(r * width, min((r + 1) * width, d)) for r in range(ranks)]
 
 
 @pytest.mark.parametrize("f32", [True, False])
 def test_wide_tiles_fit_shared_memory(f32):
-    """At D = 1280 (large-v3's Conformer at 2 heads is 640, the widest
-    preset's whole d_model 1280): every pass's tiles leave room for two
-    blocks a SM (228 KB, 1 KB reserved each), as its launch bounds ask;
-    the column blocks cover D in whole 16-column steps; the last block of
-    an odd width (528) keeps a multiple of 16 columns. Nothing in the
-    table depends on D."""
-    t = wide_tiles(1280, f32)
-    for key in ("fwd_smem", "dkdv_smem", "dq_smem"):
-        assert 2 * (t[key] + BLOCK_RESERVED) <= SM_SMEM, (key, t)
-    assert (t["col_blocks"], t["chunks"]) == (10, 20)
-    assert t["cb"] % 16 == 0 and t["dc"] % 16 == 0
-    assert wide_tiles(528, f32)["last_cols"] == 16
-    assert {k: v for k, v in wide_tiles(640, f32).items()
-            if k.endswith("smem")} == \
-        {k: v for k, v in t.items() if k.endswith("smem")}
+    """Every pass's tiles (the forward's Q slice, K and V rings and
+    partial score buffers; the dK/dV pass's K and V slices, Q/dO ring, Pᵀ·M
+    and dSᵀ tiles and partial buffers; the dQ pass's two stages) fit the
+    blocks a SM its launch bounds ask for (228 KB, 1 KB reserved each):
+    one for the cluster passes, two for dQ. Nothing in the table depends on
+    D: a slice row is pitched for 128 columns whatever the slice's width."""
+    t = wide_tiles(f32)
+    assert t["blocks"] == {"fwd": 1, "bwd_dkdv": 1, "bwd_dq": 2}
+    for key, name in (("fwd_smem", "fwd"), ("dkdv_smem", "bwd_dkdv"),
+                      ("dq_smem", "bwd_dq")):
+        assert t["blocks"][name] * (t[key] + BLOCK_RESERVED) <= SM_SMEM, \
+            (key, t)
+    # a key tile of the forward and a query tile of the dK/dV pass are whole
+    # 16-row mma steps, split over the 2 query halves of the dK/dV warps
+    assert t["fwd_bk"] % 16 == 0 and t["kv_bq"] % 32 == 0
+
+
+@pytest.mark.parametrize("d", [528, 640, 1024, 1280, 1536, 2048])
+def test_wide_cluster_plan(d):
+    """The launcher's cluster plan at head width ``d``: the ranks' slices
+    cover D in whole 16-column steps, in order, none empty and none wider
+    than 128 columns; a cluster of more than 8 CTAs (the portable limit)
+    only where the launcher asks for a non-portable size, and never more
+    than 16; every pass fits one block a SM at that width (the table does
+    not depend on D). 640 (large-v3's Conformer at 2 heads) is 5 slices of
+    128; 528 is 4 of 112 and one of 80."""
+    plan = cluster_plan(d)
+    assert plan[0][0] == 0 and plan[-1][1] == d
+    for (s0, e0), (s1, _) in zip(plan, plan[1:]):
+        assert e0 == s1
+    assert all(0 < e - s <= 128 and (e - s) % 16 == 0 for s, e in plan)
+    (portable,) = _source_ints(r"constexpr int kPortable = (\d+);")
+    (most,) = _source_ints(r"constexpr int kMaxRanks = (\d+);")
+    assert (portable, most) == (8, 16)
+    assert len(plan) <= most
+    if len(plan) > portable:
+        assert "if (err != cudaSuccess || ranks <= kPortable) return err;\n" \
+            "  return cudaFuncSetAttribute(\n      kernel, " \
+            "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);" in \
+            SOURCE.read_text()
+    widths = [e - s for s, e in plan]
+    want = {528: [112] * 4 + [80], 640: [128] * 5, 1024: [128] * 8,
+            1280: [128] * 10, 1536: [128] * 12, 2048: [128] * 16}
+    assert widths == want[d]
+    for f32 in (True, False):
+        t = wide_tiles(f32)
+        assert t["fwd_smem"] + BLOCK_RESERVED <= SM_SMEM
 
 
 def test_wide_launcher_refuses_what_the_route_does_not_send():
     """The launchers refuse a head_dim of 512 or less (the route never sends
-    one), widths that are no multiple of 16 and a gate without a bias; the
-    backward refuses a workspace row that is no multiple of 64."""
+    one), one above 2048 (a cluster holds at most 16 slices of 128
+    columns; the route raises first), widths that are no multiple of 16
+    and a gate without a bias; the backward refuses a workspace row that is
+    no multiple of 64."""
     text = SOURCE.read_text()
-    assert "return D <= kMinD || D % 16 != 0 || (bias == nullptr && gate " \
-        "!= nullptr);" in text
+    assert "return D <= kMinD || D > kMaxD || D % 16 != 0\n" \
+        "         || (bias == nullptr && gate != nullptr);" in text
     assert _source_ints(r"constexpr int kMinD = (\d+);") == \
         (flash_attention.WIDE_MIN_D,)
+    assert "constexpr int kMaxD = kSliceW * kMaxRanks;" in text
+    assert _source_ints(r"constexpr int kSliceW = (\d+);")[0] \
+        * _source_ints(r"constexpr int kMaxRanks = (\d+);")[0] \
+        == flash_attention.WIDE_MAX_D
     assert "if (ldk % kLdk != 0 || ldk < T_len) return " \
         "cudaErrorInvalidValue;" in text
     assert _source_ints(r"constexpr int kLdk = (\d+);") == (64,)
+
+
+@pytest.mark.parametrize("has_bias", [False, True])
+def test_wide_route_names_its_limit(has_bias):
+    """Above ``WIDE_MAX_D`` (2048) no CUDA route takes the call: both
+    route functions raise and name the limit, rather than fall through to
+    a kernel that would refuse it; 2048 itself is wide."""
+    assert flash_attention.forward_route(2048, has_bias) == "wide"
+    for route in (flash_attention.forward_route,
+                  flash_attention.backward_route):
+        with pytest.raises(ValueError, match="2048"):
+            route(2064, has_bias)
+
+
+def test_kernel_variants_wide_arguments(monkeypatch, capsys):
+    """``kernel_variants_ab.py --kernel wide`` asks for the baseline source
+    it times this tree's kernels against, parses with it (and stops here
+    for want of a card), and its variant table holds, for each dtype, this
+    tree's source plain and with the forward's clocks and the baseline."""
+    import sys
+    import kernel_variants_ab as kv
+    monkeypatch.setattr(sys, "argv", ["kernel_variants_ab.py", "--kernel",
+                                      "wide"])
+    with pytest.raises(SystemExit) as exit_:
+        kv.main()
+    assert exit_.value.code == 2
+    assert "--baseline" in capsys.readouterr().err
+    monkeypatch.setattr(sys, "argv", ["kernel_variants_ab.py", "--kernel",
+                                      "wide", "--baseline", "old.cu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kv.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    assert kv.KERNELS["wide"][0] == SOURCE.name
+    for dtype in ("bf16", "f32"):
+        names = [n for n, (dt, _) in kv.WIDE_VARIANTS.items() if dt == dtype]
+        assert names[:2] == [f"{dtype} cluster", f"{dtype} cluster, clocks"]
+        assert names[-1] == f"{dtype} baseline"
+        assert f"{dtype} baseline" in kv.WIDE_BASELINE
+        assert kv.WIDE_VARIANTS[f"{dtype} cluster, clocks"][1] == \
+            kv.WIDE_CLOCKS
+    # one clock counter a phase, each marked once in the forward's key loop
+    n = len(kv.WIDE_PHASES)
+    assert f"wfl_clk[{n}]" in kv.WIDE_CLK_GLOBAL
+    marks = "".join(new for _, new in kv.WIDE_CLOCKS)
+    assert [marks.count(f"WFL_MARK({i},") for i in range(n + 1)] == \
+        [1] * n + [0]
 
 
 class _Library:
@@ -291,21 +403,23 @@ class _Library:
         return launcher
 
 
+@pytest.mark.parametrize("d", [640, 2048])
 @pytest.mark.parametrize("err", [0, 2])
 @pytest.mark.parametrize("bias_mode", ["none", "bias", "bias+gate"])
-def test_wide_counted_where_it_launches(monkeypatch, err, bias_mode):
+def test_wide_counted_where_it_launches(monkeypatch, err, bias_mode, d):
     """``wide_fwd_launches`` and ``wide_bwd_launches`` rise in the wide
     branches, after the launcher of ``attention_wide.cu`` returned no
     error: once a call, not when a launch failed, and no other route's
-    count moves. With a bias the backward then runs the dBias/dGate pass of
-    ``attention_bwd_bias_mma.cu`` on the same workspace. (A stand-in
-    library takes the launches on the CPU.)"""
+    count moves, at a 5-CTA cluster's width (640) and at the widest, a
+    16-CTA non-portable cluster's (2048). With a bias the backward then
+    runs the dBias/dGate pass of ``attention_bwd_bias_mma.cu`` on the same
+    workspace. (A stand-in library takes the launches on the CPU.)"""
     libs, calls = [], []
     monkeypatch.setattr(_build, "library", lambda name: libs.append(name)
                         or _Library(calls, err))
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
     reset_launch_counts()
-    x = torch.randn(2, 3, 45, 640)
+    x = torch.randn(2, 3, 45, d)
     bias = torch.randn(3, 45, 45) if bias_mode != "none" else None
     gate = torch.rand(2, 3, 45) if bias_mode == "bias+gate" else None
     kv = torch.tensor([45, 20], dtype=torch.int32)
@@ -332,9 +446,9 @@ def test_wide_counted_where_it_launches(monkeypatch, err, bias_mode):
     assert libs == ["attention_wide"] * 2 + (
         ["attention_bwd_bias_mma"] if len(want) == 3 else [])
     fargs, bargs = calls[0][1], calls[1][1]
-    assert len(fargs) == 18 and fargs[9:13] == (2, 3, 45, 640)
+    assert len(fargs) == 18 and fargs[9:13] == (2, 3, 45, d)
     assert (fargs[3] is None) == (bias is None)
-    assert len(bargs) == 24 and bargs[14:19] == (2, 3, 45, 640, 64)
+    assert len(bargs) == 24 and bargs[14:19] == (2, 3, 45, d, 64)
     if len(want) == 3:
         dargs = calls[2][1]
         assert dargs[0] == bargs[13]                 # the same workspace

@@ -13,8 +13,9 @@ backward.
   and accumulation): the forward, which also writes the row logsumexp
   (LSE) when autograd will need it, and the backward passes, which
   recompute P = exp(S − LSE) tile by tile. The forward takes one of five
-  routes (:func:`forward_route`): above head_dim 512, with or without a
-  bias, the column-split forward of ``csrc/attention_wide.cu``; with a bias
+  routes (:func:`forward_route`): above head_dim 512 (up to 2048), with or
+  without a bias, the cluster forward of ``csrc/attention_wide.cu`` (the
+  contraction over D split across a thread-block cluster); with a bias
   at head_dim 64 the tensor-core forward of
   ``csrc/attention_fwd_bias_mma.cu``, and bias-free at head_dim ≤ 64 its
   bias-free instantiation (narrower widths zero-padded to 64); bias-free at
@@ -91,18 +92,25 @@ MMA_MIN_D = 128
 # for; bias-free calls at widths up to it run their bias-free instantiation,
 # zero-padded to it.
 MMA_BIAS_D = 64
-# Head widths above this, with or without a bias, take attention_wide.cu.
+# Head widths above this, with or without a bias, take attention_wide.cu,
+# up to WIDE_MAX_D: its clusters hold at most 16 CTAs of 128 columns of D.
 WIDE_MIN_D = 512
+WIDE_MAX_D = 2048
 
 
 def forward_route(d: int, has_bias: bool) -> str:
     """Which forward a CUDA call at head_dim ``d`` (a multiple of 16) runs:
-    ``"wide"`` (``csrc/attention_wide.cu``) above 512; with a bias,
-    ``"mma_bias"`` (the tensor-core forward of
+    ``"wide"`` (``csrc/attention_wide.cu``) above 512, up to
+    ``WIDE_MAX_D`` (wider widths raise: no CUDA route takes them); with
+    a bias, ``"mma_bias"`` (the tensor-core forward of
     ``csrc/attention_fwd_bias_mma.cu``) at 64; bias-free, ``"mma64"`` (its
     bias-free instantiation) at ≤ 64 and ``"mma"`` (that of
     ``csrc/attention_fwd_mma.cu``) above 128; else ``"fused"`` (the
     forwards of ``csrc/flash_attention.cu``)."""
+    if d > WIDE_MAX_D:
+        raise ValueError(f"head_dim {d} exceeds {WIDE_MAX_D}, the widest the "
+                         f"CUDA attention kernels take (attention_wide.cu: "
+                         f"16 CTAs of 128 columns)")
     if d > WIDE_MIN_D:
         return "wide"
     if has_bias:
@@ -410,7 +418,7 @@ def _launch_mma64_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
 
 def _launch_wide_fwd(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
                      scale=None):
-    """The column-split forward of ``csrc/attention_wide.cu`` on the
+    """The cluster forward of ``csrc/attention_wide.cu`` on the
     tensors :func:`launch_kernel` has checked and laid out (bias in q's
     dtype or None, gate f32 or None; the launcher itself refuses a head_dim
     of 512 or less); writes ``lse`` when it is not None. Returns out in q's

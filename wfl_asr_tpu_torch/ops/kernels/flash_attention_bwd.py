@@ -13,8 +13,8 @@ narrower widths zero-padded to 64; ``flash_attention.mma64_fwd_launches``,
 ``mma64_bwd_launches``); 80-128 the forward of ``csrc/flash_attention.cu``
 and its FMA backward pair; 144-512 the tensor-core forward of
 ``csrc/attention_fwd_mma.cu`` and pair of ``csrc/attention_bwd_mma.cu``
-(``mma_fwd_launches``, ``mma_bwd_launches``); above 512 the column-split
-forward and passes of ``csrc/attention_wide.cu`` (``wide_fwd_launches``,
+(``mma_fwd_launches``, ``mma_bwd_launches``); above 512 (to 2048) the
+cluster forward and passes of ``csrc/attention_wide.cu`` (``wide_fwd_launches``,
 ``wide_bwd_launches``). All take the strict attention dropout (K6) when
 asked. Each entry point keeps its own launch counts.
 """
