@@ -4,7 +4,7 @@
     python3 chip_smoke.py --only kernels  # build + kernel-vs-plain phases only
     python3 chip_smoke.py --only conv     # build + K5's part of phase 3 only
     python3 chip_smoke.py --only train    # build + training phases 6-7 only
-    python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9c only
+    python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9e only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -75,6 +75,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    8b. the card against the CPU as in phase 5, for Whisper-base and for the
    ``none`` encoder at full width (80 mels; unequal lengths take the
    host's reflect padding and the precentered STFT);
+   8c. Whisper-base without the config's ``conformer_heads`` key, so the
+   Conformer runs the schema's default of 4 heads at head_dim 128: served
+   as in phase 8 (a forward: 6 K1 on the bias-free D = 64 forward, 2 on
+   the bias-free D = 128 one, route mma128, none fused), timed at B=8×30 s
+   in bf16 and f32 with its peak memory, one bf16 step profiled; 8d. its
+   card against the CPU as in phase 5;
 9. Whisper-base training: preprocess and train on phase 6's corpus (f32,
    batch 8, 4 steps, validation after the last) with the plain attention
    twins stubbed to raise; a step: 6 K1b on the bias-free D = 64 passes
@@ -87,7 +93,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``loop.train_step`` at B=2×30 s: finite loss and gradients, 2 forwards
    and 2 backwards on the wide route of ``attention_wide.cu`` and 32 of
    each on the D = 64 one in the first step, the step's ms and peak
-   memory;
+   memory; 9d. phase 9 at the schema's 4 Conformer heads (a step: 6 K1b
+   on the bias-free D = 64 passes, 2 on the bias-free D = 128 passes,
+   route mma128, none on the mma.sync pair or the FMA pair); 9e. its
+   card-vs-CPU train step at B=2×30 s under phase 7's rules;
 10. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
    line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -100,8 +109,9 @@ route ``backward_route`` names (K1b: the mma.sync pair of
 ``attention_bwd_mma.cu``; K2b: the three mma.sync passes of
 ``attention_bwd_bias_mma.cu``, dK/dV, dQ and dBias/dGate; bias-free at
 head_dim ≤ 64 their bias-free instantiation, dK/dV and dQ; above 512 the
-passes of ``attention_wide.cu``; other widths up to 512 with a bias, and
-bias-free 80-128: the FMA pair of ``flash_attention.cu``), with the
+passes of ``attention_wide.cu``; bias-free at 80-128 their bias-free
+instantiation at D = 128; other widths up to 512 with a bias: the FMA
+pair of ``flash_attention.cu``), with the
 device time of each kernel of the call; 3c: strict attention dropout (K6) inside
 all four, forward and backward, at the main shapes in f32 and bf16 at
 rates 0.1 and 0.15 against the plain twins with the same mask, timed with
@@ -112,12 +122,14 @@ plain twin of seed + 1); the head-width sweep (``head_dims``), with bias
 at 16-512 (64 on the mma.sync forward with a bias and the mma.sync
 passes, there also without gate and with a bias whose base is not
 16-byte aligned) and at 528-2048 (the wide route), bias-free at 16-64
-(the bias-free D = 64 route), 96 (fused), 144-512 (mma.sync) and
-528-2048 (wide), and strict dropout bias-free at 64 and 640, each
-forward's and backward's route shown by the launch counts; 3d: the mask
+(the bias-free D = 64 route), 80-128 (the bias-free D = 128 route),
+144-512 (mma.sync) and 528-2048 (wide), and strict dropout bias-free at
+64, 128 and 640, each forward's and backward's route shown by the launch
+counts; 3d: the mask
 of each forward variant (the mma.sync forward of
 ``attention_fwd_bias_mma.cu`` at D = 64 with a zero bias and a unit gate,
-and its bias-free instantiation; the f32 FMA and bf16 ``mma.sync``
+and its bias-free instantiations at D = 64 and 128; the f32 FMA and bf16
+``mma.sync``
 forwards of ``flash_attention.cu`` at D = 48 with a zero bias; the
 mma.sync forward of ``attention_fwd_mma.cu`` at D = 384; the wide forward
 of ``attention_wide.cu`` at D = 640, bias-free in f32 and with a zero
@@ -128,11 +140,15 @@ and bf16, at [8, 8, 1500, 64] (Whisper-base's layers) and [8, 2, 1500,
 40] (the ``none`` encoder's Conformer, padded to 48 by the entry point
 and to 64 by the route), both on the bias-free D = 64 route, and at [8,
 2, 1500, 640] (large-v3's Conformer at 2 heads, the wide route), and at
-[8, 4, 1500, 128] (Whisper-base's Conformer under 4 heads, the fused
-forward and the FMA pair), against the plain twins, timed beside SDPA
-(without a mask where every key is valid) and the bound, with the device
-time of each kernel. After the build, ``[cluster]`` lines give the wide
-route's cluster plan and resident clusters of each instantiation.
+[8, 4, 1500, 128] (Whisper-base's Conformer at the schema's 4 heads) and
+[8, 4, 1500, 96] (padded to 128), both on the bias-free D = 128 route
+(mma128), against the plain twins, timed beside SDPA (without a mask
+where every key is valid) and the bound, with the device time of each
+kernel; at [8, 4, 1500, 128] also the fused forward and the FMA pair of
+``flash_attention.cu`` through their launchers, held to the plain twins,
+their device ms beside mma128's (``[mma128]`` lines). After the build,
+``[cluster]`` lines give the wide route's cluster plan and resident
+clusters of each instantiation.
 
 Phase 6 includes 6b: the flagship recipe with
 ``training.strict_attention_dropout: true`` (4 steps, validation at the
@@ -316,20 +332,20 @@ def fwd_rate(d: int, with_bias: bool, dtype: str) -> str:
 
 # The forward routes in the order of ``fwd_counts``, and the backward
 # routes in that of ``route_counts``
-FWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fused")
-BWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fma")
+FWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fused", "mma128")
+BWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fma", "mma128")
 
 
 def fwd_counts():
-    """The launch counts of the five forward routes, in ``FWD_ROUTES``
+    """The launch counts of the six forward routes, in ``FWD_ROUTES``
     order: the mma.sync forward with a bias, the bias-free mma.sync forward
     of ``attention_fwd_mma.cu``, the bias-free instantiation of the D = 64
     forward, the wide forward of ``attention_wide.cu``, the forwards of
-    ``flash_attention.cu``."""
+    ``flash_attention.cu``, the bias-free instantiation at D = 128."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     return [fa.mma_bias_fwd_launches, fa.mma_fwd_launches,
             fa.mma64_fwd_launches, fa.wide_fwd_launches,
-            fa.fused_fwd_launches]
+            fa.fused_fwd_launches, fa.mma128_fwd_launches]
 
 
 def fwd_launch(run, d, with_bias, what):
@@ -489,7 +505,8 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters, t=T):
                              f"{ATTN_TOL[dtype]}×{scale}, or lse diff "
                              f"{lse_err} exceeds {LSE_TOL}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=library_ms)
+                bound_by=by, library_ms=library_ms,
+                device_ms=sum(by_kernel.values()))
 
 
 def sdpa_mask(t, h, tdt, kv_len, bias, gate):
@@ -508,14 +525,15 @@ def sdpa_mask(t, h, tdt, kv_len, bias, gate):
 
 
 def route_counts():
-    """The launch counts of the five backward routes, in ``BWD_ROUTES``
+    """The launch counts of the six backward routes, in ``BWD_ROUTES``
     order: the mma.sync passes with a bias, the bias-free mma.sync pair of
     ``attention_bwd_mma.cu``, the bias-free instantiation of the D = 64
-    passes, the wide passes of ``attention_wide.cu``, the FMA pair."""
+    passes, the wide passes of ``attention_wide.cu``, the FMA pair, the
+    bias-free instantiation of the passes at D = 128."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     return [fa.mma_bias_bwd_launches, fa.mma_bwd_launches,
             fa.mma64_bwd_launches, fa.wide_bwd_launches,
-            fa.fma_bwd_launches]
+            fa.fma_bwd_launches, fa.mma128_bwd_launches]
 
 
 def pair_launch(grad, d, with_bias, what):
@@ -537,7 +555,13 @@ def pair_launch(grad, d, with_bias, what):
 
 def device_ms_by_kernel(fn, reps: int = 3) -> dict:
     """Device ms a call of ``fn()`` spends in each kernel of ``csrc/``
-    (torch.profiler over ``reps`` calls), by the kernel's short name."""
+    (torch.profiler over ``reps`` calls), by the kernel's short name: the
+    mean of the kernel's recorded launches times its launches a call (the
+    recorded events over ``reps``, rounded). A total over ``reps`` read
+    some kernels well below their CUDA-event time (the fused f32 forward at
+    [8, 4, 1500, 128] at 1.19 against 1.82 ms, about 2/3), as if the trace
+    had lost a launch's event; a count that is no multiple of ``reps`` is
+    logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -546,10 +570,14 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
         torch.cuda.synchronize()
     out = {}
     for evt in prof.key_averages():
-        if evt.key.startswith(PORT_KERNELS):
+        if evt.key.startswith(PORT_KERNELS) and evt.count:
             short = evt.key.split("::", 1)[1].split("(")[0]
-            out[short] = (out.get(short, 0.0)
-                          + evt.device_time_total / reps / 1e3)
+            per_call = max(1, round(evt.count / reps))
+            if evt.count % reps:
+                log(f"[profile] {short}: {evt.count} events over {reps} "
+                    f"calls")
+            out[short] = (out.get(short, 0.0) + evt.device_time_total
+                          / evt.count * per_call / 1e3)
     return out
 
 
@@ -639,7 +667,8 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters, t=T):
     worst = max(e / max(sc, 1e-30) for e, sc in errs.values())
     return dict(max_abs_err=max(e for e, _ in errs.values()),
                 max_rel_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=library_ms)
+                bound_by=by, library_ms=library_ms,
+                device_ms=sum(by_kernel.values()))
 
 
 def conv_launch(run, n_layers, what):
@@ -856,9 +885,15 @@ def phase_whisper_kernels(gen, iters: int) -> dict:
     route to 64): both the bias-free instantiations of the D = 64 forward
     and passes ("mma64"); [8, 2, 1500, 640], large-v3's Conformer at its
     default 2 heads, on the wide route of ``attention_wide.cu``; [8, 4,
-    1500, 128], Whisper-base's Conformer under 4 heads (no default
-    configuration runs it), on the fused forward and the FMA pair of
-    ``flash_attention.cu``."""
+    1500, 128], Whisper-base's Conformer at the config schema's default of
+    4 heads, and [8, 4, 1500, 96] (padded to 128 by the route), on the
+    bias-free D = 128 instantiations ("mma128"). At [8, 4, 1500, 128] the
+    same call also runs the fused forward and the FMA pair of
+    ``flash_attention.cu`` (the route there before "mma128", which calls
+    with a bias keep at other widths than 64) through its launchers on the
+    same inputs, each held to the plain twin, with their device time by
+    pass, and prints mma128's device time against theirs and its entry
+    points against SDPA (``[mma128]`` lines)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -866,10 +901,11 @@ def phase_whisper_kernels(gen, iters: int) -> dict:
     res = {}
     for dtype in ("f32", "bf16"):
         for key, h, d in (("w", 8, 64), ("n", 2, 40), ("wide", 2, 640),
-                          ("128", 4, 128)):
+                          ("128", 4, 128), ("96", 4, 96)):
             what = {"w": "Whisper", "n": "none, D=40",
                     "wide": "large-v3 Conformer, D=640",
-                    "128": "Whisper-base Conformer at 4 heads, D=128"}[key]
+                    "128": "Whisper-base Conformer at 4 heads, D=128",
+                    "96": "Conformer of hidden 384 at 4 heads, D=96"}[key]
             res[("K1" + key, dtype)] = _attn_case(
                 f"flash_attention_trainable ({what})", gen, h, d, dtype,
                 False, kv, iters, t=WHISPER_T)
@@ -877,7 +913,108 @@ def phase_whisper_kernels(gen, iters: int) -> dict:
                 f"flash_attention_trainable_bwd ({what})", gen, h, d, dtype,
                 False, kv, iters, t=WHISPER_T)
             torch.cuda.empty_cache()
+            if key == "128":
+                res[("fma128", dtype)] = fma_pair_at(gen, h, d, dtype, iters)
+                mma128_against_fma(res, dtype)
+                torch.cuda.empty_cache()
     return res
+
+
+def fma_pair_at(gen, h: int, d: int, dtype: str, iters: int) -> dict:
+    """The fused forward and the FMA pair of ``flash_attention.cu`` at
+    [B, h, 1500, d], bias-free, every key valid, launched directly through
+    their launchers (``_launch_fused_fwd``, ``_launch_fma``), each held to
+    the plain twins (forward and LSE, dq, dk, dv), and the same call's
+    mma128 launchers (``_launch_mma128_fwd``, ``_launch_mma128``) on the
+    same inputs: each launcher's ms (CUDA events, in turns: old, mma128,
+    mma128, old) and device ms by kernel."""
+    import torch
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    t = WHISPER_T
+    q, k, v, _, _ = attn_inputs(gen, (B, h, t, d), tdt, False)
+    dout = (torch.rand((B, h, t, d), generator=gen, device="cuda") * 2 - 1
+            ).to(tdt)
+    kv = torch.full((B,), t, dtype=torch.int32, device="cuda")
+    lse = torch.empty((B, h, t), device="cuda")
+
+    def fwd():
+        return fa._launch_fused_fwd(q, k, v, None, None, kv, lse, None, 0,
+                                    1.0)
+    out = fwd()
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+
+    def bwd():
+        return fa._launch_fma(q, k, v, None, None, dout, lse, delta, kv,
+                              None, 0, 1.0)[:3]
+
+    def fwd128():
+        return fa._launch_mma128_fwd(q, k, v, kv, lse, None, 0, 1.0)
+
+    def bwd128():
+        return fa._launch_mma128(q, k, v, dout, lse, delta, kv, None, 0, 1.0)
+    got = bwd()
+    ref, ref_lse = fa.attention_plain(q, k, v, None, None, kv,
+                                      return_lse=True)
+    want = fa.attention_backward_plain(q, k, v, None, None, kv, ref, ref_lse,
+                                       dout)[:3]
+    torch.cuda.synchronize()
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    rel = max((g.float() - w.float()).abs().max().item()
+              / w.float().abs().max().item() for g, w in zip(got, want))
+    del ref, ref_lse, want, got
+    ok = (err <= ATTN_TOL[dtype] * scale and lse_err <= LSE_TOL
+          and rel <= GRAD_TOL[dtype])
+    turns = {n: [] for n in ("fwd", "fwd128", "bwd", "bwd128")}
+    for names in (("fwd", "bwd"), ("fwd128", "bwd128"), ("fwd128", "bwd128"),
+                  ("fwd", "bwd")):
+        for n in names:
+            turns[n].append(time_ms({"fwd": fwd, "bwd": bwd, "fwd128": fwd128,
+                                     "bwd128": bwd128}[n], iters))
+    ms = {n: float(np.mean(x)) for n, x in turns.items()}
+    fwd_dev, bwd_dev = device_ms_by_kernel(fwd), device_ms_by_kernel(bwd)
+    log(f"[kernel] fused forward and FMA pair of flash_attention.cu {dtype} "
+        f"[{B},{h},{t},{d}] bias-free: max_abs_err={err:.3e} lse_err="
+        f"{lse_err:.3e} grads {rel:.3e} × max; forward ms={ms['fwd']:.4f}, "
+        f"device ms by kernel " + ", ".join(f"{n} {x:.4f}"
+                                           for n, x in fwd_dev.items())
+        + f"; backward ms={ms['bwd']:.4f}, device ms by kernel "
+        + ", ".join(f"{n} {x:.4f}" for n, x in bwd_dev.items())
+        + f"; the mma128 launchers on the same inputs, in turns: forward "
+        f"ms={ms['fwd128']:.4f}, backward ms={ms['bwd128']:.4f}")
+    if not ok:
+        raise AssertionError(f"flash_attention.cu at D={d} {dtype}: forward "
+                             f"{err}, lse {lse_err} or gradients {rel} out "
+                             f"of tolerance")
+    return dict(fwd_ms=ms["fwd"], bwd_ms=ms["bwd"], fwd128_ms=ms["fwd128"],
+                bwd128_ms=ms["bwd128"], fwd_device_ms=sum(fwd_dev.values()),
+                bwd_device_ms=sum(bwd_dev.values()))
+
+
+def mma128_against_fma(res: dict, dtype: str) -> None:
+    """One ``[mma128]`` line at [8, 4, 1500, 128]: the mma128 forward's and
+    backward's device ms (torch.profiler) and launcher ms (CUDA events, in
+    turns) against the fused forward's and the FMA pair's of the same call,
+    and the entry points' ms against SDPA's (the forward without a mask,
+    the backward by autograd)."""
+    f, b, old = res[("K1128", dtype)], res[("K1b128", dtype)], \
+        res[("fma128", dtype)]
+    log(f"[mma128] {dtype} [{B},4,{WHISPER_T},128]: backward device "
+        f"{b['device_ms']:.4f} ms against the FMA pair's "
+        f"{old['bwd_device_ms']:.4f} "
+        f"({b['device_ms'] / old['bwd_device_ms']:.3f}×), launchers "
+        f"{old['bwd128_ms']:.4f} against {old['bwd_ms']:.4f} ms "
+        f"({old['bwd128_ms'] / old['bwd_ms']:.3f}×); forward device "
+        f"{f['device_ms']:.4f} against the fused forward's "
+        f"{old['fwd_device_ms']:.4f} "
+        f"({f['device_ms'] / old['fwd_device_ms']:.3f}×), launchers "
+        f"{old['fwd128_ms']:.4f} against {old['fwd_ms']:.4f} ms "
+        f"({old['fwd128_ms'] / old['fwd_ms']:.3f}×); entry points "
+        f"forward {f['ms']:.4f} / SDPA {f['library_ms']:.4f} "
+        f"({f['ms'] / f['library_ms']:.3f}×), backward {b['ms']:.4f} / "
+        f"SDPA {b['library_ms']:.4f} ({b['ms'] / b['library_ms']:.3f}×)")
 
 
 SWEEP_WIDE = (528, 640, 1024, 1280, 2048)
@@ -893,11 +1030,12 @@ def head_dims(gen) -> None:
     route), at 64 with a bias and no gate, at 64 with a bias in q's dtype
     whose base is not 16-byte aligned; bias-free (``flash_attention_trainable``) at 16,
     32, 40, 48 and 64 (the bias-free D = 64 forward and passes, narrower
-    widths zero-padded to 64; 40 first to 48 by the entry point), 96 (the
-    fused forward and the FMA pair), 144, 256, 384 and 512 (the mma.sync
-    forward and pair) and 528-2048 (the wide route); strict dropout
-    (rate 0.1) bias-free at 64 and 640, against the plain twins with the
-    same mask."""
+    widths zero-padded to 64; 40 first to 48 by the entry point), 80, 96,
+    112 and 128 (the bias-free D = 128 forward and passes, narrower widths
+    zero-padded to 128), 144, 256, 384 and 512 (the mma.sync forward and
+    pair) and 528-2048 (the wide route); strict dropout (rate 0.1)
+    bias-free at 64, 128 and 640, against the plain twins with the same
+    mask."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
@@ -906,9 +1044,9 @@ def head_dims(gen) -> None:
               + SWEEP_WIDE]
              + [(64, True, " no gate"), (64, True, " unaligned bias")]
              + [(d, False, " bias-free")
-                for d in (16, 32, 40, 48, 64, 96, 144, 256, 384, 512)
-                + SWEEP_WIDE]
-             + [(d, False, " dropout") for d in (64, 640)])
+                for d in (16, 32, 40, 48, 64, 80, 96, 112, 128, 144, 256,
+                          384, 512) + SWEEP_WIDE]
+             + [(d, False, " dropout") for d in (64, 128, 640)])
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device="cuda")
     errs = {}
     for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -961,9 +1099,9 @@ def head_dims(gen) -> None:
     log("[kernel] attention head widths, with bias 16/48/64/128/144/512 (64 "
         "on the mma.sync forward with a bias) and 528/640/1024/1280/2048 "
         "(wide), with bias and no gate 64, with an unaligned bias 64, "
-        "bias-free 16/32/40/48/64 (mma64), 96 (fused), 144/256/384/512 "
-        "(mma) and 528/640/1024/1280/2048 (wide), dropout 0.1 bias-free "
-        "64/640, f32 and bf16: "
+        "bias-free 16/32/40/48/64 (mma64), 80/96/112/128 (mma128), "
+        "144/256/384/512 (mma) and 528/640/1024/1280/2048 (wide), dropout "
+        "0.1 bias-free 64/128/640, f32 and bf16: "
         "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
             f"{k}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
 
@@ -1180,7 +1318,8 @@ def mask_bits() -> None:
     """3d: each forward variant's dropout mask read off bit for bit at the
     main length T=1499, over every query and key tile and the ragged tail:
     at D = 64 the mma.sync forward of ``attention_fwd_bias_mma.cu`` with a
-    bias (a zero bias and a unit gate) and its bias-free instantiation; at
+    bias (a zero bias and a unit gate) and its bias-free instantiation, and
+    at D = 128 its bias-free instantiation there (route mma128); at
     D = 48 with a zero bias the forwards of ``flash_attention.cu``; at
     D = 384 the mma.sync forward of ``attention_fwd_mma.cu``; at D = 640
     the wide forward of ``attention_wide.cu`` bias-free (f32) and with a
@@ -1204,6 +1343,9 @@ def mask_bits() -> None:
             ("bf16 mma.sync bias fwd", torch.bfloat16, 64, True),
             ("f32 mma.sync bias-free D=64 fwd", torch.float32, 64, False),
             ("bf16 mma.sync bias-free D=64 fwd", torch.bfloat16, 64, False),
+            ("f32 mma.sync bias-free D=128 fwd", torch.float32, 128, False),
+            ("bf16 mma.sync bias-free D=128 fwd", torch.bfloat16, 128,
+             False),
             ("f32 FMA", torch.float32, 48, True),
             ("bf16 mma.sync", torch.bfloat16, 48, True),
             ("f32 mma.sync fwd", torch.float32, 384, False),
@@ -1262,20 +1404,23 @@ ENCODER_NAMES = {"wavlm": "WavLM-base-plus", "whisper": "Whisper-base",
                  "none": "the mel front end (80 mels)"}
 
 
-def make_run(root: str, encoder: str = "wavlm"):
+def make_run(root: str, encoder: str = "wavlm", default_heads=False):
     """A save_dir (73 labels, 2 languages), a Config built from a dict, a
     random-init tagger (``encoder``: WavLM-base-plus, Whisper-base or the
-    mel front end, with the flagship heads) saved as .pt, and 8 wavs of ≤
-    30 s, the same for every encoder, in a folder of the encoder's own (a
-    folder's ``.wfl_cache`` is keyed by file name alone, the reference's
-    layout, so another model's cached logits would be served)."""
+    mel front end, with the flagship heads; ``default_heads``: without the
+    ``conformer_heads`` key, so the schema's default of 4) saved as .pt,
+    and 8 wavs of ≤ 30 s, the same for every model, in a folder of the
+    model's own (a folder's ``.wfl_cache`` is keyed by file name alone, the
+    reference's layout, so another model's cached logits would be
+    served)."""
     import torch
     from wfl_asr_tpu_torch.checkpoint import save_model_checkpoint
     from wfl_asr_tpu_torch.config import Config
     from wfl_asr_tpu_torch.data.audio import write_wav
     from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
 
-    save_dir = os.path.join(root, f"save_{encoder}")
+    name = encoder + ("_4heads" if default_heads else "")
+    save_dir = os.path.join(root, f"save_{name}")
     os.makedirs(save_dir)
     phonemes = [f"p{i}" for i in range(35)] + ["SP"]
     labels = ["O"] + [f"{t}-{p}" for p in phonemes for t in ("B", "I")]
@@ -1293,6 +1438,8 @@ def make_run(root: str, encoder: str = "wavlm"):
         "conformer_kernel_size": 31, "conformer_dropout": 0.15,
         "enable_dilated_conv": True, "dilated_conv_depth": 2,
         "dilated_conv_kernel": 3}
+    if default_heads:
+        del model_cfg["conformer_heads"]
     cfg = Config({"data": {"sample_rate": 16000, "frame_duration": 0.02},
                   "model": model_cfg, "output": {"save_dir": save_dir},
                   "postprocess": {"median_filter": 3,
@@ -1305,7 +1452,7 @@ def make_run(root: str, encoder: str = "wavlm"):
     n_params = sum(p.numel() for p in model.parameters())
     del model
 
-    wav_dir = os.path.join(root, f"wavs_{encoder}")
+    wav_dir = os.path.join(root, f"wavs_{name}")
     os.makedirs(wav_dir)
     rng = np.random.RandomState(0)
     for i, dur in enumerate(DURATIONS):
@@ -1317,8 +1464,10 @@ def make_run(root: str, encoder: str = "wavlm"):
                   tone * (0.5 + 0.5 * np.sin(2 * np.pi * 0.7 * t))
                   + rng.randn(n) * 0.02, 16000)
     log(f"[main] tagger {ENCODER_NAMES[encoder]}: {n_params} parameters, "
-        f"{len(labels)} labels, 2 languages; {len(DURATIONS)} wavs of "
-        f"{min(DURATIONS)}-{max(DURATIONS)} s")
+        f"{len(labels)} labels, 2 languages, Conformer "
+        f"{arch.conformer_heads} heads of "
+        f"{arch.hidden_size // arch.conformer_heads}; {len(DURATIONS)} wavs "
+        f"of {min(DURATIONS)}-{max(DURATIONS)} s")
     return cfg, ckpt, wav_dir
 
 
@@ -1448,8 +1597,8 @@ def per_forward(fwd: list, k2: int, k1: int, what: str) -> None:
     """Each forward of the WavLM tagger runs 12 K2 and 2 K1: K1's launches
     are a sixth of K2's, every K2 ran the mma.sync forward with a bias and
     every K1 the bias-free one of ``attention_fwd_mma.cu``, none another
-    route (``fwd``: the counts of the five routes, as ``fwd_counts``)."""
-    if not (k1 >= 2 and fwd == [k2, k1, 0, 0, 0] and 6 * k1 == k2):
+    route (``fwd``: the counts of the six routes, as ``fwd_counts``)."""
+    if not (k1 >= 2 and fwd == [k2, k1, 0, 0, 0, 0] and 6 * k1 == k2):
         raise AssertionError(f"{what}: forwards {FWD_ROUTES} {fwd}, {k2} K2 "
                              f"and {k1} K1 launches; want 12 K2 and 2 K1 a "
                              f"forward, each on its mma.sync forward")
@@ -1768,6 +1917,7 @@ def phase_train(root: str) -> dict:
               "mma bias passes": flash_attention.mma_bias_bwd_launches,
               "mma pair": flash_attention.mma_bwd_launches,
               "mma64 passes": flash_attention.mma64_bwd_launches,
+              "mma128 passes": flash_attention.mma128_bwd_launches,
               "wide passes": flash_attention.wide_bwd_launches,
               "fma pair": flash_attention.fma_bwd_launches}
     fwd = fwd_counts()
@@ -1779,7 +1929,8 @@ def phase_train(root: str) -> dict:
     want = {"flash_attention_bwd": 12 * TRAIN_STEPS,
             "flash_attention_trainable_bwd": 2 * TRAIN_STEPS,
             "mma bias passes": 12 * TRAIN_STEPS, "mma pair": 2 * TRAIN_STEPS,
-            "mma64 passes": 0, "wide passes": 0, "fma pair": 0}
+            "mma64 passes": 0, "mma128 passes": 0, "wide passes": 0,
+            "fma pair": 0}
     if any(counts[k] != n for k, n in want.items()) or min(
             n for k, n in counts.items() if k not in want) < 1:
         raise AssertionError(f"training launches {counts}: want every "
@@ -1962,6 +2113,7 @@ def phase_train_strict(root: str, base: dict) -> dict:
             "mma bias passes": flash_attention.mma_bias_bwd_launches,
             "mma pair": flash_attention.mma_bwd_launches,
             "mma64 passes": flash_attention.mma64_bwd_launches,
+            "mma128 passes": flash_attention.mma128_bwd_launches,
             "wide passes": flash_attention.wide_bwd_launches,
             "fma pair": flash_attention.fma_bwd_launches}
         fwd = fwd_counts()
@@ -1976,7 +2128,8 @@ def phase_train_strict(root: str, base: dict) -> dict:
                 "K1b dropout": 2 * STRICT_STEPS,
                 "mma bias passes": 12 * STRICT_STEPS,
                 "mma pair": 2 * STRICT_STEPS,
-                "mma64 passes": 0, "wide passes": 0, "fma pair": 0}
+                "mma64 passes": 0, "mma128 passes": 0, "wide passes": 0,
+                "fma pair": 0}
         if any(counts[k] != n for k, n in want.items()):
             raise AssertionError(f"strict training launches {counts}: want "
                                  f"per step 12 K2, 2 K1, 12 K2b (mma.sync "
@@ -2079,7 +2232,8 @@ def _scaled_dropout(x, rate, generator=None, training=True):
 
 
 def phase_train_cross_device(labels: int, strict: bool = False,
-                             encoder: str = "wavlm") -> dict:
+                             encoder: str = "wavlm",
+                             default_heads: bool = False) -> dict:
     """f32 with TF32 off, the flagship at full width, the same weights and
     batch: loss ≤ 1e-5 relative, every gradient ≤ 1e-3 × its max |grad|
     (one whose CPU value is below 1e-6 × the largest gradient is 0 in
@@ -2105,7 +2259,9 @@ def phase_train_cross_device(labels: int, strict: bool = False,
     The log shows the worst gradient diff of both card runs.
 
     ``encoder="whisper"`` (phase 9b): Whisper-base with the same heads, at
-    B=2×30 s (the encoder pads to 30 s anyway), its dropout 0."""
+    B=2×30 s (the encoder pads to 30 s anyway), its dropout 0;
+    ``default_heads`` (phase 9e): without the ``conformer_heads`` key, so
+    the Conformer runs the schema's 4 heads of 128 on route mma128."""
     import dataclasses
     import torch
     from wfl_asr_tpu_torch.config import Config
@@ -2119,6 +2275,8 @@ def phase_train_cross_device(labels: int, strict: bool = False,
     torch.backends.cudnn.allow_tf32 = False
     raw = train_config("/nonexistent", encoder)
     raw["training"]["strict_attention_dropout"] = strict
+    if default_heads:
+        del raw["model"]["conformer_heads"]
     cfg = Config(raw)
     cfg.num_languages = 2
     arch = TaggerArch.from_config(cfg, labels)
@@ -2132,13 +2290,15 @@ def phase_train_cross_device(labels: int, strict: bool = False,
         # backward routes (BWD_ROUTES), forwards (FWD_ROUTES): 2 Conformer
         # blocks on the mma.sync pair and forward, 6 Whisper layers on the
         # bias-free D = 64 passes and forward
-        want_routes = [0, 2, 6, 0, 0, 0, 2, 6, 0, 0]
+        want_routes = [0, 2, 6, 0, 0, 0, 0, 2, 6, 0, 0, 0]
+        if default_heads:     # the Conformer at head_dim 128: mma128
+            want_routes = [0, 0, 6, 0, 0, 2, 0, 0, 6, 0, 0, 2]
     else:
         seconds = 8.0
         arch = dataclasses.replace(arch, wavlm=dataclasses.replace(
             arch.wavlm, hidden_dropout=0.0, feat_proj_dropout=0.0,
             layerdrop=0.0))
-        want_routes = [12, 2, 0, 0, 0, 12, 2, 0, 0, 0]
+        want_routes = [12, 2, 0, 0, 0, 0, 12, 2, 0, 0, 0, 0]
     batch = train_batch(labels, seconds)
     seeds = [int(s) for s in np.random.RandomState(11).randint(
         -2 ** 31, 2 ** 31 - 1, size=64)]
@@ -2271,7 +2431,8 @@ def phase_train_cross_device(labels: int, strict: bool = False,
                  f"1e-5), worst {free[0]:.2e} × max|g| ({free[1]}), not held "
                  f"to the tolerance; rerun on the CPU's branches "
                  f"({len(pinned_flips)} of other sign on the card)")
-    log(f"[cross-train] {encoder}: one f32 train step (TF32 off), B=2×"
+    log(f"[cross-train] {encoder}, Conformer {arch.conformer_heads} heads: "
+        f"one f32 train step (TF32 off), B=2×"
         f"{seconds:g} s, {what}: "
         f"loss card {l_card:.7f} vs CPU {l_cpu:.7f} (rel {loss_rel:.2e}, tol "
         f"1e-5); {len(g_cpu)} gradients"
@@ -2295,53 +2456,63 @@ WHISPER_LAYERS = 6      # Whisper-base; its attention runs K1 at D = 64
 WHISPER_STEPS = 4       # phase 9, validation after the last
 
 
-def whisper_fwd_counts(what: str, flash_fwd: int, n_layers: int = 0
+def whisper_fwd_counts(what: str, flash_fwd: int, conformer: str = "mma"
                        ) -> int:
     """Each forward of the Whisper-base tagger runs K1 on the bias-free
     instantiation of the D = 64 forward in each of its 6 layers and on the
-    bias-free mma.sync forward of ``attention_fwd_mma.cu`` in each of the 2
-    Conformer blocks (D = 256), and no forward with a bias, none on the
-    fused forwards: ``flash_fwd`` launches of the entry point, split so.
-    Returns the number of tagger forwards."""
+    route ``conformer`` in each of the 2 Conformer blocks (at 2 heads,
+    D = 256: ``mma``, the bias-free mma.sync forward of
+    ``attention_fwd_mma.cu``; at the schema's 4 heads, D = 128: ``mma128``),
+    and no forward with a bias, none on the fused forwards: ``flash_fwd``
+    launches of the entry point, split so. Returns the number of tagger
+    forwards."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     got = fwd_counts()
-    n = got[1] // 2
-    want = [0, 2 * n, WHISPER_LAYERS * n, 0, 0]
+    n = got[FWD_ROUTES.index(conformer)] // 2
+    want = [{conformer: 2 * n, "mma64": WHISPER_LAYERS * n}.get(r, 0)
+            for r in FWD_ROUTES]
     if n < 1 or got != want or flash_fwd != 8 * n or fa.launches:
         raise AssertionError(f"{what}: forwards {FWD_ROUTES} {got}, "
                              f"{flash_fwd} K1 and {fa.launches} K2 launches; "
-                             f"want 6 mma64 and 2 mma.sync K1 a forward, no "
-                             f"K2")
+                             f"want 6 mma64 and 2 {conformer} K1 a forward, "
+                             f"no K2")
     return n
 
 
-def bias_free_d64(prof: dict) -> int:
-    """Launches of the bias-free instantiation of the D = 64 forward in a
-    profiled step (its second template argument, BIAS, false)."""
+def bias_free(prof: dict, kernel: str, d: int) -> int:
+    """Launches in a profiled step of the instantiation at head width
+    ``d`` of a kernel of ``attention_{fwd,bwd}_bias_mma.cu`` (its last
+    template argument); for ``attn_bias_fwd_mma`` and
+    ``attn_bias_bwd_dkdv_mma``, only the bias-free ones (the second, BIAS,
+    false)."""
+    flag = "" if kernel == "attn_bias_bwd_dq_mma" else r", false"
+    pat = rf"::{kernel}<[^,<>]*{flag}[^<>]*, {d}>"
     return sum(n for name, (_, n) in prof["kernels"].items()
-               if re.search(r"::attn_bias_fwd_mma<[^,<>]*, false,", name))
+               if re.search(pat, name))
 
 
-def phase_whisper_serving(root: str, iters: int) -> dict:
-    """8: Whisper-base with the flagship heads, saved as .pt, served by
-    ``infer_folder_batched`` on the card in bf16 over a copy of phase 4's
-    wavs, the launch counts set to 0 just before and read just after; the
-    batched forward timed at B=8×30 s in bf16 and f32 with its peak
-    memory; one bf16 step profiled (its kernel names as a second witness); one bf16
-    forward of the ``large-v3`` preset at full width (128 mels, 32 layers
-    of 1280, 20 heads; the Conformer at the config's 2 heads, head_dim 640,
-    on the wide route), timed, its logits finite."""
+
+def serve_whisper_base(root: str, iters: int, default_heads: bool = False
+                       ) -> dict:
+    """Whisper-base with the flagship heads (``default_heads``: without the
+    config's ``conformer_heads`` key, so the schema's 4 heads of 128),
+    saved as .pt, served by ``infer_folder_batched`` on the card in bf16
+    over a copy of phase 4's wavs, the launch counts set to 0 just before
+    and read just after (a forward: 6 K1 on the bias-free D = 64 forward
+    and 2 on the Conformer's route, none fused, no K5); the batched forward
+    timed at B=8×30 s in bf16 and f32 with its peak memory; one bf16 step
+    profiled, its kernel names by head width as a second witness."""
     import torch
-    from wfl_asr_tpu_torch.config import Config
     from wfl_asr_tpu_torch.infer.pipeline import infer_folder_batched
     from wfl_asr_tpu_torch.labels import parse_lab
-    from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
     from wfl_asr_tpu_torch.ops import kernels
     from wfl_asr_tpu_torch.ops.kernels import conv_fused, \
         flash_attention_bwd
 
-    cfg, ckpt, wav_dir = make_run(root, "whisper")
-    out_dir = os.path.join(root, "labs_whisper")
+    conformer, tag = ("mma128", "8c") if default_heads else ("mma", "8")
+    cfg, ckpt, wav_dir = make_run(root, "whisper", default_heads)
+    what = f"Whisper-base, {cfg.conformer_heads} Conformer heads"
+    out_dir = os.path.join(root, f"labs_whisper_{cfg.conformer_heads}heads")
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     infer_folder_batched(wav_dir, cfg, ckpt, out_dir, lang_id=0,
@@ -2350,10 +2521,10 @@ def phase_whisper_serving(root: str, iters: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1 = flash_attention_bwd.launches
-    n_fwd = whisper_fwd_counts("phase 8", k1)
-    mma64 = fwd_counts()[FWD_ROUTES.index("mma64")]
+    n_fwd = whisper_fwd_counts(f"phase {tag}", k1, conformer)
+    routes = dict(zip(FWD_ROUTES, fwd_counts()))
     if conv_fused.layer_launches:
-        raise AssertionError(f"phase 8 launched K5 "
+        raise AssertionError(f"phase {tag} launched K5 "
                              f"{conv_fused.layer_launches} times")
     n_segs = []
     for i in range(len(DURATIONS)):
@@ -2363,22 +2534,46 @@ def phase_whisper_serving(root: str, iters: int) -> dict:
         if not segs or segs[-1][1] > 30.05:
             raise AssertionError(f"{lab}: {len(segs)} segments, bad span")
         n_segs.append(len(segs))
-    log(f"[whisper] infer_folder_batched on cuda, bf16, device_decode, "
-        f"batch_files=8: {len(DURATIONS)} .lab files with {n_segs} segments "
-        f"in {wall:.2f} s; K1 launches {k1} over {n_fwd} forward(s): "
-        f"forwards {dict(zip(FWD_ROUTES, fwd_counts()))}")
+    log(f"[whisper] phase {tag}, {what}: infer_folder_batched on cuda, "
+        f"bf16, device_decode, batch_files=8: {len(DURATIONS)} .lab files "
+        f"with {n_segs} segments in {wall:.2f} s; K1 launches {k1} over "
+        f"{n_fwd} forward(s): forwards {routes}")
 
-    perf, step = serving_perf(cfg, ckpt, iters, "Whisper-base")
-    prof = profile_step(step, "one bf16 Whisper-base serving step")
-    want = {"flash_fwd_mma<64": 0, "flash_fwd_wmma<": 0, "attn_fwd_mma<": 2,
-            "attn_bias_fwd_mma<": WHISPER_LAYERS, "conv_layer_mma<": 0}
+    perf, step = serving_perf(cfg, ckpt, iters, what)
+    prof = profile_step(step, f"one bf16 serving step, {what}")
+    # the Conformer's 2 K1 on the mma.sync forward (2 heads) or on the
+    # D = 128 instantiation (4 heads)
+    c = 0 if default_heads else 2
+    want = {"flash_fwd_": 0, "attn_fwd_mma<": c,
+            "attn_bias_fwd_mma<": WHISPER_LAYERS + 2 - c,
+            "conv_layer_mma<": 0}
     got = {part: sum(n for name, (_, n) in prof["kernels"].items()
                      if f"::{part}" in name) for part in want}
-    if got != want or bias_free_d64(prof) != WHISPER_LAYERS:
-        raise AssertionError(f"phase 8: profiled forward kernels {got}, "
-                             f"bias-free D = 64 {bias_free_d64(prof)}, want "
-                             f"{want}, all bias-free")
+    widths = (bias_free(prof, "attn_bias_fwd_mma", 64),
+              bias_free(prof, "attn_bias_fwd_mma", 128))
+    if got != want or widths != (WHISPER_LAYERS, 2 - c):
+        raise AssertionError(f"phase {tag}: profiled forward kernels {got}, "
+                             f"bias-free at D = 64 and 128 {widths}, want "
+                             f"{want}, ({WHISPER_LAYERS}, {2 - c})")
+    return dict(perf=perf, routes=routes, cfg=cfg, ckpt=ckpt,
+                wav_dir=wav_dir, busy_ms=prof["busy_ms"], idle=prof["idle"],
+                wall_ms=prof["wall_ms"])
 
+
+def phase_whisper_serving(root: str, iters: int) -> dict:
+    """8: Whisper-base served at the config's 2 Conformer heads
+    (``serve_whisper_base``); one bf16 forward of the ``large-v3`` preset
+    at full width (128 mels, 32 layers of 1280, 20 heads; the Conformer at
+    the config's 2 heads, head_dim 640, on the wide route), timed, its
+    logits finite."""
+    import torch
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention_bwd
+
+    run = serve_whisper_base(root, iters)
+    cfg = run["cfg"]
     # large-v3 at full width, the Conformer at the config's 2 heads
     raw = {"data": {"sample_rate": 16000, "frame_duration": 0.02},
            "model": dict(cfg.raw["model"],
@@ -2411,16 +2606,15 @@ def phase_whisper_serving(root: str, iters: int) -> dict:
         f"resident before), logits "
         f"{tuple(logits.shape)} finite {finite}; K1 launches and forwards "
         f"{FWD_ROUTES} {whisper_counts}; built in {init_s:.1f} s")
-    if not finite or whisper_counts != [34, 0, 0, 32, 2, 0] \
+    if not finite or whisper_counts != [34, 0, 0, 32, 2, 0, 0] \
             or arch.conformer_heads != 2:
         raise AssertionError(f"large-v3: logits finite {finite}, launches "
-                             f"{whisper_counts}, want [34, 0, 0, 32, 2, 0], "
-                             f"Conformer heads {arch.conformer_heads}")
+                             f"{whisper_counts}, want [34, 0, 0, 32, 2, 0, "
+                             f"0], Conformer heads {arch.conformer_heads}")
     del model, logits
     torch.cuda.empty_cache()
-    return dict(perf=perf, mma64=mma64, wide=whisper_counts[4], cfg=cfg,
-                ckpt=ckpt, wav_dir=wav_dir, large_ms=large_ms,
-                large_peak_gb=large_peak)
+    return dict(run, mma64=run["routes"]["mma64"], wide=whisper_counts[4],
+                large_ms=large_ms, large_peak_gb=large_peak)
 
 
 def phase_whisper_cross_device(root: str, run: dict) -> dict:
@@ -2437,7 +2631,7 @@ def phase_whisper_cross_device(root: str, run: dict) -> dict:
     return cross
 
 
-def phase_whisper_train(root: str) -> dict:
+def phase_whisper_train(root: str, default_heads: bool = False) -> dict:
     """9: preprocess and train Whisper-base with the flagship heads on
     phase 6's corpus, the default recipe in f32, batch 8, 4 steps,
     validation after the last, the plain attention twins replaced by stubs
@@ -2446,7 +2640,11 @@ def phase_whisper_train(root: str) -> dict:
     mma.sync pair, none on the FMA pair; a forward: 6 bias-free D = 64 and
     2 mma.sync K1); step times, audio-s/s trained,
     peak memory; one profiled step; ``last_model.pt`` reloaded to the same
-    logits."""
+    logits. 9d (``default_heads``): the same without the config's
+    ``conformer_heads`` key, so the Conformer runs the schema's 4 heads of
+    128: its 2 K1b a step on the bias-free D = 128 passes (mma128) and its
+    2 K1 a forward on the D = 128 forward, none on the mma.sync pair or
+    the FMA pair."""
     import torch
     from wfl_asr_tpu_torch.checkpoint import load_model_checkpoint
     from wfl_asr_tpu_torch.config import Config
@@ -2465,7 +2663,11 @@ def phase_whisper_train(root: str) -> dict:
     if not os.path.isdir(os.path.join(root, "data")):
         write_corpus(os.path.join(root, "data"))
     raw = train_config(root, "whisper")
-    save = os.path.join(root, "whisper_run")
+    conformer, tag = ("mma128", "9d") if default_heads else ("mma", "9")
+    if default_heads:
+        del raw["model"]["conformer_heads"]
+    save = os.path.join(root, "whisper_4heads_run" if default_heads
+                        else "whisper_run")
     raw["output"]["save_dir"] = save
     raw["training"].update(max_steps=WHISPER_STEPS,
                            val_check_interval=WHISPER_STEPS,
@@ -2499,21 +2701,26 @@ def phase_whisper_train(root: str) -> dict:
                   "mma bias passes": flash_attention.mma_bias_bwd_launches,
                   "mma pair": flash_attention.mma_bwd_launches,
                   "mma64 passes": flash_attention.mma64_bwd_launches,
+                  "mma128 passes": flash_attention.mma128_bwd_launches,
                   "wide passes": flash_attention.wide_bwd_launches,
                   "fma pair": flash_attention.fma_bwd_launches}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        n_fwd = whisper_fwd_counts("phase 9", counts["K1"])
-        log(f"[whisper-train] kernel launches over {WHISPER_STEPS} steps + "
-            f"1 validation ({n_fwd} forwards): {json.dumps(counts)}")
+        n_fwd = whisper_fwd_counts(f"phase {tag}", counts["K1"], conformer)
+        log(f"[whisper-train] phase {tag}, Conformer "
+            f"{cfg.conformer_heads} heads: kernel launches over "
+            f"{WHISPER_STEPS} steps + 1 validation ({n_fwd} forwards): "
+            f"{json.dumps(counts)}")
+        pair = "mma128 passes" if default_heads else "mma pair"
         want = {"K1b": 8 * WHISPER_STEPS, "mma bias passes": 0,
-                "mma pair": 2 * WHISPER_STEPS,
+                "mma pair": 0, "mma128 passes": 0,
                 "mma64 passes": WHISPER_LAYERS * WHISPER_STEPS,
                 "wide passes": 0, "fma pair": 0}
+        want[pair] = 2 * WHISPER_STEPS
         if any(counts[k] != n for k, n in want.items()):
             raise AssertionError(f"Whisper training launches {counts}: want "
                                  f"per step 6 K1b on the bias-free D = 64 "
-                                 f"passes, 2 on the mma.sync pair, 0 on the "
-                                 f"FMA pair")
+                                 f"passes, 2 on the {pair}, 0 on the FMA "
+                                 f"pair")
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             events = [json.loads(line) for line in f]
         losses = [e["loss"] for e in events if e["event"] == "train"]
@@ -2525,7 +2732,7 @@ def phase_whisper_train(root: str) -> dict:
                  zip(marks, marks[1:])]
         step_ms = float(np.median(times))
         rate = sum(a for _, _, a in marks[1:]) / (sum(times) / 1e3)
-        log(f"[whisper-train] f32, batch 8: losses "
+        log(f"[whisper-train] phase {tag}, f32, batch 8: losses "
             f"{[round(x, 4) for x in losses]}, val {vals[0]:.4f}; median "
             f"step {step_ms:.2f} ms over {', '.join(f'{t:.1f}' for t in times)}"
             f" ms, {rate:.2f} audio-s trained per s, peak memory "
@@ -2568,28 +2775,37 @@ def phase_whisper_train(root: str) -> dict:
             return m["loss"], m
         step()
         prof = profile_step(step, what="one f32 Whisper-base train step "
-                            f"(batch {batch['audio'].shape})", top=24)
-        want = {"flash_fwd_f32<2,": 0, "attn_fwd_mma<": 2,
-                "attn_bias_fwd_mma<": WHISPER_LAYERS,
+                            f"(batch {batch['audio'].shape}, Conformer "
+                            f"{cfg.conformer_heads} heads)", top=24)
+        # the Conformer's 2 K1 and 2 K1b on the mma.sync forward and pair
+        # (2 heads) or on the D = 128 instantiations (4 heads)
+        c = 0 if default_heads else 2
+        want = {"flash_fwd_": 0, "attn_fwd_mma<": c,
+                "attn_bias_fwd_mma<": WHISPER_LAYERS + 2 - c,
                 "flash_bwd_dkdv<": 0, "flash_bwd_dq<": 0,
-                "attn_bwd_dkdv_mma<": 2, "attn_bwd_dq_mma<": 2,
-                "attn_bias_bwd_dkdv_mma<": WHISPER_LAYERS,
-                "attn_bias_bwd_dq_mma<": WHISPER_LAYERS,
+                "attn_bwd_dkdv_mma<": c, "attn_bwd_dq_mma<": c,
+                "attn_bias_bwd_dkdv_mma<": WHISPER_LAYERS + 2 - c,
+                "attn_bias_bwd_dq_mma<": WHISPER_LAYERS + 2 - c,
                 "attn_bias_bwd_dbias<": 0}
         got = {part: sum(n for name, (_, n) in prof["kernels"].items()
                          if f"::{part}" in name) for part in want}
-        if got != want or bias_free_d64(prof) != WHISPER_LAYERS:
-            raise AssertionError(f"phase 9: profiled kernels {got}, "
-                                 f"bias-free D = 64 forwards "
-                                 f"{bias_free_d64(prof)}, want {want}, all "
-                                 f"bias-free")
+        widths = {(k, d): bias_free(prof, k, d)
+                  for k in ("attn_bias_fwd_mma", "attn_bias_bwd_dkdv_mma",
+                            "attn_bias_bwd_dq_mma") for d in (64, 128)}
+        want_widths = {(k, d): WHISPER_LAYERS if d == 64 else 2 - c
+                       for k, d in widths}
+        if got != want or widths != want_widths:
+            raise AssertionError(f"phase {tag}: profiled kernels {got}, "
+                                 f"bias-free by head width {widths}, want "
+                                 f"{want}, {want_widths}")
     finally:
         flash_attention.attention_plain, \
             flash_attention.attention_backward_plain = saved
     del model, opt
     torch.cuda.empty_cache()
     return dict(counts=counts, step_ms=step_ms, audio_s_per_s=rate,
-                peak_gb=peak_gb, labels=len(labels))
+                peak_gb=peak_gb, labels=len(labels), busy_ms=prof["busy_ms"],
+                idle=prof["idle"])
 
 
 LARGE_STEPS = 2         # phase 9c: the counted step, then a timed one
@@ -2654,7 +2870,7 @@ def phase_large_v3_train(labels: int) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # backward routes (BWD_ROUTES), forwards (FWD_ROUTES): the 2 Conformer
     # blocks on the wide route, the 32 Whisper layers on mma64
-    want = [0, 0, 32, 2, 0, 0, 0, 32, 2, 0]
+    want = [0, 0, 32, 2, 0, 0, 0, 0, 32, 2, 0, 0]
     ok_grads = len(checked) == LARGE_STEPS and all(
         n > 0 and finite for n, finite in checked)
     log(f"[large-v3-train] f32 (TF32 off), Prodigy, B=2×30 s, encoder "
@@ -2678,11 +2894,17 @@ def phase_large_v3_train(labels: int) -> dict:
 
 
 def whisper_phases(root: str, iters: int) -> dict:
-    """Phases 8, 8b, 9, 9b and 9c under ``root``."""
+    """Phases 8-8d and 9-9e under ``root``."""
     with lap("8"):
         serving = phase_whisper_serving(root, iters)
     with lap("8b"):
         cross = phase_whisper_cross_device(root, serving)
+    with lap("8c"):
+        serving4 = serve_whisper_base(root, iters, default_heads=True)
+    with lap("8d"):
+        serving4["cross"] = phase_cross_device(
+            serving4["cfg"], serving4["ckpt"], serving4["wav_dir"],
+            "Whisper-base, 4 Conformer heads")
     with lap("9"):
         trained = phase_whisper_train(root)
     with lap("9b"):
@@ -2690,8 +2912,14 @@ def whisper_phases(root: str, iters: int) -> dict:
                                                encoder="whisper")
     with lap("9c"):
         large = phase_large_v3_train(trained["labels"])
+    with lap("9d"):
+        trained4 = phase_whisper_train(root, default_heads=True)
+    with lap("9e"):
+        cross_train4 = phase_train_cross_device(
+            trained4["labels"], encoder="whisper", default_heads=True)
     return dict(serving=serving, cross=cross, trained=trained,
-                cross_train=cross_train, large=large)
+                cross_train=cross_train, large=large, serving4=serving4,
+                trained4=trained4, cross_train4=cross_train4)
 
 
 # ---------------------------------------------------------------------------
@@ -2739,12 +2967,24 @@ KERNEL_ROWS = [
      "wide]", "wide K1b",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wide.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
+    # K1 and K1b at head_dim 80-128, bias-free: the D = 128 instantiations
+    # ("mma128"), launched by Whisper-base at the schema's 4 Conformer heads
+    # in phases 8c and 9d
+    ("K1128", "flash_attention_trainable [Whisper-base Conformer at 4 "
+     "heads, D=128, bias-free mma128]", "mma128 K1",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_fwd_bias_mma.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
+    ("K1b128", "flash_attention_trainable_bwd [Whisper-base Conformer at 4 "
+     "heads, D=128, bias-free mma128]", "mma128 K1b",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_bias_mma.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
 ]
 # The inference kernels report their bf16 case (the served path's dtype),
 # the backward kernels their f32 case (the default training dtype), and
 # each its launches on its own main path: inference (phase 4) or training
-# (phase 6), or on the Whisper paths (phases 8, 9 and 9c).
-ROW_DTYPE = {"K2b": "f32", "K1b": "f32", "K1bw": "f32", "K1bwide": "f32"}
+# (phase 6), or on the Whisper paths (phases 8, 8c, 9, 9c and 9d).
+ROW_DTYPE = {"K2b": "f32", "K1b": "f32", "K1bw": "f32", "K1bwide": "f32",
+             "K1b128": "f32"}
 
 
 def k6_row(kern: dict, strict: dict) -> dict:
@@ -2786,7 +3026,8 @@ def main() -> int:
     sources = {"conv": ["conv_fused"],
                "whisper": ["attention_fwd_mma", "attention_bwd_mma",
                            "attention_fwd_bias_mma",
-                           "attention_bwd_bias_mma", "attention_wide"]}
+                           "attention_bwd_bias_mma", "attention_wide",
+                           "flash_attention"]}
     with lap("build"):
         logs = _build.build_all(sources.get(args.only, list(KERNEL_SOURCES)))
     log(f"[build] {', '.join(logs)} in {LAPS['build']:.1f} s")
@@ -2851,6 +3092,9 @@ def main() -> int:
         counts["whisper K1b"] = whisper["trained"]["counts"]["mma64 passes"]
         counts["wide K1"] = whisper["serving"]["wide"]
         counts["wide K1b"] = whisper["large"]["wide"]
+        counts["mma128 K1"] = whisper["serving4"]["routes"]["mma128"]
+        counts["mma128 K1b"] = \
+            whisper["trained4"]["counts"]["mma128 passes"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log_laps()
@@ -2894,6 +3138,22 @@ def main() -> int:
         f"{whisper['cross_train']['grad_rel']:.2e} × max; large-v3 f32 train "
         f"step B=2x30 s {whisper['large']['step_ms']:.1f} ms, "
         f"{whisper['large']['peak_gb']:.2f} GiB peak")
+    wperf4, wtrain4 = whisper["serving4"]["perf"], whisper["trained4"]
+    log(f"[summary] Whisper-base at the schema's 4 Conformer heads (head_dim "
+        f"128, mma128): bf16 B=8x30 s {wperf4['bf16']['audio_s_per_s']:.2f} "
+        f"audio-s/s, f32 {wperf4['f32']['audio_s_per_s']:.2f} (peak memory "
+        f"{wperf4['bf16']['peak_gb']:.3f} / {wperf4['f32']['peak_gb']:.3f} "
+        f"GiB; bf16 step busy {whisper['serving4']['busy_ms']:.2f} of "
+        f"{whisper['serving4']['wall_ms']:.2f} ms); card vs CPU logits "
+        f"{whisper['serving4']['cross']['max_abs_err']:.3e}; training f32 "
+        f"{wtrain4['step_ms']:.1f} ms a step, "
+        f"{wtrain4['audio_s_per_s']:.2f} audio-s/s, "
+        f"{wtrain4['peak_gb']:.2f} GiB peak, profiled step busy "
+        f"{wtrain4['busy_ms']:.2f} ms (idle {wtrain4['idle']:.3f}); 2 "
+        f"heads: busy {wtrain['busy_ms']:.2f} ms (idle "
+        f"{wtrain['idle']:.3f}); card vs CPU train step loss "
+        f"{whisper['cross_train4']['loss_rel']:.2e}, grads "
+        f"{whisper['cross_train4']['grad_rel']:.2e} × max")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

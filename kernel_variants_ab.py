@@ -1,6 +1,6 @@
 """Time variants of a kernel source on one card, in turns.
 
-    python3 kernel_variants_ab.py [--kernel k2|k1w|k5] [--iters N]
+    python3 kernel_variants_ab.py [--kernel k2|k1w|k128|k128b|k5] [--iters N]
     python3 kernel_variants_ab.py --kernel wide --baseline OLD.cu [--iters N]
 
 Each variant is the kernel's source with some of its tile constants
@@ -52,20 +52,26 @@ import tempfile
 
 import numpy as np
 
+# The forward's tile constants by head width and dtype, as the source has
+# them
+FWD_WARPS = "int warps = kF32 && D == kD ? 4 : 8;"
+FWD_BK = "int bk = kF32 ? 32 : 64;"
+FWD_BLOCKS = "int blocks = D == kD ? 2 : 1;"
+FWD_QREGS = "bool q_regs = D == kD || !kF32;"
+FWD_CHUNK = "int s_chunk = D == kD || kF32 ? 4 : D / 16;"
 # name: (dtype, [(text of the source, its replacement), ...])
 K2_VARIANTS = {
     "bf16 8 warps": ("bf16", []),
-    "bf16 4 warps": ("bf16", [("int warps = kF32 ? 4 : 8;",
-                               "int warps = kF32 ? 4 : 4;")]),
-    "bf16 8 warps, 32-key tiles": ("bf16", [("int bk = kF32 ? 32 : 64;",
+    "bf16 4 warps": ("bf16", [(FWD_WARPS, "int warps = D == kD ? 4 : 8;")]),
+    "bf16 8 warps, 32-key tiles": ("bf16", [(FWD_BK,
                                              "int bk = kF32 ? 32 : 32;")]),
     "f32 4 warps": ("f32", []),
-    "f32 4 warps, 2 mma steps a fresh sum": ("f32", [("KD = kD / Pol::KS, CH = 4;",
-                                                      "KD = kD / Pol::KS, CH = 2;")]),
-    "f32 4 warps, 8 mma steps a fresh sum": ("f32", [("KD = kD / Pol::KS, CH = 4;",
-                                                      "KD = kD / Pol::KS, CH = KD;")]),
-    "f32 4 warps, 3 blocks a SM": ("f32", [("int blocks = 2;",
-                                            "int blocks = kF32 ? 3 : 2;")]),
+    "f32 4 warps, 2 mma steps a fresh sum": ("f32", [(FWD_CHUNK,
+                                                      "int s_chunk = 2;")]),
+    "f32 4 warps, 8 mma steps a fresh sum": ("f32", [(
+        FWD_CHUNK, "int s_chunk = D / Pol::KS;")]),
+    "f32 4 warps, 3 blocks a SM": ("f32", [(FWD_BLOCKS, FWD_BLOCKS.replace(
+        "D == kD ? 2", "D == kD ? (kF32 ? 3 : 2)"))]),
 }
 
 # K5: the per-dtype Tiles line of conv_fused.cu, as it stands and as varied
@@ -166,7 +172,9 @@ CLK_START = "  const int n_kt = (kvl + BK - 1) / BK;\n"
 CLK_WAIT = ("      __syncthreads();    // this tile is in; every warp is done "
             "with kt − 1\n    }\n")
 CLK_STAGE = "      stage(kt + 1, buf ^ 1);\n      cp_async_commit();\n    }\n"
-CLK_S = "    scores<Pol, NJ>(s, qa, sK + buf * BK * P, P);\n"
+CLK_S = ("    scores<Pol, D, NJ, Cfg::q_regs, Cfg::s_chunk>(s, qa, sQ, r0,\n"
+         "                                                 sK + buf * BK * "
+         "P, P);\n")
 CLK_SOFT = "    // O += P·V, P straight from the score registers, 16 keys at a time\n"
 CLK_PV = ("      accumulate_held<Pol, kNT, kInPlace>(o, s[j], tV, P, 16 * j);\n"
           "  }\n")
@@ -258,8 +266,8 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
 BULK_STAGE_FROM = (
     "  auto stage = [&](int kt, int buf) {\n    const int k0 = kt * BK;\n"
     "    stage_rows_by_warp<Pol, NW>(sK + buf * BK * P, P, k, k0, BK, T_len, "
-    "kD);\n    stage_rows_by_warp<Pol, NW>(sV + buf * BK * P, P, v, k0, BK, "
-    "T_len, kD);\n")
+    "D);\n    stage_rows_by_warp<Pol, NW>(sV + buf * BK * P, P, v, k0, BK, "
+    "T_len, D);\n")
 BULK_STAGE = r"""  // K and V of a key tile: warp 0 issues one bulk copy a row
   // (128 bytes in bf16, 256 in f32) into the padded rows, lane 0 first
   // arriving on the buffer's barrier with their bytes; rows past T are
@@ -273,25 +281,26 @@ BULK_STAGE = r"""  // K and V of a key tile: warp 0 issues one bulk copy a row
       T* dK = sK + buf * BK * P;
       T* dV = sV + buf * BK * P;
       if (warp == 0) {
-        constexpr unsigned kRow = kD * sizeof(T);
+        constexpr unsigned kRow = D * sizeof(T);
         if (lane == 0) mbar_expect_tx(&bars[buf], 2 * rows * kRow);
         __syncwarp();
         for (int r = lane; r < rows; r += 32) {
-          bulk_g2s(dK + Pol::at(P, r, 0), k + (size_t)(k0 + r) * kD, kRow,
+          bulk_g2s(dK + Pol::at(P, r, 0), k + (size_t)(k0 + r) * D, kRow,
                    &bars[buf]);
-          bulk_g2s(dV + Pol::at(P, r, 0), v + (size_t)(k0 + r) * kD, kRow,
+          bulk_g2s(dV + Pol::at(P, r, 0), v + (size_t)(k0 + r) * D, kRow,
                    &bars[buf]);
         }
       }
-      for (int idx = threadIdx.x; idx < (BK - rows) * kD;
+      for (int idx = threadIdx.x; idx < (BK - rows) * D;
            idx += Cfg::threads) {
-        const int r = rows + idx / kD, c = idx % kD;
+        const int r = rows + idx / D, c = idx % D;
         dK[Pol::at(P, r, c)] = from_f<T>(0.f);
         dV[Pol::at(P, r, c)] = from_f<T>(0.f);
       }
     }
 """
-BULK_INIT_AT = "  stage_rows_by_warp<Pol, NW>(sQ, P, a.q + base, q0, BQ, T_len, kD);\n"
+BULK_INIT_AT = ("  stage_rows_by_warp<Pol, NW>(sQ, P, a.q + base, q0, BQ, "
+                "T_len, D);\n")
 BULK_INIT = """  if (threadIdx.x == 0) {
     mbar_init(&bars[0], 1);
     mbar_init(&bars[1], 1);
@@ -310,10 +319,9 @@ K1W_VARIANTS = {
     "bf16 8 warps, bulk K/V": ("bf16", BULK_KV),
     "bf16 8 warps, bulk K/V, clocks": ("bf16", BULK_KV + clocks(BULK_WAIT)),
     "bf16 8 warps, copies after S": ("bf16", AFTER_S),
-    "bf16 4 warps": ("bf16", [("int warps = kF32 ? 4 : 8;",
-                               "int warps = kF32 ? 4 : 4;")]),
+    "bf16 4 warps": ("bf16", [(FWD_WARPS, "int warps = D == kD ? 4 : 8;")]),
     "bf16 8 warps, 128-key tiles": ("bf16", [(
-        "int bk = kF32 ? 32 : 64;", "int bk = kF32 ? 32 : BIAS ? 64 : 128;")]),
+        FWD_BK, "int bk = kF32 ? 32 : BIAS || D != kD ? 64 : 128;")]),
     "f32 4 warps": ("f32", []),
     "f32 4 warps, clocks": ("f32", CLOCKS),
     "f32 4 warps, bulk K/V": ("f32", BULK_KV),
@@ -324,6 +332,69 @@ K2_VARIANTS.update({
     "bf16 8 warps, bulk K/V": ("bf16", BULK_KV),
     "f32 4 warps, bulk K/V": ("f32", BULK_KV),
 })
+
+# The bias-free forward at D = 128 (route mma128): 8 warps and 1 block a
+# SM against 4 warps and 2-4 blocks (fewer queries a block, more blocks a
+# SM; shorter key tiles and Q read from shared memory make room for them);
+# bf16's S in one run of 8 mma steps against fresh sums of 4; f32's Q read
+# from shared memory on use against Q's split fragments held in registers
+FOUR_STEPS = [(FWD_CHUNK, "int s_chunk = 4;")]
+
+
+def _fwd128(dtype, blocks=None, warps=None, bk=None, q_regs=None) -> list:
+    """The replacements that set the D = 128 forward's tiles in ``dtype``
+    ("bf16" or "f32"); D = 64, and D = 128 in the other dtype, keep their
+    own."""
+    def pick(new, f32_now, bf16_now):
+        f32, bf16 = (new, bf16_now) if dtype == "f32" else (f32_now, new)
+        return f"kF32 ? {f32} : {bf16}"
+    subs = []
+    if warps is not None:
+        subs.append((FWD_WARPS, f"int warps = D == kD ? (kF32 ? 4 : 8) : "
+                                f"{pick(warps, 8, 8)};"))
+    if bk is not None:
+        subs.append((FWD_BK, f"int bk = D == kD ? (kF32 ? 32 : 64) : "
+                             f"{pick(bk, 32, 64)};"))
+    if blocks is not None:
+        subs.append((FWD_BLOCKS, f"int blocks = D == kD ? 2 : "
+                                 f"{pick(blocks, 1, 1)};"))
+    if q_regs is not None:
+        flag = pick(str(q_regs).lower(), "false", "true")
+        subs.append((FWD_QREGS, f"bool q_regs = D == kD || ({flag});"))
+    return subs
+
+
+K128_VARIANTS = {
+    "bf16 D=128 8 warps, 1 block a SM": ("bf16", []),
+    "bf16 D=128 8 warps, clocks": ("bf16", CLOCKS),
+    "bf16 D=128 8 warps, fresh sums of 4 mma steps": ("bf16", FOUR_STEPS),
+    "bf16 D=128 4 warps, 2 blocks a SM": ("bf16", _fwd128("bf16", 2, warps=4)),
+    "bf16 D=128 4 warps, 2 blocks a SM, fresh sums of 4 mma steps": (
+        "bf16", _fwd128("bf16", 2, warps=4) + FOUR_STEPS),
+    "bf16 D=128 4 warps, 32-key tiles, 3 blocks a SM": (
+        "bf16", _fwd128("bf16", 3, warps=4, bk=32)),
+    "bf16 D=128 4 warps, 32-key tiles, 4 blocks a SM, Q from shared "
+    "memory": ("bf16", _fwd128("bf16", 4, warps=4, bk=32, q_regs=False)),
+    "f32 D=128 8 warps, 1 block a SM": ("f32", []),
+    "f32 D=128 8 warps, clocks": ("f32", CLOCKS),
+    "f32 D=128 4 warps, 2 blocks a SM": ("f32", _fwd128("f32", 2, warps=4)),
+    "f32 D=128 4 warps, 2 blocks a SM, Q in registers": (
+        "f32", _fwd128("f32", 2, warps=4, q_regs=True)),
+    "f32 D=128 4 warps, 16-key tiles, 3 blocks a SM": ("f32", _fwd128(
+        "f32", 3, warps=4, bk=16)),
+}
+# The D = 128 passes (attention_bwd_bias_mma.cu): f32's dK/dV pass at 16
+# queries a streamed tile and 2 blocks a SM against 32 queries and 1 block
+BWD_BQ = "int bq = kF32 ? (D == kD ? 32 : 16) : 64;"
+BWD_BLOCKS = "int blocks = kF32 ? 2 : D == kD ? 3 : 2;"
+K128B_VARIANTS = {
+    "bf16 D=128 64-query tiles, 2 blocks a SM": ("bf16", []),
+    "f32 D=128 16-query tiles, 2 blocks a SM": ("f32", []),
+    "f32 D=128 32-query tiles, 1 block a SM": ("f32", [
+        (BWD_BQ, "int bq = kF32 ? 32 : 64;"),
+        (BWD_BLOCKS, "int blocks = kF32 ? (D == kD ? 2 : 1) : D == kD ? 3 "
+                     ": 2;")]),
+}
 
 # The wide route (attention_wide.cu): this tree's cluster kernels, with and
 # without per-phase clocks in the forward's key loop, against a baseline
@@ -395,6 +466,8 @@ WIDE_BASELINE = ("bf16 baseline", "f32 baseline")
 
 KERNELS = {"k2": ("attention_fwd_bias_mma.cu", K2_VARIANTS),
            "k1w": ("attention_fwd_bias_mma.cu", K1W_VARIANTS),
+           "k128": ("attention_fwd_bias_mma.cu", K128_VARIANTS),
+           "k128b": ("attention_bwd_bias_mma.cu", K128B_VARIANTS),
            "k5": ("conv_fused.cu", K5_VARIANTS),
            "wide": ("attention_wide.cu", WIDE_VARIANTS)}
 
@@ -504,13 +577,30 @@ def run_k1w(libs: dict, iters: int) -> dict:
     """The bias-free D = 64 forward's variants at Whisper-base's shape: the
     times in turns, each clocks variant's cycle shares by phase (from one
     more call after its timing), then each backward route's dK/dV pass."""
+    return run_bias_free(libs, iters, 8, 64, K1W_VARIANTS, "mma64")
+
+
+def run_k128(libs: dict, iters: int) -> dict:
+    """The same for the bias-free D = 128 forward's variants at
+    Whisper-base's Conformer under 4 heads, [8, 4, 1500, 128]; the
+    backward routes compared are the FMA pair and mma128."""
+    return run_bias_free(libs, iters, 4, 128, K128_VARIANTS, "mma128")
+
+
+def run_bias_free(libs: dict, iters: int, h: int, d: int, variants: dict,
+                  route_now: str) -> dict:
+    """The bias-free forward's ``variants`` at [8, h, 1500, d], every key
+    valid: each held to the plain twin (and its LSE), timed in turns,
+    each clocks variant's cycle shares by phase; then the backward of the
+    FMA pair and of ``route_now`` by device ms, each forced through
+    ``backward_route``."""
     import torch
     import chip_smoke as sm
     from wfl_asr_tpu_torch.ops.kernels import _build, flash_attention as fa
     cdlls = {name: ctypes.CDLL(lib) for name, (lib, _) in libs.items()}
     fns = {name: fa._fwd_launcher(lib.wfl_attention_fwd_bias_mma)
            for name, lib in cdlls.items()}
-    b, h, t, d = sm.B, 8, sm.WHISPER_T, 64
+    b, t = sm.B, sm.WHISPER_T
     kv = torch.full((b,), t, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     means, shares = {}, {}
@@ -562,7 +652,7 @@ def run_k1w(libs: dict, iters: int) -> dict:
                   f"lse_err={lse_err:.3e}{'' if ok else ' FAILED'}",
                   flush=True)
             return ms if ok else None
-        turns = in_turns([n for n, (dt, _) in K1W_VARIANTS.items()
+        turns = in_turns([n for n, (dt, _) in variants.items()
                           if dt == dtype], run_one)
         if not turns:
             return {}
@@ -576,7 +666,7 @@ def run_k1w(libs: dict, iters: int) -> dict:
             flash_attention_trainable
         route = fa.backward_route
         try:
-            for name in ("fma", "mma64"):
+            for name in ("fma", route_now):
                 fa.backward_route = lambda d_, b_, r=name: r
                 y = flash_attention_trainable(*leaves, kv)
                 by = sm.device_ms_by_kernel(lambda: torch.autograd.grad(
@@ -592,6 +682,80 @@ def run_k1w(libs: dict, iters: int) -> dict:
         del q, k, v, ref, ref_lse, out, lse, leaves, dout
         torch.cuda.empty_cache()
     means["clock shares"] = shares
+    return means
+
+
+def run_k128b(libs: dict, iters: int) -> dict:
+    """The D = 128 passes' variants at [8, 4, 1500, 128], bias-free, every
+    key valid, in bf16 and f32: each variant's dK/dV and dQ passes (through
+    its launcher, from the plain twin's LSE and delta) held to the plain
+    twin's gradients, then in turns the launcher's ms (CUDA events) and the
+    device ms of each pass (torch.profiler)."""
+    import torch
+    import chip_smoke as sm
+    from wfl_asr_tpu_torch.ops.kernels import _build, flash_attention as fa
+    cdlls = {name: ctypes.CDLL(lib) for name, (lib, _) in libs.items()}
+    b, h, t, d = sm.B, 4, sm.WHISPER_T, 128
+    kv = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    ldk = -(-t // 64) * 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    means = {}
+    for dtype, tdt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        code = 0 if dtype == "f32" else 1
+        q, k, v, _, _ = sm.attn_inputs(gen, (b, h, t, d), tdt, False)
+        dout = (torch.rand((b, h, t, d), generator=gen, device="cuda") * 2
+                - 1).to(tdt)
+        ref, lse = fa.attention_plain(q, k, v, None, None, kv,
+                                      return_lse=True)
+        want = fa.attention_backward_plain(q, k, v, None, None, kv, ref, lse,
+                                           dout)[:3]
+        delta = (dout.float() * ref.float()).sum(-1).contiguous()
+        grads = [torch.empty_like(q) for _ in range(3)]
+        ds = torch.empty((b, h, t, ldk), dtype=tdt, device="cuda")
+
+        def run_one(n):
+            fn = cdlls[n].wfl_attention_bwd_bias_mma
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                              ctypes.c_int, ctypes.c_void_p])
+
+            def backward():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                         None, dout.data_ptr(), lse.data_ptr(),
+                         delta.data_ptr(), kv.data_ptr(), None,
+                         *[g.data_ptr() for g in grads], ds.data_ptr(), None,
+                         None, b, h, t, d, ldk, 1.0 / math.sqrt(d), 0, 1.0,
+                         code, _build.stream_ptr(q.device))
+                if err:
+                    raise SystemExit(f"{n}: backward failed, error {err}")
+            backward()
+            torch.cuda.synchronize()
+            rel = max((g.float() - w.float()).abs().max().item()
+                      / w.float().abs().max().item()
+                      for g, w in zip(grads, want))
+            ok = rel <= sm.GRAD_TOL[dtype]
+            got = {"ms": sm.time_ms(backward, iters)}
+            by = sm.device_ms_by_kernel(backward)
+            for part in ("dkdv", "dq"):
+                got[part + "_device_ms"] = sum(
+                    x for kname, x in by.items()
+                    if kname.startswith(f"attn_bias_bwd_{part}_mma<"))
+            print(f"[variant] {n} [{b},{h},{t},{d}]: ms={got['ms']:.4f} "
+                  f"device dK/dV {got['dkdv_device_ms']:.4f} dQ "
+                  f"{got['dq_device_ms']:.4f}; grads {rel:.3e} × max (tol "
+                  f"{sm.GRAD_TOL[dtype]:g}){'' if ok else ' FAILED'}",
+                  flush=True)
+            return got if ok else None
+        turns = in_turns([n for n, (dt, _) in K128B_VARIANTS.items()
+                          if dt == dtype], run_one)
+        if not turns:
+            return {}
+        means.update({n: {key: float(np.mean([x[key] for x in runs]))
+                          for key in runs[0]}
+                      for n, runs in turns.items()})
+        del q, k, v, dout, ref, lse, want, delta, grads, ds
+        torch.cuda.empty_cache()
     return means
 
 
@@ -803,12 +967,14 @@ def main() -> int:
     try:
         libs = build(tmp, source, variants, args.baseline, WIDE_BASELINE)
         kernel_name = {"k2": "attn_bias_fwd", "k1w": "attn_bias_fwd",
+                       "k128": "attn_bias_fwd", "k128b": "attn_bias_bwd",
                        "k5": "conv_layer_mma", "wide": "attn_wide_"}
         for name, (_, log) in libs.items():
             for line in sm.ptxas_summary(log):
                 if kernel_name[args.kernel] in line:
                     print(f"[ptxas] {name}: {line}", flush=True)
-        means = {"k2": run_k2, "k1w": run_k1w, "k5": run_k5,
+        means = {"k2": run_k2, "k1w": run_k1w, "k128": run_k128,
+                 "k128b": run_k128b, "k5": run_k5,
                  "wide": run_wide}[args.kernel](libs, args.iters)
         if not means:
             return 1

@@ -45,20 +45,26 @@ def _source_ints(pattern: str) -> tuple:
                  .groups())
 
 
-def bias_bwd_tiles(f32: bool, bias: bool = True) -> dict:
+def bias_bwd_tiles(f32: bool, bias: bool = True, wide: bool = False
+                   ) -> dict:
     """Mirror of ``BiasTiles`` in ``csrc/attention_bwd_bias_mma.cu`` (with
-    a bias, or its bias-free instantiation): the shared memory of the dK/dV
-    and dQ passes in bytes, with the head width, the warps, the key and
-    query tiles, and the per-dtype queries of the dK/dV pass's streamed
-    tile and dK/dV blocks a SM read out of the source."""
+    a bias, or its bias-free instantiation; ``wide``: the bias-free one at
+    head width ``kD128``): the shared memory of the dK/dV and dQ passes in
+    bytes, with the head widths, the warps, the key and query tiles, and
+    the queries of the dK/dV pass's streamed tile and dK/dV blocks a SM by
+    width and dtype read out of the source."""
     es = 4 if f32 else 2
-    (d,) = _source_ints(r"constexpr int kD = (\d+);")
+    (d,) = _source_ints(r"constexpr int kD128 = (\d+);" if wide
+                        else r"constexpr int kD = (\d+);")
     (warps,) = _source_ints(r"constexpr int kWarps = (\d+);")
     (bk,) = _source_ints(r"constexpr int kBK = (\d+);")
     (bq_dq,) = _source_ints(r"constexpr int kBQ = (\d+);")
-    bq = _source_ints(r"int bq = kF32 \? (\d+) : (\d+);")[0 if f32 else 1]
-    blocks = _source_ints(
-        r"int blocks = kF32 \? (\d+) : (\d+);")[0 if f32 else 1]
+    f32_64, f32_wide, bf16_bq = _source_ints(
+        r"int bq = kF32 \? \(D == kD \? (\d+) : (\d+)\) : (\d+);")
+    bq = (f32_wide if wide else f32_64) if f32 else bf16_bq
+    f32_blocks, bf16_64, bf16_wide = _source_ints(
+        r"int blocks = kF32 \? (\d+) : D == kD \? (\d+) : (\d+);")
+    blocks = f32_blocks if f32 else bf16_wide if wide else bf16_64
 
     def pitch(cols):                    # D-wide rows (attention_mma.cuh)
         return (cols + 31) // 32 * 32 + 8 if f32 else cols + 8
@@ -72,7 +78,7 @@ def bias_bwd_tiles(f32: bool, bias: bool = True) -> dict:
     dkdv = es * (2 * bk * p + 2 * 2 * bq * p + warps * 16 * pst) \
         + 4 * (3 if bias else 2) * 2 * bq
     dq = es * 2 * (bk * p + bq_dq * pitch_s(bk))  # two buffers of K and dS
-    return dict(bq=bq, blocks=blocks, dkdv_smem=dkdv, dq_smem=dq)
+    return dict(d=d, bq=bq, blocks=blocks, dkdv_smem=dkdv, dq_smem=dq)
 
 
 @pytest.mark.parametrize("f32", [True, False])

@@ -38,12 +38,12 @@ def _setup():
 def test_backward_route(d, has_bias):
     """Bias-free above head_dim 128 → the mma pair; with a bias at head_dim
     64 → the mma passes with a bias (attention_bwd_bias_mma.cu), bias-free
-    at 64 their bias-free instantiation; every other call with a bias and
-    every bias-free width from 80 to 128 → the FMA pair."""
+    at 64 and at 128 their bias-free instantiations; every other call with
+    a bias → the FMA pair."""
     if has_bias:
         want = "mma_bias" if d == 64 else "fma"
     else:
-        want = "mma" if d > 128 else "mma64" if d == 64 else "fma"
+        want = "mma" if d > 128 else "mma64" if d == 64 else "mma128"
     assert flash_attention.backward_route(d, has_bias) == want
 
 

@@ -44,10 +44,11 @@ def test_forward_route(has_bias):
     without a bias → the wide forward of attention_wide.cu; with a bias, 64
     → the mma.sync forward with a bias, the others → the forwards of
     flash_attention.cu; bias-free, ≤ 64 → the bias-free instantiation of
-    the D = 64 forward ("mma64"), 80-128 → flash_attention.cu, above 128 →
-    the mma.sync forward of attention_fwd_mma.cu. Each forward route has
-    the backward of the same design ("fused" ↔ the FMA pair), so a call's
-    LSE and its gradients come from one design."""
+    the D = 64 forward ("mma64"), 80-128 → its bias-free instantiation at
+    D = 128 ("mma128"), above 128 → the mma.sync forward of
+    attention_fwd_mma.cu. Each forward route has the backward of the same
+    design ("fused" ↔ the FMA pair), so a call's LSE and its gradients
+    come from one design."""
     pair = {"fused": "fma"}
     for d in range(16, 1281, 16):
         if d > 512:
@@ -55,12 +56,13 @@ def test_forward_route(has_bias):
         elif has_bias:
             want = "mma_bias" if d == 64 else "fused"
         else:
-            want = ("mma64" if d <= 64 else "fused" if d <= 128
+            want = ("mma64" if d <= 64 else "mma128" if d <= 128
                     else "mma")
         assert flash_attention.forward_route(d, has_bias) == want, d
         assert flash_attention.backward_route(d, has_bias) == \
             pair.get(want, want), d
     assert flash_attention.MMA_BIAS_D == 64
+    assert flash_attention.MMA128_D == flash_attention.MMA_MIN_D == 128
     assert flash_attention.WIDE_MIN_D == 512
 
 
@@ -71,26 +73,34 @@ def _source_ints(pattern: str) -> tuple:
                  .groups())
 
 
-def fwd_bias_tiles(f32: bool, bias: bool = True) -> dict:
+def fwd_bias_tiles(f32: bool, bias: bool = True, wide: bool = False
+                   ) -> dict:
     """Mirror of ``FwdBiasTiles`` in ``csrc/attention_fwd_bias_mma.cu``
-    (with a bias, or its bias-free instantiation), with the head width, the
-    per-dtype warps and key tile, and the blocks a SM read out of the
-    source: the query tile, the bias span's chunks and pitch, and the shared
-    memory of a block in bytes."""
+    (with a bias, or its bias-free instantiation; ``wide``: the bias-free
+    one at head width ``kD128``), with the head widths, the per-dtype warps
+    and key tile, and the blocks a SM by width and dtype read out of the
+    source: the query tile, the bias span's chunks and pitch, whether Q's
+    fragments stay in registers, and the shared memory of a block in
+    bytes."""
     es = 4 if f32 else 2
-    (d,) = _source_ints(r"constexpr int kD = (\d+);")
-    warps = _source_ints(r"int warps = kF32 \? (\d+) : (\d+);")[0 if f32
-                                                                 else 1]
+    (d,) = _source_ints(r"constexpr int kD128 = (\d+);" if wide
+                        else r"constexpr int kD = (\d+);")
+    f32_at64, other = _source_ints(
+        r"int warps = kF32 && D == kD \? (\d+) : (\d+);")
+    warps = f32_at64 if f32 and not wide else other
     bk = _source_ints(r"int bk = kF32 \? (\d+) : (\d+);")[0 if f32 else 1]
-    (blocks,) = _source_ints(r"int blocks = (\d+);")
+    at64, at128 = _source_ints(r"int blocks = D == kD \? (\d+) : (\d+);")
+    blocks = at128 if wide else at64
+    assert "bool q_regs = D == kD || !kF32;" in SOURCE.read_text()
+    q_regs = not (wide and f32)
     bq = 16 * warps
     p = (d + 31) // 32 * 32 + 8 if f32 else d + 8   # attention_mma.cuh
     chunks = bk * es // 16 + 1          # 16-byte chunks of a bias span
     pb = chunks * 16 // es
     # Q; two buffers of K and V; with a bias two of the bias spans
     smem = es * (bq * p + 2 * 2 * bk * p + (2 * bq * pb if bias else 0))
-    return dict(warps=warps, bk=bk, bq=bq, blocks=blocks, chunks=chunks,
-                pb=pb, smem=smem)
+    return dict(d=d, warps=warps, bk=bk, bq=bq, blocks=blocks,
+                chunks=chunks, pb=pb, smem=smem, q_regs=q_regs)
 
 
 @pytest.mark.parametrize("f32", [True, False])
@@ -124,14 +134,21 @@ def test_bias_free_fwd_tiles_fit_shared_memory(f32):
 
 def test_launcher_refuses_what_the_route_does_not_send():
     """The launcher's own refusals match :func:`forward_route`: any head
-    width but the one the route sends (the bias-free route pads narrower
-    widths to it), and a gate without a bias; a null bias alone is the
-    bias-free forward."""
+    width but the two the routes send (64 with or without a bias, 128
+    bias-free; the bias-free routes pad narrower widths to them), a bias at
+    128, and a gate without a bias; a null bias alone is the bias-free
+    forward."""
     text = SOURCE.read_text()
-    assert "if (D != kD || (bias == nullptr && gate != nullptr))\n" \
+    assert "if ((D != kD && (D != kD128 || bias != nullptr)) ||\n" \
+        "      (bias == nullptr && gate != nullptr))\n" \
         "    return cudaErrorInvalidValue;" in text
     assert _source_ints(r"constexpr int kD = (\d+);") == \
         (flash_attention.MMA_BIAS_D,)
+    assert _source_ints(r"constexpr int kD128 = (\d+);") == \
+        (flash_attention.MMA128_D,)
+    assert flash_attention.forward_route(64, True) == "mma_bias"
+    assert flash_attention.forward_route(128, True) == "fused"
+    assert flash_attention.forward_route(128, False) == "mma128"
 
 
 def stage_spans_emulated(mem, lo, hi, es, row_start, ld, row0, c0, n,
@@ -358,7 +375,8 @@ def test_mma64_forward_counted_where_it_launches(monkeypatch, err, d):
     assert flash_attention.mma_fwd_launches == 0
 
 
-@pytest.mark.parametrize("kernel", ["k2", "k1w", "k5", "wide"])
+@pytest.mark.parametrize("kernel", ["k2", "k1w", "k128", "k128b", "k5",
+                                    "wide"])
 def test_kernel_variants_apply_to_the_source(kernel):
     """Every textual variant of ``kernel_variants_ab.py`` (tile constants,
     the copies' placement, bulk copies, the per-phase clocks) finds each

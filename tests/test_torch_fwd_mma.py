@@ -40,16 +40,16 @@ def _setup():
 @pytest.mark.parametrize("d", [64, 128, 144, 384, 512])
 def test_forward_route(d, has_bias):
     """Bias-free above head_dim 128 → the mma.sync forward; with a bias at
-    head_dim 64 → the mma.sync forward with a bias, and bias-free at 64 its
-    bias-free instantiation (tests/test_torch_fwd_bias_mma.py); every other
-    call with a bias, and bias-free widths 80-128 → the forwards of
-    flash_attention.cu. The bias-free widths of the mma forward are those of
+    head_dim 64 → the mma.sync forward with a bias, and bias-free at 64 and
+    at 128 its bias-free instantiations (tests/test_torch_fwd_bias_mma.py,
+    tests/test_torch_mma128.py); every other call with a bias → the
+    forwards of flash_attention.cu. The bias-free widths of the mma forward are those of
     the mma backward pair, so a call's LSE and its gradients come from one
     design."""
     if has_bias:
         want = "mma_bias" if d == 64 else "fused"
     else:
-        want = "mma" if d > 128 else "mma64" if d == 64 else "fused"
+        want = "mma" if d > 128 else "mma64" if d == 64 else "mma128"
     assert flash_attention.forward_route(d, has_bias) == want
     if want == "mma":
         assert flash_attention.backward_route(d, has_bias) == "mma"

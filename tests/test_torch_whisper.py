@@ -13,7 +13,11 @@ through both, weights from the JAX ``init_tagger`` carried across by
 - byte-identical ``.lab`` files from ``infer_folder`` and
   ``infer_folder_batched`` for both encoders;
 - ``flash_attention_trainable`` at head widths 40 and 24 (zero-padded to
-  a multiple of 16) against the Pallas kernel in interpret mode.
+  a multiple of 16) against the Pallas kernel in interpret mode;
+- a config without ``conformer_heads`` (the schema's default of 4) at
+  Whisper-base's width, hidden 512, narrow otherwise: the Conformer at
+  head_dim 128 (route ``mma128`` on the card) in both packages, its logits,
+  one f32 train step and the ``.lab`` files.
 
 Tolerances: 1e-4 × max|ref| for encoders and taggers (1500 frames through
 layers of f32 sums in another order); the attention 1e-5; the train step
@@ -50,6 +54,9 @@ MODEL_TOL = 1e-4
 ATTN_TOL = 1e-5
 # head_dim 40 in the encoder (80 / 2) and in the Conformer (hidden 80)
 NARROW = dict(d_model=80, num_layers=2, num_heads=2, ffn_dim=128)
+# Whisper-base's width (8 heads of 64) in 2 narrow layers: under the
+# schema's default 4 Conformer heads the Conformer runs head_dim 128
+BASE_WIDTH = dict(d_model=512, num_layers=2, num_heads=8, ffn_dim=128)
 LABELS = sorted([f"B-p{i}" for i in range(4)] + [f"I-p{i}" for i in range(4)]
                 + ["O", "B-SP", "I-SP"])
 
@@ -341,8 +348,15 @@ def test_whisper_train_step_matches_jax(whisper_pair):
     """Dropout 0: loss/ce/offset_loss ≤ 1e-5, every gradient (the trained
     position table's too) ≤ 1e-4 × its max|g|, BatchNorm running stats ≤
     1e-6 (``test_train_step_matches_jax``'s tolerances)."""
+    _check_train_step(whisper_pair, raw_config("whisper"))
+
+
+def _check_train_step(pair, raw):
+    """One f32 train step of the port (weights of ``pair``, config
+    ``raw``) against the JAX ``make_grad_step`` on ``_train_batch``, at
+    ``test_whisper_train_step_matches_jax``'s tolerances."""
     from wfl_asr_tpu.train import loop as JLOOP
-    arch, params, state, _ = whisper_pair
+    arch, params, state, _ = pair
     batch = _train_batch(arch.num_labels)
     jargs = [jnp.asarray(batch[k]) for k in TLOOP.BATCH_KEYS]
     grad_step = JLOOP.make_grad_step(arch, 0.1, 3.0)
@@ -350,8 +364,7 @@ def test_whisper_train_step_matches_jax(whisper_pair):
         params, state, jax.random.PRNGKey(1), *jargs,
         max_label_len=batch["max_label_len"])
 
-    parch = PT.TaggerArch.from_config(Config(raw_config("whisper")),
-                                      len(LABELS))
+    parch = PT.TaggerArch.from_config(Config(raw), len(LABELS))
     model = PT.BIOPhonemeTagger(parch)
     model.load_state_dict(state_dict_from_jax(params, state, parch),
                           strict=True)
@@ -385,12 +398,12 @@ def test_whisper_train_step_matches_jax(whisper_pair):
 # .lab byte parity through the folder entry points
 # ---------------------------------------------------------------------------
 
-def _make_run(tmp_path, encoder):
+def _make_run(tmp_path, encoder, make_raw=raw_config):
     save_dir = tmp_path / f"save_{encoder}"
     save_dir.mkdir()
     (save_dir / "phonemes.txt").write_text("\n".join(LABELS) + "\n")
     (save_dir / "langs.txt").write_text("en,0\nja,1\n")
-    raw = raw_config(encoder, str(save_dir), conformer_dropout=0.15)
+    raw = make_raw(encoder, str(save_dir), conformer_dropout=0.15)
     raw["postprocess"]["device_decode"] = True
     config = save_dir / "config.yaml"
     config.write_text(yaml.dump(raw, sort_keys=False))
@@ -408,11 +421,16 @@ def test_lab_parity_folders(tmp_path, encoder):
     ``infer_folder_batched`` (unequal lengths in one forward, languages
     averaged, the device decode) write the JAX package's ``.lab`` files
     byte for byte."""
+    _check_lab_parity(tmp_path, encoder)
+
+
+def _check_lab_parity(tmp_path, encoder, make_raw=raw_config):
+    """``test_lab_parity_folders`` for the config ``make_raw`` gives."""
     from wfl_asr_tpu.infer.pipeline import infer_folder as jax_folder
     from wfl_asr_tpu.infer.pipeline import \
         infer_folder_batched as jax_batched
     from wfl_asr_tpu_torch.infer import infer_folder, infer_folder_batched
-    config, ckpt = _make_run(tmp_path, encoder)
+    config, ckpt = _make_run(tmp_path, encoder, make_raw)
     rng = np.random.RandomState(13)
     wavs = tmp_path / f"wavs_{encoder}"
     wavs.mkdir()
@@ -443,6 +461,66 @@ def test_lab_parity_folders(tmp_path, encoder):
             b = open(tmp_path / f"out_port_{mode}" / lab).read()
             assert a.strip(), "empty .lab: the comparison would be vacuous"
             assert a == b, (mode, lab)
+
+
+# ---------------------------------------------------------------------------
+# the config schema's default of 4 Conformer heads at Whisper-base's width
+# ---------------------------------------------------------------------------
+
+def default_heads_config(encoder: str = "whisper", save_dir: str = "unused",
+                         **model) -> dict:
+    """``raw_config`` at Whisper-base's width (``BASE_WIDTH``) without the
+    ``conformer_heads`` key, so each package takes its schema's default."""
+    raw = raw_config(encoder, save_dir,
+                     encoder_arch_overrides=dict(BASE_WIDTH), **model)
+    del raw["model"]["conformer_heads"]
+    return raw
+
+
+@pytest.fixture(scope="module")
+def base_width_pair():
+    return build_pair(default_heads_config(), seed=4)
+
+
+def test_default_conformer_heads_run_head_dim_128(base_width_pair):
+    """Without ``conformer_heads`` both packages build a 4-head Conformer
+    over the 512-wide trunk, so its attention runs head_dim 128, which the
+    card sends to route ``mma128`` in both directions."""
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    arch, _, _, model = base_width_pair
+    assert arch.conformer_heads == model.arch.conformer_heads == 4
+    assert arch.hidden_size == model.arch.hidden_size == 512
+    for block in model.conformer_layers:
+        assert block.self_attn.heads == 4
+        assert block.self_attn.in_proj_weight.shape == (3 * 512, 512)
+    assert fa.forward_route(128, False) == fa.backward_route(128, False) \
+        == "mma128"
+
+
+def test_default_heads_tagger_logits(base_width_pair):
+    """Logits and offsets of the 4-head tagger against the JAX tagger."""
+    arch, params, state, model = base_width_pair
+    audio = _audio(8)
+    lang = np.array([0, 1], np.int32)
+    jl, jo, _ = apply_tagger(params, state, arch, jnp.asarray(audio),
+                             jnp.asarray(lang), max_label_len=120)
+    with torch.no_grad():
+        pl, po = model(torch.from_numpy(audio), torch.from_numpy(lang),
+                       max_label_len=120)
+    _close(pl.numpy(), jl)
+    _close(po.numpy(), jo)
+
+
+def test_default_heads_train_step_matches_jax(base_width_pair):
+    """One f32 train step of the 4-head tagger against the JAX step, at
+    ``test_whisper_train_step_matches_jax``'s tolerances."""
+    _check_train_step(base_width_pair, default_heads_config())
+
+
+def test_default_heads_lab_parity(tmp_path):
+    """The 4-head tagger's ``.lab`` files through both folder entry points,
+    byte for byte the JAX package's."""
+    _check_lab_parity(tmp_path, "whisper", default_heads_config)
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,23 @@
 // Backward of the gated-bias key-masked attention at head_dim 64 (WavLM's
-// gated relative-position attention, 12 layers on the main path) on the
-// tensor cores, for Hopper (sm_90a). dQ, dK, dV, dBias and dGate of
+// gated relative-position attention, 12 layers on the main path), and of
+// the bias-free one at head_dim 64 and 128, on the tensor cores, for Hopper
+// (sm_90a). dQ, dK, dV, dBias and dGate of
 //
 //   out[b,h,q,:] = softmax_k( (q·kᵀ)·scale + gate[b,h,q]·bias[h,q,k],
 //                             keys k >= kv_len[b] set to -1e30 ) · v
 //
 // from the forward's row logsumexp (LSE) and delta = rowsum(dO·O). Without
 // a bias (BIAS = false: null bias, gate, dBias and dGate) dQ, dK and dV of
-// the bias-free attention, for bias-free calls at head_dim ≤ 64 (Whisper's
-// layers, the `none` encoder's Conformer; narrower widths zero-padded to 64
-// by the caller).
+// the bias-free attention, for bias-free calls at head_dim ≤ 64 (route
+// mma64: Whisper's layers, the `none` encoder's Conformer) and, at head
+// width D = 128, at 80-128 (route mma128: a Conformer of hidden 512 under 4
+// heads); narrower widths are zero-padded to 64 or 128 by the caller. The
+// head width is a template parameter; a bias is taken at D = 64 only.
 //
 // Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_bwd_dkdv_kernel
 // (:262) and _bwd_dq_kernel (:342), the kernels of _bwd_impl (:417) (K2b),
 // and, without a bias, wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:
-// _bwd_dkdv_kernel (:106) and _bwd_dq_kernel (:171) (K1b) at head_dim ≤ 64.
+// _bwd_dkdv_kernel (:106) and _bwd_dq_kernel (:171) (K1b) at head_dim ≤ 128.
 // Other head widths up to 512 with a bias keep the FMA pair of
 // flash_attention.cu; wider calls take attention_wide.cu, which runs this
 // file's dBias/dGate pass (wfl_attention_bias_dbias) for its bias.
@@ -38,6 +41,14 @@
 //   too short to split over warps, so the warps split the rows of the score
 //   tile instead: 4 warps a block, each owning 16 keys (dK/dV pass) or 16
 //   queries (dQ pass) and every column of its gradient in registers.
+// - At D = 128 (bias-free only) the layout stays: a dK/dV warp holds 2 × 64
+//   f32 accumulator registers a thread; K and V stay in shared memory and
+//   each product reads (f32: splits) its fragments on use, as at 64. Shared
+//   memory doubles with D, so the dK/dV pass runs 2 blocks a SM (bf16: 64
+//   queries a streamed tile, 106 KB; f32: 16 queries, 107 KB), and the f32
+//   dQ pass 2 (100 KB). Its 255 registers a thread spill 156 bytes in f32
+//   (4 in bf16); with 32 queries and 1 block a SM, the other fit, the f32
+//   dK/dV pass took 46 % longer (kernel_variants_ab.py --kernel k128b).
 // - dK/dV pass (attn_bias_bwd_dkdv_mma): one block per (64-key tile, b, h),
 //   b the fastest-varying block index, so the 8 blocks that read the same
 //   bias[h, :, key tile] strip run together and share it in L2. Each block
@@ -84,6 +95,8 @@
 //   (b, h, q, k) of each accumulator element (rows of the transposed tile
 //   are keys). dV takes P·M, dS = P·(M·dP − delta); P and the LSE stay
 //   undropped, and the mask reaches dQ, dBias and dGate through dS.
+#include <type_traits>
+
 #include "common.cuh"
 #include "attention_mma.cuh"
 
@@ -92,8 +105,8 @@ namespace {
 using namespace wfl;
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;                // the head width of this pair
-constexpr int kNT = kD / 8;           // 8-column tiles of a gradient row
+constexpr int kD = 64;        // the head width with a bias, and of mma64
+constexpr int kD128 = 128;    // the bias-free head width of route mma128
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBK = 64;               // keys a dK/dV block, workspace tile
@@ -106,16 +119,18 @@ constexpr float kNegInf = -1e30f;
 // Shared memory of the two product passes. The dK/dV pass holds K and V
 // (64 × D), two buffers of the streamed Q and dO tiles and their LSE, delta
 // and gate rows (no gate rows without a bias), and each warp's 16 × 16 dS
-// staging tile; f32 streams 32 queries (78 KB, two blocks a SM), bf16 64
-// (59 KB, three a SM). The dQ pass holds two buffers of K (64 keys) and of
-// dS (64 queries × 64 keys).
-template <class Pol, bool BIAS = true>
+// staging tile; at D = 64 f32 streams 32 queries (78 KB, two blocks a SM),
+// bf16 64 (59 KB, three a SM); at D = 128 f32 16 and bf16 64, two blocks a
+// SM each. The dQ pass holds two buffers of K (64 keys) and of dS (64
+// queries × 64 keys).
+template <class Pol, bool BIAS, int D>
 struct BiasTiles {
   static constexpr bool kF32 = sizeof(typename Pol::T) == 4;
   static constexpr int es = sizeof(typename Pol::T);
-  static constexpr int bq = kF32 ? 32 : 64;      // queries a streamed tile
-  static constexpr int blocks = kF32 ? 2 : 3;    // dK/dV blocks a SM
-  static constexpr int p = Pol::pitch(kD);
+  // queries a streamed tile, dK/dV blocks a SM
+  static constexpr int bq = kF32 ? (D == kD ? 32 : 16) : 64;
+  static constexpr int blocks = kF32 ? 2 : D == kD ? 3 : 2;
+  static constexpr int p = Pol::pitch(D);
   // dS staging rows: 16 keys and 16 bytes of padding, so that the lanes'
   // element stores fall on distinct banks and rows stay 16-byte aligned
   static constexpr int pst = 16 + 16 / es;
@@ -124,13 +139,15 @@ struct BiasTiles {
       (size_t)es * (2 * kBK * p + 2 * 2 * bq * p + kWarps * 16 * pst)
       + sizeof(float) * (BIAS ? 3 : 2) * 2 * bq;
   static constexpr size_t dq_smem = (size_t)es * 2 * (kBK * p + kBQ * pq);
+  static_assert(D == kD || (D == kD128 && !BIAS),
+                "a bias only at head_dim 64; bias-free at 64 and 128");
   // 228 KB a SM, 1 KB of it reserved per block
   static_assert(blocks * (dkdv_smem + 1024) <= 233472,
                 "dK/dV blocks a SM exceed its shared memory");
   static_assert(dq_smem <= 232448, "dQ tiles exceed 227 KB");
 };
 
-// The launches' arguments as one kernel parameter: [B, H, T, 64] tensors,
+// The launches' arguments as one kernel parameter: [B, H, T, D] tensors,
 // bias [H, T, T] of the dtype, gate [B, H, T] f32 (null: 1), the LSE and
 // delta rows, the key lengths, the dS workspace [B, H, T, ldk], dBias [H,
 // T, T] f32 and dGate [B, H, T] f32 (null without gate).
@@ -163,16 +180,17 @@ __device__ __forceinline__ void stage_gate(float* sG, const float* gate,
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV pass: block (b, 64-key tile, h). Warp w owns keys 16·w and all 64
+// dK/dV pass: block (b, 64-key tile, h). Warp w owns keys 16·w and all D
 // columns of dV and dK across the query tiles, and stores its keys' dS.
 // ---------------------------------------------------------------------------
 
-template <class Pol, bool BIAS, bool DROP>
-__global__ void __launch_bounds__(kThreads, BiasTiles<Pol, BIAS>::blocks)
+template <class Pol, bool BIAS, bool DROP, int D>
+__global__ void __launch_bounds__(kThreads, BiasTiles<Pol, BIAS, D>::blocks)
 attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
   using T = typename Pol::T;
-  using Cfg = BiasTiles<Pol, BIAS>;
+  using Cfg = BiasTiles<Pol, BIAS, D>;
   constexpr int BQ = Cfg::bq, P = Cfg::p, PST = Cfg::pst;
+  constexpr int kNT = D / 8;            // 8-column tiles of a gradient row
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);      // [BK][P]
   T* sV = sK + kBK * P;                          // [BK][P]
@@ -189,13 +207,13 @@ attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
   const int T_len = a.T_len, ldk = a.ldk;
   const float scale = a.scale;
   const size_t bh = (size_t)b * a.H + h;
-  const size_t base = bh * T_len * kD;
+  const size_t base = bh * T_len * D;
   const int kvl = a.kv_len[b];
   if (k0 >= kvl) {      // no query attends these keys: zero gradients
-    for (int idx = tid; idx < kBK * kD; idx += kThreads) {
-      if (k0 + idx / kD < T_len) {
-        a.dk[base + (size_t)k0 * kD + idx] = from_f<T>(0.f);
-        a.dv[base + (size_t)k0 * kD + idx] = from_f<T>(0.f);
+    for (int idx = tid; idx < kBK * D; idx += kThreads) {
+      if (k0 + idx / D < T_len) {
+        a.dk[base + (size_t)k0 * D + idx] = from_f<T>(0.f);
+        a.dv[base + (size_t)k0 * D + idx] = from_f<T>(0.f);
       }
     }
     return;
@@ -209,15 +227,15 @@ attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
   auto stage_q = [&](int qt, int buf) {
     const int q0 = qt * BQ;
     stage_rows<Pol, kThreads>(sQ + buf * BQ * P, P, a.q + base, q0, BQ,
-                              T_len, kD);
+                              T_len, D);
     stage_rows<Pol, kThreads>(sDO + buf * BQ * P, P, a.dout + base, q0, BQ,
-                              T_len, kD);
+                              T_len, D);
     stage_stats<kThreads>(sL + buf * BQ, sDl + buf * BQ, a.lse, a.delta, bh,
                           q0, BQ, T_len);
     if constexpr (BIAS) stage_gate(sG + buf * BQ, a.gate, bh, q0, BQ, T_len);
   };
-  stage_rows<Pol, kThreads>(sK, P, a.k + base, k0, kBK, T_len, kD);
-  stage_rows<Pol, kThreads>(sV, P, a.v + base, k0, kBK, T_len, kD);
+  stage_rows<Pol, kThreads>(sK, P, a.k + base, k0, kBK, T_len, D);
+  stage_rows<Pol, kThreads>(sV, P, a.v + base, k0, kBK, T_len, D);
   stage_q(0, 0);
   cp_async_commit();
 
@@ -266,8 +284,8 @@ attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
     for (int c0 = 0; c0 < BQ; c0 += 16) {
       // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: rows are keys, columns queries
       float s[2][4], dp[2][4];
-      score_part<Pol>(s, sK, tQ, P, r0, c0, 0, kD);
-      score_part<Pol>(dp, sV, tDO, P, r0, c0, 0, kD);
+      score_part<Pol>(s, sK, tQ, P, r0, c0, 0, D);
+      score_part<Pol>(dp, sV, tDO, P, r0, c0, 0, D);
       float bn[2][4];
       load_bias(bn, q0 + c0 + 16);
 #pragma unroll
@@ -313,23 +331,23 @@ attn_bias_bwd_dkdv_mma(const BiasArgs<typename Pol::T> a) {
         for (int x = 0; x < 4; ++x) bv[n][x] = bn[n][x];
     }
   }
-  store_acc<T, kNT>(a.dv + base, acc_dv, k0 + r0, 0, kNT, kNT, T_len, kD,
+  store_acc<T, kNT>(a.dv + base, acc_dv, k0 + r0, 0, kNT, kNT, T_len, D,
                     1.f);
-  store_acc<T, kNT>(a.dk + base, acc_dk, k0 + r0, 0, kNT, kNT, T_len, kD,
+  store_acc<T, kNT>(a.dk + base, acc_dk, k0 + r0, 0, kNT, kNT, T_len, D,
                     scale);
 }
 
 // ---------------------------------------------------------------------------
 // dQ pass: block (64-query tile, h, b), after the dK/dV pass has written dS.
-// Warp w owns queries 16·w and all 64 columns of dQ across the key tiles.
+// Warp w owns queries 16·w and all D columns of dQ across the key tiles.
 // ---------------------------------------------------------------------------
 
-template <class Pol>
+template <class Pol, int D>
 __global__ void __launch_bounds__(kThreads, 3)
 attn_bias_bwd_dq_mma(const BiasArgs<typename Pol::T> a) {
   using T = typename Pol::T;
-  using Cfg = BiasTiles<Pol>;
-  constexpr int P = Cfg::p, PQ = Cfg::pq;
+  using Cfg = BiasTiles<Pol, false, D>;
+  constexpr int P = Cfg::p, PQ = Cfg::pq, kNT = D / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);      // [2][BK][P]
   T* sDS = sK + 2 * kBK * P;                     // [2][BQ][PQ]
@@ -338,14 +356,14 @@ attn_bias_bwd_dq_mma(const BiasArgs<typename Pol::T> a) {
   const int warp = threadIdx.x >> 5;
   const int T_len = a.T_len;
   const size_t bh = (size_t)b * a.H + h;
-  const T* __restrict__ k = a.k + bh * T_len * kD;
+  const T* __restrict__ k = a.k + bh * T_len * D;
   const T* __restrict__ ds = a.ds + bh * T_len * a.ldk;
   const int kvl = a.kv_len[b];
 
   // key tiles up to kv_len: the dK/dV pass wrote dS for each (0 past kv_len)
   auto stage = [&](int kt, int buf) {
     stage_rows<Pol, kThreads>(sK + buf * kBK * P, P, k, kt * kBK, kBK, T_len,
-                              kD);
+                              D);
     stage_cols<Pol, kBK, kThreads>(sDS + buf * kBQ * PQ, PQ, ds, q0,
                                    kt * kBK, kBQ, T_len, a.ldk);
     cp_async_commit();
@@ -376,8 +394,8 @@ attn_bias_bwd_dq_mma(const BiasArgs<typename Pol::T> a) {
                                   kNT, kNT);
     }
   }
-  store_acc<T, kNT>(a.dq + bh * T_len * kD, acc[0], q0 + warp * 16, 0, kNT,
-                    kNT, T_len, kD, a.scale);
+  store_acc<T, kNT>(a.dq + bh * T_len * D, acc[0], q0 + warp * 16, 0, kNT,
+                    kNT, T_len, D, a.scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -453,30 +471,33 @@ cudaError_t run_dbias(const BiasArgs<T>& a, cudaStream_t stream) {
 
 // The passes in turn on one stream: dK/dV (which writes dS), then dQ and,
 // with a bias, dBias/dGate (which read it).
-template <class Pol, bool BIAS, bool DROP>
+template <class Pol, bool BIAS, bool DROP, int D>
 cudaError_t run_passes(const BiasArgs<typename Pol::T>& a,
                        cudaStream_t stream) {
-  using Cfg = BiasTiles<Pol, BIAS>;
+  using Cfg = BiasTiles<Pol, BIAS, D>;
   const int n_kt = (a.T_len + kBK - 1) / kBK;
-  cudaError_t err = wfl::launch(attn_bias_bwd_dkdv_mma<Pol, BIAS, DROP>,
+  cudaError_t err = wfl::launch(attn_bias_bwd_dkdv_mma<Pol, BIAS, DROP, D>,
                                 dim3(a.B, n_kt, a.H), dim3(kThreads),
                                 Cfg::dkdv_smem, stream, a);
   if (err != cudaSuccess) return err;
-  err = wfl::launch(attn_bias_bwd_dq_mma<Pol>,
+  err = wfl::launch(attn_bias_bwd_dq_mma<Pol, D>,
                     dim3((a.T_len + kBQ - 1) / kBQ, a.H, a.B),
                     dim3(kThreads), Cfg::dq_smem, stream, a);
   if (err != cudaSuccess || !BIAS) return err;
   return run_dbias(a, stream);
 }
 
-// The bias terms only with a bias, the dropout hash only with a seed.
-template <class Pol>
+// The bias terms only with a bias (at D = 64), the dropout hash only with a
+// seed.
+template <class Pol, int D>
 cudaError_t dispatch(const BiasArgs<typename Pol::T>& a, cudaStream_t s) {
-  if (a.bias != nullptr)
-    return a.drop.seed ? run_passes<Pol, true, true>(a, s)
-                       : run_passes<Pol, true, false>(a, s);
-  return a.drop.seed ? run_passes<Pol, false, true>(a, s)
-                     : run_passes<Pol, false, false>(a, s);
+  if constexpr (D == kD) {
+    if (a.bias != nullptr)
+      return a.drop.seed ? run_passes<Pol, true, true, D>(a, s)
+                         : run_passes<Pol, true, false, D>(a, s);
+  }
+  return a.drop.seed ? run_passes<Pol, false, true, D>(a, s)
+                     : run_passes<Pol, false, false, D>(a, s);
 }
 
 template <class T>
@@ -485,8 +506,9 @@ cudaError_t dispatch_dtype(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, const void* kv_len, void* dq,
                            void* dk, void* dv, void* ds, void* dbias,
-                           void* dgate, int B, int H, int T_len, int ldk,
-                           float scale, Dropout drop, cudaStream_t s) {
+                           void* dgate, int B, int H, int T_len, int D,
+                           int ldk, float scale, Dropout drop,
+                           cudaStream_t s) {
   const BiasArgs<T> a{
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -496,8 +518,8 @@ cudaError_t dispatch_dtype(const void* q, const void* k, const void* v,
       static_cast<T*>(dk), static_cast<T*>(dv), static_cast<T*>(ds),
       static_cast<float*>(dbias), static_cast<float*>(dgate), B, H, T_len,
       ldk, scale, drop};
-  if constexpr (sizeof(T) == 4) return dispatch<PolF32>(a, s);
-  else return dispatch<PolBF16>(a, s);
+  using Pol = std::conditional_t<sizeof(T) == 4, PolF32, PolBF16>;
+  return D == kD ? dispatch<Pol, kD>(a, s) : dispatch<Pol, kD128>(a, s);
 }
 
 template <class T>
@@ -525,10 +547,10 @@ using namespace wfl;
 // dQ, dK, dV, dBias and dGate of the gated-bias attention at head_dim 64
 // (the forward wfl_attention_fwd_bias_mma): the dK/dV pass, the dQ pass, the
 // dBias/dGate pass; with a null bias (gate, dbias and dgate null too) dQ,
-// dK and dV of the bias-free attention, by the first two. q, k, v, dout,
-// dq, dk, dv: [B, H, T, D] contiguous of the dtype (0 = f32 as 3×TF32, 1 =
-// bf16), D = 64; bias [H, T, T] of the dtype or null; gate [B, H, T] f32 or
-// null; lse and delta =
+// dK and dV of the bias-free attention, by the first two, at head_dim 64
+// or 128. q, k, v, dout, dq, dk, dv: [B, H, T, D] contiguous of the dtype
+// (0 = f32 as 3×TF32, 1 = bf16), D = 64 or 128; bias [H, T, T] of the dtype
+// (D = 64 only) or null; gate [B, H, T] f32 or null; lse and delta =
 // rowsum(dO·O) [B, H, T] f32; kv_len [B] int32 in [1, T]; ds a workspace
 // [B, H, T, ldk] of the dtype, ldk ≥ T a multiple of 64 (its contents on
 // return are dS where a key tile is below kv_len); dbias [H, T, T] f32 and
@@ -543,7 +565,8 @@ extern "C" int wfl_attention_bwd_bias_mma(
     int ldk, float scale, int drop_thr, float drop_scale, int dtype,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != kD || (bias == nullptr) != (dbias == nullptr)) {
+  if ((D != kD && (D != kD128 || bias != nullptr)) ||
+      (bias == nullptr) != (dbias == nullptr)) {
     return cudaErrorInvalidValue;
   }
   if ((gate == nullptr) != (dgate == nullptr)) return cudaErrorInvalidValue;
@@ -553,11 +576,11 @@ extern "C" int wfl_attention_bwd_bias_mma(
   if (dtype == kF32)
     return dispatch_dtype<float>(q, k, v, bias, gate, dout, lse, delta,
                                  kv_len, dq, dk, dv, ds, dbias, dgate, B, H,
-                                 T_len, ldk, scale, drop, s);
+                                 T_len, D, ldk, scale, drop, s);
   if (dtype == kBF16)
     return dispatch_dtype<bf16>(q, k, v, bias, gate, dout, lse, delta,
                                 kv_len, dq, dk, dv, ds, dbias, dgate, B, H,
-                                T_len, ldk, scale, drop, s);
+                                T_len, D, ldk, scale, drop, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // Forward of the gated-bias key-masked attention at head_dim 64 (WavLM's
 // gated relative-position attention, 12 layers on the main path, in serving
-// and in training) on the tensor cores, for Hopper (sm_90a):
+// and in training), and of the bias-free one at head_dim 64 and 128, on the
+// tensor cores, for Hopper (sm_90a):
 //
 //   out[b,h,q,:] = softmax_k( (q·kᵀ)·scale + gate[b,h,q]·bias[h,q,k],
 //                             keys k >= kv_len[b] set to -1e30 ) · v
@@ -9,13 +10,17 @@
 // log) that the backward (attention_bwd_bias_mma.cu) reads. A null gate is
 // read as 1. A null bias (with a null gate) drops the gated term: the
 // bias-free instantiation (BIAS = false), which serves bias-free calls at
-// head_dim ≤ 64 (Whisper's layers, the `none` encoder's Conformer; narrower
-// widths zero-padded to 64 by the caller, with the true 1/√d).
+// head_dim ≤ 64 (route mma64: Whisper's layers, the `none` encoder's
+// Conformer) and, at head width D = 128, at 80-128 (route mma128: a
+// Conformer of hidden 512 under 4 heads, Whisper-base's at the config
+// schema's default); narrower widths are zero-padded to 64 or 128 by the
+// caller, with the true 1/√d. The head width is a template parameter; a
+// bias is taken at D = 64 only.
 //
 // Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_flash_kernel (:75),
 // the kernel of _fwd_impl (:189) (K2), and, without a bias,
 // wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:_fwd_kernel (:49) (K1) at
-// head_dim ≤ 64. Calls with a bias at other widths up to 512 keep the
+// head_dim ≤ 128. Calls with a bias at other widths up to 512 keep the
 // forwards of flash_attention.cu; wider calls take attention_wide.cu.
 //
 // What bounds it on the card: 2 products of 2·H·T·Σkv_len·D FLOPs (S = Q·Kᵀ,
@@ -33,7 +38,7 @@
 //   block index, so the B blocks that read one [query tile × T] bias strip
 //   run together; the strip comes from device memory once and from L2 B − 1
 //   times (54 MB of bias traffic a bf16 call, 108 MB in f32).
-// - The FlashAttention-2 layout: each warp owns 16 query rows and all 64
+// - The FlashAttention-2 layout: each warp owns 16 query rows and all D
 //   output columns in registers, and keeps its Q fragments in registers for
 //   the whole key loop (f32: split once into TF32 hi/lo halves). P is
 //   re-packed from the score accumulators as the A operand of P·V
@@ -61,7 +66,25 @@
 //   so each score costs one exp2f; the LSE is written in natural log.
 // - Without a bias (BIAS = false) the bias spans, their share of shared
 //   memory and the gate go; the tile that remains is the FlashAttention-2
-//   layout alone (FwdBiasTiles<Pol, false>).
+//   layout alone (FwdBiasTiles<Pol, false, D>).
+// - At D = 128 (bias-free only) the same layout holds twice the columns: a
+//   warp's output is 64 f32 registers a thread, bf16's resident Q 32 more,
+//   its S 32. Both dtypes run 8 warps (128 queries) a block and 1 block a
+//   SM, which leaves each thread 255 registers (2 blocks of 8 warps allow
+//   128). In f32 Q's TF32 hi/lo halves alone would be 128 registers: each
+//   warp reads its Q fragment from shared memory and splits it on use in
+//   every k-step of S (q_regs = false), as attention_fwd_mma.cu does at
+//   D = 384. bf16 runs S's 8 mma steps into one accumulator (s_chunk):
+//   the fresh sums of 4 took 36 more registers (230 against 194) and 5-6 %
+//   of the time. Measured on the card in two calls (kernel_variants_ab.py
+//   --kernel k128, [8, 4, 1500, 128]): bf16 4 warps and 2 blocks a SM, or
+//   32-key tiles and 3-4 blocks, were 10-27 % slower; f32 4 warps and 2
+//   blocks a SM 4-8 % slower, Q's fragments in registers (spilling) 25-28
+//   %, 16-key tiles and 3 blocks 13-14 %. What bounds D = 128 there (its
+//   clocks variants): in bf16 issuing the next tile's copies 33-37 % of
+//   the key loop, S 24 %, the softmax 17-19 %, P·V 20-23 %; in f32 P·V
+//   43-49 % (each warp splits V's B fragments on use), S 28-37 %, the
+//   copies 11-15 %.
 // - Masking: key tiles wholly past kv_len[b] are skipped (key 0 is always
 //   valid, kv_len ≥ 1), keys past kv_len are set to -1e30 before the row
 //   max; ragged K/V tiles and query rows past T are zero-filled, rows past T
@@ -87,6 +110,8 @@
 // saves 0-4 %; one bulk copy a row (cp.async.bulk on an mbarrier, issued by
 // one warp) nearly doubled the time. A TMA tensor map with a swizzled,
 // unpadded tile, one copy a tile, is the next step.
+#include <type_traits>
+
 #include "common.cuh"
 #include "attention_mma.cuh"
 
@@ -95,37 +120,45 @@ namespace {
 using namespace wfl;
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;                  // the head width of this kernel
-constexpr int kNT = kD / 8;             // 8-column output tiles
+constexpr int kD = 64;       // the head width with a bias, and of route mma64
+constexpr int kD128 = 128;   // the bias-free head width of route mma128
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Tiles by dtype: warps of 16 query rows, keys a tile, and blocks a SM the
-// registers are bounded for. Shared memory holds Q (BQ rows), two buffers
-// of K and V (BK rows each) and, with a bias, two of the bias spans (BQ
-// rows of PB). Without a bias the registers, not shared memory, bound the
-// blocks a SM.
-template <class Pol, bool BIAS>
+// Tiles by dtype and head width: warps of 16 query rows, keys a tile, and
+// blocks a SM the registers are bounded for. Shared memory holds Q (BQ
+// rows), two buffers of K and V (BK rows each) and, with a bias, two of the
+// bias spans (BQ rows of PB). Without a bias the registers, not shared
+// memory, bound the blocks a SM. q_regs: Q's fragments held in registers
+// for the whole key loop (all but f32 at D = 128, which reads them from
+// shared memory).
+template <class Pol, bool BIAS, int D>
 struct FwdBiasTiles {
   static constexpr bool kF32 = sizeof(typename Pol::T) == 4;
   static constexpr int es = sizeof(typename Pol::T);
-  static constexpr int warps = kF32 ? 4 : 8;
+  static constexpr int warps = kF32 && D == kD ? 4 : 8;
   static constexpr int bk = kF32 ? 32 : 64;
-  static constexpr int blocks = 2;
+  static constexpr int blocks = D == kD ? 2 : 1;
+  static constexpr bool q_regs = D == kD || !kF32;
+  // mma steps of S run into one accumulator before they are added in f32
+  // (see scores): 4, but bf16 at D = 128 all 8
+  static constexpr int s_chunk = D == kD || kF32 ? 4 : D / 16;
   static constexpr int threads = 32 * warps;
   static constexpr int bq = 16 * warps;
-  static constexpr int p = Pol::pitch(kD);
+  static constexpr int p = Pol::pitch(D);
   static constexpr int pb = (bk * es / 16 + 1) * 16 / es;
   static constexpr size_t smem =
       (size_t)es * (bq * p + 2 * 2 * bk * p + (BIAS ? 2 * bq * pb : 0));
+  static_assert(D == kD || (D == kD128 && !BIAS),
+                "a bias only at head_dim 64; bias-free at 64 and 128");
   static_assert(bk * es % 16 == 0, "a key tile moves the spans by chunks");
   // 228 KB a SM, 1 KB of it reserved per block
   static_assert(blocks * (smem + 1024) <= 233472,
                 "forward blocks a SM exceed its shared memory");
 };
 
-// The forward's arguments ([B, H, T, 64] tensors, bias [H, T, T] of the
+// The forward's arguments ([B, H, T, D] tensors, bias [H, T, T] of the
 // dtype, gate [B, H, T] f32 or null, the key lengths, the LSE rows or null)
 // as one kernel parameter.
 template <class T>
@@ -140,14 +173,17 @@ struct FwdBiasArgs {
   Dropout drop;
 };
 
-// S = Q·Kᵀ for the warp's 16 query rows (Q fragments in registers) and the
-// 16·NJ keys of tK: s[j][n] is the 8-key tile 2j + n. Each 4 mma steps sum
-// into fresh registers that are then added in f32 (see score_part).
-template <class Pol, int NJ>
+// S = Q·Kᵀ for the warp's 16 query rows and the 16·NJ keys of tK: s[j][n]
+// is the 8-key tile 2j + n. Q's A fragment of k-step kk is qa[kk] (QREGS),
+// or is read from rows r0 of the tile sQ and split on use. Each CH mma
+// steps sum into fresh registers that are then added in f32 (see
+// score_part).
+template <class Pol, int D, int NJ, bool QREGS, int CH>
 __device__ __forceinline__ void scores(
-    float (&s)[NJ][2][4], const typename Pol::A (&qa)[kD / Pol::KS],
-    const typename Pol::T* tK, int p) {
-  constexpr int KD = kD / Pol::KS, CH = 4;
+    float (&s)[NJ][2][4],
+    const typename Pol::A (&qa)[QREGS ? D / Pol::KS : 1],
+    const typename Pol::T* sQ, int r0, const typename Pol::T* tK, int p) {
+  constexpr int KD = D / Pol::KS;
   static_assert(KD % CH == 0, "whole groups of mma steps");
 #pragma unroll
   for (int kc = 0; kc < KD; kc += CH) {
@@ -158,12 +194,15 @@ __device__ __forceinline__ void scores(
       for (int e = 0; e < 4; ++e) y[j][0][e] = y[j][1][e] = 0.f;
 #pragma unroll
     for (int kk = kc; kk < kc + CH; ++kk) {
+      typename Pol::A a;
+      if constexpr (QREGS) a = qa[kk];
+      else Pol::load_ak(a, sQ, p, r0, kk * Pol::KS);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         typename Pol::B b0, b1;
         Pol::load_bk2(b0, b1, tK, p, 16 * j, kk * Pol::KS);
-        Pol::mma(y[j][0], qa[kk], b0);
-        Pol::mma(y[j][1], qa[kk], b1);
+        Pol::mma(y[j][0], a, b0);
+        Pol::mma(y[j][1], a, b1);
       }
     }
 #pragma unroll
@@ -177,19 +216,20 @@ __device__ __forceinline__ void scores(
 }
 
 // ---------------------------------------------------------------------------
-// Block (b, query tile, h). Warp w owns queries 16·w of the tile and all 64
+// Block (b, query tile, h). Warp w owns queries 16·w of the tile and all D
 // output columns across the key tiles; lane (g, t) holds rows g and g + 8
 // and keys 8·n + 2t + {0, 1} of each 8-key score tile n.
 // ---------------------------------------------------------------------------
 
-template <class Pol, bool BIAS, bool DROP>
-__global__ void __launch_bounds__(FwdBiasTiles<Pol, BIAS>::threads,
-                                  FwdBiasTiles<Pol, BIAS>::blocks)
+template <class Pol, bool BIAS, bool DROP, int D>
+__global__ void __launch_bounds__(FwdBiasTiles<Pol, BIAS, D>::threads,
+                                  FwdBiasTiles<Pol, BIAS, D>::blocks)
 attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
   using T = typename Pol::T;
-  using Cfg = FwdBiasTiles<Pol, BIAS>;
+  using Cfg = FwdBiasTiles<Pol, BIAS, D>;
   constexpr int NW = Cfg::warps, BQ = Cfg::bq, BK = Cfg::bk, P = Cfg::p;
-  constexpr int PB = Cfg::pb, KD = kD / Pol::KS, NJ = BK / 16;
+  constexpr int PB = Cfg::pb, KD = D / Pol::KS, NJ = BK / 16;
+  constexpr int kNT = D / 8;                      // 8-column output tiles
   constexpr bool kInPlace = !Cfg::kF32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);       // [BQ][P]
@@ -203,7 +243,7 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
   const int g = lane >> 2, t4 = lane & 3;
   const int T_len = a.T_len;
   const size_t bh = (size_t)b * a.H + h;
-  const size_t base = bh * T_len * kD;
+  const size_t base = bh * T_len * D;
   const T* __restrict__ k = a.k + base;
   const T* __restrict__ v = a.v + base;
   const T* bias = BIAS ? a.bias + (size_t)h * T_len * T_len : nullptr;
@@ -213,13 +253,13 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
 
   auto stage = [&](int kt, int buf) {
     const int k0 = kt * BK;
-    stage_rows_by_warp<Pol, NW>(sK + buf * BK * P, P, k, k0, BK, T_len, kD);
-    stage_rows_by_warp<Pol, NW>(sV + buf * BK * P, P, v, k0, BK, T_len, kD);
+    stage_rows_by_warp<Pol, NW>(sK + buf * BK * P, P, k, k0, BK, T_len, D);
+    stage_rows_by_warp<Pol, NW>(sV + buf * BK * P, P, v, k0, BK, T_len, D);
     if constexpr (BIAS)
       stage_spans<T, BK, Cfg::threads>(sB + buf * BQ * PB, PB, bias, T_len,
                                        q0, k0, BQ, T_len, a.bias, bias_end);
   };
-  stage_rows_by_warp<Pol, NW>(sQ, P, a.q + base, q0, BQ, T_len, kD);
+  stage_rows_by_warp<Pol, NW>(sQ, P, a.q + base, q0, BQ, T_len, D);
   stage(0, 0);
   cp_async_commit();
 
@@ -248,12 +288,16 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  // Q and key tile 0 are in; the Q fragments stay in registers
+  // Q and key tile 0 are in; the Q fragments stay in registers, or (f32
+  // at D = 128) are read from sQ and split in every k-step of S
   cp_async_wait<0>();
   __syncthreads();
-  typename Pol::A qa[KD];
+  typename Pol::A qa[Cfg::q_regs ? KD : 1];
+  if constexpr (Cfg::q_regs) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) Pol::load_ak(qa[kk], sQ, P, r0, kk * Pol::KS);
+    for (int kk = 0; kk < KD; ++kk)
+      Pol::load_ak(qa[kk], sQ, P, r0, kk * Pol::KS);
+  }
 
   const int n_kt = (kvl + BK - 1) / BK;
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -269,7 +313,8 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
     const T* tB = sB + buf * BQ * PB;
 
     float s[NJ][2][4];
-    scores<Pol, NJ>(s, qa, sK + buf * BK * P, P);
+    scores<Pol, D, NJ, Cfg::q_regs, Cfg::s_chunk>(s, qa, sQ, r0,
+                                                 sK + buf * BK * P, P);
 
     // scale, gated bias and key mask in base 2; online softmax per row
     float mx[2] = {kNegInf, kNegInf};
@@ -344,35 +389,38 @@ attn_bias_fwd_mma(const FwdBiasArgs<typename Pol::T> a) {
       o[n][2 * i + 1] *= inv;
     }
   }
-  store_acc<T, kNT>(a.out + base, o, q0 + r0, 0, kNT, kNT, T_len, kD, 1.f);
+  store_acc<T, kNT>(a.out + base, o, q0 + r0, 0, kNT, kNT, T_len, D, 1.f);
 }
 
-template <class Pol, bool BIAS, bool DROP>
+template <class Pol, bool BIAS, bool DROP, int D>
 cudaError_t run_fwd(const FwdBiasArgs<typename Pol::T>& a, int B,
                     cudaStream_t stream) {
-  using Cfg = FwdBiasTiles<Pol, BIAS>;
-  return wfl::launch(attn_bias_fwd_mma<Pol, BIAS, DROP>,
+  using Cfg = FwdBiasTiles<Pol, BIAS, D>;
+  return wfl::launch(attn_bias_fwd_mma<Pol, BIAS, DROP, D>,
                      dim3(B, (a.T_len + Cfg::bq - 1) / Cfg::bq, a.H),
                      dim3(Cfg::threads), Cfg::smem, stream, a);
 }
 
-// The bias term only with a bias, the dropout hash only with a seed.
-template <class Pol>
+// The bias term only with a bias (at D = 64), the dropout hash only with a
+// seed.
+template <class Pol, int D>
 cudaError_t dispatch(const FwdBiasArgs<typename Pol::T>& a, int B,
                      cudaStream_t s) {
-  if (a.bias != nullptr)
-    return a.drop.seed ? run_fwd<Pol, true, true>(a, B, s)
-                       : run_fwd<Pol, true, false>(a, B, s);
-  return a.drop.seed ? run_fwd<Pol, false, true>(a, B, s)
-                     : run_fwd<Pol, false, false>(a, B, s);
+  if constexpr (D == kD) {
+    if (a.bias != nullptr)
+      return a.drop.seed ? run_fwd<Pol, true, true, D>(a, B, s)
+                         : run_fwd<Pol, true, false, D>(a, B, s);
+  }
+  return a.drop.seed ? run_fwd<Pol, false, true, D>(a, B, s)
+                     : run_fwd<Pol, false, false, D>(a, B, s);
 }
 
 template <class T>
 cudaError_t dispatch_dtype(const void* q, const void* k, const void* v,
                            const void* bias, const void* gate,
                            const void* kv_len, void* out, void* lse, int B,
-                           int H, int T_len, float scale, Dropout drop,
-                           cudaStream_t s) {
+                           int H, int T_len, int D, float scale,
+                           Dropout drop, cudaStream_t s) {
   const FwdBiasArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                          static_cast<const T*>(v),
                          static_cast<const T*>(bias),
@@ -380,21 +428,23 @@ cudaError_t dispatch_dtype(const void* q, const void* k, const void* v,
                          static_cast<const int*>(kv_len),
                          static_cast<T*>(out), static_cast<float*>(lse), H,
                          T_len, scale, drop};
-  if constexpr (sizeof(T) == 4) return dispatch<PolF32>(a, B, s);
-  else return dispatch<PolBF16>(a, B, s);
+  using Pol = std::conditional_t<sizeof(T) == 4, PolF32, PolBF16>;
+  return D == kD ? dispatch<Pol, kD>(a, B, s) : dispatch<Pol, kD128>(a, B, s);
 }
 
 }  // namespace
 
 using namespace wfl;
 
-// The forward at head_dim 64 (wfl_flash_attention_fwd's arguments, which it
-// shares): q, k, v, out [B, H, T, D] contiguous of the dtype (0 = f32 as
-// 3×TF32, 1 = bf16), D = 64; bias [H, T, T] of the dtype, at any address, or
-// null for the bias-free forward; gate [B, H, T] f32 or null (read as 1; a
-// gate without a bias is refused); kv_len [B] int32 in [1, T]; lse [B, H, T] f32, written when not
-// null; seed (one int32 on the device, or null), drop_thr and drop_scale as
-// the other forwards'. Returns the launch's cudaError_t.
+// The forward at head_dim 64, and bias-free at 128 (wfl_flash_attention_fwd's
+// arguments, which it shares): q, k, v, out [B, H, T, D] contiguous of the
+// dtype (0 = f32 as 3×TF32, 1 = bf16), D = 64 or 128; bias [H, T, T] of the
+// dtype, at any address (D = 64 only), or null for the bias-free forward;
+// gate [B, H, T] f32 or null (read as 1; a gate without a bias is refused);
+// kv_len [B] int32 in [1, T]; lse [B, H, T] f32, written when not null; seed
+// (one int32 on the device, or null), drop_thr and drop_scale as the other
+// forwards'. Refuses what forward_route does not send here. Returns the
+// launch's cudaError_t.
 extern "C" int wfl_attention_fwd_bias_mma(const void* q, const void* k,
                                           const void* v, const void* bias,
                                           const void* gate,
@@ -405,14 +455,15 @@ extern "C" int wfl_attention_fwd_bias_mma(const void* q, const void* k,
                                           float drop_scale, int dtype,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != kD || (bias == nullptr && gate != nullptr))
+  if ((D != kD && (D != kD128 || bias != nullptr)) ||
+      (bias == nullptr && gate != nullptr))
     return cudaErrorInvalidValue;
   const Dropout drop{static_cast<const int*>(seed), drop_thr, drop_scale};
   if (dtype == kF32)
     return dispatch_dtype<float>(q, k, v, bias, gate, kv_len, out, lse, B, H,
-                                 T_len, scale, drop, s);
+                                 T_len, D, scale, drop, s);
   if (dtype == kBF16)
     return dispatch_dtype<bf16>(q, k, v, bias, gate, kv_len, out, lse, B, H,
-                                T_len, scale, drop, s);
+                                T_len, D, scale, drop, s);
   return cudaErrorInvalidValue;
 }

@@ -12,25 +12,28 @@ backward.
 - On a CUDA tensor hand-written kernels run (f32 or bf16 in, f32 softmax
   and accumulation): the forward, which also writes the row logsumexp
   (LSE) when autograd will need it, and the backward passes, which
-  recompute P = exp(S − LSE) tile by tile. The forward takes one of five
+  recompute P = exp(S − LSE) tile by tile. The forward takes one of six
   routes (:func:`forward_route`): above head_dim 512 (up to 2048), with or
   without a bias, the cluster forward of ``csrc/attention_wide.cu`` (the
   contraction over D split across a thread-block cluster); with a bias
   at head_dim 64 the tensor-core forward of
-  ``csrc/attention_fwd_bias_mma.cu``, and bias-free at head_dim ≤ 64 its
-  bias-free instantiation (narrower widths zero-padded to 64); bias-free at
+  ``csrc/attention_fwd_bias_mma.cu``, and bias-free its bias-free
+  instantiations at head width 64 for head_dim ≤ 64 and at 128 for
+  80-128 (narrower widths zero-padded to 64 or 128); bias-free at
   head_dim > 128 the forward of ``csrc/attention_fwd_mma.cu``; otherwise
-  the forwards of ``csrc/flash_attention.cu``. The backward takes the
-  matching one of five (:func:`backward_route`): the dK/dV and dQ passes of
+  (a bias at widths other than 64, up to 512) the forwards of
+  ``csrc/flash_attention.cu``. The backward takes the matching one of six
+  (:func:`backward_route`): the dK/dV and dQ passes of
   ``csrc/attention_wide.cu`` above 512 (with a bias then also the
   dBias/dGate pass of ``csrc/attention_bwd_bias_mma.cu``); the tensor-core
   passes of ``csrc/attention_bwd_bias_mma.cu`` with a bias at head_dim 64
-  (dK/dV, dQ, dBias/dGate) and bias-free at ≤ 64 (dK/dV, dQ); bias-free at
-  head_dim > 128 the tensor-core pair of ``csrc/attention_bwd_mma.cu``;
-  otherwise the FMA pair of ``csrc/flash_attention.cu`` (dK/dV; dQ with
-  dGate and dBias). On a CPU tensor the plain twins
-  :func:`attention_plain` and :func:`attention_backward_plain` run. Nothing
-  falls back: a kernel that fails to build or launch raises.
+  (dK/dV, dQ, dBias/dGate), and bias-free at ≤ 64 and at 80-128 (dK/dV,
+  dQ, at head width 64 or 128); bias-free at head_dim > 128 the
+  tensor-core pair of ``csrc/attention_bwd_mma.cu``; otherwise the FMA pair
+  of ``csrc/flash_attention.cu`` (dK/dV; dQ with dGate and dBias). On a
+  CPU tensor the plain twins :func:`attention_plain` and
+  :func:`attention_backward_plain` run. Nothing falls back: a kernel that
+  fails to build or launch raises.
 - ``dropout_rate`` > 0 with a ``dropout_seed`` runs strict attention
   dropout (K6) inside those kernels, with the JAX package's hash mask
   (``dropout_mask``): the forward masks P after the row sum, the backward
@@ -77,11 +80,14 @@ mma_bias_fwd_launches = 0
 # Launches of the forwards of flash_attention.cu (the "fused" route),
 # counted in the branch of launch_kernel that runs them.
 fused_fwd_launches = 0
-# Launches of the bias-free instantiations of the D = 64 mma.sync forward
-# and passes ("mma64"), and of attention_wide.cu's forward and backward
-# ("wide"), each counted in the branch that runs it.
+# Launches of the bias-free instantiations of the mma.sync forward and
+# passes of attention_{fwd,bwd}_bias_mma.cu at head width 64 ("mma64") and
+# 128 ("mma128"), and of attention_wide.cu's forward and backward ("wide"),
+# each counted in the branch that runs it.
 mma64_fwd_launches = 0
 mma64_bwd_launches = 0
+mma128_fwd_launches = 0
+mma128_bwd_launches = 0
 wide_fwd_launches = 0
 wide_bwd_launches = 0
 
@@ -92,6 +98,9 @@ MMA_MIN_D = 128
 # for; bias-free calls at widths up to it run their bias-free instantiation,
 # zero-padded to it.
 MMA_BIAS_D = 64
+# The head width of their second bias-free instantiation: bias-free calls
+# above MMA_BIAS_D and up to it run it, zero-padded to it.
+MMA128_D = 128
 # Head widths above this, with or without a bias, take attention_wide.cu,
 # up to WIDE_MAX_D: its clusters hold at most 16 CTAs of 128 columns of D.
 WIDE_MIN_D = 512
@@ -103,10 +112,11 @@ def forward_route(d: int, has_bias: bool) -> str:
     ``"wide"`` (``csrc/attention_wide.cu``) above 512, up to
     ``WIDE_MAX_D`` (wider widths raise: no CUDA route takes them); with
     a bias, ``"mma_bias"`` (the tensor-core forward of
-    ``csrc/attention_fwd_bias_mma.cu``) at 64; bias-free, ``"mma64"`` (its
-    bias-free instantiation) at ≤ 64 and ``"mma"`` (that of
-    ``csrc/attention_fwd_mma.cu``) above 128; else ``"fused"`` (the
-    forwards of ``csrc/flash_attention.cu``)."""
+    ``csrc/attention_fwd_bias_mma.cu``) at 64, else ``"fused"`` (the
+    forwards of ``csrc/flash_attention.cu``); bias-free, ``"mma64"`` and
+    ``"mma128"`` (its bias-free instantiations at head width 64 and 128)
+    at ≤ 64 and at 80-128, ``"mma"`` (that of
+    ``csrc/attention_fwd_mma.cu``) above 128."""
     if d > WIDE_MAX_D:
         raise ValueError(f"head_dim {d} exceeds {WIDE_MAX_D}, the widest the "
                          f"CUDA attention kernels take (attention_wide.cu: "
@@ -117,17 +127,19 @@ def forward_route(d: int, has_bias: bool) -> str:
         return "mma_bias" if d == MMA_BIAS_D else "fused"
     if d <= MMA_BIAS_D:
         return "mma64"
-    return "mma" if d > MMA_MIN_D else "fused"
+    return "mma" if d > MMA_MIN_D else "mma128"
 
 
 def backward_route(d: int, has_bias: bool) -> str:
     """Which backward a CUDA call runs, by the forward's table: ``"wide"``
     (the passes of ``csrc/attention_wide.cu``) above 512; ``"mma_bias"``
     (the tensor-core passes of ``csrc/attention_bwd_bias_mma.cu``) with a
-    bias at 64 and ``"mma64"`` (their bias-free instantiation) bias-free at
-    ≤ 64; ``"mma"`` (the tensor-core pair of ``csrc/attention_bwd_mma.cu``)
+    bias at 64, ``"mma64"`` and ``"mma128"`` (their bias-free
+    instantiations at head width 64 and 128) bias-free at ≤ 64 and at
+    80-128; ``"mma"`` (the tensor-core pair of ``csrc/attention_bwd_mma.cu``)
     bias-free above 128; else ``"fma"`` (the FMA pair of
-    ``csrc/flash_attention.cu``)."""
+    ``csrc/flash_attention.cu``), with a bias at widths other than 64 up to
+    512."""
     route = forward_route(d, has_bias)
     return "fma" if route == "fused" else route
 
@@ -289,12 +301,11 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
     """Run the forward on CUDA tensors: the route :func:`forward_route`
     names, with no fallback from one to another (each route counted where
     it launches: ``mma_fwd_launches``, ``mma_bias_fwd_launches``,
-    ``mma64_fwd_launches``, ``wide_fwd_launches``, ``fused_fwd_launches``);
-    with
-    ``return_lse`` also the row LSE [B, H, T] f32; with ``dropout_rate`` >
-    0 the in-kernel dropout (K6) of ``dropout_seed``, a one-element int32
-    tensor on q's device; ``scale`` of the scores, 1/√d when None."""
-    global fused_fwd_launches
+    ``mma64_fwd_launches``, ``mma128_fwd_launches``, ``wide_fwd_launches``,
+    ``fused_fwd_launches``); with ``return_lse`` also the row LSE [B, H, T]
+    f32; with ``dropout_rate`` > 0 the in-kernel dropout (K6) of
+    ``dropout_seed``, a one-element int32 tensor on q's device; ``scale``
+    of the scores, 1/√d when None."""
     _check(q, k, v, bias, gate)
     if not q.is_cuda:
         raise ValueError("launch_kernel needs CUDA tensors")
@@ -319,19 +330,15 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
     elif route == "mma64":
         out = _launch_mma64_fwd(q, k, v, kv, lse, seed, thr, drop_scale,
                                 scale)
+    elif route == "mma128":
+        out = _launch_mma128_fwd(q, k, v, kv, lse, seed, thr, drop_scale,
+                                 scale)
     elif route == "wide":
         out = _launch_wide_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
                                drop_scale, scale)
     else:
-        lib = _build.library("flash_attention")
-        out = torch.empty_like(q)
-        err = _fwd_launcher(lib.wfl_flash_attention_fwd)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
-            kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
-            scale, thr, drop_scale, _dtype_code(q),
-            _build.stream_ptr(q.device))
-        _build.check(lib, err, "flash_attention")
-        fused_fwd_launches += 1
+        out = _launch_fused_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
+                                drop_scale, scale)
     return (out, lse) if return_lse else out
 
 
@@ -344,6 +351,26 @@ def _fwd_launcher(fn):
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
     return fn
+
+
+def _launch_fused_fwd(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
+                      scale=None):
+    """The forwards of ``csrc/flash_attention.cu`` (route ``"fused"``) on
+    the tensors :func:`launch_kernel` has checked and laid out (bias in q's
+    dtype or None, gate f32 or None; any head width up to 512); writes
+    ``lse`` when it is not None. Returns out in q's dtype."""
+    global fused_fwd_launches
+    b, h, t, d = q.shape
+    lib = _build.library("flash_attention")
+    out = torch.empty_like(q)
+    err = _fwd_launcher(lib.wfl_flash_attention_fwd)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
+        kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
+        _scale(q, scale), thr, drop_scale, _dtype_code(q),
+        _build.stream_ptr(q.device))
+    _build.check(lib, err, "flash_attention")
+    fused_fwd_launches += 1
+    return out
 
 
 def _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
@@ -364,11 +391,13 @@ def _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
     return out
 
 
-def _fwd_d64(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale, scale):
-    """The D = 64 tensor-core forward of ``csrc/attention_fwd_bias_mma.cu``
-    (bias in q's dtype or None, gate f32 or None; the launcher itself
-    refuses a head_dim other than 64 and a gate without a bias); writes
-    ``lse`` when it is not None. Returns out in q's dtype; counts nothing."""
+def _fwd_bias_mma(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
+                  scale):
+    """The tensor-core forward of ``csrc/attention_fwd_bias_mma.cu`` at
+    head_dim 64 (bias in q's dtype or None, gate f32 or None) or bias-free
+    at 128 (the launcher itself refuses other widths, a bias at 128 and a
+    gate without a bias); writes ``lse`` when it is not None. Returns out in
+    q's dtype; counts nothing."""
     b, h, t, d = q.shape
     lib = _build.library("attention_fwd_bias_mma")
     out = torch.empty_like(q)
@@ -388,32 +417,53 @@ def _launch_mma_bias_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
     has checked and laid out (bias in q's dtype, gate f32 or None, head_dim
     64); writes ``lse`` when it is not None. Returns out in q's dtype."""
     global mma_bias_fwd_launches
-    out = _fwd_d64(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
-                   scale)
+    out = _fwd_bias_mma(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
+                        scale)
     mma_bias_fwd_launches += 1
     return out
 
 
-def _pad64(*xs):
-    """Zero-pad [B, H, T, d] tensors on D to 64 (zero columns add nothing to
-    q·kᵀ and give zero output and gradient columns), contiguous."""
-    return [F.pad(x, (0, MMA_BIAS_D - x.shape[-1])).contiguous() for x in xs]
+def _pad_to(width: int, *xs):
+    """Zero-pad [B, H, T, d] tensors on D to ``width`` (zero columns add
+    nothing to q·kᵀ and give zero output and gradient columns),
+    contiguous."""
+    return [F.pad(x, (0, width - x.shape[-1])).contiguous() for x in xs]
+
+
+def _bias_free_fwd(width, q, k, v, kv, lse, seed, thr, drop_scale, scale):
+    """The bias-free instantiation of the tensor-core forward of
+    ``csrc/attention_fwd_bias_mma.cu`` at head width ``width`` (64 or 128)
+    on q, k, v no wider, zero-padded to it here and scaled by q's own 1/√d
+    when ``scale`` is None; writes ``lse`` when it is not None. Returns out
+    in q's dtype and width; counts nothing."""
+    scale, d = _scale(q, scale), q.shape[-1]
+    if d < width:
+        q, k, v = _pad_to(width, q, k, v)
+    out = _fwd_bias_mma(q, k, v, None, None, kv, lse, seed, thr, drop_scale,
+                        scale)
+    return out[..., :d] if d < width else out
 
 
 def _launch_mma64_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
-    """The bias-free instantiation of the D = 64 tensor-core forward on the
-    tensors :func:`launch_kernel` has checked and laid out, at head_dim
-    ≤ 64 (zero-padded to 64 here, scaled by q's own 1/√d when ``scale`` is
-    None); writes ``lse`` when it is not None. Returns out in q's dtype and
-    width."""
+    """Route ``"mma64"``: the bias-free D = 64 forward on the tensors
+    :func:`launch_kernel` has checked and laid out, at head_dim ≤ 64
+    (:func:`_bias_free_fwd`)."""
     global mma64_fwd_launches
-    scale, d = _scale(q, scale), q.shape[-1]
-    if d < MMA_BIAS_D:
-        q, k, v = _pad64(q, k, v)
-    out = _fwd_d64(q, k, v, None, None, kv, lse, seed, thr, drop_scale,
-                   scale)
+    out = _bias_free_fwd(MMA_BIAS_D, q, k, v, kv, lse, seed, thr, drop_scale,
+                         scale)
     mma64_fwd_launches += 1
-    return out[..., :d] if d < MMA_BIAS_D else out
+    return out
+
+
+def _launch_mma128_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
+    """Route ``"mma128"``: the bias-free D = 128 forward on the tensors
+    :func:`launch_kernel` has checked and laid out, at head_dim 80-128
+    (:func:`_bias_free_fwd`)."""
+    global mma128_fwd_launches
+    out = _bias_free_fwd(MMA128_D, q, k, v, kv, lse, seed, thr, drop_scale,
+                         scale)
+    mma128_fwd_launches += 1
+    return out
 
 
 def _launch_wide_fwd(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
@@ -451,11 +501,10 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     """Run the backward passes on CUDA tensors: the route
     :func:`backward_route` names, with no fallback from one to another,
     each counted where it launches (``mma_bias_bwd_launches``,
-    ``mma_bwd_launches``, ``mma64_bwd_launches``, ``wide_bwd_launches``,
-    ``fma_bwd_launches``). Same contract as
+    ``mma_bwd_launches``, ``mma64_bwd_launches``, ``mma128_bwd_launches``,
+    ``wide_bwd_launches``, ``fma_bwd_launches``). Same contract as
     :func:`attention_backward_plain`; ``delta = rowsum(dO·O)`` is a plain
     f32 torch op here, as the JAX package leaves it to XLA."""
-    global fma_bwd_launches
     _check(q, k, v, bias, gate)
     if not q.is_cuda:
         raise ValueError("launch_backward needs CUDA tensors")
@@ -468,8 +517,9 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     lse = lse.contiguous()
     seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
     route = backward_route(d, bias is not None)
-    if route in ("mma", "mma64"):
-        launch = _launch_mma if route == "mma" else _launch_mma64
+    if route in ("mma", "mma64", "mma128"):
+        launch = {"mma": _launch_mma, "mma64": _launch_mma64,
+                  "mma128": _launch_mma128}[route]
         dq, dk, dv = launch(q, k, v, dout, lse, delta, kv, seed, thr,
                             drop_scale, scale)
         return dq, dk, dv, None, None
@@ -483,6 +533,20 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     if route == "wide":
         return _launch_wide(q, k, v, bias, gate, dout, lse, delta, kv, seed,
                             thr, drop_scale, scale)
+    return _launch_fma(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
+                       drop_scale, scale)
+
+
+def _launch_fma(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
+                drop_scale, scale=None):
+    """The FMA pair of ``csrc/flash_attention.cu`` (route ``"fma"``: dK/dV;
+    dQ with dGate and dBias) on the tensors :func:`launch_backward` has
+    checked and laid out (bias in q's dtype or None, gate f32 or None; any
+    head width up to 512). Returns (dq, dk, dv, dbias, dgate) as
+    :func:`_launch_mma_bias` does, dbias and dgate None where there is no
+    bias or gate."""
+    global fma_bwd_launches
+    b, h, t, d = q.shape
     lib = _build.library("flash_attention")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = (torch.zeros((h, t, t), dtype=torch.float32, device=q.device)
@@ -497,8 +561,9 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
              _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t, d, scale,
-             thr, drop_scale, _dtype_code(q), _build.stream_ptr(q.device))
+             dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t, d,
+             _scale(q, scale), thr, drop_scale, _dtype_code(q),
+             _build.stream_ptr(q.device))
     _build.check(lib, err, "flash_attention backward")
     fma_bwd_launches += 1
     return dq, dk, dv, dbias, dgate
@@ -533,13 +598,13 @@ def _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale,
     return dq, dk, dv
 
 
-def _bwd_d64(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
-             drop_scale, scale):
-    """The D = 64 tensor-core passes of ``csrc/attention_bwd_bias_mma.cu``
-    (bias in q's dtype or None, gate f32 or None; the launcher itself
-    refuses a head_dim other than 64). The dK/dV pass leaves dS in a [B, H,
-    T, ⌈T/64⌉·64] workspace of q's dtype, which the dQ pass and, with a
-    bias, the dBias/dGate pass read. Returns (dq, dk, dv, dbias, dgate):
+def _bwd_bias_mma(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
+                  drop_scale, scale):
+    """The tensor-core passes of ``csrc/attention_bwd_bias_mma.cu`` at
+    head_dim 64 (bias in q's dtype or None, gate f32 or None) or bias-free
+    at 128 (the launcher itself refuses other widths and a bias at 128).
+    The dK/dV pass leaves dS in a [B, H, T, ⌈T/64⌉·64] workspace of q's
+    dtype, which the dQ pass and, with a bias, the dBias/dGate pass read. Returns (dq, dk, dv, dbias, dgate):
     dq/dk/dv in q's dtype, dbias [H, T, T] (None without bias) and dgate
     [B, H, T] (None without gate) in f32; counts nothing."""
     b, h, t, d = q.shape
@@ -575,28 +640,51 @@ def _launch_mma_bias(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
     dk, dv, dbias, dgate): dq/dk/dv in q's dtype, dbias [H, T, T] and dgate
     [B, H, T] (None without gate) in f32."""
     global mma_bias_bwd_launches
-    grads = _bwd_d64(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
-                     drop_scale, scale)
+    grads = _bwd_bias_mma(q, k, v, bias, gate, dout, lse, delta, kv, seed,
+                          thr, drop_scale, scale)
     mma_bias_bwd_launches += 1
     return grads
 
 
-def _launch_mma64(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale,
-                  scale=None):
-    """The bias-free instantiation of the D = 64 tensor-core passes (dK/dV,
-    dQ) on the tensors :func:`launch_backward` has checked and laid out, at
-    head_dim ≤ 64 (zero-padded to 64 here, scaled by q's own 1/√d when
-    ``scale`` is None). Returns (dq, dk, dv) in q's dtype and width."""
-    global mma64_bwd_launches
+def _bias_free_bwd(width, q, k, v, dout, lse, delta, kv, seed, thr,
+                   drop_scale, scale):
+    """The bias-free instantiation of the tensor-core passes (dK/dV, dQ) of
+    ``csrc/attention_bwd_bias_mma.cu`` at head width ``width`` (64 or 128)
+    on inputs no wider, zero-padded to it here and scaled by q's own 1/√d
+    when ``scale`` is None. Returns (dq, dk, dv) in q's dtype and width;
+    counts nothing."""
     scale, d = _scale(q, scale), q.shape[-1]
-    if d < MMA_BIAS_D:
-        q, k, v, dout = _pad64(q, k, v, dout)
-    dq, dk, dv, _, _ = _bwd_d64(q, k, v, None, None, dout, lse, delta, kv,
-                                seed, thr, drop_scale, scale)
-    mma64_bwd_launches += 1
-    if d < MMA_BIAS_D:
+    if d < width:
+        q, k, v, dout = _pad_to(width, q, k, v, dout)
+    dq, dk, dv, _, _ = _bwd_bias_mma(q, k, v, None, None, dout, lse, delta,
+                                     kv, seed, thr, drop_scale, scale)
+    if d < width:
         return dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
+
+
+def _launch_mma64(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale,
+                  scale=None):
+    """Route ``"mma64"``: the bias-free D = 64 passes on the tensors
+    :func:`launch_backward` has checked and laid out, at head_dim ≤ 64
+    (:func:`_bias_free_bwd`)."""
+    global mma64_bwd_launches
+    grads = _bias_free_bwd(MMA_BIAS_D, q, k, v, dout, lse, delta, kv, seed,
+                           thr, drop_scale, scale)
+    mma64_bwd_launches += 1
+    return grads
+
+
+def _launch_mma128(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale,
+                   scale=None):
+    """Route ``"mma128"``: the bias-free D = 128 passes on the tensors
+    :func:`launch_backward` has checked and laid out, at head_dim 80-128
+    (:func:`_bias_free_bwd`)."""
+    global mma128_bwd_launches
+    grads = _bias_free_bwd(MMA128_D, q, k, v, dout, lse, delta, kv, seed,
+                           thr, drop_scale, scale)
+    mma128_bwd_launches += 1
+    return grads
 
 
 def _launch_wide(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,

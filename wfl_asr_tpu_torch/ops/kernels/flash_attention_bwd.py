@@ -2,16 +2,17 @@
 ``wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:flash_attention_trainable``,
 forward and backward.
 
-The Conformer blocks' attention (head_dim 384 on the main path) and the
-Whisper encoder's (head_dim 64). The JAX package keeps it apart from the
+The Conformer blocks' attention (head_dim 384 on the main path, 128 for a
+hidden size of 512 under 4 heads) and the Whisper encoder's (head_dim 64). The JAX package keeps it apart from the
 gated kernel for TPU grid order and VMEM only (flash_attention_bwd.py:18-25);
 on the card both entry points share the routes of ``flash_attention``
-(``forward_route``, ``backward_route``), by head width: ≤ 64 the bias-free
-instantiations of the D = 64 tensor-core forward and passes
-(``csrc/attention_fwd_bias_mma.cu``, ``csrc/attention_bwd_bias_mma.cu``;
-narrower widths zero-padded to 64; ``flash_attention.mma64_fwd_launches``,
-``mma64_bwd_launches``); 80-128 the forward of ``csrc/flash_attention.cu``
-and its FMA backward pair; 144-512 the tensor-core forward of
+(``forward_route``, ``backward_route``), by head width: ≤ 64 and 80-128
+the bias-free instantiations of the tensor-core forward and passes of
+``csrc/attention_fwd_bias_mma.cu`` and ``csrc/attention_bwd_bias_mma.cu``
+at head width 64 and 128 (narrower widths zero-padded to it;
+``flash_attention.mma64_fwd_launches``, ``mma64_bwd_launches``,
+``mma128_fwd_launches``, ``mma128_bwd_launches``); 144-512 the tensor-core
+forward of
 ``csrc/attention_fwd_mma.cu`` and pair of ``csrc/attention_bwd_mma.cu``
 (``mma_fwd_launches``, ``mma_bwd_launches``); above 512 (to 2048) the
 cluster forward and passes of ``csrc/attention_wide.cu`` (``wide_fwd_launches``,
