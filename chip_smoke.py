@@ -4,7 +4,7 @@
     python3 chip_smoke.py --only kernels  # build + kernel-vs-plain phases only
     python3 chip_smoke.py --only conv     # build + K5's part of phase 3 only
     python3 chip_smoke.py --only train    # build + training phases 6-7 only
-    python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9e only
+    python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9f only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -64,21 +64,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. Whisper-base serving (``encoder_type: whisper``, the flagship heads):
    the tagger saved as .pt and served by ``infer_folder_batched`` on the
    card in bf16 over a copy of phase 4's wavs, the launch counts set to 0 just
-   before and read just after (a forward: 6 K1 on the bias-free
-   instantiation of the D = 64 forward of ``attention_fwd_bias_mma.cu``,
-   2 on the bias-free mma.sync forward of ``attention_fwd_mma.cu``, none
-   on the fused forwards); the batched forward timed at B=8×30 s in bf16
+   before and read just after (a forward: 6 K1 on the bf16 wgmma forward
+   of ``attention_wgmma.cu`` at D = 64, route wgmma64, 2 on the bias-free
+   mma.sync forward of ``attention_fwd_mma.cu``, none on the fused
+   forwards); the batched forward timed at B=8×30 s in bf16
    and f32 with its peak memory; one bf16 step profiled; one bf16 forward
    of the ``large-v3`` preset at full width (its Conformer at the
    config's 2 heads, head_dim 640: 2 forwards on the wide route of
-   ``attention_wide.cu``, 32 on the D = 64 one), timed;
+   ``attention_wide.cu``, 32 on wgmma64), timed;
    8b. the card against the CPU as in phase 5, for Whisper-base and for the
    ``none`` encoder at full width (80 mels; unequal lengths take the
    host's reflect padding and the precentered STFT);
    8c. Whisper-base without the config's ``conformer_heads`` key, so the
    Conformer runs the schema's default of 4 heads at head_dim 128: served
-   as in phase 8 (a forward: 6 K1 on the bias-free D = 64 forward, 2 on
-   the bias-free D = 128 one, route mma128, none fused), timed at B=8×30 s
+   as in phase 8 (a bf16 forward: 6 K1 on wgmma64, 2 on the wgmma forward
+   at D = 128, route wgmma128, none fused), timed at B=8×30 s
    in bf16 and f32 with its peak memory, one bf16 step profiled; 8d. its
    card against the CPU as in phase 5;
 9. Whisper-base training: preprocess and train on phase 6's corpus (f32,
@@ -95,8 +95,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    each on the D = 64 one in the first step, the step's ms and peak
    memory; 9d. phase 9 at the schema's 4 Conformer heads (a step: 6 K1b
    on the bias-free D = 64 passes, 2 on the bias-free D = 128 passes,
-   route mma128, none on the mma.sync pair or the FMA pair); 9e. its
-   card-vs-CPU train step at B=2×30 s under phase 7's rules;
+   route mma128, none on the mma.sync pair or the FMA pair); 9f. the bf16
+   training path: that model with ``training.compute_dtype: bfloat16``,
+   its f32 and bf16 losses on one batch and weights, then 2 bf16 steps at
+   B = 8 × 30 s (a step: 6 backwards on the wgmma route at D = 64, 2 at
+   D = 128, none on mma64/mma128), the step's ms, audio-s/s, peak memory
+   and profiled busy and idle share; 9e. its card-vs-CPU train step at
+   B=2×30 s under phase 7's rules;
 10. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
    line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -108,9 +113,10 @@ Phase 3 includes 3b: the backward kernels (K2b, K1b) through
 route ``backward_route`` names (K1b: the mma.sync pair of
 ``attention_bwd_mma.cu``; K2b: the three mma.sync passes of
 ``attention_bwd_bias_mma.cu``, dK/dV, dQ and dBias/dGate; bias-free at
-head_dim ≤ 64 their bias-free instantiation, dK/dV and dQ; above 512 the
-passes of ``attention_wide.cu``; bias-free at 80-128 their bias-free
-instantiation at D = 128; other widths up to 512 with a bias: the FMA
+head_dim ≤ 64 their bias-free instantiation in f32, dK/dV and dQ, and in bf16 the pre-pass and wgmma
+dK/dV pass of ``attention_wgmma.cu`` with that dQ pass; above 512 the
+passes of ``attention_wide.cu``; bias-free at 80-128 the same at D = 128;
+other widths up to 512 with a bias: the FMA
 pair of ``flash_attention.cu``), with the
 device time of each kernel of the call; 3c: strict attention dropout (K6) inside
 all four, forward and backward, at the main shapes in f32 and bf16 at
@@ -122,14 +128,16 @@ plain twin of seed + 1); the head-width sweep (``head_dims``), with bias
 at 16-512 (64 on the mma.sync forward with a bias and the mma.sync
 passes, there also without gate and with a bias whose base is not
 16-byte aligned) and at 528-2048 (the wide route), bias-free at 16-64
-(the bias-free D = 64 route), 80-128 (the bias-free D = 128 route),
+(f32: the bias-free D = 64 route mma64; bf16: wgmma64), 80-128 (mma128;
+wgmma128),
 144-512 (mma.sync) and 528-2048 (wide), and strict dropout bias-free at
 64, 128 and 640, each forward's and backward's route shown by the launch
 counts; 3d: the mask
 of each forward variant (the mma.sync forward of
 ``attention_fwd_bias_mma.cu`` at D = 64 with a zero bias and a unit gate,
-and its bias-free instantiations at D = 64 and 128; the f32 FMA and bf16
-``mma.sync``
+and its bias-free f32 instantiations at D = 64 and 128, the bf16 wgmma
+forward at D = 64 and 128 and, through dV, its dK/dV pass; the f32 FMA
+and bf16 ``mma.sync``
 forwards of ``flash_attention.cu`` at D = 48 with a zero bias; the
 mma.sync forward of ``attention_fwd_mma.cu`` at D = 384; the wide forward
 of ``attention_wide.cu`` at D = 640, bias-free in f32 and with a zero
@@ -137,16 +145,19 @@ bias in bf16; the others in f32 and bf16), read off bit for bit at
 T=1499 over every query and key tile, and the kept share at the main
 shape; 3e: K1 and K1b at the Whisper paths' shapes, bias-free, in f32
 and bf16, at [8, 8, 1500, 64] (Whisper-base's layers) and [8, 2, 1500,
-40] (the ``none`` encoder's Conformer, padded to 48 by the entry point
-and to 64 by the route), both on the bias-free D = 64 route, and at [8,
-2, 1500, 640] (large-v3's Conformer at 2 heads, the wide route), and at
-[8, 4, 1500, 128] (Whisper-base's Conformer at the schema's 4 heads) and
-[8, 4, 1500, 96] (padded to 128), both on the bias-free D = 128 route
-(mma128), against the plain twins, timed beside SDPA (without a mask
-where every key is valid) and the bound, with the device time of each
-kernel; at [8, 4, 1500, 128] also the fused forward and the FMA pair of
+40] (the ``none`` encoder's Conformer, padded to 48 by the entry point),
+both on the bias-free D = 64 route (f32 mma64, padded to 64; bf16
+wgmma64 at the tensors' width), and at [8, 2, 1500, 640] (large-v3's
+Conformer at 2 heads, the wide route), and at [8, 4, 1500, 128]
+(Whisper-base's Conformer at the schema's 4 heads) and [8, 4, 1500, 96],
+both on the bias-free D = 128 route (mma128, wgmma128), against the
+plain twins, timed beside SDPA (without a mask where every key is valid)
+and the bound, with the device time of each kernel; in bf16 also with
+ragged key lengths, and a ``[gap]`` line of entry less device ms; at
+[8, 4, 1500, 128] also the fused forward and the FMA pair of
 ``flash_attention.cu`` through their launchers, held to the plain twins,
-their device ms beside mma128's (``[mma128]`` lines). After the build,
+their device ms beside the D = 128 route's (``[mma128]``,
+``[wgmma128]`` lines). After the build,
 ``[cluster]`` lines give the wide route's cluster plan and resident
 clusters of each instantiation.
 
@@ -197,7 +208,7 @@ DROP_SEED = 1234567
 # The profiler's names of the kernels of ops/kernels/csrc/*.cu
 PORT_KERNELS = tuple(f"void (anonymous namespace)::{k}" for k in (
     "flash_fwd_", "flash_bwd_", "attn_fwd_", "attn_bwd_", "attn_bias_fwd_",
-    "attn_bias_bwd_", "attn_wide_", "conv_layer_mma"))
+    "attn_bias_bwd_", "attn_wide_", "attn_wg_", "conv_layer_mma"))
 
 # Tolerances of a kernel against its plain twin on the card, as fractions
 # of the reference output's largest magnitude (≈ 1 on the inputs below):
@@ -332,32 +343,36 @@ def fwd_rate(d: int, with_bias: bool, dtype: str) -> str:
 
 # The forward routes in the order of ``fwd_counts``, and the backward
 # routes in that of ``route_counts``
-FWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fused", "mma128")
-BWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fma", "mma128")
+FWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fused", "mma128",
+              "wgmma64", "wgmma128")
+BWD_ROUTES = ("mma_bias", "mma", "mma64", "wide", "fma", "mma128",
+              "wgmma64", "wgmma128")
 
 
 def fwd_counts():
-    """The launch counts of the six forward routes, in ``FWD_ROUTES``
+    """The launch counts of the eight forward routes, in ``FWD_ROUTES``
     order: the mma.sync forward with a bias, the bias-free mma.sync forward
-    of ``attention_fwd_mma.cu``, the bias-free instantiation of the D = 64
-    forward, the wide forward of ``attention_wide.cu``, the forwards of
-    ``flash_attention.cu``, the bias-free instantiation at D = 128."""
+    of ``attention_fwd_mma.cu``, the bias-free f32 instantiation of the
+    D = 64 forward, the wide forward of ``attention_wide.cu``, the forwards
+    of ``flash_attention.cu``, the bias-free f32 instantiation at D = 128,
+    the bf16 wgmma forward of ``attention_wgmma.cu`` at D = 64 and 128."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     return [fa.mma_bias_fwd_launches, fa.mma_fwd_launches,
             fa.mma64_fwd_launches, fa.wide_fwd_launches,
-            fa.fused_fwd_launches, fa.mma128_fwd_launches]
+            fa.fused_fwd_launches, fa.mma128_fwd_launches,
+            fa.wgmma64_fwd_launches, fa.wgmma128_fwd_launches]
 
 
-def fwd_launch(run, d, with_bias, what):
-    """Run one forward (``run()``) and check that it took the route
-    ``forward_route`` names, once, and no other (each count is raised in
-    the branch of ``launch_kernel`` that launches it, after the launch
-    returned no error). Returns what ``run()`` did."""
+def fwd_launch(run, d, with_bias, what, dtype):
+    """Run one forward (``run()``) in ``dtype`` (a torch dtype) and check
+    that it took the route ``forward_route`` names, once, and no other
+    (each count is raised in the branch of ``launch_kernel`` that launches
+    it, after the launch returned no error). Returns what ``run()`` did."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     before = fwd_counts()
     got = run()
     rose = [n - m for n, m in zip(fwd_counts(), before)]
-    route = fa.forward_route(d, with_bias)
+    route = fa.forward_route(d, with_bias, dtype)
     want = [int(route == r) for r in FWD_ROUTES]
     if rose != want:
         raise AssertionError(f"{what}: forward launches {FWD_ROUTES} rose "
@@ -457,11 +472,11 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters, t=T):
         def entry():
             return flash_attention_trainable(q, k, v, kv_len)
     with torch.inference_mode():
-        out = fwd_launch(entry, d, with_bias, f"{name} {dtype}")
+        out = fwd_launch(entry, d, with_bias, f"{name} {dtype}", tdt)
         qp, kp, vp, _, scale = fa.pad_head_dim(q, k, v)
         _, lse = fwd_launch(lambda: fa.launch_kernel(
             qp, kp, vp, bias, gate, kv_len, return_lse=True, scale=scale),
-            d, with_bias, f"{name} {dtype} with LSE")
+            d, with_bias, f"{name} {dtype} with LSE", tdt)
         del qp, kp, vp
     ref, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
                                       return_lse=True)
@@ -494,7 +509,9 @@ def _attn_case(name, gen, h, d, dtype, with_bias, kv, iters, t=T):
     rate = fwd_rate(d, with_bias, dtype)
     bms, by = bound_ms(flops, nbytes, rate)
     log(f"[kernel] {name} {dtype} [{B},{h},{t},{d}] route "
-        f"{fa.forward_route(d, with_bias)} max_abs_err={err:.3e} "
+        f"{fa.forward_route(d, with_bias, tdt)} kv_len "
+        f"{'all ' + str(t) if min(kv) == t else f'{max(kv)}-{min(kv)}'} "
+        f"max_abs_err={err:.3e} "
         f"(tol {ATTN_TOL[dtype]:g}×{scale:.3g}; mean|out| {mean_abs:.3g}) "
         f"lse_err={lse_err:.3e} (tol {LSE_TOL:g}) "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
@@ -525,27 +542,31 @@ def sdpa_mask(t, h, tdt, kv_len, bias, gate):
 
 
 def route_counts():
-    """The launch counts of the six backward routes, in ``BWD_ROUTES``
+    """The launch counts of the eight backward routes, in ``BWD_ROUTES``
     order: the mma.sync passes with a bias, the bias-free mma.sync pair of
-    ``attention_bwd_mma.cu``, the bias-free instantiation of the D = 64
+    ``attention_bwd_mma.cu``, the bias-free f32 instantiation of the D = 64
     passes, the wide passes of ``attention_wide.cu``, the FMA pair, the
-    bias-free instantiation of the passes at D = 128."""
+    bias-free f32 instantiation of the passes at D = 128, the bf16 wgmma
+    backward (pre-pass, dK/dV pass of ``attention_wgmma.cu``, dQ pass) at
+    D = 64 and 128."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     return [fa.mma_bias_bwd_launches, fa.mma_bwd_launches,
             fa.mma64_bwd_launches, fa.wide_bwd_launches,
-            fa.fma_bwd_launches, fa.mma128_bwd_launches]
+            fa.fma_bwd_launches, fa.mma128_bwd_launches,
+            fa.wgmma64_bwd_launches, fa.wgmma128_bwd_launches]
 
 
-def pair_launch(grad, d, with_bias, what):
-    """Run one backward (``grad()``) and check that it launched the route
-    ``backward_route`` names, once, and no other. Each route's count rises
-    in the branch of ``launch_backward`` that calls its library, after the
-    launch returned no error. Returns what ``grad()`` did."""
+def pair_launch(grad, d, with_bias, what, dtype):
+    """Run one backward (``grad()``) in ``dtype`` (a torch dtype) and check
+    that it launched the route ``backward_route`` names, once, and no
+    other. Each route's count rises in the branch of ``launch_backward``
+    that calls its library, after the launch returned no error. Returns
+    what ``grad()`` did."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     before = route_counts()
     got = grad()
     rose = [n - m for n, m in zip(route_counts(), before)]
-    route = fa.backward_route(d, with_bias)
+    route = fa.backward_route(d, with_bias, dtype)
     want = [int(route == r) for r in BWD_ROUTES]
     if rose != want:
         raise AssertionError(f"{what}: backward launches {BWD_ROUTES} rose "
@@ -609,7 +630,7 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters, t=T):
 
     def entry():
         return torch.autograd.grad(out, leaves, dout, retain_graph=True)
-    got = pair_launch(entry, d, with_bias, f"{name} {dtype}")
+    got = pair_launch(entry, d, with_bias, f"{name} {dtype}", tdt)
     with torch.no_grad():
         ref_out, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
                                               return_lse=True)
@@ -655,7 +676,9 @@ def _attn_bwd_case(name, gen, h, d, dtype, with_bias, kv, iters, t=T):
         nbytes += h * t * t * es + h * t * t * 4 + 2 * B * h * t * 4
     bms, by = bound_ms(flops, nbytes, bwd_rate(d, with_bias, dtype))
     log(f"[kernel] {name} {dtype} [{B},{h},{t},{d}] route "
-        f"{fa.backward_route(d, with_bias)} lse_err={lse_err:.3e} "
+        f"{fa.backward_route(d, with_bias, tdt)} kv_len "
+        f"{'all ' + str(t) if min(kv) == t else f'{max(kv)}-{min(kv)}'} "
+        f"lse_err={lse_err:.3e} "
         + " ".join(f"{n}={e:.3e}/{sc:.3g}" for n, (e, sc) in errs.items())
         + f" (tol {GRAD_TOL[dtype]:g}×max) ms={ms:.4f} plain_ms="
         f"{plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={bms:.4f} "
@@ -892,12 +915,17 @@ def phase_whisper_kernels(gen, iters: int) -> dict:
     ``flash_attention.cu`` (the route there before "mma128", which calls
     with a bias keep at other widths than 64) through its launchers on the
     same inputs, each held to the plain twin, with their device time by
-    pass, and prints mma128's device time against theirs and its entry
-    points against SDPA (``[mma128]`` lines)."""
+    pass, and prints the D = 128 route's device time against theirs and its
+    entry points against SDPA (``[mma128]`` lines in f32, ``[wgmma128]`` in
+    bf16). In bf16 every bias-free shape but 640 takes the wgmma routes
+    (wgmma64, wgmma128), and runs again with ragged key lengths (1500 −
+    100·b), held to the same tolerances; a ``[gap]`` line gives each entry
+    point's ms less its kernels' device ms."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kv = [WHISPER_T] * B
+    ragged = [WHISPER_T - 100 * i for i in range(B)]
     res = {}
     for dtype in ("f32", "bf16"):
         for key, h, d in (("w", 8, 64), ("n", 2, 40), ("wide", 2, 640),
@@ -913,6 +941,21 @@ def phase_whisper_kernels(gen, iters: int) -> dict:
                 f"flash_attention_trainable_bwd ({what})", gen, h, d, dtype,
                 False, kv, iters, t=WHISPER_T)
             torch.cuda.empty_cache()
+            if dtype == "bf16" and key != "wide":
+                res[("K1r" + key, dtype)] = _attn_case(
+                    f"flash_attention_trainable ({what}, ragged)", gen, h,
+                    d, dtype, False, ragged, iters, t=WHISPER_T)
+                res[("K1br" + key, dtype)] = _attn_bwd_case(
+                    f"flash_attention_trainable_bwd ({what}, ragged)", gen,
+                    h, d, dtype, False, ragged, iters, t=WHISPER_T)
+                torch.cuda.empty_cache()
+                f, b_ = res[("K1" + key, dtype)], res[("K1b" + key, dtype)]
+                log(f"[gap] bf16 [{B},{h},{WHISPER_T},{d}] entry ms less "
+                    f"device ms: forward {f['ms']:.4f} − "
+                    f"{f['device_ms']:.4f} = "
+                    f"{f['ms'] - f['device_ms']:.4f}, backward "
+                    f"{b_['ms']:.4f} − {b_['device_ms']:.4f} = "
+                    f"{b_['ms'] - b_['device_ms']:.4f}")
             if key == "128":
                 res[("fma128", dtype)] = fma_pair_at(gen, h, d, dtype, iters)
                 mma128_against_fma(res, dtype)
@@ -925,9 +968,11 @@ def fma_pair_at(gen, h: int, d: int, dtype: str, iters: int) -> dict:
     [B, h, 1500, d], bias-free, every key valid, launched directly through
     their launchers (``_launch_fused_fwd``, ``_launch_fma``), each held to
     the plain twins (forward and LSE, dq, dk, dv), and the same call's
-    mma128 launchers (``_launch_mma128_fwd``, ``_launch_mma128``) on the
-    same inputs: each launcher's ms (CUDA events, in turns: old, mma128,
-    mma128, old) and device ms by kernel."""
+    launchers of the D = 128 route of the dtype (f32: mma128,
+    ``_launch_mma128_fwd``, ``_launch_mma128``; bf16: wgmma128,
+    ``_launch_wgmma_fwd``, ``_launch_wgmma``) on the same inputs: each
+    launcher's ms (CUDA events, in turns: old, new, new, old) and device ms
+    by kernel."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
@@ -949,9 +994,15 @@ def fma_pair_at(gen, h: int, d: int, dtype: str, iters: int) -> dict:
                               None, 0, 1.0)[:3]
 
     def fwd128():
+        if dtype == "bf16":
+            return fa._launch_wgmma_fwd("wgmma128", q, k, v, kv, lse, None, 0,
+                                        1.0)
         return fa._launch_mma128_fwd(q, k, v, kv, lse, None, 0, 1.0)
 
     def bwd128():
+        if dtype == "bf16":
+            return fa._launch_wgmma("wgmma128", q, k, v, out, dout, lse, kv,
+                                    None, 0, 1.0)
         return fa._launch_mma128(q, k, v, dout, lse, delta, kv, None, 0, 1.0)
     got = bwd()
     ref, ref_lse = fa.attention_plain(q, k, v, None, None, kv,
@@ -982,7 +1033,8 @@ def fma_pair_at(gen, h: int, d: int, dtype: str, iters: int) -> dict:
                                            for n, x in fwd_dev.items())
         + f"; backward ms={ms['bwd']:.4f}, device ms by kernel "
         + ", ".join(f"{n} {x:.4f}" for n, x in bwd_dev.items())
-        + f"; the mma128 launchers on the same inputs, in turns: forward "
+        + f"; the {'wgmma128' if dtype == 'bf16' else 'mma128'} launchers "
+        f"on the same inputs, in turns: forward "
         f"ms={ms['fwd128']:.4f}, backward ms={ms['bwd128']:.4f}")
     if not ok:
         raise AssertionError(f"flash_attention.cu at D={d} {dtype}: forward "
@@ -994,14 +1046,15 @@ def fma_pair_at(gen, h: int, d: int, dtype: str, iters: int) -> dict:
 
 
 def mma128_against_fma(res: dict, dtype: str) -> None:
-    """One ``[mma128]`` line at [8, 4, 1500, 128]: the mma128 forward's and
-    backward's device ms (torch.profiler) and launcher ms (CUDA events, in
-    turns) against the fused forward's and the FMA pair's of the same call,
-    and the entry points' ms against SDPA's (the forward without a mask,
-    the backward by autograd)."""
+    """One ``[mma128]`` (f32) or ``[wgmma128]`` (bf16) line at [8, 4, 1500,
+    128]: that route's forward and backward device ms (torch.profiler) and
+    launcher ms (CUDA events, in turns) against the fused forward's and the
+    FMA pair's of the same call, and the entry points' ms against SDPA's
+    (the forward without a mask, the backward by autograd)."""
     f, b, old = res[("K1128", dtype)], res[("K1b128", dtype)], \
         res[("fma128", dtype)]
-    log(f"[mma128] {dtype} [{B},4,{WHISPER_T},128]: backward device "
+    route = "wgmma128" if dtype == "bf16" else "mma128"
+    log(f"[{route}] {dtype} [{B},4,{WHISPER_T},128]: backward device "
         f"{b['device_ms']:.4f} ms against the FMA pair's "
         f"{old['bwd_device_ms']:.4f} "
         f"({b['device_ms'] / old['bwd_device_ms']:.3f}×), launchers "
@@ -1018,6 +1071,10 @@ def mma128_against_fma(res: dict, dtype: str) -> None:
 
 
 SWEEP_WIDE = (528, 640, 1024, 1280, 2048)
+# query lengths with an odd count of 64-key tiles: the last dK/dV CTA of the
+# wgmma routes (128 keys) then reaches past the dS workspace's ⌈T/64⌉·64
+# columns, which its second consumer group must leave alone
+ODD_TILE_T = (50, 150)
 
 
 def head_dims(gen) -> None:
@@ -1029,30 +1086,33 @@ def head_dims(gen) -> None:
     flash_attention.cu) and at 528, 640, 1024, 1280 and 2048 (the wide
     route), at 64 with a bias and no gate, at 64 with a bias in q's dtype
     whose base is not 16-byte aligned; bias-free (``flash_attention_trainable``) at 16,
-    32, 40, 48 and 64 (the bias-free D = 64 forward and passes, narrower
-    widths zero-padded to 64; 40 first to 48 by the entry point), 80, 96,
-    112 and 128 (the bias-free D = 128 forward and passes, narrower widths
-    zero-padded to 128), 144, 256, 384 and 512 (the mma.sync forward and
-    pair) and 528-2048 (the wide route); strict dropout (rate 0.1)
+    32, 40, 48 and 64 (routes mma64 in f32 and wgmma64 in bf16; 40 first
+    to 48 by the entry point), 80, 96, 112 and 128 (mma128 and wgmma128),
+    144, 256, 384 and 512 (the mma.sync forward and pair) and 528-2048 (the
+    wide route); bias-free at 48, 64, 96 and 128 at T = 50 and 150 (an odd
+    count of 64-key tiles, ``ODD_TILE_T``); strict dropout (rate 0.1)
     bias-free at 64, 128 and 640, against the plain twins with the same
     mask."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
         flash_attention_trainable
-    cases = ([(d, True, "") for d in (16, 48, 64, 128, 144, 512)
+    cases = ([(d, True, "", 203) for d in (16, 48, 64, 128, 144, 512)
               + SWEEP_WIDE]
-             + [(64, True, " no gate"), (64, True, " unaligned bias")]
-             + [(d, False, " bias-free")
+             + [(64, True, " no gate", 203),
+                (64, True, " unaligned bias", 203)]
+             + [(d, False, " bias-free", 203)
                 for d in (16, 32, 40, 48, 64, 80, 96, 112, 128, 144, 256,
                           384, 512) + SWEEP_WIDE]
-             + [(d, False, " dropout") for d in (64, 128, 640)])
+             + [(d, False, f" bias-free T={t}", t)
+                for d in (48, 64, 96, 128) for t in ODD_TILE_T]
+             + [(d, False, " dropout", 203) for d in (64, 128, 640)])
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device="cuda")
     errs = {}
     for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for d, with_bias, kind in cases:
+        for d, with_bias, kind, t_len in cases:
             what = f"{dtype} head_dim {d}{kind}"
-            q, k, v, bias, gate = attn_inputs(gen, (2, 2, 203, d), tdt,
+            q, k, v, bias, gate = attn_inputs(gen, (2, 2, t_len, d), tdt,
                                               with_bias)
             if kind == " unaligned bias":
                 # in q's dtype, so that the kernel reads it where it lies:
@@ -1064,7 +1124,8 @@ def head_dims(gen) -> None:
                 bias = bias.float()
             if kind == " no gate":
                 gate = None
-            kv = torch.tensor([203, 77], dtype=torch.int32, device="cuda")
+            kv = torch.tensor([t_len, min(77, t_len - 21)],
+                              dtype=torch.int32, device="cuda")
             drop = (dict(dropout_rate=DROP_RATES[0], dropout_seed=seed)
                     if kind == " dropout" else {})
 
@@ -1073,7 +1134,8 @@ def head_dims(gen) -> None:
                     return fa.flash_attention(q, k, v, bias, gate, kv, **drop)
                 return flash_attention_trainable(q, k, v, kv, **drop)
             with torch.inference_mode():
-                out = fwd_launch(entry, d, with_bias, f"attention {what}")
+                out = fwd_launch(entry, d, with_bias, f"attention {what}",
+                                 tdt)
             ref, lse = fa.attention_plain(q, k, v, bias, gate, kv,
                                           return_lse=True, **drop)
             scale = ref.float().abs().max().item()
@@ -1086,7 +1148,7 @@ def head_dims(gen) -> None:
             dout = torch.rand_like(q) * 2 - 1
             got = pair_launch(lambda: torch.autograd.grad(entry(), leaves,
                                                           dout),
-                              d, with_bias, f"attention backward {what}")
+                              d, with_bias, f"attention backward {what}", tdt)
             want = fa.attention_backward_plain(q, k, v, bias, gate, kv, ref,
                                                lse, dout, **drop)
             rel = max((g.float() - w.float()).abs().max().item()
@@ -1099,8 +1161,10 @@ def head_dims(gen) -> None:
     log("[kernel] attention head widths, with bias 16/48/64/128/144/512 (64 "
         "on the mma.sync forward with a bias) and 528/640/1024/1280/2048 "
         "(wide), with bias and no gate 64, with an unaligned bias 64, "
-        "bias-free 16/32/40/48/64 (mma64), 80/96/112/128 (mma128), "
-        "144/256/384/512 (mma) and 528/640/1024/1280/2048 (wide), dropout "
+        "bias-free 16/32/40/48/64 (mma64 f32, wgmma64 bf16), 80/96/112/128 "
+        "(mma128 f32, wgmma128 bf16), 144/256/384/512 (mma) and "
+        "528/640/1024/1280/2048 (wide), bias-free 48/64/96/128 at T = 50 "
+        "and 150, dropout "
         "0.1 bias-free 64/128/640, f32 and bf16: "
         "forward max_abs_err, backward max diff / max|grad| " + ", ".join(
             f"{k}={e:.2e},{r:.2e}" for k, (e, r) in errs.items()))
@@ -1194,11 +1258,11 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
 
     with torch.inference_mode():
         out = fwd_launch(lambda: entry(rate), d, with_bias,
-                         f"{name} {dtype} rate {rate}")
+                         f"{name} {dtype} rate {rate}", tdt)
     outs = {r: entry(r) for r in (0.0, rate)}       # with autograd
     got = pair_launch(lambda: torch.autograd.grad(
         outs[rate], leaves, dout, retain_graph=True), d, with_bias,
-        f"{name} {dtype} rate {rate}")
+        f"{name} {dtype} rate {rate}", tdt)
     with torch.no_grad():
         ref, ref_lse = fa.attention_plain(q, k, v, bias, gate, kv_len,
                                           return_lse=True, dropout_rate=rate,
@@ -1209,7 +1273,7 @@ def _attn_drop_case(name, gen, h, d, dtype, with_bias, kv, rate, iters):
         # the mma.sync backwards' mask map: the plain twin with the mask of
         # seed + 1 must be outside the tolerance of some gradient
         wrong_bwd = None
-        if fa.backward_route(d, with_bias) in ("mma", "mma_bias"):
+        if fa.backward_route(d, with_bias, tdt) in ("mma", "mma_bias"):
             wrong_bwd = max(
                 ((g.float() - w.float()).abs().max()
                  / w.float().abs().max()).item()
@@ -1318,17 +1382,20 @@ def mask_bits() -> None:
     """3d: each forward variant's dropout mask read off bit for bit at the
     main length T=1499, over every query and key tile and the ragged tail:
     at D = 64 the mma.sync forward of ``attention_fwd_bias_mma.cu`` with a
-    bias (a zero bias and a unit gate) and its bias-free instantiation, and
-    at D = 128 its bias-free instantiation there (route mma128); at
-    D = 48 with a zero bias the forwards of ``flash_attention.cu``; at
-    D = 384 the mma.sync forward of ``attention_fwd_mma.cu``; at D = 640
-    the wide forward of ``attention_wide.cu`` bias-free (f32) and with a
-    zero bias (bf16); each shown by the launch counts to take that route.
-    With q = k = 0 and a zero bias every row is uniform over its kv_len keys;
-    v holds the identity on keys j0..j0+D−1 (one call for each block of D
-    keys), so out[b,h,q,j−j0] > 0 exactly when key j is kept. The pattern
-    must equal the plain mask's (zero mismatches). Also the kept share of
-    the mask at the main shape."""
+    bias (a zero bias and a unit gate) and its bias-free f32 instantiation,
+    and at D = 128 its bias-free f32 instantiation there (route mma128);
+    the bf16 wgmma forward of ``attention_wgmma.cu`` at D = 64 and 128
+    (routes wgmma64, wgmma128); at D = 48 with a zero bias the forwards of
+    ``flash_attention.cu``; at D = 384 the mma.sync forward of
+    ``attention_fwd_mma.cu``; at D = 640 the wide forward of
+    ``attention_wide.cu`` bias-free (f32) and with a zero bias (bf16); each
+    shown by the launch counts to take that route. With q = k = 0 and a
+    zero bias every row is uniform over its kv_len keys; v holds the
+    identity on keys j0..j0+D−1 (one call for each block of D keys), so
+    out[b,h,q,j−j0] > 0 exactly when key j is kept. The pattern must equal
+    the plain mask's (zero mismatches). Then the wgmma dK/dV pass's mask
+    (``mask_bits_dkdv``), and the kept share of the mask at the main
+    shape."""
     import torch
     from wfl_asr_tpu_torch.ops.kernels import dropout_mask as dm
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
@@ -1342,10 +1409,9 @@ def mask_bits() -> None:
             ("f32 mma.sync bias fwd", torch.float32, 64, True),
             ("bf16 mma.sync bias fwd", torch.bfloat16, 64, True),
             ("f32 mma.sync bias-free D=64 fwd", torch.float32, 64, False),
-            ("bf16 mma.sync bias-free D=64 fwd", torch.bfloat16, 64, False),
+            ("bf16 wgmma D=64 fwd", torch.bfloat16, 64, False),
             ("f32 mma.sync bias-free D=128 fwd", torch.float32, 128, False),
-            ("bf16 mma.sync bias-free D=128 fwd", torch.bfloat16, 128,
-             False),
+            ("bf16 wgmma D=128 fwd", torch.bfloat16, 128, False),
             ("f32 FMA", torch.float32, 48, True),
             ("bf16 mma.sync", torch.bfloat16, 48, True),
             ("f32 mma.sync fwd", torch.float32, 384, False),
@@ -1367,7 +1433,7 @@ def mask_bits() -> None:
                     out = fwd_launch(lambda: fa.flash_attention(
                         q, q, v, bias, gate, kv_len=kv, dropout_rate=rate,
                         dropout_seed=seed), d, with_bias,
-                        f"dropout mask {variant} D={d}")
+                        f"dropout mask {variant} D={d}", dtype)
                 kept[..., j0:j0 + w] = out[..., :w].float() > 0
             want = (dm.mask_grid(seed, b, h, T, T, rate, dev) > 0) & valid
             bad = int((kept != want).sum().item())
@@ -1378,6 +1444,7 @@ def mask_bits() -> None:
                                      f"(D={d}, rate {rate}): {bad} elements "
                                      f"differ from the plain mask")
             del kept, want
+    found += mask_bits_dkdv(kv, seed, valid)
     shares = []
     for rate in DROP_RATES:
         share = (dm.mask_grid(seed, B, 12, T, T, rate, dev) > 0).float() \
@@ -1391,6 +1458,52 @@ def mask_bits() -> None:
         + "; ".join(found))
     log(f"[kernel] dropout kept share at [{B},12,{T},{T}] (must be 1 − rate "
         f"± 0.005): " + ", ".join(shares))
+
+
+def mask_bits_dkdv(kv, seed, valid) -> list:
+    """3d for the wgmma dK/dV pass (bf16, D = 64 and 128, rates 0.1 and
+    0.15): with q = k = 0 every row's P is 1/kv_len on its valid keys, so
+    dV[key, c] = Σ_q P·M[q, key]·dO[q, c]; dO holds the identity on queries
+    q0..q0+D−1 (one backward for each block of D queries), so dV[b, h,
+    key, q − q0] > 0 exactly when key is kept for query q. The pattern must
+    equal the plain mask's; each backward shown by the launch counts to run
+    the wgmma route. Returns the lines for the log."""
+    import torch
+    from wfl_asr_tpu_torch.ops.kernels import dropout_mask as dm
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    dev, b, h, tdt = "cuda", 2, 3, torch.bfloat16
+    found = []
+    for d in (64, 128):
+        q = torch.zeros((b, h, T, d), dtype=tdt, device=dev)
+        for rate in DROP_RATES:
+            drop = dict(dropout_rate=rate, dropout_seed=seed)
+            with torch.inference_mode():
+                out, lse = fa.launch_kernel(q, q, q, kv_len=kv,
+                                            return_lse=True, **drop)
+            kept = torch.zeros((b, h, T, T), dtype=torch.bool, device=dev)
+            for q0 in range(0, T, d):
+                w = min(d, T - q0)
+                dout = torch.zeros_like(q)
+                dout[..., q0:q0 + w, :w] = torch.eye(w, dtype=tdt,
+                                                     device=dev)
+                with torch.inference_mode():
+                    _, _, dv, _, _ = pair_launch(
+                        lambda: fa.launch_backward(q, q, q, None, None, kv,
+                                                   out, lse, dout, **drop),
+                        d, False, f"dropout mask bf16 wgmma dK/dV D={d}",
+                        tdt)
+                kept[..., q0:q0 + w, :] = \
+                    dv[..., :w].transpose(-1, -2).float() > 0
+            want = (dm.mask_grid(seed, b, h, T, T, rate, dev) > 0) & valid
+            bad = int((kept != want).sum().item())
+            found.append(f"bf16 wgmma dK/dV D={d} rate={rate}: {bad} of "
+                         f"{want.numel()} differ, {int(want.sum())} kept")
+            if bad:
+                raise AssertionError(f"dropout mask of the wgmma dK/dV pass "
+                                     f"(D={d}, rate {rate}): {bad} elements "
+                                     f"differ from the plain mask")
+            del kept, want
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -1597,8 +1710,9 @@ def per_forward(fwd: list, k2: int, k1: int, what: str) -> None:
     """Each forward of the WavLM tagger runs 12 K2 and 2 K1: K1's launches
     are a sixth of K2's, every K2 ran the mma.sync forward with a bias and
     every K1 the bias-free one of ``attention_fwd_mma.cu``, none another
-    route (``fwd``: the counts of the six routes, as ``fwd_counts``)."""
-    if not (k1 >= 2 and fwd == [k2, k1, 0, 0, 0, 0] and 6 * k1 == k2):
+    route (``fwd``: the counts of the eight routes, as ``fwd_counts``)."""
+    if not (k1 >= 2 and fwd == [k2, k1, 0, 0, 0, 0, 0, 0]
+            and 6 * k1 == k2):
         raise AssertionError(f"{what}: forwards {FWD_ROUTES} {fwd}, {k2} K2 "
                              f"and {k1} K1 launches; want 12 K2 and 2 K1 a "
                              f"forward, each on its mma.sync forward")
@@ -2289,16 +2403,16 @@ def phase_train_cross_device(labels: int, strict: bool = False,
             layerdrop=0.0))
         # backward routes (BWD_ROUTES), forwards (FWD_ROUTES): 2 Conformer
         # blocks on the mma.sync pair and forward, 6 Whisper layers on the
-        # bias-free D = 64 passes and forward
-        want_routes = [0, 2, 6, 0, 0, 0, 0, 2, 6, 0, 0, 0]
+        # bias-free D = 64 passes and forward (f32: mma64)
+        want_routes = [0, 2, 6, 0, 0, 0, 0, 0] * 2
         if default_heads:     # the Conformer at head_dim 128: mma128
-            want_routes = [0, 0, 6, 0, 0, 2, 0, 0, 6, 0, 0, 2]
+            want_routes = [0, 0, 6, 0, 0, 2, 0, 0] * 2
     else:
         seconds = 8.0
         arch = dataclasses.replace(arch, wavlm=dataclasses.replace(
             arch.wavlm, hidden_dropout=0.0, feat_proj_dropout=0.0,
             layerdrop=0.0))
-        want_routes = [12, 2, 0, 0, 0, 0, 12, 2, 0, 0, 0, 0]
+        want_routes = [12, 2, 0, 0, 0, 0, 0, 0] * 2
     batch = train_batch(labels, seconds)
     seeds = [int(s) for s in np.random.RandomState(11).randint(
         -2 ** 31, 2 ** 31 - 1, size=64)]
@@ -2456,27 +2570,36 @@ WHISPER_LAYERS = 6      # Whisper-base; its attention runs K1 at D = 64
 WHISPER_STEPS = 4       # phase 9, validation after the last
 
 
-def whisper_fwd_counts(what: str, flash_fwd: int, conformer: str = "mma"
-                       ) -> int:
-    """Each forward of the Whisper-base tagger runs K1 on the bias-free
-    instantiation of the D = 64 forward in each of its 6 layers and on the
-    route ``conformer`` in each of the 2 Conformer blocks (at 2 heads,
-    D = 256: ``mma``, the bias-free mma.sync forward of
-    ``attention_fwd_mma.cu``; at the schema's 4 heads, D = 128: ``mma128``),
-    and no forward with a bias, none on the fused forwards: ``flash_fwd``
-    launches of the entry point, split so. Returns the number of tagger
-    forwards."""
+def whisper_fwd_counts(what: str, flash_fwd: int, conformer: str = "mma",
+                       layers: str = "mma64") -> int:
+    """Each forward of the Whisper-base tagger runs K1 on the route
+    ``layers`` in each of its 6 layers (D = 64: ``mma64``, the bias-free f32
+    instantiation of the D = 64 forward, or in bf16 ``wgmma64``, the wgmma
+    forward of ``attention_wgmma.cu``) and on the route ``conformer`` in
+    each of the 2 Conformer blocks (at 2 heads, D = 256: ``mma``, the
+    bias-free mma.sync forward of ``attention_fwd_mma.cu``; at the schema's
+    4 heads, D = 128: ``mma128`` in f32, ``wgmma128`` in bf16), and no
+    forward with a bias, none on the fused forwards: ``flash_fwd`` launches
+    of the entry point, split so. Returns the number of tagger forwards."""
     from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
     got = fwd_counts()
     n = got[FWD_ROUTES.index(conformer)] // 2
-    want = [{conformer: 2 * n, "mma64": WHISPER_LAYERS * n}.get(r, 0)
+    want = [{conformer: 2 * n, layers: WHISPER_LAYERS * n}.get(r, 0)
             for r in FWD_ROUTES]
     if n < 1 or got != want or flash_fwd != 8 * n or fa.launches:
         raise AssertionError(f"{what}: forwards {FWD_ROUTES} {got}, "
                              f"{flash_fwd} K1 and {fa.launches} K2 launches; "
-                             f"want 6 mma64 and 2 {conformer} K1 a forward, "
-                             f"no K2")
+                             f"want 6 {layers} and 2 {conformer} K1 a "
+                             f"forward, no K2")
     return n
+
+
+def wgmma_launches(prof: dict, kernel: str, d: int) -> int:
+    """Launches in a profiled step of ``kernel`` of ``attention_wgmma.cu``
+    (``attn_wg_fwd``, ``attn_wg_dkdv``) at head width ``d`` (its first
+    template argument)."""
+    return sum(n for name, (_, n) in prof["kernels"].items()
+               if f"::{kernel}<{d}," in name)
 
 
 def bias_free(prof: dict, kernel: str, d: int) -> int:
@@ -2501,7 +2624,9 @@ def serve_whisper_base(root: str, iters: int, default_heads: bool = False
     and read just after (a forward: 6 K1 on the bias-free D = 64 forward
     and 2 on the Conformer's route, none fused, no K5); the batched forward
     timed at B=8×30 s in bf16 and f32 with its peak memory; one bf16 step
-    profiled, its kernel names by head width as a second witness."""
+    profiled, its kernel names by head width as a second witness. Served in
+    bf16, the 6 layers run the wgmma forward at D = 64 (wgmma64), the
+    Conformer at 4 heads at D = 128 (wgmma128)."""
     import torch
     from wfl_asr_tpu_torch.infer.pipeline import infer_folder_batched
     from wfl_asr_tpu_torch.labels import parse_lab
@@ -2509,7 +2634,7 @@ def serve_whisper_base(root: str, iters: int, default_heads: bool = False
     from wfl_asr_tpu_torch.ops.kernels import conv_fused, \
         flash_attention_bwd
 
-    conformer, tag = ("mma128", "8c") if default_heads else ("mma", "8")
+    conformer, tag = ("wgmma128", "8c") if default_heads else ("mma", "8")
     cfg, ckpt, wav_dir = make_run(root, "whisper", default_heads)
     what = f"Whisper-base, {cfg.conformer_heads} Conformer heads"
     out_dir = os.path.join(root, f"labs_whisper_{cfg.conformer_heads}heads")
@@ -2521,7 +2646,7 @@ def serve_whisper_base(root: str, iters: int, default_heads: bool = False
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1 = flash_attention_bwd.launches
-    n_fwd = whisper_fwd_counts(f"phase {tag}", k1, conformer)
+    n_fwd = whisper_fwd_counts(f"phase {tag}", k1, conformer, "wgmma64")
     routes = dict(zip(FWD_ROUTES, fwd_counts()))
     if conv_fused.layer_launches:
         raise AssertionError(f"phase {tag} launched K5 "
@@ -2542,18 +2667,18 @@ def serve_whisper_base(root: str, iters: int, default_heads: bool = False
     perf, step = serving_perf(cfg, ckpt, iters, what)
     prof = profile_step(step, f"one bf16 serving step, {what}")
     # the Conformer's 2 K1 on the mma.sync forward (2 heads) or on the
-    # D = 128 instantiation (4 heads)
+    # wgmma forward at D = 128 (4 heads); none on the mma.sync D = 64/128
+    # forward
     c = 0 if default_heads else 2
-    want = {"flash_fwd_": 0, "attn_fwd_mma<": c,
-            "attn_bias_fwd_mma<": WHISPER_LAYERS + 2 - c,
-            "conv_layer_mma<": 0}
+    want = {"flash_fwd_": 0, "attn_fwd_mma<": c, "attn_bias_fwd_mma<": 0,
+            "attn_wg_fwd<": WHISPER_LAYERS + 2 - c, "conv_layer_mma<": 0}
     got = {part: sum(n for name, (_, n) in prof["kernels"].items()
                      if f"::{part}" in name) for part in want}
-    widths = (bias_free(prof, "attn_bias_fwd_mma", 64),
-              bias_free(prof, "attn_bias_fwd_mma", 128))
+    widths = (wgmma_launches(prof, "attn_wg_fwd", 64),
+              wgmma_launches(prof, "attn_wg_fwd", 128))
     if got != want or widths != (WHISPER_LAYERS, 2 - c):
         raise AssertionError(f"phase {tag}: profiled forward kernels {got}, "
-                             f"bias-free at D = 64 and 128 {widths}, want "
+                             f"wgmma at D = 64 and 128 {widths}, want "
                              f"{want}, ({WHISPER_LAYERS}, {2 - c})")
     return dict(perf=perf, routes=routes, cfg=cfg, ckpt=ckpt,
                 wav_dir=wav_dir, busy_ms=prof["busy_ms"], idle=prof["idle"],
@@ -2606,15 +2731,18 @@ def phase_whisper_serving(root: str, iters: int) -> dict:
         f"resident before), logits "
         f"{tuple(logits.shape)} finite {finite}; K1 launches and forwards "
         f"{FWD_ROUTES} {whisper_counts}; built in {init_s:.1f} s")
-    if not finite or whisper_counts != [34, 0, 0, 32, 2, 0, 0] \
-            or arch.conformer_heads != 2:
+    # K1, then the forward routes: 32 layers on wgmma64, 2 Conformer
+    # blocks on the wide route
+    want = [34, 0, 0, 0, 2, 0, 0, 32, 0]
+    if not finite or whisper_counts != want or arch.conformer_heads != 2:
         raise AssertionError(f"large-v3: logits finite {finite}, launches "
-                             f"{whisper_counts}, want [34, 0, 0, 32, 2, 0, "
-                             f"0], Conformer heads {arch.conformer_heads}")
+                             f"{whisper_counts}, want {want}, Conformer "
+                             f"heads {arch.conformer_heads}")
     del model, logits
     torch.cuda.empty_cache()
-    return dict(run, mma64=run["routes"]["mma64"], wide=whisper_counts[4],
-                large_ms=large_ms, large_peak_gb=large_peak)
+    return dict(run, wgmma64=run["routes"]["wgmma64"],
+                wide=whisper_counts[4], large_ms=large_ms,
+                large_peak_gb=large_peak)
 
 
 def phase_whisper_cross_device(root: str, run: dict) -> dict:
@@ -2702,8 +2830,13 @@ def phase_whisper_train(root: str, default_heads: bool = False) -> dict:
                   "mma pair": flash_attention.mma_bwd_launches,
                   "mma64 passes": flash_attention.mma64_bwd_launches,
                   "mma128 passes": flash_attention.mma128_bwd_launches,
+                  "wgmma64 passes": flash_attention.wgmma64_bwd_launches,
+                  "wgmma128 passes": flash_attention.wgmma128_bwd_launches,
                   "wide passes": flash_attention.wide_bwd_launches,
                   "fma pair": flash_attention.fma_bwd_launches}
+        fwd = dict(zip(FWD_ROUTES, fwd_counts()))
+        counts.update({"mma64 forwards": fwd["mma64"],
+                       "mma128 forwards": fwd["mma128"]})
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         n_fwd = whisper_fwd_counts(f"phase {tag}", counts["K1"], conformer)
         log(f"[whisper-train] phase {tag}, Conformer "
@@ -2714,6 +2847,7 @@ def phase_whisper_train(root: str, default_heads: bool = False) -> dict:
         want = {"K1b": 8 * WHISPER_STEPS, "mma bias passes": 0,
                 "mma pair": 0, "mma128 passes": 0,
                 "mma64 passes": WHISPER_LAYERS * WHISPER_STEPS,
+                "wgmma64 passes": 0, "wgmma128 passes": 0,
                 "wide passes": 0, "fma pair": 0}
         want[pair] = 2 * WHISPER_STEPS
         if any(counts[k] != n for k, n in want.items()):
@@ -2801,11 +2935,129 @@ def phase_whisper_train(root: str, default_heads: bool = False) -> dict:
     finally:
         flash_attention.attention_plain, \
             flash_attention.attention_backward_plain = saved
+    out = dict(counts=counts, step_ms=step_ms, audio_s_per_s=rate,
+               peak_gb=peak_gb, labels=len(labels), busy_ms=prof["busy_ms"],
+               idle=prof["idle"])
+    if default_heads:       # for phase 9f
+        out.update(model=model, batch=batch, cfg=cfg)
     del model, opt
     torch.cuda.empty_cache()
-    return dict(counts=counts, step_ms=step_ms, audio_s_per_s=rate,
-                peak_gb=peak_gb, labels=len(labels), busy_ms=prof["busy_ms"],
-                idle=prof["idle"])
+    return out
+
+
+def phase_whisper_bf16_train(run: dict) -> dict:
+    """9f: the bf16 training path. Whisper-base at the schema's 4 Conformer
+    heads (phase 9d's trained model and one batch of its corpus, B = 8 ×
+    30 s windows), the default recipe with ``training.compute_dtype:
+    bfloat16``: the plain attention twins replaced by stubs that raise,
+    the loss of one f32 and one bf16 forward and backward on the same
+    batch and weights (no update), then 2 bf16 Prodigy steps through
+    ``loop.train_step``, the launch counts set to 0 just before the first
+    and read just after the last: a step runs 6 backwards on the wgmma
+    route at D = 64 (wgmma64) and 2 at D = 128 (wgmma128), as many
+    forwards, none on the f32 routes mma64 and mma128. The step's ms
+    (the second), audio-s/s, peak memory and, over one more profiled step,
+    the device's busy and idle share. The losses must be finite and every
+    gradient finite when the optimizer steps. No tolerance is set on the
+    bf16 loss against the f32 one: the kernels' correctness in bf16 is
+    held by phases 3e and 3d; the gap is printed."""
+    import copy
+    import torch
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention
+    from wfl_asr_tpu_torch.train import loop
+    model, batch, cfg = run["model"], run["batch"], run["cfg"]
+    if cfg.conformer_heads != 4:
+        raise AssertionError("phase 9f needs phase 9d's run at 4 heads")
+    # the dtype the training loop takes from the config's key
+    raw = copy.deepcopy(cfg.raw)
+    raw.setdefault("training", {})["compute_dtype"] = "bfloat16"
+    bf16 = loop._compute_dtype(Config(raw))
+    if bf16 != torch.bfloat16:
+        raise AssertionError(f"training.compute_dtype bfloat16 gives {bf16}")
+    opt = loop.make_optimizer(cfg, model.parameters())
+    checked = []
+
+    def grads_finite(optimizer, args, kwargs):
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        checked.append((len(grads), all(
+            bool(torch.isfinite(g).all()) for g in grads)))
+    audio_s = sum(len(w) for w in batch["wavs"]) / 16000
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain attention twin ran on the card path")
+    saved = flash_attention.attention_plain, \
+        flash_attention.attention_backward_plain
+    flash_attention.attention_plain = refuse
+    flash_attention.attention_backward_plain = refuse
+    hook = opt.register_step_pre_hook(grads_finite)
+    try:
+        losses = {}
+        for name, dtype in (("f32", torch.float32), ("bf16", bf16)):
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            m, _, _ = loop.micro_step(model, batch, "cuda", 1, 0.1, 3.0,
+                                      dtype, generator=gen)
+            losses[name] = float(m["loss"])
+            opt.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+
+        def step():
+            m, _, _ = loop.train_step(model, opt, batch, "cuda", 0.1, 3.0,
+                                      compute_dtype=bf16, generator=gen)
+            return m["loss"], m
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times, step_losses = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            step_losses.append(float(step()[0]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        bwd = dict(zip(BWD_ROUTES, route_counts()))
+        fwd = dict(zip(FWD_ROUTES, fwd_counts()))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_step(step, what="one bf16 Whisper-base train step "
+                            "(B = 8 × 30 s, Conformer 4 heads)", top=24)
+    finally:
+        hook.remove()
+        flash_attention.attention_plain, \
+            flash_attention.attention_backward_plain = saved
+    want = {"wgmma64": 6 * 2, "wgmma128": 2 * 2, "mma64": 0, "mma128": 0}
+    got = {r: bwd[r] for r in want}
+    got_fwd = {r: fwd[r] for r in want}
+    ok_grads = len(checked) == 3 and all(n > 0 and f for n, f in checked)
+    finite = all(map(math.isfinite, list(losses.values()) + step_losses))
+    kern = {(k, d): wgmma_launches(prof, k, d)
+            for k in ("attn_wg_fwd", "attn_wg_dkdv") for d in (64, 128)}
+    log(f"[whisper-train] phase 9f, bf16 (training.compute_dtype "
+        f"bfloat16), Whisper-base at 4 Conformer heads, batch "
+        f"{tuple(batch['audio'].shape)} ({audio_s:.1f} s of audio): loss "
+        f"on the same batch and weights f32 {losses['f32']:.5f}, bf16 "
+        f"{losses['bf16']:.5f} (gap {losses['bf16'] - losses['f32']:+.5f}, "
+        f"no tolerance: phases 3d and 3e hold the kernels); 2 bf16 steps, "
+        f"losses {[round(x, 5) for x in step_losses]}, step ms "
+        f"{', '.join(f'{x:.1f}' for x in times)} (the first allocates the "
+        f"optimizer state), {audio_s / times[-1] * 1e3:.2f} audio-s/s, peak "
+        f"memory {peak:.2f} GiB; backward launches over the 2 steps {got}, "
+        f"forwards {got_fwd}; (gradients, all finite) at each optimizer "
+        f"step {checked}; profiled step busy {prof['busy_ms']:.2f} of "
+        f"{prof['wall_ms']:.2f} ms (idle share {prof['idle']:.3f}), wgmma "
+        f"kernels by head width {kern}")
+    if got != want or got_fwd != want or not ok_grads or not finite:
+        raise AssertionError(f"phase 9f: backward launches {got}, forwards "
+                             f"{got_fwd} (want {want} over 2 steps), "
+                             f"gradients {checked}, losses {losses} "
+                             f"{step_losses}")
+    if kern != {("attn_wg_fwd", 64): 6, ("attn_wg_fwd", 128): 2,
+                ("attn_wg_dkdv", 64): 6, ("attn_wg_dkdv", 128): 2}:
+        raise AssertionError(f"phase 9f: profiled wgmma kernels {kern}")
+    del opt
+    torch.cuda.empty_cache()
+    return dict(step_ms=times[-1], audio_s_per_s=audio_s / times[-1] * 1e3,
+                peak_gb=peak, losses=losses, busy_ms=prof["busy_ms"],
+                wall_ms=prof["wall_ms"], idle=prof["idle"], counts=got)
 
 
 LARGE_STEPS = 2         # phase 9c: the counted step, then a timed one
@@ -2870,7 +3122,7 @@ def phase_large_v3_train(labels: int) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # backward routes (BWD_ROUTES), forwards (FWD_ROUTES): the 2 Conformer
     # blocks on the wide route, the 32 Whisper layers on mma64
-    want = [0, 0, 32, 2, 0, 0, 0, 0, 32, 2, 0, 0]
+    want = [0, 0, 32, 2, 0, 0, 0, 0] * 2
     ok_grads = len(checked) == LARGE_STEPS and all(
         n > 0 and finite for n, finite in checked)
     log(f"[large-v3-train] f32 (TF32 off), Prodigy, B=2×30 s, encoder "
@@ -2894,7 +3146,7 @@ def phase_large_v3_train(labels: int) -> dict:
 
 
 def whisper_phases(root: str, iters: int) -> dict:
-    """Phases 8-8d and 9-9e under ``root``."""
+    """Phases 8-8d and 9-9f under ``root``."""
     with lap("8"):
         serving = phase_whisper_serving(root, iters)
     with lap("8b"):
@@ -2914,77 +3166,103 @@ def whisper_phases(root: str, iters: int) -> dict:
         large = phase_large_v3_train(trained["labels"])
     with lap("9d"):
         trained4 = phase_whisper_train(root, default_heads=True)
+    with lap("9f"):
+        bf16_train = phase_whisper_bf16_train(trained4)
+    for key in ("model", "batch", "cfg"):
+        trained4.pop(key)
     with lap("9e"):
         cross_train4 = phase_train_cross_device(
             trained4["labels"], encoder="whisper", default_heads=True)
     return dict(serving=serving, cross=cross, trained=trained,
                 cross_train=cross_train, large=large, serving4=serving4,
-                trained4=trained4, cross_train4=cross_train4)
+                trained4=trained4, cross_train4=cross_train4,
+                bf16_train=bf16_train)
 
 
 # ---------------------------------------------------------------------------
 
 KERNEL_ROWS = [
-    # (result key, name, counter name, source, TPU kernel replaced)
-    ("K2", "flash_attention", "flash_attention",
+    # (result key, dtype, name, counter name, source, TPU kernel replaced).
+    # The inference kernels report their bf16 case (the served path's
+    # dtype), the backward kernels their f32 case (the default training
+    # dtype) and, on the bf16 training path (phase 9f), their bf16 case;
+    # each its launches on its own main path: inference (phase 4),
+    # training (phase 6), or the Whisper paths (phases 8, 8c, 9, 9c, 9d
+    # and 9f).
+    ("K2", "bf16", "flash_attention", "flash_attention",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_fwd_bias_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention.py:75"),
-    ("K1", "flash_attention_trainable", "flash_attention_trainable",
+    ("K1", "bf16", "flash_attention_trainable", "flash_attention_trainable",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_fwd_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
-    ("K5a", "fused_conv_chain[1-3]", "fused_conv_chain[1-3]",
+    ("K5a", "bf16", "fused_conv_chain[1-3]", "fused_conv_chain[1-3]",
      "wfl_asr_tpu_torch/ops/kernels/csrc/conv_fused.cu",
      "wfl_asr_tpu/ops/pallas/conv_fused.py:135"),
-    ("K5b", "fused_conv_chain[4-6]", "fused_conv_chain[4-6]",
+    ("K5b", "bf16", "fused_conv_chain[4-6]", "fused_conv_chain[4-6]",
      "wfl_asr_tpu_torch/ops/kernels/csrc/conv_fused.cu",
      "wfl_asr_tpu/ops/pallas/conv_fused.py:135"),
-    ("K2b", "flash_attention_bwd", "flash_attention_bwd",
+    ("K2b", "f32", "flash_attention_bwd", "flash_attention_bwd",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_bias_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention.py:262"),
-    ("K1b", "flash_attention_trainable_bwd", "flash_attention_trainable_bwd",
+    ("K1b", "f32", "flash_attention_trainable_bwd",
+     "flash_attention_trainable_bwd",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
-    # K1 and K1b at Whisper-base's layers (bias-free, D = 64): the bias-free
-    # instantiations of the D = 64 forward and passes, launched on phases 8
-    # and 9
-    ("K1w", "flash_attention_trainable [Whisper, D=64, bias-free mma64]",
-     "whisper K1",
+    # K1 and K1b at Whisper-base's layers (bias-free, D = 64): in f32 the
+    # bias-free instantiations of the D = 64 forward and passes (route
+    # mma64, phase 9), in bf16 the wgmma forward and dK/dV pass of
+    # attention_wgmma.cu (route wgmma64, phases 8 and 9f)
+    ("K1w", "f32", "flash_attention_trainable [Whisper, D=64, bias-free "
+     "f32 mma64]", "whisper K1 f32",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_fwd_bias_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
-    ("K1bw", "flash_attention_trainable_bwd [Whisper, D=64, bias-free mma64]",
-     "whisper K1b",
+    ("K1bw", "f32", "flash_attention_trainable_bwd [Whisper, D=64, "
+     "bias-free f32 mma64]", "whisper K1b",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_bias_mma.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
+    ("K1w", "bf16", "flash_attention_trainable [Whisper, D=64, bias-free "
+     "bf16 wgmma64]", "whisper K1 bf16",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wgmma.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
+    ("K1bw", "bf16", "flash_attention_trainable_bwd [Whisper, D=64, "
+     "bias-free bf16 wgmma64: pre-pass and dK/dV of attention_wgmma.cu, "
+     "dQ of attention_bwd_bias_mma.cu]", "whisper K1b bf16",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wgmma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
     # K1 above head_dim 512: the wide forward, launched by the large-v3
     # forward of phase 8 (its Conformer at head_dim 640)
-    ("K1wide", "flash_attention_trainable [large-v3 Conformer, D=640, "
-     "wide]", "wide K1",
+    ("K1wide", "bf16", "flash_attention_trainable [large-v3 Conformer, "
+     "D=640, wide]", "wide K1",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wide.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
     # K1b above head_dim 512: the wide dK/dV and dQ passes, launched by the
     # large-v3 train step of phase 9c
-    ("K1bwide", "flash_attention_trainable_bwd [large-v3 Conformer, D=640, "
-     "wide]", "wide K1b",
+    ("K1bwide", "f32", "flash_attention_trainable_bwd [large-v3 Conformer, "
+     "D=640, wide]", "wide K1b",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wide.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
-    # K1 and K1b at head_dim 80-128, bias-free: the D = 128 instantiations
-    # ("mma128"), launched by Whisper-base at the schema's 4 Conformer heads
-    # in phases 8c and 9d
-    ("K1128", "flash_attention_trainable [Whisper-base Conformer at 4 "
-     "heads, D=128, bias-free mma128]", "mma128 K1",
+    # K1 and K1b at head_dim 80-128, bias-free, launched by Whisper-base at
+    # the schema's 4 Conformer heads: in f32 the D = 128 instantiations
+    # (route mma128, phase 9d), in bf16 the wgmma kernels at D = 128
+    # (route wgmma128, phases 8c and 9f)
+    ("K1128", "f32", "flash_attention_trainable [Whisper-base Conformer "
+     "at 4 heads, D=128, bias-free f32 mma128]", "mma128 K1",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_fwd_bias_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
-    ("K1b128", "flash_attention_trainable_bwd [Whisper-base Conformer at 4 "
-     "heads, D=128, bias-free mma128]", "mma128 K1b",
+    ("K1b128", "f32", "flash_attention_trainable_bwd [Whisper-base "
+     "Conformer at 4 heads, D=128, bias-free f32 mma128]", "mma128 K1b",
      "wfl_asr_tpu_torch/ops/kernels/csrc/attention_bwd_bias_mma.cu",
      "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
+    ("K1128", "bf16", "flash_attention_trainable [Whisper-base Conformer "
+     "at 4 heads, D=128, bias-free bf16 wgmma128]", "wgmma128 K1",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wgmma.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:49"),
+    ("K1b128", "bf16", "flash_attention_trainable_bwd [Whisper-base "
+     "Conformer at 4 heads, D=128, bias-free bf16 wgmma128]",
+     "wgmma128 K1b",
+     "wfl_asr_tpu_torch/ops/kernels/csrc/attention_wgmma.cu",
+     "wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:106"),
 ]
-# The inference kernels report their bf16 case (the served path's dtype),
-# the backward kernels their f32 case (the default training dtype), and
-# each its launches on its own main path: inference (phase 4) or training
-# (phase 6), or on the Whisper paths (phases 8, 8c, 9, 9c and 9d).
-ROW_DTYPE = {"K2b": "f32", "K1b": "f32", "K1bw": "f32", "K1bwide": "f32",
-             "K1b128": "f32"}
 
 
 def k6_row(kern: dict, strict: dict) -> dict:
@@ -3027,7 +3305,7 @@ def main() -> int:
                "whisper": ["attention_fwd_mma", "attention_bwd_mma",
                            "attention_fwd_bias_mma",
                            "attention_bwd_bias_mma", "attention_wide",
-                           "flash_attention"]}
+                           "attention_wgmma", "flash_attention"]}
     with lap("build"):
         logs = _build.build_all(sources.get(args.only, list(KERNEL_SOURCES)))
     log(f"[build] {', '.join(logs)} in {LAPS['build']:.1f} s")
@@ -3088,20 +3366,26 @@ def main() -> int:
         counts.update({k: n for k, n in trained["counts"].items()
                        if k.endswith("_bwd")})
         whisper = whisper_phases(root, args.iters)
-        counts["whisper K1"] = whisper["serving"]["mma64"]
-        counts["whisper K1b"] = whisper["trained"]["counts"]["mma64 passes"]
+        tr, tr4 = whisper["trained"]["counts"], whisper["trained4"]["counts"]
+        counts["whisper K1 f32"] = tr["mma64 forwards"]
+        counts["whisper K1b"] = tr["mma64 passes"]
+        counts["whisper K1 bf16"] = whisper["serving"]["wgmma64"]
+        counts["whisper K1b bf16"] = whisper["bf16_train"]["counts"][
+            "wgmma64"]
         counts["wide K1"] = whisper["serving"]["wide"]
         counts["wide K1b"] = whisper["large"]["wide"]
-        counts["mma128 K1"] = whisper["serving4"]["routes"]["mma128"]
-        counts["mma128 K1b"] = \
-            whisper["trained4"]["counts"]["mma128 passes"]
+        counts["mma128 K1"] = tr4["mma128 forwards"]
+        counts["mma128 K1b"] = tr4["mma128 passes"]
+        counts["wgmma128 K1"] = whisper["serving4"]["routes"]["wgmma128"]
+        counts["wgmma128 K1b"] = whisper["bf16_train"]["counts"][
+            "wgmma128"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log_laps()
 
     rows = []
-    for key, name, counter, source, replaces in KERNEL_ROWS:
-        r = kern[(key, ROW_DTYPE.get(key, "bf16"))]
+    for key, dtype, name, counter, source, replaces in KERNEL_ROWS:
+        r = kern[(key, dtype)]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[counter],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -3109,6 +3393,10 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
     rows.append(k6_row(kern, strict))
+    idle = [r["name"] for r in rows if r["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels launched no time on their main "
+                             f"path: {idle}")
     log(f"[summary] bf16 B=8x30 s: {perf['bf16']['audio_s_per_s']:.2f} "
         f"audio-s/s, f32: {perf['f32']['audio_s_per_s']:.2f} audio-s/s "
         f"(peak memory {perf['bf16']['peak_gb']:.3f} / "
@@ -3154,6 +3442,14 @@ def main() -> int:
         f"{wtrain['idle']:.3f}); card vs CPU train step loss "
         f"{whisper['cross_train4']['loss_rel']:.2e}, grads "
         f"{whisper['cross_train4']['grad_rel']:.2e} × max")
+    wb = whisper["bf16_train"]
+    log(f"[summary] Whisper-base at 4 Conformer heads, bf16 train step "
+        f"(phase 9f, wgmma64/wgmma128): {wb['step_ms']:.1f} ms, "
+        f"{wb['audio_s_per_s']:.2f} audio-s/s, {wb['peak_gb']:.2f} GiB "
+        f"peak, profiled step busy {wb['busy_ms']:.2f} of "
+        f"{wb['wall_ms']:.2f} ms (idle {wb['idle']:.3f}); loss on one "
+        f"batch f32 {wb['losses']['f32']:.5f}, bf16 "
+        f"{wb['losses']['bf16']:.5f}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 
     python3 kernel_variants_ab.py [--kernel k2|k1w|k128|k128b|k5] [--iters N]
     python3 kernel_variants_ab.py --kernel wide --baseline OLD.cu [--iters N]
+    python3 kernel_variants_ab.py --kernel wg --baseline FWD.cu BWD.cu
 
 Each variant is the kernel's source with some of its tile constants
 replaced as text (``K2_VARIANTS``: ``csrc/attention_fwd_bias_mma.cu``, the
@@ -57,8 +58,8 @@ import numpy as np
 FWD_WARPS = "int warps = kF32 && D == kD ? 4 : 8;"
 FWD_BK = "int bk = kF32 ? 32 : 64;"
 FWD_BLOCKS = "int blocks = D == kD ? 2 : 1;"
-FWD_QREGS = "bool q_regs = D == kD || !kF32;"
-FWD_CHUNK = "int s_chunk = D == kD || kF32 ? 4 : D / 16;"
+FWD_QREGS = "bool q_regs = D == kD;"
+FWD_CHUNK = "int s_chunk = 4;"
 # name: (dtype, [(text of the source, its replacement), ...])
 K2_VARIANTS = {
     "bf16 8 warps": ("bf16", []),
@@ -212,11 +213,6 @@ CLOCK_MARKS = [
      "}  // namespace\n\nusing namespace wfl;\n" + CLK_READ),
 ]
 CLOCKS = clocks()
-# The next tile's copies issued after S = Q·Kᵀ instead of right after the
-# barrier (their buffer is free then too)
-STAGE_NEXT = ("    if (kt + 1 < n_kt) {\n      stage(kt + 1, buf ^ 1);\n"
-              "      cp_async_commit();\n    }\n")
-AFTER_S = [(STAGE_NEXT, ""), (CLK_S, CLK_S + STAGE_NEXT)]
 # K and V by bulk copies (the Tensor Memory Accelerator): warp 0 issues
 # one cp.async.bulk a row into the padded rows, completing on an mbarrier a
 # buffer, in place of 16-byte cp.async in every thread
@@ -313,15 +309,8 @@ BULK_KV = [(CLK_DECL, CLK_DECL + BULK_HELPERS),
            (BULK_STAGE_FROM, BULK_STAGE),
            (BULK_INIT_AT, BULK_INIT + BULK_INIT_AT),
            (CLK_WAIT, CLK_WAIT + BULK_WAIT)]
+# (f32 only: the bias-free bf16 forward is attention_wgmma.cu's, --kernel wg)
 K1W_VARIANTS = {
-    "bf16 8 warps": ("bf16", []),
-    "bf16 8 warps, clocks": ("bf16", CLOCKS),
-    "bf16 8 warps, bulk K/V": ("bf16", BULK_KV),
-    "bf16 8 warps, bulk K/V, clocks": ("bf16", BULK_KV + clocks(BULK_WAIT)),
-    "bf16 8 warps, copies after S": ("bf16", AFTER_S),
-    "bf16 4 warps": ("bf16", [(FWD_WARPS, "int warps = D == kD ? 4 : 8;")]),
-    "bf16 8 warps, 128-key tiles": ("bf16", [(
-        FWD_BK, "int bk = kF32 ? 32 : BIAS || D != kD ? 64 : 128;")]),
     "f32 4 warps": ("f32", []),
     "f32 4 warps, clocks": ("f32", CLOCKS),
     "f32 4 warps, bulk K/V": ("f32", BULK_KV),
@@ -333,67 +322,47 @@ K2_VARIANTS.update({
     "f32 4 warps, bulk K/V": ("f32", BULK_KV),
 })
 
-# The bias-free forward at D = 128 (route mma128): 8 warps and 1 block a
-# SM against 4 warps and 2-4 blocks (fewer queries a block, more blocks a
-# SM; shorter key tiles and Q read from shared memory make room for them);
-# bf16's S in one run of 8 mma steps against fresh sums of 4; f32's Q read
-# from shared memory on use against Q's split fragments held in registers
-FOUR_STEPS = [(FWD_CHUNK, "int s_chunk = 4;")]
+# The bias-free f32 forward at D = 128 (route mma128): 8 warps and 1 block
+# a SM against 4 warps and 2-3 blocks (fewer queries a block, more blocks
+# a SM; shorter key tiles make room for them); Q read from shared memory
+# on use against Q's split fragments held in registers
 
 
-def _fwd128(dtype, blocks=None, warps=None, bk=None, q_regs=None) -> list:
-    """The replacements that set the D = 128 forward's tiles in ``dtype``
-    ("bf16" or "f32"); D = 64, and D = 128 in the other dtype, keep their
-    own."""
-    def pick(new, f32_now, bf16_now):
-        f32, bf16 = (new, bf16_now) if dtype == "f32" else (f32_now, new)
-        return f"kF32 ? {f32} : {bf16}"
+def _fwd128(blocks=None, warps=None, bk=None, q_regs=None) -> list:
+    """The replacements that set the f32 D = 128 forward's tiles; D = 64
+    keeps its own."""
     subs = []
     if warps is not None:
         subs.append((FWD_WARPS, f"int warps = D == kD ? (kF32 ? 4 : 8) : "
-                                f"{pick(warps, 8, 8)};"))
+                                f"{warps};"))
     if bk is not None:
-        subs.append((FWD_BK, f"int bk = D == kD ? (kF32 ? 32 : 64) : "
-                             f"{pick(bk, 32, 64)};"))
+        subs.append((FWD_BK, f"int bk = D == kD ? (kF32 ? 32 : 64) : {bk};"))
     if blocks is not None:
-        subs.append((FWD_BLOCKS, f"int blocks = D == kD ? 2 : "
-                                 f"{pick(blocks, 1, 1)};"))
+        subs.append((FWD_BLOCKS, f"int blocks = D == kD ? 2 : {blocks};"))
     if q_regs is not None:
-        flag = pick(str(q_regs).lower(), "false", "true")
-        subs.append((FWD_QREGS, f"bool q_regs = D == kD || ({flag});"))
+        subs.append((FWD_QREGS, f"bool q_regs = D == kD || "
+                                f"{str(q_regs).lower()};"))
     return subs
 
 
 K128_VARIANTS = {
-    "bf16 D=128 8 warps, 1 block a SM": ("bf16", []),
-    "bf16 D=128 8 warps, clocks": ("bf16", CLOCKS),
-    "bf16 D=128 8 warps, fresh sums of 4 mma steps": ("bf16", FOUR_STEPS),
-    "bf16 D=128 4 warps, 2 blocks a SM": ("bf16", _fwd128("bf16", 2, warps=4)),
-    "bf16 D=128 4 warps, 2 blocks a SM, fresh sums of 4 mma steps": (
-        "bf16", _fwd128("bf16", 2, warps=4) + FOUR_STEPS),
-    "bf16 D=128 4 warps, 32-key tiles, 3 blocks a SM": (
-        "bf16", _fwd128("bf16", 3, warps=4, bk=32)),
-    "bf16 D=128 4 warps, 32-key tiles, 4 blocks a SM, Q from shared "
-    "memory": ("bf16", _fwd128("bf16", 4, warps=4, bk=32, q_regs=False)),
     "f32 D=128 8 warps, 1 block a SM": ("f32", []),
     "f32 D=128 8 warps, clocks": ("f32", CLOCKS),
-    "f32 D=128 4 warps, 2 blocks a SM": ("f32", _fwd128("f32", 2, warps=4)),
+    "f32 D=128 4 warps, 2 blocks a SM": ("f32", _fwd128(2, warps=4)),
     "f32 D=128 4 warps, 2 blocks a SM, Q in registers": (
-        "f32", _fwd128("f32", 2, warps=4, q_regs=True)),
+        "f32", _fwd128(2, warps=4, q_regs=True)),
     "f32 D=128 4 warps, 16-key tiles, 3 blocks a SM": ("f32", _fwd128(
-        "f32", 3, warps=4, bk=16)),
+        3, warps=4, bk=16)),
 }
 # The D = 128 passes (attention_bwd_bias_mma.cu): f32's dK/dV pass at 16
 # queries a streamed tile and 2 blocks a SM against 32 queries and 1 block
 BWD_BQ = "int bq = kF32 ? (D == kD ? 32 : 16) : 64;"
-BWD_BLOCKS = "int blocks = kF32 ? 2 : D == kD ? 3 : 2;"
+BWD_BLOCKS = "int blocks = kF32 ? 2 : 3;"
 K128B_VARIANTS = {
-    "bf16 D=128 64-query tiles, 2 blocks a SM": ("bf16", []),
     "f32 D=128 16-query tiles, 2 blocks a SM": ("f32", []),
     "f32 D=128 32-query tiles, 1 block a SM": ("f32", [
         (BWD_BQ, "int bq = kF32 ? 32 : 64;"),
-        (BWD_BLOCKS, "int blocks = kF32 ? (D == kD ? 2 : 1) : D == kD ? 3 "
-                     ": 2;")]),
+        (BWD_BLOCKS, "int blocks = kF32 ? (D == kD ? 2 : 1) : 3;")]),
 }
 
 # The wide route (attention_wide.cu): this tree's cluster kernels, with and
@@ -464,12 +433,38 @@ WIDE_VARIANTS = {
 }
 WIDE_BASELINE = ("bf16 baseline", "f32 baseline")
 
+# The bias-free bf16 routes wgmma64 and wgmma128 (attention_wgmma.cu, its
+# dQ pass attention_bwd_bias_mma.cu's) against the bias-free bf16
+# instantiations of an earlier attention_fwd_bias_mma.cu and
+# attention_bwd_bias_mma.cu (--baseline FWD.cu BWD.cu: "baseline mma.sync",
+# both files built from the parent's tree); the forward's CTAs of 128
+# queries (two consumer groups, 1 CTA a SM) against 64 (one group, 2 CTAs
+# a SM) at D = 64, its three stages against two, and the D = 128 dK/dV
+# pass with one consumer group against two
+WG_STAGES = ("  static constexpr int bk = 128;\n"
+             "  static constexpr int stages = 2;\n")
+WG_VARIANTS = {
+    "wgmma": ("bf16", []),
+    "wgmma, forward CTAs of 128 queries at D=64": ("bf16", [(
+        "constexpr int kFwdGroups64 = 1;",
+        "constexpr int kFwdGroups64 = 2;")]),
+    "wgmma, 3 forward stages": ("bf16", [(
+        WG_STAGES, WG_STAGES.replace("stages = 2", "stages = 3"))]),
+    "wgmma, dK/dV of one consumer group at D=128": ("bf16", [(
+        "constexpr int kBwdGroups128 = 2;",
+        "constexpr int kBwdGroups128 = 1;")]),
+    "baseline mma.sync": ("bf16", []),
+}
+WG_BASELINE = ("baseline mma.sync",)
+WG_SHAPES = ((8, 8, 1500, 64), (8, 4, 1500, 128), (8, 2, 1500, 48))
+
 KERNELS = {"k2": ("attention_fwd_bias_mma.cu", K2_VARIANTS),
            "k1w": ("attention_fwd_bias_mma.cu", K1W_VARIANTS),
            "k128": ("attention_fwd_bias_mma.cu", K128_VARIANTS),
            "k128b": ("attention_bwd_bias_mma.cu", K128B_VARIANTS),
            "k5": ("conv_fused.cu", K5_VARIANTS),
-           "wide": ("attention_wide.cu", WIDE_VARIANTS)}
+           "wide": ("attention_wide.cu", WIDE_VARIANTS),
+           "wg": ("attention_wgmma.cu", WG_VARIANTS)}
 
 
 def build(tmp: str, source: str, variants: dict, baseline: str = None,
@@ -508,6 +503,51 @@ def build(tmp: str, source: str, variants: dict, baseline: str = None,
     return out
 
 
+def build_wg(tmp: str, baselines) -> dict:
+    """``--kernel wg``: each variant of ``WG_VARIANTS`` built from a copy of
+    ``csrc/``, attention_wgmma.cu with the variant's replacements and this
+    tree's attention_bwd_bias_mma.cu (the dQ pass); the baseline from the
+    two files given (an earlier attention_fwd_bias_mma.cu and
+    attention_bwd_bias_mma.cu) in place of this tree's. Returns {name:
+    {source: (library path, nvcc output)}}."""
+    from wfl_asr_tpu_torch.ops.kernels import _build
+    procs = {}
+    for i, (name, (_, subs)) in enumerate(WG_VARIANTS.items()):
+        src = os.path.join(tmp, f"v{i}")
+        shutil.copytree(_build.CSRC, src)
+        if name in WG_BASELINE:
+            jobs = {}
+            for source, path in zip(("attention_fwd_bias_mma",
+                                     "attention_bwd_bias_mma"), baselines):
+                shutil.copyfile(path, os.path.join(src, source + ".cu"))
+                jobs[source] = []
+        else:
+            jobs = {"attention_wgmma": subs, "attention_bwd_bias_mma": []}
+        for source, subs_ in jobs.items():
+            path = os.path.join(src, source + ".cu")
+            with open(path) as f:
+                text = f.read()
+            for old, new in subs_:
+                if text.count(old) != 1:
+                    raise SystemExit(f"{name}: {old!r} is not in the source "
+                                     f"once")
+                text = text.replace(old, new)
+            with open(path, "w") as f:
+                f.write(text)
+            lib = os.path.join(src, f"lib{source}.so")
+            procs[(name, source)] = (lib, subprocess.Popen(
+                [_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
+                 "-o", lib, path], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for (name, source), (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name} ({source}):\n{log}")
+        out.setdefault(name, {})[source] = (lib, log)
+    return out
+
+
 def in_turns(names, run_one) -> dict:
     """``run_one(name)`` for each name in order, then in reverse; returns
     {name: [its times]}. ``run_one`` returns a time or None (failed)."""
@@ -524,9 +564,8 @@ def run_k2(libs: dict, iters: int) -> dict:
     import torch
     import chip_smoke as sm
     from wfl_asr_tpu_torch.ops.kernels import _build, flash_attention as fa
-    fns = {name: fa._fwd_launcher(getattr(ctypes.CDLL(lib),
-                                          "wfl_attention_fwd_bias_mma"))
-           for name, (lib, _) in libs.items()}
+    fns = {name: _build.bind(ctypes.CDLL(lib), "attention_fwd_bias_mma")
+           .wfl_attention_fwd_bias_mma for name, (lib, _) in libs.items()}
     b, h, t, d = sm.B, 12, sm.T, 64
     kv = torch.tensor([t - 100 * i for i in range(b)], dtype=torch.int32,
                       device="cuda")
@@ -597,14 +636,17 @@ def run_bias_free(libs: dict, iters: int, h: int, d: int, variants: dict,
     import torch
     import chip_smoke as sm
     from wfl_asr_tpu_torch.ops.kernels import _build, flash_attention as fa
-    cdlls = {name: ctypes.CDLL(lib) for name, (lib, _) in libs.items()}
-    fns = {name: fa._fwd_launcher(lib.wfl_attention_fwd_bias_mma)
+    cdlls = {name: _build.bind(ctypes.CDLL(lib), "attention_fwd_bias_mma")
+             for name, (lib, _) in libs.items()}
+    fns = {name: lib.wfl_attention_fwd_bias_mma
            for name, lib in cdlls.items()}
     b, t = sm.B, sm.WHISPER_T
     kv = torch.full((b,), t, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     means, shares = {}, {}
     for dtype, tdt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        if all(dt != dtype for dt, _ in variants.values()):
+            continue
         q, k, v, _, _ = sm.attn_inputs(gen, (b, h, t, d), tdt, False)
         ref, ref_lse = fa.attention_plain(q, k, v, None, None, kv,
                                           return_lse=True)
@@ -667,7 +709,7 @@ def run_bias_free(libs: dict, iters: int, h: int, d: int, variants: dict,
         route = fa.backward_route
         try:
             for name in ("fma", route_now):
-                fa.backward_route = lambda d_, b_, r=name: r
+                fa.backward_route = lambda *args, r=name: r
                 y = flash_attention_trainable(*leaves, kv)
                 by = sm.device_ms_by_kernel(lambda: torch.autograd.grad(
                     y, leaves, dout, retain_graph=True))
@@ -701,6 +743,8 @@ def run_k128b(libs: dict, iters: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     means = {}
     for dtype, tdt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        if all(dt != dtype for dt, _ in K128B_VARIANTS.values()):
+            continue
         code = 0 if dtype == "f32" else 1
         q, k, v, _, _ = sm.attn_inputs(gen, (b, h, t, d), tdt, False)
         dout = (torch.rand((b, h, t, d), generator=gen, device="cuda") * 2
@@ -794,12 +838,8 @@ def run_wide(libs: dict, iters: int) -> dict:
 
         def run_one(n):
             lib = cdlls[n]
-            fwd = fa._fwd_launcher(lib.wfl_attention_wide_fwd)
-            bwd = lib.wfl_attention_wide_bwd
-            bwd.restype = ctypes.c_int
-            bwd.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
-                            + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                               ctypes.c_int, ctypes.c_void_p])
+            _build.bind(lib, "attention_wide")
+            fwd, bwd = lib.wfl_attention_wide_fwd, lib.wfl_attention_wide_bwd
             stream = _build.stream_ptr(q.device)
 
             def forward():
@@ -879,6 +919,155 @@ def run_wide(libs: dict, iters: int) -> dict:
     return means
 
 
+def run_wg(libs: dict, iters: int) -> dict:
+    """``--kernel wg`` at ``WG_SHAPES``, bf16, bias-free, every key valid:
+    each variant's forward (with its LSE) and backward through its raw
+    launchers, held to the plain twins, then in turns the forward's and
+    backward's ms (CUDA events over the launchers) and the device ms of
+    the forward, the dK/dV pass, the pre-pass (wgmma) and the dQ pass. The
+    baseline runs the parent's bias-free bf16 instantiations at head width
+    64 or 128 (48 zero-padded to 64, as its route did), its delta by the
+    torch ops of its launcher."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as sm
+    from wfl_asr_tpu_torch.ops.kernels import _build, flash_attention as fa
+    used = {"attention_fwd_bias_mma": ("wfl_attention_fwd_bias_mma",),
+            "attention_bwd_bias_mma": ("wfl_attention_bwd_bias_mma",
+                                       "wfl_attention_bwd_dq_mma")}
+    cdlls = {name: {src: _build.bind(
+        ctypes.CDLL(lib), src,
+        used.get(src) if name not in WG_BASELINE else used.get(src)[:1])
+        for src, (lib, _) in by_src.items()}
+        for name, by_src in libs.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    means = {}
+    for b, h, t, d in WG_SHAPES:
+        width = 64 if d <= 64 else 128
+        kv = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        q, k, v, _, _ = sm.attn_inputs(gen, (b, h, t, d), torch.bfloat16,
+                                       False)
+        dout = (torch.rand((b, h, t, d), generator=gen, device="cuda") * 2
+                - 1).to(torch.bfloat16)
+        ref, ref_lse = fa.attention_plain(q, k, v, None, None, kv,
+                                          return_lse=True)
+        want = fa.attention_backward_plain(q, k, v, None, None, kv, ref,
+                                           ref_lse, dout)[:3]
+        top = ref.float().abs().max().item()
+        scale = 1.0 / math.sqrt(d)
+        ldk = -(-t // 64) * 64
+        ds = torch.empty((b, h, t, ldk), dtype=torch.bfloat16, device="cuda")
+        ws = torch.empty((2, b * h, ldk), device="cuda")
+        lse = torch.empty((b, h, t), device="cuda")
+        padded = [F.pad(x, (0, width - d)).contiguous()
+                  for x in (q, k, v, dout)]
+
+        def runners(n):
+            lib = cdlls[n]
+            if n in WG_BASELINE:
+                pq, pk, pv, pdo = padded
+                out = torch.empty_like(pq)
+                grads = [torch.empty_like(pq) for _ in range(3)]
+                fwd_fn = lib["attention_fwd_bias_mma"] \
+                    .wfl_attention_fwd_bias_mma
+                bwd_fn = lib["attention_bwd_bias_mma"] \
+                    .wfl_attention_bwd_bias_mma
+
+                def forward():
+                    return fwd_fn(pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                                  None, None, kv.data_ptr(), out.data_ptr(),
+                                  lse.data_ptr(), None, b, h, t, width, scale,
+                                  0, 1.0, 1, stream)
+
+                def backward():
+                    delta = (pdo.float() * out.float()).sum(-1).contiguous()
+                    return bwd_fn(pq.data_ptr(), pk.data_ptr(),
+                                  pv.data_ptr(), None, None, pdo.data_ptr(),
+                                  lse.data_ptr(), delta.data_ptr(),
+                                  kv.data_ptr(), None,
+                                  *[g.data_ptr() for g in grads],
+                                  ds.data_ptr(), None, None, b, h, t, width,
+                                  ldk, scale, 0, 1.0, 1, stream)
+                return forward, backward, out, grads
+            out = torch.empty_like(q)
+            dk, dv = torch.empty_like(q), torch.empty_like(q)
+            kw = padded[1]
+            dq = torch.empty_like(kw)
+            wg, dql = lib["attention_wgmma"], lib["attention_bwd_bias_mma"]
+
+            def forward():
+                return wg.wfl_attention_wgmma_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
+                    out.data_ptr(), lse.data_ptr(), None, b, h, t, d, width,
+                    scale, 0, 1.0, stream)
+
+            def backward():
+                return (wg.wfl_attention_wgmma_delta(
+                    out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                    ws.data_ptr(), b, h, t, d, stream)
+                    or wg.wfl_attention_wgmma_dkdv(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        dout.data_ptr(), ws.data_ptr(), kv.data_ptr(), None,
+                        dk.data_ptr(), dv.data_ptr(), ds.data_ptr(), b, h, t,
+                        d, width, ldk, scale, 0, 1.0, stream)
+                    or dql.wfl_attention_bwd_dq_mma(
+                        kw.data_ptr(), kv.data_ptr(), ds.data_ptr(),
+                        dq.data_ptr(), b, h, t, width, ldk, scale, 1, stream))
+            return forward, backward, out, [dq, dk, dv]
+
+        def run_one(n):
+            forward, backward, out, grads = runners(n)
+
+            def checked(fn, what):
+                def run():
+                    err = fn()
+                    if err:
+                        raise SystemExit(f"{n}: {what} failed, error {err}")
+                return run
+            fwd, bwd = checked(forward, "forward"), checked(backward,
+                                                            "backward")
+            fwd()
+            bwd()
+            torch.cuda.synchronize()
+            err = (out[..., :d].float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            rel = max((g[..., :d].float() - w.float()).abs().max().item()
+                      / w.float().abs().max().item()
+                      for g, w in zip(grads, want))
+            ok = (err <= sm.ATTN_TOL["bf16"] * top and lse_err <= sm.LSE_TOL
+                  and rel <= sm.GRAD_TOL["bf16"])
+            got = {"fwd_ms": sm.time_ms(fwd, iters),
+                   "bwd_ms": sm.time_ms(bwd, iters)}
+            by = sm.device_ms_by_kernel(lambda: (fwd(), bwd()))
+            parts = {"fwd": ("attn_wg_fwd<", "attn_bias_fwd_mma<"),
+                     "dkdv": ("attn_wg_dkdv<", "attn_bias_bwd_dkdv_mma<"),
+                     "delta": ("attn_wg_delta",),
+                     "dq": ("attn_bias_bwd_dq_mma<",)}
+            for part, prefixes in parts.items():
+                got[part + "_device_ms"] = sum(
+                    x for kname, x in by.items() if kname.startswith(prefixes))
+            print(f"[variant] {n} [{b},{h},{t},{d}]: forward ms="
+                  f"{got['fwd_ms']:.4f} (device {got['fwd_device_ms']:.4f}), "
+                  f"backward ms={got['bwd_ms']:.4f} (device dK/dV "
+                  f"{got['dkdv_device_ms']:.4f}, pre-pass "
+                  f"{got['delta_device_ms']:.4f}, dQ "
+                  f"{got['dq_device_ms']:.4f}); max_abs_err={err:.3e} (tol "
+                  f"{sm.ATTN_TOL['bf16']:g}×{top:.3g}) lse_err={lse_err:.3e} "
+                  f"grads {rel:.3e} × max (tol {sm.GRAD_TOL['bf16']:g})"
+                  f"{'' if ok else ' FAILED'}", flush=True)
+            return got if ok else None
+        turns = in_turns(list(WG_VARIANTS), run_one)
+        if not turns:
+            return {}
+        means[f"[{b},{h},{t},{d}]"] = {
+            n: {key: float(np.mean([x[key] for x in runs]))
+                for key in runs[0]} for n, runs in turns.items()}
+        del q, k, v, dout, ref, ref_lse, want, ds, ws, lse, padded
+        torch.cuda.empty_cache()
+    return means
+
+
 def run_k5(libs: dict, iters: int) -> dict:
     """Both chains of each variant through the port's layer loop
     (``conv_fused._launch_layers``) on the variant's library: the ms of
@@ -949,12 +1138,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=tuple(KERNELS), default="k2")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--baseline", default=None,
+    ap.add_argument("--baseline", default=None, nargs="+",
                     help="--kernel wide: the attention_wide.cu to time "
-                         "against this tree's")
+                         "against this tree's; --kernel wg: the "
+                         "attention_fwd_bias_mma.cu and "
+                         "attention_bwd_bias_mma.cu whose bias-free bf16 "
+                         "instantiations to time against the wgmma routes")
     args = ap.parse_args()
-    if args.kernel == "wide" and not args.baseline:
+    if args.kernel == "wide" and (not args.baseline
+                                  or len(args.baseline) != 1):
         ap.error("--kernel wide needs --baseline PATH")
+    if args.kernel == "wg" and (not args.baseline
+                                or len(args.baseline) != 2):
+        ap.error("--kernel wg needs --baseline FWD.cu BWD.cu")
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants_ab: no CUDA device", file=sys.stderr)
@@ -965,17 +1161,28 @@ def main() -> int:
     print(f"[device] {sm.card_line()}", flush=True)
     tmp = tempfile.mkdtemp(prefix="wfl_variants_")
     try:
-        libs = build(tmp, source, variants, args.baseline, WIDE_BASELINE)
-        kernel_name = {"k2": "attn_bias_fwd", "k1w": "attn_bias_fwd",
-                       "k128": "attn_bias_fwd", "k128b": "attn_bias_bwd",
-                       "k5": "conv_layer_mma", "wide": "attn_wide_"}
-        for name, (_, log) in libs.items():
+        if args.kernel == "wg":
+            libs = build_wg(tmp, args.baseline)
+            logs = [(name, log) for name, by in libs.items()
+                    for _, log in by.values()]
+        else:
+            libs = build(tmp, source, variants,
+                         args.baseline and args.baseline[0], WIDE_BASELINE)
+            logs = [(name, log) for name, (_, log) in libs.items()]
+        kernel_name = {"k2": ("attn_bias_fwd",), "k1w": ("attn_bias_fwd",),
+                       "k128": ("attn_bias_fwd",),
+                       "k128b": ("attn_bias_bwd",),
+                       "k5": ("conv_layer_mma",), "wide": ("attn_wide_",),
+                       "wg": ("attn_wg_", "bias_fwd_mma<PolBF16, false",
+                              "bias_bwd_dkdv_mma<PolBF16, false",
+                              "dq_mma<PolBF16")}
+        for name, log in logs:
             for line in sm.ptxas_summary(log):
-                if kernel_name[args.kernel] in line:
+                if any(k in line for k in kernel_name[args.kernel]):
                     print(f"[ptxas] {name}: {line}", flush=True)
         means = {"k2": run_k2, "k1w": run_k1w, "k128": run_k128,
-                 "k128b": run_k128b, "k5": run_k5,
-                 "wide": run_wide}[args.kernel](libs, args.iters)
+                 "k128b": run_k128b, "k5": run_k5, "wide": run_wide,
+                 "wg": run_wg}[args.kernel](libs, args.iters)
         if not means:
             return 1
     finally:

@@ -47,12 +47,13 @@ def _source_ints(pattern: str) -> tuple:
 
 def bias_bwd_tiles(f32: bool, bias: bool = True, wide: bool = False
                    ) -> dict:
-    """Mirror of ``BiasTiles`` in ``csrc/attention_bwd_bias_mma.cu`` (with
-    a bias, or its bias-free instantiation; ``wide``: the bias-free one at
-    head width ``kD128``): the shared memory of the dK/dV and dQ passes in
-    bytes, with the head widths, the warps, the key and query tiles, and
-    the queries of the dK/dV pass's streamed tile and dK/dV blocks a SM by
-    width and dtype read out of the source."""
+    """Mirror of ``BiasTiles`` and ``DqTiles`` in
+    ``csrc/attention_bwd_bias_mma.cu`` (with a bias, or its bias-free
+    instantiation; ``wide``: the bias-free one at head width ``kD128``):
+    the shared memory of the dK/dV and dQ passes in bytes, with the head
+    widths, the warps, the key and query tiles, and the queries of the
+    dK/dV pass's streamed tile and dK/dV blocks a SM by width and dtype
+    read out of the source."""
     es = 4 if f32 else 2
     (d,) = _source_ints(r"constexpr int kD128 = (\d+);" if wide
                         else r"constexpr int kD = (\d+);")
@@ -62,9 +63,9 @@ def bias_bwd_tiles(f32: bool, bias: bool = True, wide: bool = False
     f32_64, f32_wide, bf16_bq = _source_ints(
         r"int bq = kF32 \? \(D == kD \? (\d+) : (\d+)\) : (\d+);")
     bq = (f32_wide if wide else f32_64) if f32 else bf16_bq
-    f32_blocks, bf16_64, bf16_wide = _source_ints(
-        r"int blocks = kF32 \? (\d+) : D == kD \? (\d+) : (\d+);")
-    blocks = f32_blocks if f32 else bf16_wide if wide else bf16_64
+    f32_blocks, bf16_blocks = _source_ints(
+        r"int blocks = kF32 \? (\d+) : (\d+);")
+    blocks = f32_blocks if f32 else bf16_blocks
 
     def pitch(cols):                    # D-wide rows (attention_mma.cuh)
         return (cols + 31) // 32 * 32 + 8 if f32 else cols + 8

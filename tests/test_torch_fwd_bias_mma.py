@@ -91,8 +91,8 @@ def fwd_bias_tiles(f32: bool, bias: bool = True, wide: bool = False
     bk = _source_ints(r"int bk = kF32 \? (\d+) : (\d+);")[0 if f32 else 1]
     at64, at128 = _source_ints(r"int blocks = D == kD \? (\d+) : (\d+);")
     blocks = at128 if wide else at64
-    assert "bool q_regs = D == kD || !kF32;" in SOURCE.read_text()
-    q_regs = not (wide and f32)
+    assert "bool q_regs = D == kD;" in SOURCE.read_text()
+    q_regs = not wide
     bq = 16 * warps
     p = (d + 31) // 32 * 32 + 8 if f32 else d + 8   # attention_mma.cuh
     chunks = bk * es // 16 + 1          # 16-byte chunks of a bias span
@@ -376,7 +376,7 @@ def test_mma64_forward_counted_where_it_launches(monkeypatch, err, d):
 
 
 @pytest.mark.parametrize("kernel", ["k2", "k1w", "k128", "k128b", "k5",
-                                    "wide"])
+                                    "wide", "wg"])
 def test_kernel_variants_apply_to_the_source(kernel):
     """Every textual variant of ``kernel_variants_ab.py`` (tile constants,
     the copies' placement, bulk copies, the per-phase clocks) finds each

@@ -23,8 +23,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_bwd_bias_mma import bias_bwd_tiles
-from test_torch_fwd_bias_mma import fwd_bias_tiles
+from test_torch_bwd_bias_mma import SOURCE as BWD_SOURCE, bias_bwd_tiles
+from test_torch_fwd_bias_mma import SOURCE as FWD_SOURCE, fwd_bias_tiles
 from wfl_asr_tpu.ops.pallas.dropout_mask import seed_arr
 from wfl_asr_tpu.ops.pallas.flash_attention_bwd import _fwd_impl, \
     flash_attention_trainable as jax_fat
@@ -271,27 +271,36 @@ def test_cpu_path_counts_no_mma128_launch():
 
 @pytest.mark.parametrize("f32", [True, False])
 def test_d128_tiles_fit_shared_memory(f32):
-    """The D = 128 instantiations' tiles, mirrored from the sources: the
-    forward's block fits the 227 KB a block may use, and the blocks a SM
-    its launch bounds name fit a SM's 228 KB with 1 KB reserved each and
-    its 65536 registers at up to 255 a thread (1 block of 8 warps in both
-    dtypes, as 2 would allow 128 registers a thread; f32 with Q read from
-    shared memory, not held in registers); the dK/dV pass
-    at its blocks a SM (2 in both dtypes; f32 16 queries a streamed tile)
-    and not one more, the dQ pass within a block's limit."""
+    """The D = 128 instantiations' tiles, mirrored from the sources. In
+    f32: the forward's block fits the 227 KB a block may use, and the
+    blocks a SM its launch bounds name fit a SM's 228 KB with 1 KB reserved
+    each and its 65536 registers at up to 255 a thread (1 block of 8 warps,
+    as 2 would allow 128 registers a thread; Q read from shared memory, not
+    held in registers); the dK/dV pass at its blocks a SM (2, 16 queries a
+    streamed tile) and not one more. In bf16 the forward and the dK/dV pass
+    at 128 are attention_wgmma.cu's (route wgmma128), which both sources'
+    tile tables refuse; the dQ pass, which that route runs, fits a block's
+    limit in both dtypes."""
+    bwd = bias_bwd_tiles(f32, bias=False, wide=True)
+    assert bwd["d"] == flash_attention.MMA128_D
+    assert bwd["dq_smem"] <= BLOCK_SMEM
+    assert fwd_bias_tiles(f32, bias=False)["q_regs"]         # D = 64
+    if not f32:
+        for source in (FWD_SOURCE, BWD_SOURCE):
+            assert "(D == kD128 && !BIAS && kF32)" in source.read_text()
+        assert flash_attention.forward_route(128, False, torch.bfloat16) \
+            == flash_attention.backward_route(128, False, torch.bfloat16) \
+            == "wgmma128"
+        return
     fwd = fwd_bias_tiles(f32, bias=False, wide=True)
     assert fwd["d"] == flash_attention.MMA128_D
     assert fwd["smem"] <= BLOCK_SMEM, fwd
     assert fwd["blocks"] * (fwd["smem"] + BLOCK_RESERVED) <= SM_SMEM, fwd
     threads = 32 * fwd["warps"]
     assert REGS_SM // (fwd["blocks"] * threads) >= 255, fwd
-    assert (fwd["blocks"], fwd["warps"], fwd["q_regs"]) == (1, 8, not f32)
-    assert fwd_bias_tiles(f32, bias=False)["q_regs"]         # D = 64
-    bwd = bias_bwd_tiles(f32, bias=False, wide=True)
-    assert bwd["d"] == flash_attention.MMA128_D
+    assert (fwd["blocks"], fwd["warps"], fwd["q_regs"]) == (1, 8, False)
     assert bwd["blocks"] * (bwd["dkdv_smem"] + BLOCK_RESERVED) <= SM_SMEM
     assert (bwd["blocks"] + 1) * (bwd["dkdv_smem"] + BLOCK_RESERVED) \
         > SM_SMEM
     assert REGS_SM // (bwd["blocks"] * 128) >= 255
-    assert bwd["dq_smem"] <= BLOCK_SMEM
-    assert (bwd["blocks"], bwd["bq"]) == ((2, 16) if f32 else (2, 64))
+    assert (bwd["blocks"], bwd["bq"]) == (2, 16)

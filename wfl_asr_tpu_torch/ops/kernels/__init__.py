@@ -7,8 +7,9 @@ and training paths, each beside its plain PyTorch twin.
 | ``flash_attention``         | ``csrc/flash_attention.cu`` | ``flash_attention.py``: ``_flash_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head widths up to 512 other than 64) |
 | ``flash_attention``         | ``csrc/attention_bwd_bias_mma.cu`` | ``flash_attention.py``: ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head_dim 64; its dBias/dGate pass also above 512) |
 | ``flash_attention``         | ``csrc/attention_wide.cu``  | ``flash_attention.py``: ``_flash_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head_dim > 512) |
-| ``flash_attention_bwd``     | ``csrc/attention_fwd_bias_mma.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel`` (head_dim ≤ 128, its bias-free instantiations at 64 and 128) |
-| ``flash_attention_bwd``     | ``csrc/attention_bwd_bias_mma.cu`` | ``flash_attention_bwd.py``: ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head_dim ≤ 128, bias-free, at 64 and 128) |
+| ``flash_attention_bwd``     | ``csrc/attention_fwd_bias_mma.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel`` (f32, head_dim ≤ 128, its bias-free instantiations at 64 and 128) |
+| ``flash_attention_bwd``     | ``csrc/attention_bwd_bias_mma.cu`` | ``flash_attention_bwd.py``: ``_bwd_dkdv_kernel`` (f32), ``_bwd_dq_kernel`` (head_dim ≤ 128, bias-free, at 64 and 128) |
+| ``flash_attention_bwd``     | ``csrc/attention_wgmma.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel``, ``_bwd_dkdv_kernel`` (bf16, head_dim ≤ 128: wgmma and TMA, ``csrc/hopper.cuh``) |
 | ``flash_attention_bwd``     | ``csrc/attention_fwd_mma.cu`` | ``flash_attention_bwd.py``: ``_fwd_kernel`` (128 < head_dim ≤ 512)     |
 | ``flash_attention_bwd``     | ``csrc/attention_bwd_mma.cu`` | ``flash_attention_bwd.py``: ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (128 < head_dim ≤ 512) |
 | ``flash_attention_bwd``     | ``csrc/attention_wide.cu``  | ``flash_attention_bwd.py``: ``_fwd_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel`` (head_dim > 512) |
@@ -21,7 +22,8 @@ modules needs no CUDA.
 
 KERNEL_SOURCES = ("flash_attention", "attention_fwd_mma",
                   "attention_fwd_bias_mma", "attention_bwd_mma",
-                  "attention_bwd_bias_mma", "attention_wide", "conv_fused")
+                  "attention_bwd_bias_mma", "attention_wide",
+                  "attention_wgmma", "conv_fused")
 
 
 def reset_launch_counts() -> None:
@@ -39,5 +41,9 @@ def reset_launch_counts() -> None:
     flash_attention.mma128_fwd_launches = 0
     flash_attention.mma128_bwd_launches = 0
     flash_attention.wide_fwd_launches = flash_attention.wide_bwd_launches = 0
+    flash_attention.wgmma64_fwd_launches = 0
+    flash_attention.wgmma64_bwd_launches = 0
+    flash_attention.wgmma128_fwd_launches = 0
+    flash_attention.wgmma128_bwd_launches = 0
     conv_fused.launches.clear()
     conv_fused.layer_launches = 0

@@ -8,8 +8,10 @@ the launch. It is compiled once per content hash into
 a build takes seconds, and ``ninja`` is not needed.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all;
-``library(name)`` builds on first use and caches the loaded library. Where
-there is no ``nvcc`` (no CUDA toolkit), asking for a kernel raises.
+``library(name)`` builds on first use, caches the loaded library and types
+its launchers for ctypes once, from ``SIGNATURES`` (``bind``), so that a
+call passes its arguments as they are. Where there is no ``nvcc`` (no CUDA
+toolkit), asking for a kernel raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,44 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "--shared", "-Xcompiler", "-fPIC",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The forwards' shared signature: q, k, v, bias, gate, kv_len, out, lse,
+# seed, B, H, T, D, scale, drop_thr, drop_scale, dtype, stream
+_FWD = [_P] * 9 + [_I] * 4 + [_F, _I, _F, _I, _P]
+# The argument types of each source's launchers (each returns a
+# cudaError_t as an int): pointers and the stream as c_void_p, so that
+# ctypes does not cut them to 32 bits.
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "flash_attention": {
+        "wfl_flash_attention_fwd": _FWD,
+        "wfl_flash_attention_bwd": [_P] * 15 + [_I] * 4 + [_F, _I, _F, _I,
+                                                          _P]},
+    "attention_fwd_mma": {"wfl_attention_fwd_mma": _FWD},
+    "attention_fwd_bias_mma": {"wfl_attention_fwd_bias_mma": _FWD},
+    "attention_bwd_mma": {
+        "wfl_attention_bwd_mma": [_P] * 12 + [_I] * 5 + [_F, _I, _F, _I,
+                                                         _P]},
+    "attention_bwd_bias_mma": {
+        "wfl_attention_bwd_bias_mma": [_P] * 16 + [_I] * 5 + [_F, _I, _F,
+                                                              _I, _P],
+        "wfl_attention_bwd_dq_mma": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+        "wfl_attention_bias_dbias": [_P] * 6 + [_I] * 5 + [_P]},
+    "attention_wide": {
+        "wfl_attention_wide_fwd": _FWD,
+        "wfl_attention_wide_bwd": [_P] * 14 + [_I] * 5 + [_F, _I, _F, _I,
+                                                          _P]},
+    "attention_wgmma": {
+        # q, k, v, kv_len, out, lse, seed, B, H, T, d, width, scale,
+        # drop_thr, drop_scale, stream
+        "wfl_attention_wgmma_fwd": [_P] * 7 + [_I] * 5 + [_F, _I, _F, _P],
+        # out, dout, lse, ws, B, H, T, d, stream
+        "wfl_attention_wgmma_delta": [_P] * 4 + [_I] * 4 + [_P],
+        # q, k, v, dout, ws, kv_len, seed, dk, dv, ds, B, H, T, d, width,
+        # ldk, scale, drop_thr, drop_scale, stream
+        "wfl_attention_wgmma_dkdv": [_P] * 10 + [_I] * 6 + [_F, _I, _F,
+                                                            _P]},
+}
 
 
 class KernelBuildError(RuntimeError):
@@ -102,14 +142,30 @@ def build_all(names: List[str]) -> Dict[str, str]:
     return logs
 
 
+def bind(lib: ctypes.CDLL, name: str, only=None) -> ctypes.CDLL:
+    """Type the launchers of ``lib``, a build of ``csrc/<name>.cu``, by
+    ``SIGNATURES`` (and its ``wfl_error_string``); ``only``: these
+    launchers alone (an earlier build that lacks the others). Returns
+    ``lib``."""
+    for fn_name, argtypes in SIGNATURES.get(name, {}).items():
+        if only is not None and fn_name not in only:
+            continue
+        fn = getattr(lib, fn_name)
+        fn.restype, fn.argtypes = ctypes.c_int, argtypes
+    describe = lib.wfl_error_string
+    describe.restype, describe.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``lib<name>.so``, built on first use."""
+    """The loaded kernel library ``lib<name>.so``, built on first use, its
+    launchers typed (``bind``)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             target, proc = _start(name)
             _finish(name, target, proc)
-            lib = ctypes.CDLL(target)
+            lib = bind(ctypes.CDLL(target), name)
             _LIBS[name] = lib
         return lib
 
@@ -118,8 +174,6 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if err != 0:
         describe = lib.wfl_error_string
-        describe.restype = ctypes.c_char_p
-        describe.argtypes = [ctypes.c_int]
         raise KernelBuildError(
             f"{what}: launch failed with CUDA error {err} "
             f"({describe(err).decode()})")

@@ -8,10 +8,12 @@
 //
 // from the forward's row logsumexp (LSE) and delta = rowsum(dO·O). Without
 // a bias (BIAS = false: null bias, gate, dBias and dGate) dQ, dK and dV of
-// the bias-free attention, for bias-free calls at head_dim ≤ 64 (route
+// the bias-free attention, for bias-free f32 calls at head_dim ≤ 64 (route
 // mma64: Whisper's layers, the `none` encoder's Conformer) and, at head
 // width D = 128, at 80-128 (route mma128: a Conformer of hidden 512 under 4
-// heads); narrower widths are zero-padded to 64 or 128 by the caller. The
+// heads); narrower widths are zero-padded to 64 or 128 by the caller. In
+// bf16 those calls take attention_wgmma.cu's dK/dV pass (routes wgmma64,
+// wgmma128) and this file's dQ pass alone (wfl_attention_bwd_dq_mma). The
 // head width is a template parameter; a bias is taken at D = 64 only.
 //
 // Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_bwd_dkdv_kernel
@@ -41,14 +43,14 @@
 //   too short to split over warps, so the warps split the rows of the score
 //   tile instead: 4 warps a block, each owning 16 keys (dK/dV pass) or 16
 //   queries (dQ pass) and every column of its gradient in registers.
-// - At D = 128 (bias-free only) the layout stays: a dK/dV warp holds 2 × 64
-//   f32 accumulator registers a thread; K and V stay in shared memory and
-//   each product reads (f32: splits) its fragments on use, as at 64. Shared
-//   memory doubles with D, so the dK/dV pass runs 2 blocks a SM (bf16: 64
-//   queries a streamed tile, 106 KB; f32: 16 queries, 107 KB), and the f32
-//   dQ pass 2 (100 KB). Its 255 registers a thread spill 156 bytes in f32
-//   (4 in bf16); with 32 queries and 1 block a SM, the other fit, the f32
-//   dK/dV pass took 46 % longer (kernel_variants_ab.py --kernel k128b).
+// - At D = 128 (bias-free: the dK/dV pass in f32, the dQ pass in both
+//   dtypes) the layout stays: a dK/dV warp holds 2 × 64 f32 accumulator
+//   registers a thread; K and V stay in shared memory and each product
+//   reads and splits its fragments on use, as at 64. Shared memory doubles
+//   with D, so the dK/dV pass runs 2 blocks a SM (16 queries a streamed
+//   tile, 107 KB), and the f32 dQ pass 2 (100 KB). Its 255 registers a
+//   thread spill 156 bytes; with 32 queries and 1 block a SM, which fit,
+//   it took 46 % longer (kernel_variants_ab.py --kernel k128b).
 // - dK/dV pass (attn_bias_bwd_dkdv_mma): one block per (64-key tile, b, h),
 //   b the fastest-varying block index, so the 8 blocks that read the same
 //   bias[h, :, key tile] strip run together and share it in L2. Each block
@@ -116,34 +118,42 @@ constexpr int kBiasThreads = kRows * 32;
 constexpr int kKeysPerLane = 8;       // dBias/dGate: 256 keys a key tile
 constexpr float kNegInf = -1e30f;
 
-// Shared memory of the two product passes. The dK/dV pass holds K and V
-// (64 × D), two buffers of the streamed Q and dO tiles and their LSE, delta
-// and gate rows (no gate rows without a bias), and each warp's 16 × 16 dS
-// staging tile; at D = 64 f32 streams 32 queries (78 KB, two blocks a SM),
-// bf16 64 (59 KB, three a SM); at D = 128 f32 16 and bf16 64, two blocks a
-// SM each. The dQ pass holds two buffers of K (64 keys) and of dS (64
-// queries × 64 keys).
+// Shared memory of the dK/dV pass: K and V (64 × D), two buffers of the
+// streamed Q and dO tiles and their LSE, delta and gate rows (no gate rows
+// without a bias), and each warp's 16 × 16 dS staging tile; at D = 64 f32
+// streams 32 queries (78 KB, two blocks a SM), bf16 (with a bias only) 64
+// (59 KB, three a SM); at D = 128 (f32, bias-free) 16, two blocks a SM.
 template <class Pol, bool BIAS, int D>
 struct BiasTiles {
   static constexpr bool kF32 = sizeof(typename Pol::T) == 4;
   static constexpr int es = sizeof(typename Pol::T);
   // queries a streamed tile, dK/dV blocks a SM
   static constexpr int bq = kF32 ? (D == kD ? 32 : 16) : 64;
-  static constexpr int blocks = kF32 ? 2 : D == kD ? 3 : 2;
+  static constexpr int blocks = kF32 ? 2 : 3;
   static constexpr int p = Pol::pitch(D);
   // dS staging rows: 16 keys and 16 bytes of padding, so that the lanes'
   // element stores fall on distinct banks and rows stay 16-byte aligned
   static constexpr int pst = 16 + 16 / es;
-  static constexpr int pq = Pol::pitch_s(kBK);   // the dQ pass's dS tile
   static constexpr size_t dkdv_smem =
       (size_t)es * (2 * kBK * p + 2 * 2 * bq * p + kWarps * 16 * pst)
       + sizeof(float) * (BIAS ? 3 : 2) * 2 * bq;
-  static constexpr size_t dq_smem = (size_t)es * 2 * (kBK * p + kBQ * pq);
-  static_assert(D == kD || (D == kD128 && !BIAS),
-                "a bias only at head_dim 64; bias-free at 64 and 128");
+  static_assert(D == kD || (D == kD128 && !BIAS && kF32),
+                "a bias only at head_dim 64; bias-free at 64 and, in f32, "
+                "128");
   // 228 KB a SM, 1 KB of it reserved per block
   static_assert(blocks * (dkdv_smem + 1024) <= 233472,
                 "dK/dV blocks a SM exceed its shared memory");
+};
+
+// Shared memory of the dQ pass: two buffers of K (64 keys × D) and of dS
+// (64 queries × 64 keys).
+template <class Pol, int D>
+struct DqTiles {
+  static constexpr int p = Pol::pitch(D);
+  static constexpr int pq = Pol::pitch_s(kBK);
+  static constexpr size_t dq_smem =
+      sizeof(typename Pol::T) * 2 * (kBK * p + kBQ * pq);
+  static_assert(D == kD || D == kD128, "head widths 64 and 128");
   static_assert(dq_smem <= 232448, "dQ tiles exceed 227 KB");
 };
 
@@ -346,7 +356,7 @@ template <class Pol, int D>
 __global__ void __launch_bounds__(kThreads, 3)
 attn_bias_bwd_dq_mma(const BiasArgs<typename Pol::T> a) {
   using T = typename Pol::T;
-  using Cfg = BiasTiles<Pol, false, D>;
+  using Cfg = DqTiles<Pol, D>;
   constexpr int P = Cfg::p, PQ = Cfg::pq, kNT = D / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);      // [2][BK][P]
@@ -482,13 +492,15 @@ cudaError_t run_passes(const BiasArgs<typename Pol::T>& a,
   if (err != cudaSuccess) return err;
   err = wfl::launch(attn_bias_bwd_dq_mma<Pol, D>,
                     dim3((a.T_len + kBQ - 1) / kBQ, a.H, a.B),
-                    dim3(kThreads), Cfg::dq_smem, stream, a);
+                    dim3(kThreads), DqTiles<Pol, D>::dq_smem, stream, a);
   if (err != cudaSuccess || !BIAS) return err;
   return run_dbias(a, stream);
 }
 
 // The bias terms only with a bias (at D = 64), the dropout hash only with a
-// seed.
+// seed. The bias-free dK/dV pass in bf16 is attention_wgmma.cu's (routes
+// wgmma64 and wgmma128, whose dQ pass is this file's, by
+// wfl_attention_bwd_dq_mma): it is not instantiated here.
 template <class Pol, int D>
 cudaError_t dispatch(const BiasArgs<typename Pol::T>& a, cudaStream_t s) {
   if constexpr (D == kD) {
@@ -496,8 +508,39 @@ cudaError_t dispatch(const BiasArgs<typename Pol::T>& a, cudaStream_t s) {
       return a.drop.seed ? run_passes<Pol, true, true, D>(a, s)
                          : run_passes<Pol, true, false, D>(a, s);
   }
-  return a.drop.seed ? run_passes<Pol, false, true, D>(a, s)
-                     : run_passes<Pol, false, false, D>(a, s);
+  if constexpr (std::is_same_v<Pol, PolBF16>) {
+    return cudaErrorInvalidValue;
+  } else {
+    return a.drop.seed ? run_passes<Pol, false, true, D>(a, s)
+                       : run_passes<Pol, false, false, D>(a, s);
+  }
+}
+
+// The dQ pass alone at head width D (dQ += dS·K over the key tiles below
+// kv_len, scaled at the store), for a dK/dV pass of another file.
+template <class Pol, int D>
+cudaError_t run_dq(const BiasArgs<typename Pol::T>& a, cudaStream_t stream) {
+  return wfl::launch(attn_bias_bwd_dq_mma<Pol, D>,
+                     dim3((a.T_len + kBQ - 1) / kBQ, a.H, a.B),
+                     dim3(kThreads), DqTiles<Pol, D>::dq_smem, stream, a);
+}
+
+template <class T>
+cudaError_t dq_alone(const void* k, const void* kv_len, const void* ds,
+                     void* dq, int B, int H, int T_len, int D, int ldk,
+                     float scale, cudaStream_t s) {
+  BiasArgs<T> a{};
+  a.k = static_cast<const T*>(k);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.ds = static_cast<T*>(const_cast<void*>(ds));
+  a.dq = static_cast<T*>(dq);
+  a.B = B;
+  a.H = H;
+  a.T_len = T_len;
+  a.ldk = ldk;
+  a.scale = scale;
+  using Pol = std::conditional_t<sizeof(T) == 4, PolF32, PolBF16>;
+  return D == kD ? run_dq<Pol, kD>(a, s) : run_dq<Pol, kD128>(a, s);
 }
 
 template <class T>
@@ -556,7 +599,9 @@ using namespace wfl;
 // return are dS where a key tile is below kv_len); dbias [H, T, T] f32 and
 // dgate [B, H, T] f32 (null without gate), every element written; seed (one
 // int32 on the device, or null), drop_thr and drop_scale as the forward's.
-// Returns the launches' cudaError_t.
+// The bias-free passes in bf16 are refused (attention_wgmma.cu's dK/dV pass
+// and wfl_attention_bwd_dq_mma take them). Returns the launches'
+// cudaError_t.
 extern "C" int wfl_attention_bwd_bias_mma(
     const void* q, const void* k, const void* v, const void* bias,
     const void* gate, const void* dout, const void* lse, const void* delta,
@@ -581,6 +626,28 @@ extern "C" int wfl_attention_bwd_bias_mma(
     return dispatch_dtype<bf16>(q, k, v, bias, gate, dout, lse, delta,
                                 kv_len, dq, dk, dv, ds, dbias, dgate, B, H,
                                 T_len, D, ldk, scale, drop, s);
+  return cudaErrorInvalidValue;
+}
+
+// The dQ pass alone, for the bias-free dK/dV pass of attention_wgmma.cu
+// (routes wgmma64 and wgmma128), which leaves dS in a workspace of this
+// layout: k and dq [B, H, T, D] contiguous of the dtype (0 = f32, 1 =
+// bf16), D = 64 or 128 (narrower heads zero-padded to it); kv_len [B] int32
+// in [1, T]; ds [B, H, T, ldk] of the dtype, ldk ≥ T a multiple of 64,
+// holding dS for the key tiles below kv_len[b]; scale the scores'. Returns
+// the launch's cudaError_t.
+extern "C" int wfl_attention_bwd_dq_mma(const void* k, const void* kv_len,
+                                        const void* ds, void* dq, int B,
+                                        int H, int T_len, int D, int ldk,
+                                        float scale, int dtype,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((D != kD && D != kD128) || ldk % kBK != 0 || ldk < T_len)
+    return cudaErrorInvalidValue;
+  if (dtype == kF32)
+    return dq_alone<float>(k, kv_len, ds, dq, B, H, T_len, D, ldk, scale, s);
+  if (dtype == kBF16)
+    return dq_alone<bf16>(k, kv_len, ds, dq, B, H, T_len, D, ldk, scale, s);
   return cudaErrorInvalidValue;
 }
 

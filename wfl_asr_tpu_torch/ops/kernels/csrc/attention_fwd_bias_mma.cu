@@ -9,18 +9,19 @@
 // and, when asked, the row logsumexp LSE = m + log(max(l, 1e-30)) (natural
 // log) that the backward (attention_bwd_bias_mma.cu) reads. A null gate is
 // read as 1. A null bias (with a null gate) drops the gated term: the
-// bias-free instantiation (BIAS = false), which serves bias-free calls at
-// head_dim ≤ 64 (route mma64: Whisper's layers, the `none` encoder's
+// bias-free instantiation (BIAS = false), which serves bias-free f32 calls
+// at head_dim ≤ 64 (route mma64: Whisper's layers, the `none` encoder's
 // Conformer) and, at head width D = 128, at 80-128 (route mma128: a
 // Conformer of hidden 512 under 4 heads, Whisper-base's at the config
 // schema's default); narrower widths are zero-padded to 64 or 128 by the
-// caller, with the true 1/√d. The head width is a template parameter; a
+// caller, with the true 1/√d. In bf16 those calls take attention_wgmma.cu
+// (routes wgmma64, wgmma128). The head width is a template parameter; a
 // bias is taken at D = 64 only.
 //
 // Replaces wfl_asr_tpu/ops/pallas/flash_attention.py:_flash_kernel (:75),
 // the kernel of _fwd_impl (:189) (K2), and, without a bias,
-// wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:_fwd_kernel (:49) (K1) at
-// head_dim ≤ 128. Calls with a bias at other widths up to 512 keep the
+// wfl_asr_tpu/ops/pallas/flash_attention_bwd.py:_fwd_kernel (:49) (K1) in
+// f32 at head_dim ≤ 128. Calls with a bias at other widths up to 512 keep the
 // forwards of flash_attention.cu; wider calls take attention_wide.cu.
 //
 // What bounds it on the card: 2 products of 2·H·T·Σkv_len·D FLOPs (S = Q·Kᵀ,
@@ -53,7 +54,7 @@
 //   hi/lo splits, each group of mma steps summed into fresh registers and
 //   added in f32 (the tensor core truncates when it adds into a live
 //   accumulator). bf16 rescales the output by α and lets the mma add into
-//   it, which the card measured cheaper for the bias-free forward.
+//   it.
 // - Staging, one tile ahead: K and V of key tile k + 1 by 16-byte cp.async
 //   (stage_rows_by_warp, several 64-wide rows a warp at once), and the bias
 //   tile in the same copy group (stage_spans): each query row's 64 (bf16) or
@@ -67,24 +68,18 @@
 // - Without a bias (BIAS = false) the bias spans, their share of shared
 //   memory and the gate go; the tile that remains is the FlashAttention-2
 //   layout alone (FwdBiasTiles<Pol, false, D>).
-// - At D = 128 (bias-free only) the same layout holds twice the columns: a
-//   warp's output is 64 f32 registers a thread, bf16's resident Q 32 more,
-//   its S 32. Both dtypes run 8 warps (128 queries) a block and 1 block a
-//   SM, which leaves each thread 255 registers (2 blocks of 8 warps allow
-//   128). In f32 Q's TF32 hi/lo halves alone would be 128 registers: each
-//   warp reads its Q fragment from shared memory and splits it on use in
-//   every k-step of S (q_regs = false), as attention_fwd_mma.cu does at
-//   D = 384. bf16 runs S's 8 mma steps into one accumulator (s_chunk):
-//   the fresh sums of 4 took 36 more registers (230 against 194) and 5-6 %
-//   of the time. Measured on the card in two calls (kernel_variants_ab.py
-//   --kernel k128, [8, 4, 1500, 128]): bf16 4 warps and 2 blocks a SM, or
-//   32-key tiles and 3-4 blocks, were 10-27 % slower; f32 4 warps and 2
-//   blocks a SM 4-8 % slower, Q's fragments in registers (spilling) 25-28
-//   %, 16-key tiles and 3 blocks 13-14 %. What bounds D = 128 there (its
-//   clocks variants): in bf16 issuing the next tile's copies 33-37 % of
-//   the key loop, S 24 %, the softmax 17-19 %, P·V 20-23 %; in f32 P·V
-//   43-49 % (each warp splits V's B fragments on use), S 28-37 %, the
-//   copies 11-15 %.
+// - At D = 128 (bias-free f32 only) the same layout holds twice the
+//   columns: a warp's output is 64 f32 registers a thread. It runs 8 warps
+//   (128 queries) a block and 1 block a SM, which leaves each thread 255
+//   registers (2 blocks of 8 warps allow 128). Q's TF32 hi/lo halves alone
+//   would be 128 registers: each warp reads its Q fragment from shared
+//   memory and splits it on use in every k-step of S (q_regs = false), as
+//   attention_fwd_mma.cu does at D = 384. Measured on the card
+//   (kernel_variants_ab.py --kernel k128, [8, 4, 1500, 128]): 4 warps and 2
+//   blocks a SM were 4-8 % slower, Q's fragments in registers (spilling)
+//   25-28 %, 16-key tiles and 3 blocks 13-14 %. What bounds it there (its
+//   clocks variants): P·V 43-49 % of the key loop (each warp splits V's B
+//   fragments on use), S 28-37 %, issuing the next tile's copies 11-15 %.
 // - Masking: key tiles wholly past kv_len[b] are skipped (key 0 is always
 //   valid, kv_len ≥ 1), keys past kv_len are set to -1e30 before the row
 //   max; ragged K/V tiles and query rows past T are zero-filled, rows past T
@@ -103,13 +98,9 @@
 //   second barrier and 36 KB, was 13 % slower.
 //
 // What still bounds it (kernel_variants_ab.py --kernel k1w: clock64 per
-// phase of the key loop, the bias-free instantiation at [8, 8, 1500, 64]):
-// in bf16, issuing the next tile's cp.async copies takes 36 % of the warps'
-// cycles, the softmax (exp2f among it) 25 %, S 20 %, P·V 16 %, waiting for
-// the tile 3 %; in f32 40, 8, 23, 27 and 2 %. Issuing the copies after S
-// saves 0-4 %; one bulk copy a row (cp.async.bulk on an mbarrier, issued by
-// one warp) nearly doubled the time. A TMA tensor map with a swizzled,
-// unpadded tile, one copy a tile, is the next step.
+// phase of the key loop, the bias-free f32 instantiation at [8, 8, 1500,
+// 64]): issuing the next tile's cp.async copies takes 40 % of the warps'
+// cycles, the softmax 8 %, S 23 %, P·V 27 %, waiting for the tile 2 %.
 #include <type_traits>
 
 #include "common.cuh"
@@ -131,8 +122,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 // rows), two buffers of K and V (BK rows each) and, with a bias, two of the
 // bias spans (BQ rows of PB). Without a bias the registers, not shared
 // memory, bound the blocks a SM. q_regs: Q's fragments held in registers
-// for the whole key loop (all but f32 at D = 128, which reads them from
-// shared memory).
+// for the whole key loop (at D = 64; f32 at D = 128 reads them from shared
+// memory). bf16 is taken at D = 64 with a bias only.
 template <class Pol, bool BIAS, int D>
 struct FwdBiasTiles {
   static constexpr bool kF32 = sizeof(typename Pol::T) == 4;
@@ -140,18 +131,19 @@ struct FwdBiasTiles {
   static constexpr int warps = kF32 && D == kD ? 4 : 8;
   static constexpr int bk = kF32 ? 32 : 64;
   static constexpr int blocks = D == kD ? 2 : 1;
-  static constexpr bool q_regs = D == kD || !kF32;
+  static constexpr bool q_regs = D == kD;
   // mma steps of S run into one accumulator before they are added in f32
-  // (see scores): 4, but bf16 at D = 128 all 8
-  static constexpr int s_chunk = D == kD || kF32 ? 4 : D / 16;
+  // (see scores)
+  static constexpr int s_chunk = 4;
   static constexpr int threads = 32 * warps;
   static constexpr int bq = 16 * warps;
   static constexpr int p = Pol::pitch(D);
   static constexpr int pb = (bk * es / 16 + 1) * 16 / es;
   static constexpr size_t smem =
       (size_t)es * (bq * p + 2 * 2 * bk * p + (BIAS ? 2 * bq * pb : 0));
-  static_assert(D == kD || (D == kD128 && !BIAS),
-                "a bias only at head_dim 64; bias-free at 64 and 128");
+  static_assert(D == kD || (D == kD128 && !BIAS && kF32),
+                "a bias only at head_dim 64; bias-free at 64 and, in f32, "
+                "128");
   static_assert(bk * es % 16 == 0, "a key tile moves the spans by chunks");
   // 228 KB a SM, 1 KB of it reserved per block
   static_assert(blocks * (smem + 1024) <= 233472,
@@ -402,7 +394,8 @@ cudaError_t run_fwd(const FwdBiasArgs<typename Pol::T>& a, int B,
 }
 
 // The bias term only with a bias (at D = 64), the dropout hash only with a
-// seed.
+// seed. The bias-free forward in bf16 is attention_wgmma.cu's (routes
+// wgmma64 and wgmma128): it is not instantiated here.
 template <class Pol, int D>
 cudaError_t dispatch(const FwdBiasArgs<typename Pol::T>& a, int B,
                      cudaStream_t s) {
@@ -411,8 +404,12 @@ cudaError_t dispatch(const FwdBiasArgs<typename Pol::T>& a, int B,
       return a.drop.seed ? run_fwd<Pol, true, true, D>(a, B, s)
                          : run_fwd<Pol, true, false, D>(a, B, s);
   }
-  return a.drop.seed ? run_fwd<Pol, false, true, D>(a, B, s)
-                     : run_fwd<Pol, false, false, D>(a, B, s);
+  if constexpr (std::is_same_v<Pol, PolBF16>) {
+    return cudaErrorInvalidValue;
+  } else {
+    return a.drop.seed ? run_fwd<Pol, false, true, D>(a, B, s)
+                       : run_fwd<Pol, false, false, D>(a, B, s);
+  }
 }
 
 template <class T>
@@ -443,8 +440,8 @@ using namespace wfl;
 // gate [B, H, T] f32 or null (read as 1; a gate without a bias is refused);
 // kv_len [B] int32 in [1, T]; lse [B, H, T] f32, written when not null; seed
 // (one int32 on the device, or null), drop_thr and drop_scale as the other
-// forwards'. Refuses what forward_route does not send here. Returns the
-// launch's cudaError_t.
+// forwards'. Refuses what forward_route does not send here: the bias-free
+// forward in bf16 among it. Returns the launch's cudaError_t.
 extern "C" int wfl_attention_fwd_bias_mma(const void* q, const void* k,
                                           const void* v, const void* bias,
                                           const void* gate,

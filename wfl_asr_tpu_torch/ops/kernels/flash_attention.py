@@ -12,25 +12,30 @@ backward.
 - On a CUDA tensor hand-written kernels run (f32 or bf16 in, f32 softmax
   and accumulation): the forward, which also writes the row logsumexp
   (LSE) when autograd will need it, and the backward passes, which
-  recompute P = exp(S − LSE) tile by tile. The forward takes one of six
+  recompute P = exp(S − LSE) tile by tile. The forward takes one of eight
   routes (:func:`forward_route`): above head_dim 512 (up to 2048), with or
   without a bias, the cluster forward of ``csrc/attention_wide.cu`` (the
   contraction over D split across a thread-block cluster); with a bias
   at head_dim 64 the tensor-core forward of
-  ``csrc/attention_fwd_bias_mma.cu``, and bias-free its bias-free
-  instantiations at head width 64 for head_dim ≤ 64 and at 128 for
-  80-128 (narrower widths zero-padded to 64 or 128); bias-free at
+  ``csrc/attention_fwd_bias_mma.cu``; bias-free in bf16 the wgmma and TMA
+  forward of ``csrc/attention_wgmma.cu`` at head width 64 for head_dim
+  ≤ 64 and at 128 for 80-128 (at the tensors' own width); bias-free in f32
+  the bias-free instantiations of ``csrc/attention_fwd_bias_mma.cu`` at
+  those widths (narrower widths zero-padded to 64 or 128); bias-free at
   head_dim > 128 the forward of ``csrc/attention_fwd_mma.cu``; otherwise
   (a bias at widths other than 64, up to 512) the forwards of
-  ``csrc/flash_attention.cu``. The backward takes the matching one of six
-  (:func:`backward_route`): the dK/dV and dQ passes of
+  ``csrc/flash_attention.cu``. The backward takes the matching one of
+  eight (:func:`backward_route`): the dK/dV and dQ passes of
   ``csrc/attention_wide.cu`` above 512 (with a bias then also the
   dBias/dGate pass of ``csrc/attention_bwd_bias_mma.cu``); the tensor-core
   passes of ``csrc/attention_bwd_bias_mma.cu`` with a bias at head_dim 64
-  (dK/dV, dQ, dBias/dGate), and bias-free at ≤ 64 and at 80-128 (dK/dV,
-  dQ, at head width 64 or 128); bias-free at head_dim > 128 the
-  tensor-core pair of ``csrc/attention_bwd_mma.cu``; otherwise the FMA pair
-  of ``csrc/flash_attention.cu`` (dK/dV; dQ with dGate and dBias). On a
+  (dK/dV, dQ, dBias/dGate), and bias-free in f32 at ≤ 64 and at 80-128
+  (dK/dV, dQ, at head width 64 or 128); bias-free in bf16 there the
+  delta pre-pass and the wgmma dK/dV pass of ``csrc/attention_wgmma.cu``,
+  then the dQ pass of ``csrc/attention_bwd_bias_mma.cu``; bias-free at
+  head_dim > 128 the tensor-core pair of ``csrc/attention_bwd_mma.cu``;
+  otherwise the FMA pair of ``csrc/flash_attention.cu`` (dK/dV; dQ with
+  dGate and dBias). On a
   CPU tensor the plain twins :func:`attention_plain` and
   :func:`attention_backward_plain` run. Nothing falls back: a kernel that
   fails to build or launch raises.
@@ -46,7 +51,6 @@ backward.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional
 
@@ -90,6 +94,14 @@ mma128_fwd_launches = 0
 mma128_bwd_launches = 0
 wide_fwd_launches = 0
 wide_bwd_launches = 0
+# Launches of the bf16 bias-free routes of attention_wgmma.cu at head width
+# 64 ("wgmma64") and 128 ("wgmma128"): the forward, and the backward's
+# three launches (delta pre-pass, dK/dV pass, dQ pass) as one, each
+# counted after its launchers returned no error.
+wgmma64_fwd_launches = 0
+wgmma64_bwd_launches = 0
+wgmma128_fwd_launches = 0
+wgmma128_bwd_launches = 0
 
 # Head widths above this, without a bias, take the mma.sync forward and the
 # mma.sync backward pair.
@@ -107,16 +119,19 @@ WIDE_MIN_D = 512
 WIDE_MAX_D = 2048
 
 
-def forward_route(d: int, has_bias: bool) -> str:
-    """Which forward a CUDA call at head_dim ``d`` (a multiple of 16) runs:
-    ``"wide"`` (``csrc/attention_wide.cu``) above 512, up to
-    ``WIDE_MAX_D`` (wider widths raise: no CUDA route takes them); with
+def forward_route(d: int, has_bias: bool,
+                  dtype: torch.dtype = torch.float32) -> str:
+    """Which forward a CUDA call at head_dim ``d`` (a multiple of 16) in
+    ``dtype`` runs: ``"wide"`` (``csrc/attention_wide.cu``) above 512, up
+    to ``WIDE_MAX_D`` (wider widths raise: no CUDA route takes them); with
     a bias, ``"mma_bias"`` (the tensor-core forward of
     ``csrc/attention_fwd_bias_mma.cu``) at 64, else ``"fused"`` (the
-    forwards of ``csrc/flash_attention.cu``); bias-free, ``"mma64"`` and
-    ``"mma128"`` (its bias-free instantiations at head width 64 and 128)
-    at ≤ 64 and at 80-128, ``"mma"`` (that of
-    ``csrc/attention_fwd_mma.cu``) above 128."""
+    forwards of ``csrc/flash_attention.cu``); bias-free at ≤ 64 and at
+    80-128, in bf16 ``"wgmma64"`` and ``"wgmma128"`` (the wgmma forward of
+    ``csrc/attention_wgmma.cu`` at head width 64 and 128), in f32
+    ``"mma64"`` and ``"mma128"`` (the bias-free instantiations of
+    ``csrc/attention_fwd_bias_mma.cu``); bias-free above 128 ``"mma"``
+    (``csrc/attention_fwd_mma.cu``)."""
     if d > WIDE_MAX_D:
         raise ValueError(f"head_dim {d} exceeds {WIDE_MAX_D}, the widest the "
                          f"CUDA attention kernels take (attention_wide.cu: "
@@ -125,22 +140,27 @@ def forward_route(d: int, has_bias: bool) -> str:
         return "wide"
     if has_bias:
         return "mma_bias" if d == MMA_BIAS_D else "fused"
-    if d <= MMA_BIAS_D:
-        return "mma64"
-    return "mma" if d > MMA_MIN_D else "mma128"
+    if d > MMA_MIN_D:
+        return "mma"
+    width = "64" if d <= MMA_BIAS_D else "128"
+    return ("wgmma" if dtype == torch.bfloat16 else "mma") + width
 
 
-def backward_route(d: int, has_bias: bool) -> str:
+def backward_route(d: int, has_bias: bool,
+                   dtype: torch.dtype = torch.float32) -> str:
     """Which backward a CUDA call runs, by the forward's table: ``"wide"``
     (the passes of ``csrc/attention_wide.cu``) above 512; ``"mma_bias"``
     (the tensor-core passes of ``csrc/attention_bwd_bias_mma.cu``) with a
-    bias at 64, ``"mma64"`` and ``"mma128"`` (their bias-free
-    instantiations at head width 64 and 128) bias-free at ≤ 64 and at
-    80-128; ``"mma"`` (the tensor-core pair of ``csrc/attention_bwd_mma.cu``)
-    bias-free above 128; else ``"fma"`` (the FMA pair of
-    ``csrc/flash_attention.cu``), with a bias at widths other than 64 up to
-    512."""
-    route = forward_route(d, has_bias)
+    bias at 64; bias-free at ≤ 64 and at 80-128, in bf16 ``"wgmma64"`` and
+    ``"wgmma128"`` (the delta pre-pass and wgmma dK/dV pass of
+    ``csrc/attention_wgmma.cu``, then the dQ pass of
+    ``csrc/attention_bwd_bias_mma.cu``), in f32 ``"mma64"`` and
+    ``"mma128"`` (the bias-free instantiations of that file's dK/dV and dQ
+    passes); ``"mma"`` (the tensor-core pair of
+    ``csrc/attention_bwd_mma.cu``) bias-free above 128; else ``"fma"`` (the
+    FMA pair of ``csrc/flash_attention.cu``), with a bias at widths other
+    than 64 up to 512."""
+    route = forward_route(d, has_bias, dtype)
     return "fma" if route == "fused" else route
 
 
@@ -301,8 +321,10 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
     """Run the forward on CUDA tensors: the route :func:`forward_route`
     names, with no fallback from one to another (each route counted where
     it launches: ``mma_fwd_launches``, ``mma_bias_fwd_launches``,
-    ``mma64_fwd_launches``, ``mma128_fwd_launches``, ``wide_fwd_launches``,
-    ``fused_fwd_launches``); with ``return_lse`` also the row LSE [B, H, T]
+    ``mma64_fwd_launches``, ``mma128_fwd_launches``,
+    ``wgmma64_fwd_launches``, ``wgmma128_fwd_launches``,
+    ``wide_fwd_launches``, ``fused_fwd_launches``); with ``return_lse``
+    also the row LSE [B, H, T]
     f32; with ``dropout_rate`` > 0 the in-kernel dropout (K6) of
     ``dropout_seed``, a one-element int32 tensor on q's device; ``scale``
     of the scores, 1/√d when None."""
@@ -316,7 +338,7 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
     seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
-    route = forward_route(d, bias is not None)
+    route = forward_route(d, bias is not None, q.dtype)
     if bias is not None:
         bias = bias.to(q.dtype).contiguous()
     if gate is not None:
@@ -333,6 +355,9 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
     elif route == "mma128":
         out = _launch_mma128_fwd(q, k, v, kv, lse, seed, thr, drop_scale,
                                  scale)
+    elif route in ("wgmma64", "wgmma128"):
+        out = _launch_wgmma_fwd(route, q, k, v, kv, lse, seed, thr,
+                                drop_scale, scale)
     elif route == "wide":
         out = _launch_wide_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
                                drop_scale, scale)
@@ -340,17 +365,6 @@ def launch_kernel(q, k, v, bias=None, gate=None, kv_len=None,
         out = _launch_fused_fwd(q, k, v, bias, gate, kv, lse, seed, thr,
                                 drop_scale, scale)
     return (out, lse) if return_lse else out
-
-
-def _fwd_launcher(fn):
-    """A forward launcher of the shared signature (q, k, v, bias, gate,
-    kv_len, out, lse, seed, B, H, T, D, scale, drop_thr, drop_scale, dtype,
-    stream), typed for ctypes."""
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
-    return fn
 
 
 def _launch_fused_fwd(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
@@ -363,7 +377,7 @@ def _launch_fused_fwd(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
     b, h, t, d = q.shape
     lib = _build.library("flash_attention")
     out = torch.empty_like(q)
-    err = _fwd_launcher(lib.wfl_flash_attention_fwd)(
+    err = lib.wfl_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
         kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
         _scale(q, scale), thr, drop_scale, _dtype_code(q),
@@ -382,7 +396,7 @@ def _launch_mma_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
     b, h, t, d = q.shape
     lib = _build.library("attention_fwd_mma")
     out = torch.empty_like(q)
-    err = _fwd_launcher(lib.wfl_attention_fwd_mma)(
+    err = lib.wfl_attention_fwd_mma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, kv.data_ptr(),
         out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d, _scale(q, scale),
         thr, drop_scale, _dtype_code(q), _build.stream_ptr(q.device))
@@ -401,7 +415,7 @@ def _fwd_bias_mma(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
     b, h, t, d = q.shape
     lib = _build.library("attention_fwd_bias_mma")
     out = torch.empty_like(q)
-    err = _fwd_launcher(lib.wfl_attention_fwd_bias_mma)(
+    err = lib.wfl_attention_fwd_bias_mma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
         kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
         _scale(q, scale), thr, drop_scale, _dtype_code(q),
@@ -466,6 +480,41 @@ def _launch_mma128_fwd(q, k, v, kv, lse, seed, thr, drop_scale, scale=None):
     return out
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where its data does not start on 16 bytes (a TMA
+    tensor map and the 16-byte loads need that)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+WGMMA_WIDTH = {"wgmma64": MMA_BIAS_D, "wgmma128": MMA128_D}
+
+
+def _launch_wgmma_fwd(route, q, k, v, kv, lse, seed, thr, drop_scale,
+                      scale=None):
+    """Routes ``"wgmma64"`` and ``"wgmma128"``: the bf16 wgmma forward of
+    ``csrc/attention_wgmma.cu`` at head width 64 or 128 on the tensors
+    :func:`launch_kernel` has checked and laid out, at their own width (a
+    multiple of 16 up to it: the tensor maps zero-fill the rest, nothing
+    is padded here), scaled by q's 1/√d when ``scale`` is None; writes
+    ``lse`` when it is not None. Returns out in q's dtype and width."""
+    global wgmma64_fwd_launches, wgmma128_fwd_launches
+    b, h, t, d = q.shape
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    lib = _build.library("attention_wgmma")
+    out = torch.empty_like(q)
+    err = lib.wfl_attention_wgmma_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
+        out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
+        WGMMA_WIDTH[route], _scale(q, scale), thr, drop_scale,
+        _build.stream_ptr(q.device))
+    _build.check(lib, err, f"attention_wgmma forward ({route})")
+    if route == "wgmma64":
+        wgmma64_fwd_launches += 1
+    else:
+        wgmma128_fwd_launches += 1
+    return out
+
+
 def _launch_wide_fwd(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
                      scale=None):
     """The cluster forward of ``csrc/attention_wide.cu`` on the
@@ -477,7 +526,7 @@ def _launch_wide_fwd(q, k, v, bias, gate, kv, lse, seed, thr, drop_scale,
     b, h, t, d = q.shape
     lib = _build.library("attention_wide")
     out = torch.empty_like(q)
-    err = _fwd_launcher(lib.wfl_attention_wide_fwd)(
+    err = lib.wfl_attention_wide_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
         kv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(seed), b, h, t, d,
         _scale(q, scale), thr, drop_scale, _dtype_code(q),
@@ -502,9 +551,11 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     :func:`backward_route` names, with no fallback from one to another,
     each counted where it launches (``mma_bias_bwd_launches``,
     ``mma_bwd_launches``, ``mma64_bwd_launches``, ``mma128_bwd_launches``,
+    ``wgmma64_bwd_launches``, ``wgmma128_bwd_launches``,
     ``wide_bwd_launches``, ``fma_bwd_launches``). Same contract as
-    :func:`attention_backward_plain`; ``delta = rowsum(dO·O)`` is a plain
-    f32 torch op here, as the JAX package leaves it to XLA."""
+    :func:`attention_backward_plain`; ``delta = rowsum(dO·O)`` is the
+    wgmma routes' pre-pass kernel, and a plain f32 torch op on the others,
+    as the JAX package leaves it to XLA."""
     _check(q, k, v, bias, gate)
     if not q.is_cuda:
         raise ValueError("launch_backward needs CUDA tensors")
@@ -512,11 +563,15 @@ def launch_backward(q, k, v, bias, gate, kv_len, out, lse, dout,
     scale = _scale(q, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = dout.to(q.dtype).contiguous()
-    delta = (dout.float() * out.float()).sum(-1).contiguous()
     kv = _prep_kv_len(kv_len, b, t, q.device)
     lse = lse.contiguous()
     seed, thr, drop_scale = _dropout_args(dropout_rate, dropout_seed)
-    route = backward_route(d, bias is not None)
+    route = backward_route(d, bias is not None, q.dtype)
+    if route in ("wgmma64", "wgmma128"):
+        dq, dk, dv = _launch_wgmma(route, q, k, v, out, dout, lse, kv, seed,
+                                   thr, drop_scale, scale)
+        return dq, dk, dv, None, None
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
     if route in ("mma", "mma64", "mma128"):
         launch = {"mma": _launch_mma, "mma64": _launch_mma64,
                   "mma128": _launch_mma128}[route]
@@ -553,12 +608,7 @@ def _launch_fma(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
              if bias is not None else None)
     dgate = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
              if gate is not None else None)
-    fn = lib.wfl_flash_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+    err = lib.wfl_flash_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
              _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), _ptr(dgate), _ptr(dbias), b, h, t, d,
@@ -583,12 +633,7 @@ def _launch_mma(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     ldk = -(-t // 32) * 32
     ds = torch.empty((b, h, t, ldk), dtype=q.dtype, device=q.device)
-    fn = lib.wfl_attention_bwd_mma
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+    err = lib.wfl_attention_bwd_mma(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), kv.data_ptr(), _ptr(seed),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ds.data_ptr(), b,
              h, t, d, ldk, _scale(q, scale), thr, drop_scale,
@@ -616,12 +661,7 @@ def _bwd_bias_mma(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
              if bias is not None else None)
     dgate = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
              if gate is not None else None)
-    fn = lib.wfl_attention_bwd_bias_mma
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+    err = lib.wfl_attention_bwd_bias_mma(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
              _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), ds.data_ptr(), _ptr(dbias), _ptr(dgate), b, h, t,
@@ -687,6 +727,55 @@ def _launch_mma128(q, k, v, dout, lse, delta, kv, seed, thr, drop_scale,
     return grads
 
 
+def _launch_wgmma(route, q, k, v, out, dout, lse, kv, seed, thr,
+                  drop_scale, scale=None):
+    """Routes ``"wgmma64"`` and ``"wgmma128"``: the bf16 backward on the
+    tensors :func:`launch_backward` has checked and laid out (out the
+    forward's, all at their own width, a multiple of 16 up to 64 or 128),
+    three launches in turn: the pre-pass of ``csrc/attention_wgmma.cu``
+    (delta = rowsum(dO·O) and LSE·log2(e) into a [2, B·H, ⌈T/64⌉·64] f32
+    workspace), its wgmma dK/dV pass (dS into a [B, H, T, ⌈T/64⌉·64]
+    workspace), and the dQ pass of ``csrc/attention_bwd_bias_mma.cu``
+    (``wfl_attention_bwd_dq_mma``), which reads K at head width 64 or 128:
+    K alone is zero-padded for it where the heads are narrower, and dQ
+    sliced back. Returns (dq, dk, dv) in q's dtype and width."""
+    global wgmma64_bwd_launches, wgmma128_bwd_launches
+    b, h, t, d = q.shape
+    width, scale = WGMMA_WIDTH[route], _scale(q, scale)
+    q, k, v, out, dout = (_aligned(x) for x in (q, k, v, out.contiguous(),
+                                                dout))
+    stream = _build.stream_ptr(q.device)
+    lib = _build.library("attention_wgmma")
+    ws = torch.empty((2, b * h, -(-t // 64) * 64), dtype=torch.float32,
+                     device=q.device)
+    err = lib.wfl_attention_wgmma_delta(out.data_ptr(), dout.data_ptr(),
+                                        lse.data_ptr(), ws.data_ptr(), b, h,
+                                        t, d, stream)
+    _build.check(lib, err, f"attention_wgmma delta ({route})")
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    ldk = -(-t // 64) * 64
+    ds = torch.empty((b, h, t, ldk), dtype=q.dtype, device=q.device)
+    err = lib.wfl_attention_wgmma_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        ws.data_ptr(), kv.data_ptr(), _ptr(seed), dk.data_ptr(),
+        dv.data_ptr(), ds.data_ptr(), b, h, t, d, width, ldk, scale, thr,
+        drop_scale, stream)
+    _build.check(lib, err, f"attention_wgmma dK/dV ({route})")
+    kw = k if d == width else F.pad(k, (0, width - d))
+    dq = torch.empty_like(kw)
+    qlib = _build.library("attention_bwd_bias_mma")
+    err = qlib.wfl_attention_bwd_dq_mma(kw.data_ptr(), kv.data_ptr(),
+                                        ds.data_ptr(), dq.data_ptr(), b, h,
+                                        t, width, ldk, scale,
+                                        _dtype_code(q), stream)
+    _build.check(qlib, err, f"attention_bwd_bias_mma dQ ({route})")
+    if route == "wgmma64":
+        wgmma64_bwd_launches += 1
+    else:
+        wgmma128_bwd_launches += 1
+    return (dq if d == width else dq[..., :d]), dk, dv
+
+
 def _launch_wide(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
                  drop_scale, scale=None):
     """The backward of ``csrc/attention_wide.cu`` on the tensors
@@ -702,13 +791,8 @@ def _launch_wide(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     ldk = -(-t // 64) * 64
     ds = torch.empty((b, h, t, ldk), dtype=q.dtype, device=q.device)
-    fn = lib.wfl_attention_wide_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
     stream = _build.stream_ptr(q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+    err = lib.wfl_attention_wide_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
              _ptr(gate), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              kv.data_ptr(), _ptr(seed), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), ds.data_ptr(), b, h, t, d, ldk, _scale(q, scale),
@@ -720,11 +804,7 @@ def _launch_wide(q, k, v, bias, gate, dout, lse, delta, kv, seed, thr,
         dgate = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
                  if gate is not None else None)
         blib = _build.library("attention_bwd_bias_mma")
-        fn = blib.wfl_attention_bias_dbias
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        err = fn(ds.data_ptr(), bias.data_ptr(), _ptr(gate), kv.data_ptr(),
+        err = blib.wfl_attention_bias_dbias(ds.data_ptr(), bias.data_ptr(), _ptr(gate), kv.data_ptr(),
                  dbias.data_ptr(), _ptr(dgate), b, h, t, ldk,
                  _dtype_code(q), stream)
         _build.check(blib, err, "attention_bias_dbias")

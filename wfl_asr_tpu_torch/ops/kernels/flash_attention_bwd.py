@@ -6,13 +6,17 @@ The Conformer blocks' attention (head_dim 384 on the main path, 128 for a
 hidden size of 512 under 4 heads) and the Whisper encoder's (head_dim 64). The JAX package keeps it apart from the
 gated kernel for TPU grid order and VMEM only (flash_attention_bwd.py:18-25);
 on the card both entry points share the routes of ``flash_attention``
-(``forward_route``, ``backward_route``), by head width: ≤ 64 and 80-128
-the bias-free instantiations of the tensor-core forward and passes of
+(``forward_route``, ``backward_route``), by head width and dtype: ≤ 64
+and 80-128 in bf16 the wgmma forward and dK/dV pass of
+``csrc/attention_wgmma.cu`` at head width 64 and 128, at the tensors' own
+width, with the dQ pass of ``csrc/attention_bwd_bias_mma.cu``
+(``flash_attention.wgmma64_fwd_launches``, ``wgmma64_bwd_launches``,
+``wgmma128_fwd_launches``, ``wgmma128_bwd_launches``), in f32 the bias-free
+instantiations of the tensor-core forward and passes of
 ``csrc/attention_fwd_bias_mma.cu`` and ``csrc/attention_bwd_bias_mma.cu``
 at head width 64 and 128 (narrower widths zero-padded to it;
-``flash_attention.mma64_fwd_launches``, ``mma64_bwd_launches``,
-``mma128_fwd_launches``, ``mma128_bwd_launches``); 144-512 the tensor-core
-forward of
+``mma64_fwd_launches``, ``mma64_bwd_launches``, ``mma128_fwd_launches``,
+``mma128_bwd_launches``); 144-512 the tensor-core forward of
 ``csrc/attention_fwd_mma.cu`` and pair of ``csrc/attention_bwd_mma.cu``
 (``mma_fwd_launches``, ``mma_bwd_launches``); above 512 (to 2048) the
 cluster forward and passes of ``csrc/attention_wide.cu`` (``wide_fwd_launches``,
