@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only conv     # build + K5's part of phase 3 only
     python3 chip_smoke.py --only train    # build + training phases 6-7 only
     python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9f only
+    python3 chip_smoke.py --only modules  # build + phases 10a-10d only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -102,7 +103,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    D = 128, none on mma64/mma128), the step's ms, audio-s/s, peak memory
    and profiled busy and idle share; 9e. its card-vs-CPU train step at
    B=2×30 s under phase 7's rules;
-10. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
+10. the modules of the port beyond the kernels (``--only modules``):
+   10a. remat on WavLM-base-plus (f32, TF32 off, B = 8 of 20-30 s): one
+   step without and one with ``remat``, from the same model, Prodigy
+   state, batch and generator state, for the default dropout and with
+   strict attention dropout — loss ≤ 1e-6 relative, gradients ≤ 1e-5 ×
+   max|g|, peak memory and ms for both, 12 K2 forwards a plain step and
+   24 a remat one (12 recomputed); 10b. ``training.remat: auto`` on
+   phase 9c's ``large-v3`` at B = 8 × 30 s through the train loop's
+   ``RematStep``: the plain step overflows the card and it must flip; two
+   steps, the OOM's message, ms, peak memory and launches; 10c.
+   ``model.serving_quantization: int8`` against the bf16 session at B =
+   8 × 30 s: audio-s/s in turns, peak memory, K5/K2/K1 launches, the JAX
+   test's cosine, agreement and offset bounds, and one int8 product's
+   int32 accumulator card == CPU; 10d. ``python -m
+   wfl_asr_tpu_torch.correct_label`` on 8 generated 30 s wavs in a
+   subprocess, its ``.lab`` files equal to ``process_file``'s in
+   process;
+11. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
    line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -3145,6 +3163,470 @@ def phase_large_v3_train(labels: int) -> dict:
                 wide=counts[BWD_ROUTES.index("wide")])
 
 
+# ---------------------------------------------------------------------------
+# Phases 10a-10d: remat, remat auto, int8 serving, correct_label
+# ---------------------------------------------------------------------------
+
+# 10a: a remat step against the plain one (the same model, Prodigy state,
+# batch and generator state): loss relative, gradients × max|g|
+REMAT_LOSS_TOL = 1e-6
+REMAT_GRAD_TOL = 1e-5
+# 10c: int8 serving against the bf16 session, the bounds of the JAX
+# package's own test (tests/test_quantized_serving.py:98-102)
+INT8_COSINE, INT8_AGREE, INT8_OFFSET = 0.99, 0.9, 0.1
+# 10b: large-v3 rows of 30 s. B = 8 fits without remat (52.47 GiB); with
+# Prodigy's state resident a plain step holds B = 13 (75.81 GiB) and not
+# 14 when nothing else is on the card, 12 and not 13 after the earlier
+# phases (on an H100 80GB HBM3 at 700 W), so the phase runs 14
+REMAT_AUTO_B = 14
+FLAGSHIP_LABELS = 73    # make_run's label count
+
+
+def batch_rows(num_labels: int, seconds, seed: int) -> dict:
+    """One training batch of len(seconds) rows: row i holds seconds[i] of
+    noise, zero-padded to the longest, with −100-padded labels, offset
+    targets of 50-200 ms segments and alternating language ids."""
+    from wfl_asr_tpu_torch.train.losses import offset_targets_from_segments
+    rng = np.random.RandomState(seed)
+    s, frames = int(max(seconds) * 16000), int(round(max(seconds) / 0.02))
+    audio = np.zeros((len(seconds), s), np.float32)
+    labels = np.full((len(seconds), frames), -100, np.int64)
+    segs_by_row = []
+    for i, sec in enumerate(seconds):
+        n = int(round(sec / 0.02))
+        audio[i, :int(sec * 16000)] = rng.randn(int(sec * 16000)) * 0.1
+        labels[i, :n] = rng.randint(0, num_labels, size=n)
+        edges = np.concatenate([[0.0], np.cumsum(
+            rng.uniform(0.05, 0.2, size=int(sec / 0.05) + 2))])
+        segs_by_row.append([(float(a), float(b), "p1")
+                            for a, b in zip(edges, edges[1:])
+                            if b < n * 0.02])
+    most = 2 * max(len(segs) for segs in segs_by_row)
+    targets = [offset_targets_from_segments(segs, 0.02, int(round(
+        sec / 0.02)), most) for segs, sec in zip(segs_by_row, seconds)]
+    f, c, x, v = (np.stack([t[j] for t in targets]) for j in range(4))
+    return {"audio": audio, "labels": labels,
+            "lang_ids": (np.arange(len(seconds)) % 2).astype(np.int32),
+            "off_frames": f, "off_channels": c, "off_fracs": x,
+            "off_valid": v, "max_label_len": frames}
+
+
+def phase_remat(root: str) -> dict:
+    """10a: remat on WavLM-base-plus (the flagship tagger, random weights
+    from a seed), f32 with TF32 off, the default recipe (Prodigy at lr 1,
+    the preset's dropout and LayerDrop), one batch of B = 8 rows of 20-30
+    s. From the same model and fresh Prodigy state, the same batch and the
+    same generator state, one optimizer step without remat and one with,
+    for the default dropout and again with strict attention dropout (K6
+    seeds drawn inside the recomputed layers): the loss held to
+    REMAT_LOSS_TOL relative, every gradient to REMAT_GRAD_TOL × max|g|
+    (and whether they came out bit-identical); peak memory and the step's
+    ms (forward and backward, then the update) for both; the launch counts
+    set to 0 just before each step and read just after: 12 K2 forwards and
+    12 K2b backwards without remat, 24 K2 forwards (12 + 12 recomputed)
+    and 12 K2b with it."""
+    import copy
+    import torch
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention
+    from wfl_asr_tpu_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw = train_config(root)
+    raw["model"]["num_languages"] = 2
+    cfg = Config(raw)
+    arch = TaggerArch.from_config(cfg, FLAGSHIP_LABELS)
+    base = init_tagger(arch, torch.Generator().manual_seed(4), "cuda")
+    seconds = [20.0 + 10.0 * i / 7 for i in range(8)][::-1]
+    batch = batch_rows(FLAGSHIP_LABELS, seconds, seed=11)
+    start = torch.Generator(device="cuda").manual_seed(5).get_state()
+    out = {}
+    for strict in (False, True):
+        runs = {}
+        for remat in (False, True):
+            model = copy.deepcopy(base)
+            model.bilstm.flatten_parameters()
+            set_strict(model, strict)
+            opt = loop.make_optimizer(cfg, model.parameters())
+            gen = torch.Generator(device="cuda")
+            torch.cuda.empty_cache()
+            # this mode's own warm-up (allocations, kernels), dropped
+            gen.set_state(start)
+            loop.micro_step(model, batch, "cuda", 1, 0.1, 3.0,
+                            generator=gen, remat=remat)
+            model.zero_grad(set_to_none=True)
+            gen.set_state(start)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            m, _, _ = loop.micro_step(model, batch, "cuda", 1, 0.1, 3.0,
+                                      generator=gen, remat=remat)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts = dict(k2=flash_attention.launches,
+                          k2b=flash_attention.bwd_launches,
+                          k2_drop=flash_attention.dropout_launches)
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            loop.apply_update(opt)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            runs[remat] = dict(
+                loss=float(m["loss"]), grads=grads, counts=counts,
+                peak_gb=peak, fb_ms=(t1 - t0) * 1e3, update_ms=(t3 - t2) * 1e3,
+                gen=gen.get_state())
+            del model, opt
+        plain, rem = runs[False], runs[True]
+        loss_rel = abs(rem["loss"] - plain["loss"]) / abs(plain["loss"])
+        gmax = max(float(g.abs().max()) for g in plain["grads"].values())
+        grad_rel = max(float((rem["grads"][n] - g).abs().max())
+                       for n, g in plain["grads"].items()) / gmax
+        identical = loss_rel == 0.0 and all(
+            torch.equal(rem["grads"][n], g)
+            for n, g in plain["grads"].items())
+        what = "strict attention dropout" if strict else "default dropout"
+        log(f"[remat] phase 10a, WavLM-base-plus f32 (TF32 off), B=8 of "
+            f"{seconds[-1]:.1f}-{seconds[0]:.1f} s, {what}: loss plain "
+            f"{plain['loss']:.7f}, remat {rem['loss']:.7f} (rel "
+            f"{loss_rel:.2e}); worst gradient diff {grad_rel:.2e} × max|g| "
+            f"over {len(plain['grads'])} tensors; bit-identical "
+            f"{identical}; generator end states equal "
+            f"{torch.equal(plain['gen'], rem['gen'])}; peak memory "
+            f"{plain['peak_gb']:.2f} → {rem['peak_gb']:.2f} GiB; forward + "
+            f"backward {plain['fb_ms']:.1f} → {rem['fb_ms']:.1f} ms, update "
+            f"{plain['update_ms']:.1f} / {rem['update_ms']:.1f} ms; "
+            f"launches plain {plain['counts']}, remat {rem['counts']}")
+        want_plain = dict(k2=12, k2b=12, k2_drop=12 if strict else 0)
+        want_rem = dict(k2=24, k2b=12, k2_drop=24 if strict else 0)
+        if (loss_rel > REMAT_LOSS_TOL or grad_rel > REMAT_GRAD_TOL
+                or plain["counts"] != want_plain
+                or rem["counts"] != want_rem
+                or plain["grads"].keys() != rem["grads"].keys()
+                or not torch.equal(plain["gen"], rem["gen"])):
+            raise AssertionError(
+                f"phase 10a ({what}): loss rel {loss_rel:.2e} (tol "
+                f"{REMAT_LOSS_TOL}), gradients {grad_rel:.2e} × max (tol "
+                f"{REMAT_GRAD_TOL}), launches {plain['counts']} / "
+                f"{rem['counts']} (want {want_plain} / {want_rem})")
+        out["strict" if strict else "default"] = dict(
+            loss_rel=loss_rel, grad_rel=grad_rel, identical=identical,
+            peak_gb=(plain["peak_gb"], rem["peak_gb"]),
+            fb_ms=(plain["fb_ms"], rem["fb_ms"]),
+            update_ms=(plain["update_ms"], rem["update_ms"]),
+            counts=(plain["counts"], rem["counts"]))
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat_auto(labels: int) -> dict:
+    """10b: ``training.remat: auto`` on phase 9c's configuration (the
+    ``large-v3`` preset at full width, 32 layers of 1280, the Conformer at
+    the config's 2 heads so head_dim 640 on the wide route, the encoder
+    trained, f32 with TF32 off) at B = REMAT_AUTO_B × 30 s, through the
+    train loop's ``loop.RematStep("auto")``: the first step fits (Prodigy's
+    state is allocated after its backward), the second's plain attempt
+    must overflow the card and the step flip to remat, or the phase fails;
+    one more step. The OOM's message, each step's ms, and the peak memory
+    and launch counts (set to 0 just before it, read just after) on the
+    wide and D = 64 routes of the step after the flip are printed. Then, with the optimizer state
+    resident, plain forwards and backwards at B = 9, 10, ... up to the
+    first that overflows: the smallest batch a plain step cannot hold."""
+    import torch
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw = train_config("/nonexistent", "whisper")
+    raw["model"].update(whisper_model="openai/whisper-large-v3",
+                        freeze_encoder=False)
+    raw["training"]["remat"] = "auto"
+    cfg = Config(raw)
+    cfg.num_languages = 2
+    if loop.remat_mode(cfg) != "auto":
+        raise AssertionError("training.remat: auto not read as auto")
+    arch = TaggerArch.from_config(cfg, labels)
+    model = init_tagger(arch, torch.Generator().manual_seed(5), "cuda")
+    opt = loop.make_optimizer(cfg, model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flips = []
+    step = loop.RematStep(loop.remat_mode(cfg), model, gen,
+                          on_flip=lambda: flips.append(time.perf_counter()))
+    batch = batch_rows(labels, [30.0] * REMAT_AUTO_B, seed=13)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, counts, flipped_at = [], [], None, None
+    for i in range(3):
+        if flipped_at is not None:      # the step after the flip
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, _ = step(opt, [batch], "cuda", label_smoothing=0.1,
+                          subframe_weight=3.0)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if flipped_at is not None:
+            counts = dict(bwd=dict(zip(BWD_ROUTES, route_counts())),
+                          fwd=dict(zip(FWD_ROUTES, fwd_counts())))
+            break
+        if flips:
+            flipped_at = i + 1
+    if counts is None:
+        raise AssertionError(f"phase 10b: no flip in 2 steps at B="
+                             f"{REMAT_AUTO_B} (step ms {times})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    oom = step.oom.splitlines()[0] if step.oom else None
+    # the smallest batch whose plain forward and backward overflow, with
+    # the optimizer state resident (every step after the first)
+    held, first_oom = [], None
+    for rows in range(9, REMAT_AUTO_B + 3):
+        probe = batch_rows(labels, [30.0] * rows, seed=13)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            loop.micro_step(model, probe, "cuda", 1, 0.1, 3.0, generator=gen)
+            torch.cuda.synchronize()
+            failed = False
+        except torch.cuda.OutOfMemoryError:
+            failed = True
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        if failed:
+            first_oom = rows
+            break
+        held.append((rows, round(torch.cuda.max_memory_allocated()
+                                 / 2 ** 30, 2)))
+    log(f"[remat-auto] phase 10b, large-v3 f32 (TF32 off), B="
+        f"{REMAT_AUTO_B}×30 s, encoder trained, Conformer "
+        f"{arch.conformer_heads} heads (head_dim "
+        f"{arch.hidden_size // arch.conformer_heads}), training.remat auto: "
+        f"flipped {bool(flips)} ({len(flips)} flip), remat now "
+        f"{step.remat}, at step {flipped_at} (the first step allocates "
+        f"Prodigy's state after its backward); the OOM as CUDA reported "
+        f"it: {oom!r}; step ms {', '.join(f'{x:.1f}' for x in times)} "
+        f"(the flip's holds the failed plain attempt), losses "
+        f"{[round(x, 4) for x in losses]}; the step after the flip: peak "
+        f"memory {peak:.2f} GiB, launches: forwards {counts['fwd']}, "
+        f"backwards {counts['bwd']}; plain forward + backward with the "
+        f"optimizer state resident: held (B, peak GiB) {held}, first "
+        f"overflow at B = {first_oom}")
+    want_fwd = {"wide": 2, "mma64": 64}
+    want_bwd = {"wide": 2, "mma64": 32}
+    got_fwd = {k: v for k, v in counts["fwd"].items() if v}
+    got_bwd = {k: v for k, v in counts["bwd"].items() if v}
+    if (len(flips) != 1 or not step.remat or got_fwd != want_fwd
+            or got_bwd != want_bwd or not all(map(math.isfinite, losses))
+            or first_oom is None):
+        raise AssertionError(
+            f"phase 10b: flips {len(flips)}, remat {step.remat}, forwards "
+            f"{got_fwd} (want {want_fwd}), backwards {got_bwd} (want "
+            f"{want_bwd}), losses {losses}, first plain overflow at "
+            f"{first_oom}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return dict(flipped=True, flipped_at=flipped_at, oom=oom,
+                step_ms=times[-1], times=times, peak_gb=peak, counts=counts,
+                held=held, first_oom=first_oom)
+
+
+def phase_int8(cfg, ckpt: str, iters: int) -> dict:
+    """10c: ``model.serving_quantization: int8`` on phase 4's
+    WavLM-base-plus checkpoint: the bf16 session and the int8 session (its
+    encoder's 73 large linears — 6 a layer and the feature projection —
+    W8A8-dynamic, ``torch._int_mm``) at B = 8 ×
+    30 s, the batched forward with gate and median timed in turns (bf16,
+    int8, int8, bf16) with peak memory; the int8 forward's K5/K2/K1
+    launches (set to 0 just before it, read just after); its logits held
+    to the JAX test's bounds against the bf16 session's on the same rows
+    (cosine > INT8_COSINE, frame agreement > INT8_AGREE, offsets max|diff|
+    < INT8_OFFSET); one quantized linear's int32 accumulator on the card
+    equal to the CPU's on the same int8 inputs, at 1499 rows and at 5
+    (padded to the product's 17)."""
+    import copy
+    import torch
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.infer.pipeline import _get_session
+    from wfl_asr_tpu_torch.models import layers
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import conv_fused, flash_attention, \
+        flash_attention_bwd
+    from wfl_asr_tpu_torch.ops.postprocess import confidence_gate_ids, \
+        median_filter_ids
+    raw = copy.deepcopy(cfg.raw)
+    raw["model"]["serving_quantization"] = "int8"
+    bf16 = torch.bfloat16
+    sessions = {"bf16": _get_session(cfg, ckpt, "cuda", bf16),
+                "int8": _get_session(Config(raw), ckpt, "cuda", bf16)}
+    q = sessions["int8"]
+    if len(q.quantized) != 73 or sessions["bf16"].quantized:
+        raise AssertionError(f"int8 session quantized {len(q.quantized)} "
+                             f"linears (want 73: 6 in each of 12 layers "
+                             f"and the feature projection)")
+    samples = 30 * 16000
+    rng = np.random.RandomState(0)
+    audio = torch.from_numpy((rng.randn(B, samples) * 0.1).astype(
+        np.float32)).to("cuda")
+    lang = torch.zeros(B, dtype=torch.int64, device="cuda")
+
+    def forward(session):
+        t = session.num_frames_for(samples)
+        with torch.inference_mode():
+            return session.model(audio, lang, compute_dtype=bf16,
+                                 pos_bias=session._pos_bias_for(t))
+
+    def step(session):
+        logits, offsets = forward(session)
+        return median_filter_ids(confidence_gate_ids(logits, 0.5, 0), 3)
+
+    forward(q)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    forward(q)
+    torch.cuda.synchronize()
+    counts = {"K5 layers": conv_fused.layer_launches,
+              "K2": flash_attention.launches,
+              "K1": flash_attention_bwd.launches}
+    perf = {"bf16": [], "int8": []}
+    peaks = {}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        s = sessions[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(s).cpu()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        outs = [step(s) for _ in range(iters)]
+        for o in outs:
+            o.cpu()
+        del outs
+        perf[name].append(B * 30.0 * iters / (time.perf_counter() - t0))
+    lg_b, off_b = (x.float() for x in forward(sessions["bf16"]))
+    lg_q, off_q = (x.float() for x in forward(q))
+    cosine = float((lg_b * lg_q).sum() / (lg_b.norm() * lg_q.norm()))
+    agree = float((lg_b.argmax(-1) == lg_q.argmax(-1)).float().mean())
+    off_diff = float((off_b - off_q).abs().max())
+    mod = q.model.encoder.encoder.layers[0].attention.q_proj
+    acc_ok = {}
+    for rows in (1499, 5):
+        x_q = torch.randint(-127, 128, (rows, mod.in_features),
+                            generator=torch.Generator().manual_seed(rows),
+                            dtype=torch.int8)
+        acc_ok[rows] = torch.equal(
+            layers.int8_matmul(x_q.cuda(), mod.w_q).cpu(),
+            layers.int8_matmul(x_q, mod.w_q.cpu()))
+    log(f"[int8] phase 10c, WavLM-base-plus bf16 serving, B={B}×30 s, "
+        f"batched forward + gate + median, {iters} steps a turn: bf16 "
+        f"{', '.join(f'{x:.2f}' for x in perf['bf16'])} audio-s/s, int8 "
+        f"{', '.join(f'{x:.2f}' for x in perf['int8'])} (turns bf16, int8, "
+        f"int8, bf16); peak memory of a step bf16 {peaks['bf16']:.3f}, "
+        f"int8 {peaks['int8']:.3f} GiB; {len(q.quantized)} linears "
+        f"quantized; an int8 forward's launches {counts}; int8 against bf16 "
+        f"logits cosine {cosine:.6f} (> {INT8_COSINE}), frame agreement "
+        f"{agree:.4f} (> {INT8_AGREE}), offsets max|diff| {off_diff:.4f} "
+        f"(< {INT8_OFFSET}); int32 accumulator card == CPU at rows "
+        f"{acc_ok}")
+    if (cosine <= INT8_COSINE or agree <= INT8_AGREE
+            or off_diff >= INT8_OFFSET or not all(acc_ok.values())
+            or counts != {"K5 layers": 6, "K2": 12, "K1": 2}):
+        raise AssertionError(f"phase 10c: cosine {cosine}, agreement "
+                             f"{agree}, offsets {off_diff}, accumulators "
+                             f"{acc_ok}, launches {counts}")
+    return dict(perf=perf, peaks=peaks, cosine=cosine, agree=agree,
+                off_diff=off_diff, counts=counts)
+
+
+def phase_correct_label(root: str) -> dict:
+    """10d: ``python -m wfl_asr_tpu_torch.correct_label FOLDER`` in a
+    subprocess on 8 generated 30 s wavs (tone and noise segments) with
+    ``.lab`` files whose boundaries sit up to 40 ms off the transitions;
+    the corrected files must equal those of the port's ``process_file``
+    called in this process on a copy, and the boundary caches be gone."""
+    from wfl_asr_tpu_torch import correct_label
+    from wfl_asr_tpu_torch.data.audio import write_wav
+    cli, here = os.path.join(root, "cl_cli"), os.path.join(root, "cl_here")
+    for d in (cli, here):
+        os.makedirs(d)
+    rng = np.random.RandomState(21)
+    n_lines = 0
+    for i in range(8):
+        n = 30 * 16000
+        y = np.zeros(n)
+        t, lines = 0.0, []
+        while t < 29.9:
+            dur = min(rng.uniform(0.08, 0.45), 30.0 - t)
+            a, b = int(t * 16000), int((t + dur) * 16000)
+            kind = rng.randint(3)
+            if kind == 0:
+                y[a:b] = 0.5 * np.sin(2 * np.pi * rng.uniform(150, 900)
+                                      * np.arange(b - a) / 16000)
+            elif kind == 1:
+                y[a:b] = 0.2 * rng.randn(b - a)
+            end = t + dur + (rng.uniform(-0.04, 0.04) if t + dur < 29.9
+                             else 0.0)
+            start = lines[-1][1] if lines else 0.0
+            lines.append((start, max(end, start + 0.01), ["SP", "a", "k"][
+                kind]))
+            t += dur
+        n_lines += len(lines)
+        for d in (cli, here):
+            write_wav(os.path.join(d, f"u{i}.wav"), y, 16000)
+            with open(os.path.join(d, f"u{i}.lab"), "w") as f:
+                f.writelines(f"{int(s * 1e7)} {int(e * 1e7)} {lab}\n"
+                             for s, e, lab in lines)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wfl_asr_tpu_torch.correct_label", cli],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"correct_label CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        for i in range(8):
+            correct_label.process_file(os.path.join(here, f"u{i}.wav"))
+    here_s = time.perf_counter() - t0
+    same = [open(os.path.join(cli, f"u{i}.lab"), "rb").read()
+            == open(os.path.join(here, f"u{i}.lab"), "rb").read()
+            for i in range(8)]
+    left = sorted(set(os.listdir(cli)) ^ set(os.listdir(here)))
+    last = proc.stdout.strip().splitlines()[-1]
+    log(f"[correct_label] phase 10d: 8 wavs of 30 s, {n_lines} .lab lines; "
+        f"the CLI in a subprocess in {cli_s:.2f} s (its last line "
+        f"{last!r}), process_file in this process in {here_s:.2f} s; "
+        f"files equal {sum(same)}/8, files differing between the folders "
+        f"{left}")
+    if not all(same) or left or last != (
+            "Label correction complete. All files processed."):
+        raise AssertionError(f"phase 10d: equal {same}, extra files {left}")
+    return dict(cli_s=cli_s, same=sum(same))
+
+
+def module_phases(root: str, cfg, ckpt: str, labels: int,
+                  iters: int) -> dict:
+    """Phases 10a-10d under ``root``; ``cfg``/``ckpt``: phase 4's
+    WavLM-base-plus run."""
+    with lap("10a"):
+        remat = phase_remat(root)
+    with lap("10b"):
+        auto = phase_remat_auto(labels)
+    with lap("10c"):
+        int8 = phase_int8(cfg, ckpt, iters)
+    with lap("10d"):
+        cl = phase_correct_label(root)
+    return dict(remat=remat, auto=auto, int8=int8, cl=cl)
+
+
 def whisper_phases(root: str, iters: int) -> dict:
     """Phases 8-8d and 9-9f under ``root``."""
     with lap("8"):
@@ -3286,8 +3768,8 @@ def k6_row(kern: dict, strict: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "conv", "train", "whisper"),
-                    default=None)
+    ap.add_argument("--only", choices=("kernels", "conv", "train", "whisper",
+                                       "modules"), default=None)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
 
@@ -3334,11 +3816,14 @@ def main() -> int:
                        args.iters)
         log_laps()
         return 0
-    if args.only in ("train", "whisper"):   # for iterating
+    if args.only in ("train", "whisper", "modules"):   # for iterating
         root = tempfile.mkdtemp(prefix="wfl_smoke_")
         try:
             if args.only == "train":        # phases 6-7b
                 train_phases(root)
+            elif args.only == "modules":    # phases 10a-10d
+                cfg, ckpt, _ = make_run(root)
+                module_phases(root, cfg, ckpt, FLAGSHIP_LABELS, args.iters)
             else:                           # phases 3e and 8-9c
                 with lap("3e"):
                     phase_whisper_kernels(
@@ -3379,6 +3864,8 @@ def main() -> int:
         counts["wgmma128 K1"] = whisper["serving4"]["routes"]["wgmma128"]
         counts["wgmma128 K1b"] = whisper["bf16_train"]["counts"][
             "wgmma128"]
+        modules = module_phases(root, run["cfg"], run["ckpt"],
+                                FLAGSHIP_LABELS, args.iters)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log_laps()
@@ -3450,6 +3937,20 @@ def main() -> int:
         f"{wb['wall_ms']:.2f} ms (idle {wb['idle']:.3f}); loss on one "
         f"batch f32 {wb['losses']['f32']:.5f}, bf16 "
         f"{wb['losses']['bf16']:.5f}")
+    ra, au, i8 = modules["remat"], modules["auto"], modules["int8"]
+    log(f"[summary] phase 10: remat WavLM-base-plus f32 B=8 peak "
+        f"{ra['default']['peak_gb'][0]:.2f} → "
+        f"{ra['default']['peak_gb'][1]:.2f} GiB, forward + backward "
+        f"{ra['default']['fb_ms'][0]:.1f} → {ra['default']['fb_ms'][1]:.1f} "
+        f"ms, gradients {ra['default']['grad_rel']:.1e} / strict "
+        f"{ra['strict']['grad_rel']:.1e} × max; remat auto large-v3 B="
+        f"{REMAT_AUTO_B}×30 s flipped at step {au['flipped_at']} on "
+        f"{'. '.join(au['oom'].split('. ')[:2])!r}, "
+        f"{au['step_ms']:.1f} ms a step, {au['peak_gb']:.2f} GiB peak; int8 "
+        f"serving {np.mean(i8['perf']['int8']):.2f} against bf16 "
+        f"{np.mean(i8['perf']['bf16']):.2f} audio-s/s, cosine "
+        f"{i8['cosine']:.5f}; correct_label CLI "
+        f"{modules['cl']['cli_s']:.2f} s for 8 × 30 s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

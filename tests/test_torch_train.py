@@ -538,8 +538,7 @@ def test_train_loop_end_to_end(prepped):
 
 def test_unported_options_raise(prepped):
     root, cfg = prepped
-    for section, key, val in (("training", "remat", True),
-                              ("training", "fsdp", True),
+    for section, key, val in (("training", "fsdp", True),
                               ("training", "sequence_parallel", True),
                               ("training", "optimizer", "Lion")):
         raw = json.loads(json.dumps(cfg))

@@ -15,10 +15,16 @@ WAV I/O, checkpoint conversion) are its own copies.
                  ``ops.kernels``: hand-written CUDA kernels (sm_90a) for the
                  TPU kernels of the inference and training paths, each
                  beside its plain PyTorch twin
-- ``checkpoint`` — ``.pt`` load/save, rotation, training-state sidecars
-- ``infer``    — ``InferenceSession``, ``infer_audio``,
-                 ``infer_folder_batched`` and the CLI
-- ``train``    — losses, Prodigy, LR schedulers, the train loop and CLI
+- ``checkpoint`` — ``.pt`` (and a JAX run's ``.pt.npz``) load/save,
+                 rotation, training-state sidecars (the port's ``.train.pt``;
+                 a JAX run's Prodigy ``.train.npz`` is read)
+- ``infer``    — ``InferenceSession`` (``serving_quantization: int8``
+                 too), ``infer_audio``, ``infer_folder_batched``, the CLI,
+                 and ``infer.sampling`` (top-k / top-p, dead in the
+                 pipeline as in the reference)
+- ``train``    — losses, Prodigy, LR schedulers, the train loop (with
+                 ``training.remat: true | auto``) and CLI
+- ``correct_label`` — the label-boundary corrector and its CLI
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -21,8 +21,10 @@ device and moves segment arrays to the host once; the host multiplies
 ``(idx + offset) * Δ`` in float64 (``.lab`` truncation parity).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
-no CUDA device they raise. ``int8`` serving, pipeline parallelism and
-sequence parallelism are not ported and raise ``NotImplementedError``.
+no CUDA device they raise. ``model.serving_quantization: int8`` swaps the
+encoder's large linears for W8A8-dynamic int8 ones at load
+(``models.layers.quantize_int8``). Pipeline and sequence parallelism are
+not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..labels import (Segment, align_phoneme_list, canonical_to_lang,
                       decode_bio_tags, load_langs, load_phoneme_list,
                       load_phoneme_merge_map, merge_adjacent_segments,
                       save_lab)
+from ..models.layers import quantize_int8
 from ..models.tagger import TaggerArch
 from ..ops.postprocess import (bio_tables, confidence_gate_ids,
                                extract_segments_ids, median_filter_ids,
@@ -92,11 +95,7 @@ class InferenceSession:
         self.arch = arch or TaggerArch.from_config(self.cfg,
                                                    len(self.label_list))
         quant = self.cfg.serving_quantization
-        if quant == "int8":
-            raise NotImplementedError(
-                "model.serving_quantization=int8 is not ported "
-                "(ROADMAP.md Queue 1: int8 serving)")
-        if quant != "none":
+        if quant not in ("none", "int8"):
             raise ValueError(f"model.serving_quantization={quant!r}: only "
                              f"'int8' or 'none' are supported")
         if int(self.cfg.serving_pipeline_parallel) > 1 \
@@ -104,8 +103,15 @@ class InferenceSession:
             raise NotImplementedError(
                 "pipeline/sequence-parallel serving is not ported "
                 "(ROADMAP.md Queue 1: parallel/)")
-        self.model = load_model_checkpoint(checkpoint_path, self.arch,
-                                           self.device)
+        model = load_model_checkpoint(checkpoint_path, self.arch)
+        self.quantized: List[str] = []
+        if quant == "int8" and self.arch.encoder_type != "none":
+            # W8A8-dynamic int8 on the encoder's large linears, quantized
+            # on the CPU before the move (pipeline.py:141-159)
+            self.quantized = quantize_int8(model.encoder)
+            print("[INFO] int8 serving: encoder linears quantized "
+                  "(W8A8-dynamic, per-output-channel weights)")
+        self.model = model.to(self.device)
         self.compute_dtype = compute_dtype
         self.sr = self.cfg.sample_rate
         # Position-bias store: one buffer at the largest bucket length seen

@@ -7,12 +7,15 @@ package does (``p["w"].astype(x.dtype)``), and keep normalization
 statistics in f32 whatever the activation dtype.
 
 - GELU is the exact erf form (torch ``F.gelu`` default).
-- ``int8`` serving quantization is not ported (ROADMAP.md Queue 1).
+- ``int8`` serving (``model.serving_quantization: int8``, W8A8-dynamic, as
+  ``quantize_tree_int8`` / ``_linear_int8``): ``quantize_int8`` swaps the
+  encoder's large ``nn.Linear``s for :class:`Int8Linear`s at session load,
+  and ``linear`` dispatches on the quantized form. Checkpoints stay float.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +40,31 @@ def dropout(x: torch.Tensor, rate: float,
     return x * keep / (1.0 - rate)
 
 
+def checkpointed(fn, generator: Optional[torch.Generator], *args):
+    """``fn(*args, generator)`` under ``torch.utils.checkpoint`` (remat):
+    only its inputs are saved, and the backward pass recomputes it. Its
+    draws from ``generator`` are the same in the first pass, in the
+    recompute and without remat: the function runs on a private generator
+    set to ``generator``'s state at the call, and after the first pass
+    ``generator`` takes the private one's end state. (``checkpoint``
+    restores only the default CPU/CUDA generators, never an explicit one.)
+    With no generator, the default generators' states are what it
+    restores."""
+    from torch.utils.checkpoint import checkpoint
+    if generator is None:
+        return checkpoint(fn, *args, None, use_reentrant=False)
+    start = generator.get_state()
+    private = torch.Generator(device=generator.device)
+
+    def run(*inputs):
+        private.set_state(start)
+        return fn(*inputs, private)
+
+    out = checkpoint(run, *args, use_reentrant=False)
+    generator.set_state(private.get_state())
+    return out
+
+
 def attention_dropout_seed(generator: Optional[torch.Generator],
                            device) -> torch.Tensor:
     """One attention call's dropout seed (K6): an int32 drawn from
@@ -52,8 +80,104 @@ def _cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return None if p is None else p.to(dtype)
 
 
-def linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def linear(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(mod, Int8Linear):
+        return linear_int8(mod, x)
     return F.linear(x, _cast(mod.weight, x.dtype), _cast(mod.bias, x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# int8 serving quantization (W8A8-dynamic)
+# ---------------------------------------------------------------------------
+# Weights quantize per output channel once, at session load; activations
+# per row (last axis) inside each call. The int8 product is a library call
+# (torch._int_mm, cuBLASLt on the card), as the JAX package leaves its int8
+# dot_general to XLA.
+
+class Int8Linear(nn.Module):
+    """A quantized ``nn.Linear``: ``w_q`` int8 [out, in], ``w_scale`` f32
+    [out] (symmetric: w ≈ w_q · w_scale per output row), the f32 bias."""
+
+    def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("bias", bias)
+
+    @property
+    def in_features(self) -> int:
+        return self.w_q.shape[1]
+
+    @property
+    def out_features(self) -> int:
+        return self.w_q.shape[0]
+
+
+def quantize_linear_int8(mod: nn.Linear) -> Int8Linear:
+    """Symmetric per-output-channel int8 (``quantize_linear_int8``): scale =
+    max|w| over the input axis / 127, floored at 1e-12; w_q = rint(w /
+    scale) clipped to ±127 — in f32 on the CPU, so the codes are the JAX
+    function's bit for bit."""
+    w = mod.weight.detach().float().cpu()                     # [out, in]
+    scale = torch.clamp_min(w.abs().amax(dim=1) / 127.0, 1e-12)
+    w_q = torch.clamp(torch.round(w / scale[:, None]), -127, 127) \
+        .to(torch.int8)
+    bias = None if mod.bias is None else mod.bias.detach().float().cpu()
+    return Int8Linear(w_q, scale, bias).to(mod.weight.device)
+
+
+def quantize_int8(module: nn.Module, min_dim: int = 256) -> List[str]:
+    """Replace, in place, every ``nn.Linear`` under ``module`` whose two
+    dims are both ≥ ``min_dim`` with its :class:`Int8Linear` — the linears
+    ``quantize_tree_int8`` picks (gates, convs, embeddings and norms stay
+    float). Returns the replaced modules' names."""
+    names = [name for name, sub in module.named_modules()
+             if isinstance(sub, nn.Linear)
+             and min(sub.in_features, sub.out_features) >= min_dim]
+    for name in names:
+        parent, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(parent) if parent else module
+        setattr(owner, leaf, quantize_linear_int8(getattr(owner, leaf)))
+    return names
+
+
+# cuBLASLt's int8 product (torch._int_mm on CUDA) takes more than 16 rows
+# and K, N that are multiples of 8
+INT_MM_MIN_ROWS = 17
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """x_q int8 [M, K] · w_q int8 [N, K]ᵀ → int32 [M, N]. On the card the
+    rows are zero-padded to INT_MM_MIN_ROWS when fewer; K or N that is no
+    multiple of 8 raises (no float fallback)."""
+    m, k = x_q.shape
+    n = w_q.shape[0]
+    if x_q.is_cuda:
+        if k % 8 or n % 8:
+            raise ValueError(
+                f"int8 linear [{k} -> {n}]: torch._int_mm on CUDA needs "
+                f"in and out features that are multiples of 8")
+        if m < INT_MM_MIN_ROWS:
+            x_q = F.pad(x_q, (0, 0, 0, INT_MM_MIN_ROWS - m))
+    return torch._int_mm(x_q.contiguous(), w_q.t())[:m]
+
+
+def linear_int8(mod: Int8Linear, x: torch.Tensor) -> torch.Tensor:
+    """x @ dequant(w_q)ᵀ with dynamic per-row activation quantization, as
+    ``_linear_int8``: s_x = max|x| / 127 (floored at 1e-12), x_q =
+    round(x / s_x) in f32, the int32 product × s_x × w_scale in f32, cast
+    to x's dtype, plus the bias. A zero row gives zeros."""
+    s_x = x.abs().amax(dim=-1, keepdim=True).float()
+    s_x = torch.clamp_min(s_x / 127.0, 1e-12)
+    x_q = torch.round(x.float() / s_x).to(torch.int8)
+    lead = x.shape[:-1]
+    acc = int8_matmul(x_q.reshape(-1, x.shape[-1]), mod.w_q)
+    y = acc.reshape(*lead, -1).float() * s_x * mod.w_scale
+    y = y.to(x.dtype)
+    if mod.bias is not None:
+        y = y + mod.bias.to(x.dtype)
+    return y
 
 
 def conv1d(mod: nn.Conv1d, x: torch.Tensor, stride: int = 1, padding=0,

@@ -241,12 +241,14 @@ class BIOPhonemeTagger(nn.Module):
 
     def encode(self, audio, sample_mask=None, frame_mask=None,
                compute_dtype=torch.float32, pos_bias=None, generator=None,
-               precentered: bool = False) -> torch.Tensor:
+               precentered: bool = False, remat: bool = False
+               ) -> torch.Tensor:
         """Front end + encoder → hidden states [B, T_enc, H]; under
         ``freeze_encoder`` without autograd. The masks and ``pos_bias``
         reach the WavLM encoder only; ``precentered`` (rows the host
         reflect-padded at their exact length) the mel front end of
-        ``encoder_type: none`` only."""
+        ``encoder_type: none`` only; ``remat`` (gradient checkpointing of
+        the encoder layers) the WavLM and Whisper encoders."""
         arch = self.arch
         if arch.encoder_type == "none":
             hop = int(arch.frame_duration * arch.sample_rate)
@@ -259,7 +261,7 @@ class BIOPhonemeTagger(nn.Module):
                 feats = whisper_log_mel(audio,
                                         n_mels=arch.whisper.num_mel_bins)
                 return self.encoder(feats, compute_dtype=compute_dtype,
-                                    generator=generator)
+                                    generator=generator, remat=remat)
             if sample_mask is not None:
                 normed = wav2vec2_normalize_masked(audio, sample_mask)
             else:
@@ -267,7 +269,8 @@ class BIOPhonemeTagger(nn.Module):
             return self.encoder(normed, mask=frame_mask,
                                 sample_mask=sample_mask,
                                 compute_dtype=compute_dtype,
-                                pos_bias=pos_bias, generator=generator)
+                                pos_bias=pos_bias, generator=generator,
+                                remat=remat)
 
     def forward(self, audio: torch.Tensor, lang_id: Optional[torch.Tensor],
                 max_label_len: Optional[int] = None,
@@ -276,15 +279,15 @@ class BIOPhonemeTagger(nn.Module):
                 compute_dtype: torch.dtype = torch.float32,
                 pos_bias: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                precentered: bool = False):
+                precentered: bool = False, remat: bool = False):
         """Returns (logits [B, T, n_tags], offsets [B, T, 2]) at the compute
         dtype. ``sample_mask`` [B, S] / ``frame_mask`` [B, T_enc]: bucketed
         inference with exact-length numerics on valid frames.
         ``generator``: the dropout draws in training mode (on the
-        model's device). ``precentered``: see :meth:`encode`."""
+        model's device). ``precentered``, ``remat``: see :meth:`encode`."""
         arch = self.arch
         hidden = self.encode(audio, sample_mask, frame_mask, compute_dtype,
-                             pos_bias, generator, precentered)
+                             pos_bias, generator, precentered, remat)
         if max_label_len is not None:
             hidden = _trim_or_pad(hidden, int(max_label_len))
             if frame_mask is not None:

@@ -27,8 +27,11 @@ JAX package does, so the kernels launch once per layer on every step. With
 ``strict_attention_dropout`` the attention probabilities are dropped at
 ``attention_dropout`` inside the kernels (K6), each layer's seed drawn from
 the same generator (wavlm.py:439-442); the hidden dropout after the
-attention stays. Remat is not ported. Parameters stay f32 and are cast to
-the compute dtype at use.
+attention stays. With ``remat`` each transformer layer runs under
+``layers.checkpointed`` (wavlm.py:620-640): its draws are the same in the
+first pass, the recompute and without remat, so remat on and off give the
+same loss and gradients. Parameters stay f32 and are cast to the compute
+dtype at use.
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ from ..ops.kernels.conv_fused import MAX_CHAIN, fused_conv_chain, \
     pack_weights
 from ..ops.kernels.flash_attention import flash_attention
 from . import layers
-from .layers import channel_stats, conv1d, dropout, gelu, group_norm, \
-    layer_norm, linear
+from .layers import channel_stats, checkpointed, conv1d, dropout, gelu, \
+    group_norm, layer_norm, linear
 
 
 @dataclass(frozen=True)
@@ -489,11 +492,13 @@ class WavLMEncoder(nn.Module):
                 sample_mask: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.float32,
                 pos_bias: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> torch.Tensor:
         """``audio`` [B, S] normalized; ``mask`` [B, T] / ``sample_mask``
         [B, S] give exact-length numerics on bucket-padded rows.
         ``pos_bias`` [H, T, T]: a precomputed position bias. ``generator``:
-        the dropout and LayerDrop draws in training mode."""
+        the dropout and LayerDrop draws in training mode. ``remat``: each
+        transformer layer under ``layers.checkpointed``."""
         arch = self.arch
         eps = arch.layer_norm_eps
         audio = audio.to(compute_dtype)
@@ -519,9 +524,14 @@ class WavLMEncoder(nn.Module):
         kv_len = (mask.to(torch.int32).sum(-1) if mask is not None else None)
         layerdrop = arch.layerdrop if self.training else 0.0
         for layer in self.encoder.layers:
+            # the LayerDrop draw precedes the layer's own, remat or not
             skip = (torch.rand((), generator=generator, device=x.device)
                     < layerdrop) if layerdrop > 0.0 else None
-            y = self._layer(layer, x, pos_bias, kv_len, generator)
+            if remat:
+                y = checkpointed(self._layer, generator, layer, x, pos_bias,
+                                 kv_len)
+            else:
+                y = self._layer(layer, x, pos_bias, kv_len, generator)
             x = torch.where(skip, x, y) if skip is not None else y
         if arch.do_stable_layer_norm:
             x = layer_norm(self.encoder.layer_norm, x, eps)

@@ -15,8 +15,10 @@ The position table is a trained parameter, as in the JAX package (HF keeps
 it frozen). In training mode (``module.train()``) dropout, activation
 dropout and LayerDrop follow whisper.py:177-272, drawing from the
 ``generator`` passed in; LayerDrop computes every layer and selects.
-Pipeline and sequence parallelism and remat are not ported (ROADMAP.md
-Queue 1). Parameters stay f32 and are cast to the compute dtype at use.
+With ``remat`` each layer runs under ``layers.checkpointed``
+(whisper.py:204-222), its draws the same as without. Pipeline and
+sequence parallelism are not ported (ROADMAP.md Queue 1). Parameters stay
+f32 and are cast to the compute dtype at use.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 from torch import nn
 
 from ..ops.kernels.flash_attention_bwd import flash_attention_trainable
-from .layers import conv1d, dropout, gelu, layer_norm, linear
+from .layers import checkpointed, conv1d, dropout, gelu, layer_norm, \
+    linear
 
 
 @dataclass(frozen=True)
@@ -169,10 +172,12 @@ class WhisperEncoder(nn.Module):
 
     def forward(self, input_features: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> torch.Tensor:
         """``input_features`` [B, n_mels, 3000] → [B, 1500, D] at the
         compute dtype. ``generator``: the dropout and LayerDrop draws in
-        training mode."""
+        training mode. ``remat``: each layer under
+        ``layers.checkpointed``."""
         arch = self.arch
         x = input_features.to(compute_dtype)
         x = gelu(conv1d(self.conv1, x, padding=1))
@@ -183,8 +188,12 @@ class WhisperEncoder(nn.Module):
         x = dropout(x, arch.dropout, generator, self.training)
         layerdrop = arch.layerdrop if self.training else 0.0
         for layer in self.layers:
+            # the LayerDrop draw precedes the layer's own, remat or not
             skip = (torch.rand((), generator=generator, device=x.device)
                     < layerdrop) if layerdrop > 0.0 else None
-            y = self._layer(layer, x, generator)
+            if remat:
+                y = checkpointed(self._layer, generator, layer, x)
+            else:
+                y = self._layer(layer, x, generator)
             x = torch.where(skip, x, y) if skip is not None else y
         return layer_norm(self.layer_norm, x)

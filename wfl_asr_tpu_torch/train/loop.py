@@ -13,9 +13,14 @@ one device on one host:
   ReduceLROnPlateau special case;
 - gradient accumulation (the applied gradient is the mean of the
   micro-batch gradients; ``step`` counts updates);
-- auto-resume from the newest readable ``model_step{N}.pt`` plus its
-  training sidecar; checkpoint rotation, ``best_model.pt``,
-  ``last_model.pt``;
+- auto-resume from the newest readable ``model_step{N}.pt`` (or a JAX
+  run's ``.pt.npz``) plus its training sidecar (the port's ``.train.pt``,
+  else a JAX run's Prodigy ``.train.npz``); checkpoint rotation,
+  ``best_model.pt``, ``last_model.pt``;
+- ``training.remat`` (alias ``gradient_checkpointing``): true checkpoints
+  every encoder layer; "auto" runs without and flips to remat for the rest
+  of the run at the first CUDA OOM, rerunning that whole update
+  (:class:`RematStep`; a ``remat_auto_flip`` event in metrics.jsonl);
 - ``metrics.jsonl`` (the JAX event schema) with a one-step-delayed metric
   readback, so the host never waits on the step it just queued, and
   TensorBoard scalars when ``tensorboardX`` imports.
@@ -31,8 +36,8 @@ segmental term is a value-only metric on the host, as in the reference.
 
 Not ported (a config that asks for one raises ``NotImplementedError``
 naming ROADMAP.md): data/tensor/pipeline parallelism, FSDP, sequence
-parallelism, multi-host and sharded validation, remat, the orbax format,
-the optax-only optimizers; validation figures are not drawn. Validation runs
+parallelism, multi-host and sharded validation, the orbax format, the
+optax-only optimizers; validation figures are not drawn. Validation runs
 in eval mode, without dropout.
 
     python -m wfl_asr_tpu_torch.train CONFIG [--device cuda|cpu]
@@ -41,6 +46,7 @@ in eval mode, without dropout.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import inspect
 import json
 import os
@@ -54,7 +60,8 @@ import torch
 
 from ..checkpoint import (find_resume_checkpoints, load_train_state,
                           read_state_dict, remove_checkpoint,
-                          save_model_checkpoint, save_train_state)
+                          restore_jax_train_state, save_model_checkpoint,
+                          save_train_state)
 from ..config import Config, as_config
 from ..data.dataset import BatchLoader, PhonemeDataset, split_dataset
 from ..infer.pipeline import resolve_device
@@ -95,13 +102,19 @@ def check_supported(cfg: Config) -> None:
     for key in ("fsdp", "sequence_parallel", "sharded_validation"):
         if bool(t.get(key, False)):
             raise _not_ported(f"training.{key}")
-    remat = t.get("remat", t.get("gradient_checkpointing", False))
-    if (isinstance(remat, str) and remat.strip().lower() == "auto") \
-            or (not isinstance(remat, str) and bool(remat)):
-        raise _not_ported("training.remat (gradient checkpointing)")
     fmt = str(cfg._sec("output").get("checkpoint_format", "pt"))
     if fmt != "pt":
         raise _not_ported(f"output.checkpoint_format {fmt!r}")
+
+
+def remat_mode(cfg: Config) -> str:
+    """``training.remat`` (alias ``gradient_checkpointing``) as "on", "off"
+    or "auto", read as the JAX loop reads it (loop.py:664-667)."""
+    t = cfg._sec("training")
+    raw = t.get("remat", t.get("gradient_checkpointing", False))
+    if isinstance(raw, str) and raw.strip().lower() == "auto":
+        return "auto"
+    return "on" if bool(raw) else "off"
 
 
 # ---------------------------------------------------------------------------
@@ -157,16 +170,19 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 def micro_step(model: BIOPhonemeTagger, batch: Dict, device, n_micro: int,
                label_smoothing: float, subframe_weight: float,
                compute_dtype=torch.float32, seg_diff_weight: float = 0.0,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               remat: bool = False):
     """Forward (training mode) and backward of one micro-batch, its loss
     scaled by 1/n_micro so that the gradients summed over n_micro
-    micro-batches are their mean. Returns ({loss, ce, offset_loss} as
-    detached device scalars, pred_ids, offsets)."""
+    micro-batches are their mean; ``remat`` checkpoints the encoder layers.
+    Returns ({loss, ce, offset_loss} as detached device scalars, pred_ids,
+    offsets)."""
     arrays = to_device(batch, device)
     model.train()
     logits, offsets = model(arrays["audio"], arrays["lang_ids"],
                             max_label_len=batch["max_label_len"],
-                            compute_dtype=compute_dtype, generator=generator)
+                            compute_dtype=compute_dtype, generator=generator,
+                            remat=remat)
     ce = cross_entropy(logits, arrays["labels"], label_smoothing)
     ol = offset_loss(offsets, arrays["off_frames"], arrays["off_channels"],
                      arrays["off_fracs"], arrays["off_valid"])
@@ -194,6 +210,78 @@ def train_step(model, optimizer, batch, device, label_smoothing: float,
                      generator)
     apply_update(optimizer)
     return out
+
+
+class RematStep:
+    """One optimizer update from its micro-batches under ``training.remat``
+    "on", "off" or "auto" (the JAX loop's ``AutoRematStep``, loop.py:286-336).
+
+    "auto" runs without remat first. A ``torch.cuda.OutOfMemoryError`` in a
+    micro-batch's forward or backward flips it: once out of the ``except``
+    block (so the failed graph is freed), the CUDA cache is emptied, the
+    generator and the model's buffers (BatchNorm statistics) are put back as
+    they were before the step, every ``.grad`` is cleared, and the whole
+    update — every micro-batch — runs again with remat, which stays on for
+    the rest of the run; ``on_flip`` is called. An OOM with remat on, or one
+    in ``optimizer.step()`` (which runs outside the retry), propagates, as
+    does any other error."""
+
+    def __init__(self, mode: str, model: BIOPhonemeTagger,
+                 generator: Optional[torch.Generator] = None,
+                 on_flip: Optional[Callable[[], None]] = None):
+        if mode not in ("on", "off", "auto"):
+            raise ValueError(f"remat mode {mode!r}: on, off or auto")
+        self.model, self.generator, self.on_flip = model, generator, on_flip
+        self.auto = mode == "auto"
+        self.remat = mode == "on"
+        self.oom = None          # the message of the OOM that flipped it
+
+    def _grads(self, batches, device, kwargs):
+        outs = [micro_step(self.model, b, device, len(batches),
+                           generator=self.generator, remat=self.remat,
+                           **kwargs) for b in batches]
+        metrics = {k: sum(m[k] for m, _, _ in outs) / len(outs)
+                   for k in outs[0][0]}
+        return metrics, [(p, o, b) for (_, p, o), b in zip(outs, batches)]
+
+    def __call__(self, optimizer: torch.optim.Optimizer, batches: List[Dict],
+                 device, **kwargs):
+        """Forward and backward of every micro-batch in ``batches``, then
+        ``optimizer.step()``. Returns (the micro-batches' mean metrics,
+        [(pred_ids, offsets, batch)]). ``kwargs``: :func:`micro_step`'s
+        loss and dtype arguments."""
+        if self.remat or not self.auto:
+            out = self._grads(batches, device, kwargs)
+        else:
+            gen_state = (self.generator.get_state()
+                         if self.generator is not None else None)
+            buffers = [(b, b.detach().clone())
+                       for b in self.model.buffers()]
+            try:
+                out = self._grads(batches, device, kwargs)
+            except torch.cuda.OutOfMemoryError as e:
+                self.oom, out = str(e), None
+            if out is None:
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+                if gen_state is not None:
+                    self.generator.set_state(gen_state)
+                with torch.no_grad():
+                    for b, saved in buffers:
+                        b.copy_(saved)
+                self.model.zero_grad(set_to_none=True)
+                optimizer.zero_grad(set_to_none=True)
+                print(f"[WARN] train step failed to fit device memory "
+                      f"({'. '.join(self.oom.split('. ')[:2])}); retrying "
+                      f"with gradient checkpointing (training.remat: auto)",
+                      flush=True)
+                self.remat = True
+                if self.on_flip is not None:
+                    self.on_flip()
+                out = self._grads(batches, device, kwargs)
+        apply_update(optimizer)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -389,14 +477,21 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
     if accum > 1:
         print(f"[INFO] Gradient accumulation: {accum} micro-batches per "
               f"update (effective batch {accum * cfg.batch_size})")
+    remat = remat_mode(cfg)
+    if remat == "on":
+        print("[INFO] Gradient checkpointing (remat) on encoder layers")
+    elif remat == "auto":
+        print("[INFO] training.remat: auto — gradient checkpointing will "
+              "engage only if the train step overflows device memory")
+    update = RematStep(remat, model, generator, on_flip=lambda: log_event(
+        "remat_auto_flip", step, remat=True))
     restart_loader = bool(cfg._sec("training").get(
         "restart_loader_on_validation", False))
     id2label = dict(enumerate(label_list))
     step_kwargs = dict(label_smoothing=cfg.label_smoothing,
                        subframe_weight=cfg.subframe_loss_weight,
                        compute_dtype=compute_dtype,
-                       seg_diff_weight=cfg.differentiable_segmental_weight,
-                       generator=generator)
+                       seg_diff_weight=cfg.differentiable_segmental_weight)
 
     # One-step-delayed readback: step N's metrics are read on the host
     # while step N+1 runs on the device (drained before every validation).
@@ -439,24 +534,19 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
         last_log = now
 
     micro: List = []
-    metric_sum = None
     epoch = 0
     while step < cfg.max_steps:
         epoch_ran = False
         for batch in train_loader.epoch_batches(epoch):
             epoch_ran = True
-            lr_used = base_lr * scheduler.factor
-            set_lr(optimizer, lr_used)
-            m, pred_ids, offsets = micro_step(model, batch, device, accum,
-                                              **step_kwargs)
-            metric_sum = m if metric_sum is None else {
-                k: metric_sum[k] + m[k] for k in m}
-            micro.append((pred_ids, offsets, batch))
+            micro.append(batch)
             if len(micro) < accum:
                 continue
-            apply_update(optimizer)
-            metrics = {k: v / len(micro) for k, v in metric_sum.items()}
-            update_micro, micro, metric_sum = micro, [], None
+            lr_used = base_lr * scheduler.factor
+            set_lr(optimizer, lr_used)
+            metrics, update_micro = update(optimizer, micro, device,
+                                           **step_kwargs)
+            micro = []
             if cfg.scheduler_step_on_update:
                 scheduler.step()
             step += 1
@@ -517,8 +607,9 @@ _TORN = (EOFError, pickle.UnpicklingError, zipfile.BadZipFile, ValueError,
 
 
 def _resume(model, optimizer, generator, scheduler, save_dir: str) -> int:
-    """Load the newest readable ``model_step{N}.pt`` (and its sidecar);
-    returns its step, or 0 when there is none. A torn file falls back to
+    """Load the newest readable ``model_step{N}.pt`` or ``.pt.npz`` and its
+    sidecar — the port's ``.train.pt``, else a JAX ``.train.npz`` (Prodigy
+    only); returns its step, or 0 when there is none. A torn file falls back to
     the next older one; a readable checkpoint that does not fit the model
     (the config changed) raises, as does a save_dir whose checkpoints are
     all unreadable."""
@@ -554,6 +645,17 @@ def _resume(model, optimizer, generator, scheduler, save_dir: str) -> int:
             if state["scheduler"]:
                 scheduler.load_state_dict(state["scheduler"])
             print("[INFO] Restored optimizer, generator and scheduler state")
+            return step
+        try:
+            state = restore_jax_train_state(path, model, optimizer)
+        except _TORN as e:
+            print(f"[WARN] Unreadable JAX train-state sidecar, starting the "
+                  f"optimizer fresh: {e}")
+            optimizer.state.clear()
+            state = None
+        if state is not None:
+            if state["scheduler"]:
+                scheduler.load_state_dict(state["scheduler"])
         else:
             # a fresh optimizer: Prodigy takes p0 from the loaded
             # parameters at its first step
