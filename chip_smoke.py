@@ -5,7 +5,8 @@
     python3 chip_smoke.py --only conv     # build + K5's part of phase 3 only
     python3 chip_smoke.py --only train    # build + training phases 6-7 only
     python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9f only
-    python3 chip_smoke.py --only modules  # build + phases 10a-10d only
+    python3 chip_smoke.py --only modules  # build + phases 10a-10f only
+    python3 chip_smoke.py --only optim    # build + phases 10e-10f only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -119,7 +120,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    int32 accumulator card == CPU; 10d. ``python -m
    wfl_asr_tpu_torch.correct_label`` on 8 generated 30 s wavs in a
    subprocess, its ``.lab`` files equal to ``process_file``'s in
-   process;
+   process; 10e. every optimizer name (Prodigy and the 26 optax names of
+   ``train/optimizers.py``) on one set of full-width WavLM-base-plus
+   gradients (B = 2 × 30 s, f32): 3 steps on the card and on the CPU from
+   the same weights, the lr halved before the last, the parameters held
+   card against CPU per family (``OPT_REL``; sign and threshold flips of
+   lion, rprop, adopt and yogi counted and bounded); each name's step
+   wall ms, kernels and device ms of a profiled step, and state bytes;
+   10f. ``loop.train`` on phase 6's corpus with AdamW, Lamb and Adafactor
+   (2 steps, validation after the last): finite losses, ``last_model.pt``
+   reloaded to the same logits, the Lamb run's ``WFL_PROFILE_DIR`` trace
+   naming ``attn_bias_fwd_mma``, the validation figures' events when
+   tensorboardX and matplotlib are there (else a line saying which is
+   absent);
 11. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
    line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -3164,7 +3177,7 @@ def phase_large_v3_train(labels: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 10a-10d: remat, remat auto, int8 serving, correct_label
+# Phases 10a-10f: remat, remat auto, int8 serving, correct_label, optimizers
 # ---------------------------------------------------------------------------
 
 # 10a: a remat step against the plain one (the same model, Prodigy state,
@@ -3612,9 +3625,298 @@ def phase_correct_label(root: str) -> dict:
     return dict(cli_s=cli_s, same=sum(same))
 
 
+# Phase 10e: every optimizer name, card against CPU. The card and the CPU
+# run the same f32 formulas on the same gradients; they differ by the
+# rounding of their kernels (CUDA's rsqrt and division, fused multiply-adds)
+# and by the order of their reductions. Each parameter tensor is held to
+# OPT_REL[family] × the largest 3-step change of that tensor on the CPU plus
+# OPT_ULPS ulps of its largest entry (the final p + u rounds once more):
+# - "elementwise" (the moment family and SGD): a few ulps of each update,
+#   1e-5 of its size leaves ~100× room;
+# - "per-leaf" (lamb, lars, fromage, novograd, adafactor, sm3): the leaf's
+#   norms and means summed in another order scale the whole leaf's update,
+#   ~log2(n) · 2^-24 relative, 1e-4;
+# - "global" (Prodigy, dadaptadamw): d is a ratio of sums over all 95M
+#   elements, ~1e-6 relative a step, fed back each step, 1e-4.
+# Prodigy's and dadaptadamw's d itself is held to OPT_D_REL: it is a ratio
+# of sums over all parameters, each summed in another order on each side
+# (~1e-6 relative), fed back each step. (torch's CPU norm kernels sum in
+# long f32 chains, 4e-5 off at 2.4M elements, which put d 2e-4 away from
+# the card's; train/norms.py's leaf_norms sums as accurately as the card.)
+# Sign-based or thresholded updates (lion's sign, rprop's sign products,
+# adopt's clip, yogi's sign(v − g²)) flip where their input lies within
+# rounding of the threshold: an element beyond the tolerance counts as a
+# flip there, and more than OPT_MAX_FLIPS flips in a name fails; anywhere
+# else one element beyond it fails.
+OPT_STEPS = 3
+OPT_PROFILED = 2        # steps in the profiler's window, after 2 unrecorded
+OPT_LR = {"prodigy": 1.0, "dadaptadamw": 1.0, "adadelta": 1.0}
+OPT_REL = {"elementwise": 1e-5, "per-leaf": 1e-4, "global": 1e-4}
+OPT_FAMILY = dict(
+    {n: "per-leaf" for n in ("lamb", "lars", "fromage", "novograd",
+                             "adafactor", "sm3")},
+    prodigy="global", dadaptadamw="global")
+OPT_D_REL = 1e-4
+OPT_FLIPS = ("lion", "rprop", "adopt", "yogi")
+OPT_MAX_FLIPS = 16
+OPT_ULPS = 2
+
+
+def _state_bytes(state) -> int:
+    import torch
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
+    if isinstance(state, dict):
+        return sum(_state_bytes(v) for v in state.values())
+    if isinstance(state, (list, tuple)):
+        return sum(_state_bytes(v) for v in state)
+    return 0
+
+
+def phase_optimizers(root: str, labels: int) -> dict:
+    """10e: one f32 ``micro_step`` of the full-width WavLM-base-plus tagger
+    (B = 2 × 30 s, TF32 off) gives one set of gradients; for Prodigy and
+    each of the 26 optax names (``train/optimizers.py``), from the same
+    weights and on those gradients, ``OPT_STEPS`` steps on the card and the
+    same steps on the CPU from copies, the lr halved before the last step;
+    the parameters held card against CPU under the rules above (and
+    Prodigy's and dadaptadamw's d to OPT_D_REL). For each name: the
+    last step's wall ms on the card, the kernels and summed device ms a
+    step of OPT_PROFILED more steps profiled, and the optimizer state's
+    bytes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
+    from wfl_asr_tpu_torch.train import loop
+    from wfl_asr_tpu_torch.train.optimizers import OPTIMIZERS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw = train_config(root)
+    raw["model"]["num_languages"] = 2
+    arch = TaggerArch.from_config(Config(raw), labels)
+    model = init_tagger(arch, torch.Generator().manual_seed(6), "cuda")
+    batch = batch_rows(labels, [30.0, 30.0], seed=13)
+    loop.micro_step(model, batch, "cuda", 1, 0.1, 3.0,
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    by_param = model.jax_leaf_blocks()
+    blocks = {n: by_param[p] for n, p in model.named_parameters()
+              if p in by_param}
+    dev = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    host = ({n: t.cpu() for n, t in dev.items()},
+            {n: t.cpu() for n, t in grads.items()})
+    n_elems = sum(t.numel() for t in dev.values())
+    del model
+    torch.cuda.empty_cache()
+    log(f"[optim] phase 10e: WavLM-base-plus tagger, {len(dev)} tensors, "
+        f"{n_elems} parameters, {len(grads)} with a gradient (B = 2 × 30 s, "
+        f"f32); {OPT_STEPS} steps from the same weights, lr halved before "
+        f"the last")
+
+    out = {}
+    for name in ["Prodigy"] + sorted(OPTIMIZERS):
+        key = name.lower()
+        lr = OPT_LR.get(key, 1e-3)
+        t = dict(raw["training"], optimizer=name, learning_rate=lr)
+        cfg = Config(dict(raw, training=t))
+        runs = {}
+        for where, (weights, g) in (("cuda", (dev, grads)), ("cpu", host)):
+            params = {n: torch.nn.Parameter(w.clone())
+                      for n, w in weights.items()}
+            opt = loop.make_optimizer(
+                cfg, list(params.values()),
+                {params[n]: b for n, b in blocks.items()})
+            for n, p in params.items():
+                p.grad = g.get(n)
+            for i in range(OPT_STEPS):
+                if i == OPT_STEPS - 1:
+                    loop.set_lr(opt, lr / 2)
+                if where == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt.step()
+                if where == "cuda":
+                    torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            glob = {k: float(v) for k, v in getattr(
+                opt, "global_state", lambda: {})().items()
+                if k in ("d", "estim_lr")}
+            runs[where] = dict(params={n: p.detach().cpu()
+                                       for n, p in params.items()},
+                               glob=glob, wall_ms=wall_ms)
+            if where == "cuda":
+                # a step before the window and a warm-up step: a window that
+                # opens on the step it records can lose its first ~30
+                # kernels (0 read for sgd's step)
+                with profile(activities=[ProfilerActivity.CUDA],
+                             schedule=schedule(wait=1, warmup=1,
+                                               active=OPT_PROFILED,
+                                               repeat=1)) as prof:
+                    for _ in range(2 + OPT_PROFILED):
+                        opt.step()
+                        torch.cuda.synchronize()
+                        prof.step()
+                kern = [e for e in prof.events()
+                        if e.device_type == DeviceType.CUDA]
+                runs[where].update(
+                    launches=len(kern) / OPT_PROFILED,
+                    busy_ms=sum(e.time_range.elapsed_us()
+                                for e in kern) / 1e3 / OPT_PROFILED,
+                    state_bytes=_state_bytes(list(opt.state.values())))
+            del params, opt
+        family = OPT_FAMILY.get(key, "elementwise")
+        flips, worst, moved = 0, 0.0, 0.0
+        for n, w0 in host[0].items():
+            a, b = runs["cuda"]["params"][n], runs["cpu"]["params"][n]
+            change = float((b - w0).abs().max())
+            moved = max(moved, change)
+            tol = (OPT_REL[family] * change
+                   + OPT_ULPS * 2.0 ** -23 * float(w0.abs().max()))
+            err = (a - b).abs()
+            flips += int((err > tol).sum())
+            worst = max(worst, float(err.max()) / max(change, 1e-30))
+        d_rel = {k: abs(runs["cuda"]["glob"][k] - v) / abs(v)
+                 for k, v in runs["cpu"]["glob"].items()}
+        c = runs["cuda"]
+        out[name] = dict(family=family, flips=flips, worst=worst,
+                         moved=moved, d_rel=d_rel, wall_ms=c["wall_ms"],
+                         busy_ms=c["busy_ms"], launches=c["launches"],
+                         state_mib=c["state_bytes"] / 2 ** 20,
+                         cpu_ms=runs["cpu"]["wall_ms"])
+        log(f"[optim] {name} ({family}, lr {lr:g} → {lr / 2:g}): card vs "
+            f"CPU worst {worst:.2e} × the tensor's change (tol "
+            f"{OPT_REL[family]:g} + {OPT_ULPS} ulps), {flips} elements "
+            f"beyond it, largest change {moved:.3e}"
+            + (f", d rel {d_rel}" if d_rel else "")
+            + f"; card step {c['wall_ms']:.2f} ms wall, a profiled step "
+            f"{c['launches']:g} kernels, {c['busy_ms']:.2f} ms device busy; "
+            f"state {c['state_bytes'] / 2 ** 20:.1f} MiB; CPU step "
+            f"{runs['cpu']['wall_ms']:.0f} ms")
+        if (moved == 0.0 or any(r > OPT_D_REL for r in d_rel.values())
+                or flips > (OPT_MAX_FLIPS if key in OPT_FLIPS else 0)):
+            raise AssertionError(
+                f"phase 10e {name}: {flips} elements beyond the tolerance "
+                f"(allowed {OPT_MAX_FLIPS if key in OPT_FLIPS else 0}), "
+                f"largest change {moved}, d rel {d_rel}")
+    return out
+
+
+OPT_TRAIN = (("AdamW", 1e-3), ("Lamb", 1e-3), ("Adafactor", 1e-2))
+
+
+def phase_train_optimizers(root: str) -> dict:
+    """10f: ``loop.train`` on phase 6's corpus (written here when phase 6
+    did not run) with ``AdamW``, ``Lamb`` and ``Adafactor`` in the config's
+    spelling: the default recipe otherwise (f32, batch 8), 2 steps,
+    validation after the last. Each: finite losses, ``last_model.pt``
+    reloaded to the same weights and logits. The Lamb run under
+    ``WFL_PROFILE_DIR``: its ``torch.profiler`` trace must exist and name
+    the port's attention kernels (``attn_bias_fwd_mma``, the K1/K2
+    forward). With tensorboardX and matplotlib on the machine the
+    validation figures' events must be in the event file; without them a
+    line says which is absent."""
+    import torch
+    from wfl_asr_tpu_torch.checkpoint import load_model_checkpoint
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.labels import load_phoneme_list
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch
+    from wfl_asr_tpu_torch.preprocess import preprocess
+    from wfl_asr_tpu_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    if not os.path.isdir(os.path.join(root, "data")):
+        write_corpus(os.path.join(root, "data"))
+    absent = []
+    for module in ("tensorboardX", "matplotlib"):
+        try:
+            __import__(module)
+        except ImportError:
+            absent.append(module)
+    if absent:
+        log(f"[optim] phase 10f: {' and '.join(absent)} absent on this "
+            f"machine: validation figures are not drawn, not checked")
+    g = torch.Generator().manual_seed(8)
+    audio = (torch.randn(2, 16000 * 12, generator=g) * 0.1).cuda()
+    lang = torch.tensor([0, 1], device="cuda")
+    out = {}
+    for name, lr in OPT_TRAIN:
+        raw = train_config(root)
+        save = os.path.join(root, f"run_{name.lower()}")
+        raw["output"]["save_dir"] = save
+        raw["training"].update(optimizer=name, learning_rate=lr,
+                               max_steps=2, val_check_interval=2,
+                               log_dir=os.path.join(save, "logs"))
+        preprocess(raw["data"]["data_dir"], raw)
+        cfg = Config.load(os.path.join(save, "config.yaml"))
+        prof_dir = os.path.join(root, "profile_lamb")
+        if name == "Lamb":
+            os.environ["WFL_PROFILE_DIR"] = prof_dir
+        t0 = time.perf_counter()
+        try:
+            model = loop.train(cfg, device="cuda")
+        finally:
+            os.environ.pop("WFL_PROFILE_DIR", None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        losses = [e["loss"] for e in events if e["event"] == "train"]
+        vals = [e["loss"] for e in events if e["event"] == "val"]
+        arch = TaggerArch.from_config(
+            cfg, len(load_phoneme_list(os.path.join(save, "phonemes.txt"))))
+        last = load_model_checkpoint(os.path.join(save, "last_model.pt"),
+                                     arch, "cuda")
+        mem = model.state_dict()
+        same_weights = all(torch.equal(v, mem[k])
+                           for k, v in last.state_dict().items())
+        model.eval()
+        with torch.no_grad():
+            a, b = model(audio, lang)[0], last(audio, lang)[0]
+        diff = (a - b).abs().max().item()
+        line = (f"[optim] phase 10f {name} (lr {lr:g}): loop.train 2 steps "
+                f"+ validation in {wall:.1f} s, losses "
+                f"{[round(x, 4) for x in losses]}, val {vals}; "
+                f"last_model.pt weights equal {same_weights}, logits diff "
+                f"{diff:.2e} of max {a.abs().max().item():.3g}")
+        if name == "Lamb":
+            from wfl_asr_tpu_torch.utils.profiling import TRACE_FILE
+            trace = os.path.join(prof_dir, "train", TRACE_FILE)
+            with open(trace) as f:
+                text = f.read()
+            named = text.count("attn_bias_fwd_mma")
+            line += (f"; trace {os.path.getsize(trace) / 2 ** 20:.1f} MiB, "
+                     f"{named} attn_bias_fwd_mma events")
+            if not named:
+                raise AssertionError(f"phase 10f: {trace} names no "
+                                     f"attn_bias_fwd_mma")
+        if not absent:
+            blob = b"".join(open(os.path.join(cfg.log_dir, f), "rb").read()
+                            for f in os.listdir(cfg.log_dir)
+                            if f.startswith("events."))
+            figures = blob.count(b"val/prediction_")
+            line += f"; {figures} figure events"
+            if not figures:
+                raise AssertionError(f"phase 10f {name}: no figure events "
+                                     f"in {cfg.log_dir}")
+        log(line)
+        if (len(losses) != 2 or len(vals) != 1
+                or not all(map(math.isfinite, losses + vals))
+                or not same_weights or diff > 1e-5 * a.abs().max().item()):
+            raise AssertionError(f"phase 10f {name}: losses {losses}, val "
+                                 f"{vals}, weights equal {same_weights}, "
+                                 f"logits diff {diff}")
+        out[name] = dict(wall_s=wall, losses=losses)
+        del model, last
+        torch.cuda.empty_cache()
+    return out
+
+
 def module_phases(root: str, cfg, ckpt: str, labels: int,
                   iters: int) -> dict:
-    """Phases 10a-10d under ``root``; ``cfg``/``ckpt``: phase 4's
+    """Phases 10a-10f under ``root``; ``cfg``/``ckpt``: phase 4's
     WavLM-base-plus run."""
     with lap("10a"):
         remat = phase_remat(root)
@@ -3624,7 +3926,12 @@ def module_phases(root: str, cfg, ckpt: str, labels: int,
         int8 = phase_int8(cfg, ckpt, iters)
     with lap("10d"):
         cl = phase_correct_label(root)
-    return dict(remat=remat, auto=auto, int8=int8, cl=cl)
+    with lap("10e"):
+        optim = phase_optimizers(root, labels)
+    with lap("10f"):
+        optim_train = phase_train_optimizers(root)
+    return dict(remat=remat, auto=auto, int8=int8, cl=cl, optim=optim,
+                optim_train=optim_train)
 
 
 def whisper_phases(root: str, iters: int) -> dict:
@@ -3769,7 +4076,7 @@ def k6_row(kern: dict, strict: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "conv", "train", "whisper",
-                                       "modules"), default=None)
+                                       "modules", "optim"), default=None)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
 
@@ -3816,12 +4123,17 @@ def main() -> int:
                        args.iters)
         log_laps()
         return 0
-    if args.only in ("train", "whisper", "modules"):   # for iterating
+    if args.only in ("train", "whisper", "modules", "optim"):  # iterating
         root = tempfile.mkdtemp(prefix="wfl_smoke_")
         try:
             if args.only == "train":        # phases 6-7b
                 train_phases(root)
-            elif args.only == "modules":    # phases 10a-10d
+            elif args.only == "optim":      # phases 10e-10f
+                with lap("10e"):
+                    phase_optimizers(root, FLAGSHIP_LABELS)
+                with lap("10f"):
+                    phase_train_optimizers(root)
+            elif args.only == "modules":    # phases 10a-10f
                 cfg, ckpt, _ = make_run(root)
                 module_phases(root, cfg, ckpt, FLAGSHIP_LABELS, args.iters)
             else:                           # phases 3e and 8-9c
@@ -3951,6 +4263,14 @@ def main() -> int:
         f"{np.mean(i8['perf']['bf16']):.2f} audio-s/s, cosine "
         f"{i8['cosine']:.5f}; correct_label CLI "
         f"{modules['cl']['cli_s']:.2f} s for 8 × 30 s")
+    optim = modules["optim"]
+    log("[summary] phase 10e, optimizer step on the card (wall ms / "
+        "kernels / state MiB): " + ", ".join(
+            f"{n} {r['wall_ms']:.1f}/{r['launches']:g}/{r['state_mib']:.0f}"
+            for n, r in optim.items())
+        + "; phase 10f loop.train " + ", ".join(
+            f"{n} {r['wall_s']:.1f} s" for n, r in
+            modules["optim_train"].items()))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -155,6 +155,31 @@ def test_cli_folder_mode(tmp_path, tqdm):
     assert sorted(os.listdir(folder)) == sorted(os.listdir(ref))
 
 
+def test_lines_are_single_writes(tmp_path, monkeypatch):
+    """Each [INFO] line reaches stdout in one write: the folder mode's
+    workers share one unbuffered stdout, where print's separate writes of
+    the text and its newline interleave across processes."""
+    writes = []
+
+    class Recorder:
+        def write(self, text):
+            writes.append(text)
+
+        def flush(self):
+            pass
+
+    y, lab = make_utterance(5, seconds=1.5)
+    wav = write_pair(str(tmp_path / "w"), "u", y, lab)
+    monkeypatch.setattr(sys, "stdout", Recorder())
+    CL.process_file(wav)
+    CL.write_predicted_boundaries(wav, [0.1, 0.5])
+    CL.process_file(wav)
+    monkeypatch.undo()
+    assert len(writes) == 2, writes
+    assert all(w.endswith("\n") and w.count("\n") == 1 for w in writes), \
+        writes
+
+
 def test_cli_rejects_other_paths(tmp_path, capsys):
     with pytest.raises(SystemExit) as exit_info:
         CL.main([str(tmp_path / "x.txt")])

@@ -183,8 +183,8 @@ def test_cli_folder_parity(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_no_jax():
-    """The port's package, pipeline, tagger, kernel and training modules
-    import neither jax nor wfl_asr_tpu."""
+    """The port's package, pipeline, tagger, kernel, training and utility
+    modules import neither jax, optax nor wfl_asr_tpu."""
     code = ("import sys\n"
             "import wfl_asr_tpu_torch, wfl_asr_tpu_torch.infer.pipeline\n"
             "import wfl_asr_tpu_torch.infer.cli\n"
@@ -195,12 +195,16 @@ def test_port_imports_no_jax():
             "import wfl_asr_tpu_torch.ops.kernels.conv_fused\n"
             "import wfl_asr_tpu_torch.train.loop, wfl_asr_tpu_torch.metrics\n"
             "import wfl_asr_tpu_torch.train.prodigy\n"
+            "import wfl_asr_tpu_torch.train.optimizers\n"
+            "import wfl_asr_tpu_torch.utils.viz\n"
+            "import wfl_asr_tpu_torch.utils.profiling\n"
             "import wfl_asr_tpu_torch.train.losses\n"
             "import wfl_asr_tpu_torch.train.schedules\n"
             "import wfl_asr_tpu_torch.data.dataset\n"
             "import wfl_asr_tpu_torch.preprocess\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'wfl_asr_tpu.')) or m == 'wfl_asr_tpu']\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'optax') or "
+            "m.startswith(('jax.', 'optax.', 'wfl_asr_tpu.')) or "
+            "m == 'wfl_asr_tpu']\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

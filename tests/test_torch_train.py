@@ -540,7 +540,7 @@ def test_unported_options_raise(prepped):
     root, cfg = prepped
     for section, key, val in (("training", "fsdp", True),
                               ("training", "sequence_parallel", True),
-                              ("training", "optimizer", "Lion")):
+                              ("training", "model_parallel", 2)):
         raw = json.loads(json.dumps(cfg))
         raw[section][key] = val
         raw["model"]["num_languages"] = 2

@@ -8,7 +8,9 @@ snap HTK ``.lab`` boundaries to signal-derived boundary candidates.
   within 30 ms;
 - the ``_boundary.txt`` candidate cache created, used, and deleted after the
   run, the in-place ``.lab`` rewrite, the optional 3-panel PNG, and the
-  ``ProcessPoolExecutor`` folder fan-out.
+  ``ProcessPoolExecutor`` folder fan-out (spawned workers, at most one a
+  file; each printed line one write, so that workers' lines never
+  interleave).
 
 Host code on NumPy/SciPy, as in the JAX package (hann STFT, slaney-mel →
 dB → DCT-II MFCCs, Savitzky-Golay delta — librosa's conventions); the
@@ -25,6 +27,7 @@ drops it).
 from __future__ import annotations
 
 import argparse
+import multiprocessing
 import os
 import sys
 from concurrent.futures import ProcessPoolExecutor, as_completed
@@ -219,6 +222,15 @@ def visualize_audio_features(wav_path, y, sr, predicted_boundaries, flux,
     plt.close(fig)
 
 
+def _say(line: str) -> None:
+    """``print(line)`` as one write: the folder mode's workers share one
+    stdout, and unbuffered (``PYTHONUNBUFFERED``) ``print`` writes the text
+    and its newline apart, so lines of workers that print at once would
+    interleave."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def process_file(wav_path: str, save_plot: bool = False) -> None:
     """Reference correct_label.py:153-180: load → (cached) detect → snap →
     rewrite .lab → optional PNG → delete the boundary cache."""
@@ -231,11 +243,11 @@ def process_file(wav_path: str, save_plot: bool = False) -> None:
 
     boundaries = load_predicted_boundaries(wav_path)
     if boundaries is None:
-        print("[INFO] No pre-made boundary file detected, creating a new one")
+        _say("[INFO] No pre-made boundary file detected, creating a new one")
         boundaries, flux, delta_mag, flux_times = detect_boundaries(y, sr)
         write_predicted_boundaries(wav_path, boundaries)
     else:
-        print(f"[INFO] Found pre-made boundary file for {wav_path}, using it")
+        _say(f"[INFO] Found pre-made boundary file for {wav_path}, using it")
         flux = delta_mag = flux_times = np.array([])
 
     snapped, original = correct_lab_boundaries(wav_path, boundaries)
@@ -291,7 +303,11 @@ def main(argv=None) -> None:
         wav_files = [os.path.join(args.input_path, f)
                      for f in os.listdir(args.input_path)
                      if f.endswith(".wav")]
-        with ProcessPoolExecutor() as executor:
+        # spawned workers: the parent has imported torch, whose threads a
+        # forked child would inherit in an unknown state
+        with ProcessPoolExecutor(
+                max_workers=max(1, min(len(wav_files), os.cpu_count() or 1)),
+                mp_context=multiprocessing.get_context("spawn")) as executor:
             futures = [executor.submit(process_file, fp, args.save_plot)
                        for fp in wav_files]
             with _progress(len(futures)) as bar:

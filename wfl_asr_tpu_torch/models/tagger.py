@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, fields, replace
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -230,6 +230,21 @@ class BIOPhonemeTagger(nn.Module):
                 hd, arch.dilated_depth, arch.dilated_kernel)
         self.classifier = nn.Linear(hd, arch.num_labels)
         self.boundary_offset_head = H.make_offset_head(hd)
+
+    def jax_leaf_blocks(self) -> Dict[nn.Parameter, List[Tuple[int, int]]]:
+        """The parameters that stack several of the JAX pytree's leaves, each
+        with its leaves' row blocks: a Conformer layer's packed
+        ``in_proj_weight`` [3D, D] and ``in_proj_bias`` [3D] are JAX's
+        ``q``, ``k`` and ``v`` (models/convert.py). The optimizers take their
+        per-leaf statistics over these blocks."""
+        blocks = {}
+        for layer in self.conformer_layers:
+            att = layer.self_attn
+            d = att.in_proj_weight.shape[1]
+            rows = [(i * d, (i + 1) * d) for i in range(3)]
+            blocks[att.in_proj_weight] = rows
+            blocks[att.in_proj_bias] = rows
+        return blocks
 
     def _apply(self, fn, recurse=True):
         out = super()._apply(fn, recurse)

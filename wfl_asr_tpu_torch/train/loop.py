@@ -1,14 +1,17 @@
 """The train loop, the port of ``wfl_asr_tpu/train/loop.py:554-1276`` for
 one device on one host:
 
-- artifacts from ``save_dir`` (``phonemes.txt``, ``dataset.json``, written
-  by ``python -m wfl_asr_tpu_torch.preprocess``; the language names and
-  the merge map serve only the figures, which are not drawn);
+- artifacts from ``save_dir`` (``phonemes.txt``, ``dataset.json``,
+  ``langs.txt`` and ``phoneme_merge_map.json``, written by ``python -m
+  wfl_asr_tpu_torch.preprocess``; the language names and the merge map
+  serve the validation figures);
 - a seeded train/val split by ``num_val_files``;
 - optional finetune surgery: language-embedding rows grown, classifier rows
   carried over by tag name;
-- the optimizer by name — ``Prodigy`` (train/prodigy.py) or any
-  ``torch.optim`` class, kwargs filtered by its signature;
+- the optimizer by name with the JAX package's optax semantics
+  (train/optimizers.py: Prodigy and the 26 optax names, kwargs filtered as
+  the JAX package filters them), the Conformer's packed in_proj taken as
+  JAX's three leaves by the per-leaf statistics;
 - schedulers stepped per validation (default) or per update, with the
   ReduceLROnPlateau special case;
 - gradient accumulation (the applied gradient is the mean of the
@@ -23,7 +26,11 @@ one device on one host:
   (:class:`RematStep`; a ``remat_auto_flip`` event in metrics.jsonl);
 - ``metrics.jsonl`` (the JAX event schema) with a one-step-delayed metric
   readback, so the host never waits on the step it just queued, and
-  TensorBoard scalars when ``tensorboardX`` imports.
+  TensorBoard scalars when ``tensorboardX`` imports; validation figures
+  (``val/prediction_{count}_{j}``, the first ``num_vis_samples`` samples,
+  utils/viz.py) when matplotlib imports too;
+- ``WFL_PROFILE_DIR``: the training loop runs inside
+  ``utils.profiling.maybe_trace("train")``, a ``torch.profiler`` trace.
 
 Each step runs the model in training mode (dropout from a seeded
 ``torch.Generator`` on the device, LayerDrop, BatchNorm batch statistics;
@@ -36,9 +43,8 @@ segmental term is a value-only metric on the host, as in the reference.
 
 Not ported (a config that asks for one raises ``NotImplementedError``
 naming ROADMAP.md): data/tensor/pipeline parallelism, FSDP, sequence
-parallelism, multi-host and sharded validation, the orbax format, the
-optax-only optimizers; validation figures are not drawn. Validation runs
-in eval mode, without dropout.
+parallelism, multi-host and sharded validation, the orbax format.
+Validation runs in eval mode, without dropout.
 
     python -m wfl_asr_tpu_torch.train CONFIG [--device cuda|cpu]
 """
@@ -47,7 +53,6 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import inspect
 import json
 import os
 import pickle
@@ -65,25 +70,20 @@ from ..checkpoint import (find_resume_checkpoints, load_train_state,
 from ..config import Config, as_config
 from ..data.dataset import BatchLoader, PhonemeDataset, split_dataset
 from ..infer.pipeline import resolve_device
-from ..labels import decode_bio_tags, load_phoneme_list, \
-    merge_adjacent_segments
+from ..labels import (canonical_to_lang, clean_lab, decode_bio_tags,
+                      load_langs, load_phoneme_list, load_phoneme_merge_map,
+                      merge_adjacent_segments)
 from ..metrics import framewise_accuracy, phoneme_error_rate, \
     timing_error_rate
 from ..models.tagger import BIOPhonemeTagger, TaggerArch, init_tagger
+from ..utils.profiling import maybe_trace
 from .losses import (cross_entropy, offset_loss, segmental_loss_value,
                      soft_iou_segmental_loss)
-from .prodigy import Prodigy
+from .optimizers import make_optimizer  # noqa: F401  (re-exported)
 from .schedules import get_scheduler
 
 BATCH_KEYS = ("audio", "labels", "lang_ids", "off_frames", "off_channels",
               "off_fracs", "off_valid")
-
-# Names the JAX package resolves to optax-only optimizers (loop.py:79-97)
-# that have no torch.optim class here: ROADMAP.md queues them.
-OPTAX_ONLY = frozenset({
-    "lion", "lamb", "lars", "adabelief", "adan", "novograd", "yogi",
-    "fromage", "amsgrad", "sm3", "nadamw", "adamaxw", "dadaptadamw",
-    "ademamix", "adopt", "adafactor"})
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -120,37 +120,6 @@ def remat_mode(cfg: Config) -> str:
 # ---------------------------------------------------------------------------
 # Optimizer
 # ---------------------------------------------------------------------------
-
-def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
-    """The optimizer by name, kwargs filtered by its signature (the
-    reference's lookup, train.py:379-408): Prodigy, or a ``torch.optim``
-    class matched case-insensitively. ``weight_decay`` comes from the
-    config's training section."""
-    name = cfg.optimizer
-    kwargs = dict(cfg.optimizer_params)
-    if cfg.weight_decay is not None:
-        kwargs["weight_decay"] = cfg.weight_decay
-    if name.lower() == "prodigy":
-        cls = Prodigy
-    else:
-        by_name = {n.lower(): getattr(torch.optim, n)
-                   for n in dir(torch.optim)
-                   if isinstance(getattr(torch.optim, n), type)
-                   and issubclass(getattr(torch.optim, n),
-                                  torch.optim.Optimizer)
-                   and n != "Optimizer"}
-        cls = by_name.get(name.lower())
-        if cls is None:
-            if name.lower() in OPTAX_ONLY:
-                raise _not_ported(f"optimizer {name!r} (optax-only)")
-            raise ValueError(f"Optimizer '{name}' not found. Available: "
-                             f"Prodigy, {sorted(by_name)}")
-    accepted = set(inspect.signature(cls).parameters)
-    if "betas" in kwargs and "betas" in accepted:
-        kwargs["betas"] = tuple(kwargs["betas"])
-    filtered = {k: v for k, v in kwargs.items() if k in accepted}
-    return cls(params, lr=cfg.learning_rate, **filtered)
-
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
@@ -355,13 +324,43 @@ def _gt_segments(segs):
     return segs
 
 
+def _has_matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _draw_prediction(writer, cfg: Config, batch, j: int, count: int,
+                     step: int, segs, gt, id2lang, merge_map) -> None:
+    """One ``val/prediction_{count}_{j}`` figure (JAX loop.py:504-518): the
+    predicted and ground-truth segments in the sample language's own
+    symbols when there is a merge map."""
+    from ..utils.viz import visualize_prediction
+    lang_name = id2lang.get(int(batch["lang_ids"][j]))
+    if merge_map and lang_name:
+        segs = [(s, e, canonical_to_lang(ph, lang_name, merge_map))
+                for s, e, ph in segs]
+        gt = [(s, e, canonical_to_lang(clean_lab(ph), lang_name, merge_map))
+              for s, e, ph in gt]
+    fig = visualize_prediction(batch["wavs"][j], cfg.sample_rate, segs, gt)
+    writer.add_figure(f"val/prediction_{count}_{j}", fig, global_step=step)
+
+
 @torch.no_grad()
 def evaluate(model: BIOPhonemeTagger, val_loader: BatchLoader, label_list,
-             cfg: Config, device, writer=None, step: int = 0) -> float:
+             cfg: Config, device, writer=None, step: int = 0,
+             id2lang: Optional[Dict[int, str]] = None,
+             merge_map=None) -> float:
     """Reference evaluate() (train.py:456-545) in eval mode: the mean of
     batch CEs, frame accuracy, PER and TER over median-filtered, BIO-decoded
-    and merged segments. Returns the mean CE."""
+    and merged segments. With a writer, and matplotlib, the first
+    ``num_vis_samples`` samples are drawn as figures. Returns the mean
+    CE."""
     id2label = dict(enumerate(label_list))
+    id2lang = id2lang or {}
+    draw = writer is not None and _has_matplotlib()
     model.eval()
     losses, acc, per, ter, count = [], 0.0, 0.0, 0.0, 0
     for batch in val_loader.epoch_batches(epoch=0):
@@ -386,6 +385,9 @@ def evaluate(model: BIOPhonemeTagger, val_loader: BatchLoader, label_list,
             per += phoneme_error_rate(segs, gt)
             ter += timing_error_rate(segs, gt)
             count += 1
+            if draw and count <= cfg.num_vis_samples:
+                _draw_prediction(writer, cfg, batch, j, count, step, segs,
+                                 gt, id2lang, merge_map)
     avg_loss = float(np.mean(losses)) if losses else 0.0
     avg = [x / count if count else 0.0 for x in (acc, per, ter)]
     if writer is not None:
@@ -420,6 +422,10 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
     os.makedirs(save_dir, exist_ok=True)
 
     label_list = load_phoneme_list(os.path.join(save_dir, "phonemes.txt"))
+    id2lang = {i: lang for lang, i in load_langs(
+        os.path.join(save_dir, "langs.txt")).items()}
+    merge_map = load_phoneme_merge_map(
+        os.path.join(save_dir, "phoneme_merge_map.json"))
     dataset = PhonemeDataset(os.path.join(save_dir, "dataset.json"),
                              label_list, cfg.max_seq_len, cfg.augmentation,
                              cfg.sample_rate)
@@ -444,7 +450,8 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
     if arch.freeze_encoder and arch.encoder_type != "none":
         model.encoder.requires_grad_(False)
     optimizer = make_optimizer(
-        cfg, [p for p in model.parameters() if p.requires_grad])
+        cfg, [p for p in model.parameters() if p.requires_grad],
+        model.jax_leaf_blocks())
     base_lr = cfg.learning_rate
     scheduler = get_scheduler(cfg.scheduler, cfg.scheduler_params,
                               base_lr=base_lr)
@@ -533,64 +540,66 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
               f"({1.0 / max(now - last_log, 1e-9):.2f} it/s)", flush=True)
         last_log = now
 
-    micro: List = []
-    epoch = 0
-    while step < cfg.max_steps:
-        epoch_ran = False
-        for batch in train_loader.epoch_batches(epoch):
-            epoch_ran = True
-            micro.append(batch)
-            if len(micro) < accum:
-                continue
-            lr_used = base_lr * scheduler.factor
-            set_lr(optimizer, lr_used)
-            metrics, update_micro = update(optimizer, micro, device,
-                                           **step_kwargs)
-            micro = []
-            if cfg.scheduler_step_on_update:
-                scheduler.step()
-            step += 1
-            if on_update is not None:
-                on_update(step, [b for _, _, b in update_micro])
+    with maybe_trace("train"):
+        micro: List = []
+        epoch = 0
+        while step < cfg.max_steps:
+            epoch_ran = False
+            for batch in train_loader.epoch_batches(epoch):
+                epoch_ran = True
+                micro.append(batch)
+                if len(micro) < accum:
+                    continue
+                lr_used = base_lr * scheduler.factor
+                set_lr(optimizer, lr_used)
+                metrics, update_micro = update(optimizer, micro, device,
+                                               **step_kwargs)
+                micro = []
+                if cfg.scheduler_step_on_update:
+                    scheduler.step()
+                step += 1
+                if on_update is not None:
+                    on_update(step, [b for _, _, b in update_micro])
 
-            drain_pending()
-            pending = (step, metrics, update_micro, lr_used)
-
-            if step % cfg.val_check_interval == 0:
                 drain_pending()
-                val_loss = evaluate(model, val_loader, label_list, cfg,
-                                    device, writer, step)
-                log_event("val", step, loss=val_loss)
-                model_path = os.path.join(save_dir, f"model_step{step}.pt")
-                save_model_checkpoint(model_path, model)
-                save_train_state(model_path, optimizer, step, generator,
-                                 scheduler.state_dict())
-                checkpoint_paths.append(model_path)
-                if len(checkpoint_paths) > cfg.max_checkpoints:
-                    remove_checkpoint(checkpoint_paths.pop(0))
-                if val_loss < best_loss:
-                    best_loss = val_loss
-                    save_model_checkpoint(
-                        os.path.join(save_dir, "best_model.pt"), model)
-                    print(f"\nSaved best model with loss = {val_loss:.4f}")
-                if not cfg.scheduler_step_on_update:
-                    if type(scheduler).__name__ == "ReduceLROnPlateau":
-                        scheduler.step(best_loss)
-                    else:
-                        scheduler.step(step)
-                if writer is not None:
-                    writer.add_scalar("train/learning_rate",
-                                      base_lr * scheduler.factor, step)
-                if restart_loader:
+                pending = (step, metrics, update_micro, lr_used)
+
+                if step % cfg.val_check_interval == 0:
+                    drain_pending()
+                    val_loss = evaluate(model, val_loader, label_list, cfg,
+                                        device, writer, step, id2lang,
+                                        merge_map)
+                    log_event("val", step, loss=val_loss)
+                    model_path = os.path.join(save_dir, f"model_step{step}.pt")
+                    save_model_checkpoint(model_path, model)
+                    save_train_state(model_path, optimizer, step, generator,
+                                     scheduler.state_dict())
+                    checkpoint_paths.append(model_path)
+                    if len(checkpoint_paths) > cfg.max_checkpoints:
+                        remove_checkpoint(checkpoint_paths.pop(0))
+                    if val_loss < best_loss:
+                        best_loss = val_loss
+                        save_model_checkpoint(
+                            os.path.join(save_dir, "best_model.pt"), model)
+                        print(f"\nSaved best model with loss = {val_loss:.4f}")
+                    if not cfg.scheduler_step_on_update:
+                        if type(scheduler).__name__ == "ReduceLROnPlateau":
+                            scheduler.step(best_loss)
+                        else:
+                            scheduler.step(step)
+                    if writer is not None:
+                        writer.add_scalar("train/learning_rate",
+                                          base_lr * scheduler.factor, step)
+                    if restart_loader:
+                        break
+                if step >= cfg.max_steps:
                     break
-            if step >= cfg.max_steps:
-                break
-        drain_pending()
-        if not epoch_ran:
-            raise ValueError(
-                f"training epoch produced no batches ({len(train_idx)} "
-                f"train samples, batch_size {cfg.batch_size})")
-        epoch += 1
+            drain_pending()
+            if not epoch_ran:
+                raise ValueError(
+                    f"training epoch produced no batches ({len(train_idx)} "
+                    f"train samples, batch_size {cfg.batch_size})")
+            epoch += 1
 
     save_model_checkpoint(os.path.join(save_dir, "last_model.pt"), model)
     metrics_log.close()

@@ -35,6 +35,8 @@ from typing import Iterable, Optional
 
 import torch
 
+from .norms import leaf_norms
+
 
 class Prodigy(torch.optim.Optimizer):
     def __init__(self, params: Iterable, lr: float = 1.0,
@@ -116,7 +118,7 @@ class Prodigy(torch.optim.Optimizer):
         torch._foreach_add_(v, gg)
         torch._foreach_mul_(s_, beta3)
         torch._foreach_add_(s_, torch._foreach_mul(grads, s_alpha))
-        d_denom = torch.stack(torch._foreach_norm(s_, 1)).sum()
+        d_denom = leaf_norms(s_, 1).sum()
 
         do_update = (d_denom > 0.0) & (lr > 0.0)
         d_hat = hp["d_coef"] * d_numerator / d_denom
