@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only whisper  # build + phases 3e and 8-9f only
     python3 chip_smoke.py --only modules  # build + phases 10a-10f only
     python3 chip_smoke.py --only optim    # build + phases 10e-10f only
+    python3 chip_smoke.py --only parallel # build + phase 11 only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -133,7 +134,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    naming ``attn_bias_fwd_mma``, the validation figures' events when
    tensorboardX and matplotlib are there (else a line saying which is
    absent);
-11. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
+11. data, fully-sharded, tensor and sequence parallelism (``--only
+   parallel``): 11a. the attention kernels on shards — K2 + K2b at
+   WavLM's [8, 12, 1499, 64] with bias and gate, K1 + K1b at the
+   Conformer's [8, 2, 1499, 384] and at Whisper's [8, 8, 1500, 64]
+   (wgmma64 in bf16, mma64 in f32), f32 and bf16, strict dropout at 0.1,
+   ragged kv_len: the batch and the heads each split in two, each shard
+   called through the entry point with its slices and its origin; 0 mask
+   bits off (3d's read-out against the plain mask at the shard's global
+   indices), out, LSE, dQ, dK, dV and dGate equal to the unsharded slices
+   and dBias summed over the batch halves, within the kernels'
+   tolerances; 11b. ``python -m torch.distributed.run --nproc_per_node 1``
+   worlds of one over NCCL on phase 6's corpus (WavLM-base-plus at 4 of
+   its 12 layers, f32, 2 steps; the rank runs ``loop.train`` through
+   ``--rank-train``): with
+   DDP, and with ``training.fsdp`` and ``sharded_validation``; the first
+   step's loss within 1e-5 of the plain loop's on the same batch and
+   FSDP's second within 1e-5 of DDP's, step ms, peak memory and K2/K2b launches (counts 0 just before the run, read
+   just after); 11c. ``infer_folder_batched(data_parallel=True)`` in an
+   NCCL world of one, its ``.lab`` files byte-identical to phase 4's, with
+   its K2/K1/K5 launches;
+12. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
    line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -205,6 +226,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -4054,6 +4076,430 @@ KERNEL_ROWS = [
 ]
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: data, fully-sharded, tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+
+PAR_RATE = 0.1          # strict dropout rate of 11a
+PAR_STEPS = 2           # train steps of each 11b world
+PAR_LAYERS = 4          # WavLM-base-plus cut to 4 of its 12 layers in 11b
+
+
+def _par_mask_bits(d: int, h: int, dtype, with_bias: bool, kv) -> int:
+    """The kept pattern of each (batch half, head half) shard's forward,
+    called through the entry point with its origin, read off with q = k = 0
+    and v the identity on D keys at a time (3d's way), against the plain
+    mask at the shard's global indices (``dropout_mask.keep_mask``, not
+    the seed offset under test). Returns the number of bits off."""
+    import torch
+    from wfl_asr_tpu_torch.ops.kernels import dropout_mask as dm
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
+        flash_attention_trainable
+    dev, b = "cuda", B
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    bad = 0
+    for b0 in (0, b // 2):
+        for h0 in (0, h // 2):
+            nb, nh = b // 2, h // 2
+            q = torch.zeros((nb, nh, T, d), dtype=dtype, device=dev)
+            bias = gate = None
+            if with_bias:
+                bias = torch.zeros((nh, T, T), dtype=dtype, device=dev)
+                gate = torch.ones((nb, nh, T), device=dev)
+            kvs = kv[b0:b0 + nb]
+            kept = torch.zeros((nb, nh, T, T), dtype=torch.bool, device=dev)
+            for j0 in range(0, T, d):
+                w = min(d, T - j0)
+                v = torch.zeros_like(q)
+                v[..., j0:j0 + w, :w] = torch.eye(w, dtype=dtype, device=dev)
+                with torch.inference_mode():
+                    if with_bias:
+                        out = fa.flash_attention(
+                            q, q, v, bias, gate, kv_len=kvs,
+                            dropout_rate=PAR_RATE, dropout_seed=seed,
+                            origin=(b0, h0))
+                    else:
+                        out = flash_attention_trainable(
+                            q, q, v, kv_len=kvs, dropout_rate=PAR_RATE,
+                            dropout_seed=seed, origin=(b0, h0))
+                kept[..., j0:j0 + w] = out[..., :w].float() > 0
+            ar = lambda n, o=0: torch.arange(o, o + n, device=dev)  # noqa
+            want = dm.keep_mask(seed.reshape(()), ar(nb, b0)[:, None, None,
+                                                              None],
+                                ar(nh, h0)[None, :, None, None],
+                                ar(T)[:, None], ar(T)[None, :],
+                                PAR_RATE) > 0
+            want &= (ar(T)[None, :] < kvs[:, None])[:, None, None, :]
+            bad += int((kept != want).sum().item())
+            del kept, want
+    torch.cuda.empty_cache()
+    return bad
+
+
+def _par_case(name, gen, h, d, dtype_name, with_bias, kv) -> dict:
+    """11a, one shape: the unsharded call through the entry point (strict
+    dropout at PAR_RATE, ragged kv_len) against its four shards — the
+    batch and the heads each split in two — each called with its slices of
+    q, k, v, bias and gate and its origin: out, LSE, dQ, dK, dV against
+    the unsharded slices, dGate too, and dBias summed over the batch
+    halves; the worst differences as fractions of each tensor's max, held
+    to the kernel's tolerances (ATTN_TOL, LSE_TOL, GRAD_TOL)."""
+    import torch
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention as fa
+    from wfl_asr_tpu_torch.ops.kernels.flash_attention_bwd import \
+        flash_attention_trainable
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    b = B
+    t = 1500 if (not with_bias and d == 64) else T
+    q, k, v, bias, gate = attn_inputs(gen, (b, h, t, d), dtype, with_bias)
+    dout = (torch.rand(q.shape, generator=gen, device="cuda") * 2 - 1
+            ).to(dtype)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device="cuda")
+
+    def call(rows, heads, origin):
+        ins = [x[rows][:, heads].detach().clone().requires_grad_()
+               for x in (q, k, v)]
+        bg = [None, None]
+        if with_bias:
+            bg = [bias[heads].detach().clone().requires_grad_(),
+                  gate[rows][:, heads].detach().clone().requires_grad_()]
+            out = fa.flash_attention(*ins, *bg, kv_len=kv[rows],
+                                     dropout_rate=PAR_RATE,
+                                     dropout_seed=seed, origin=origin)
+        else:
+            out = flash_attention_trainable(*ins, kv_len=kv[rows],
+                                            dropout_rate=PAR_RATE,
+                                            dropout_seed=seed, origin=origin)
+        out.backward(dout[rows][:, heads])
+        with torch.no_grad():
+            _, lse = fa.launch_kernel(
+                *(x.detach() for x in ins), *(y.detach() if y is not None
+                                              else None for y in bg),
+                kv_len=kv[rows], return_lse=True, dropout_rate=PAR_RATE,
+                dropout_seed=fa.shard_seed(seed, origin))
+        got = {"out": out.detach(), "lse": lse, "dq": ins[0].grad,
+               "dk": ins[1].grad, "dv": ins[2].grad}
+        if with_bias:
+            got.update(dbias=bg[0].grad.float(), dgate=bg[1].grad)
+        return got
+
+    full = call(slice(None), slice(None), (0, 0))
+    worst = {key: 0.0 for key in full}
+    dbias = {}
+    for b0 in (0, b // 2):
+        for h0 in (0, h // 2):
+            rows, heads = slice(b0, b0 + b // 2), slice(h0, h0 + h // 2)
+            part = call(rows, heads, (b0, h0))
+            for key, val in part.items():
+                if key == "dbias":
+                    dbias[h0] = dbias.get(h0, 0) + val
+                    continue
+                want = full[key][rows][:, heads].float()
+                scale = 1.0 if key == "lse" else max(
+                    want.abs().max().item(), 1e-30)
+                worst[key] = max(worst[key], (val.float() - want).abs()
+                                 .max().item() / scale)
+    if with_bias:
+        want = full["dbias"]
+        scale = want.abs().max().item()
+        worst["dbias"] = max((dbias[h0] - want[h0:h0 + h // 2]).abs().max()
+                             .item() / scale for h0 in dbias)
+    tol = {"out": ATTN_TOL[dtype_name], "lse": LSE_TOL}
+    tol.update({key: GRAD_TOL[dtype_name] for key in worst
+                if key not in tol})
+    bits = _par_mask_bits(d, h, dtype, with_bias, kv)
+    log(f"[parallel] 11a {name} {dtype_name} [{b},{h},{t},{d}] "
+        f"(route {fa.forward_route(d, with_bias, dtype)}/"
+        f"{fa.backward_route(d, with_bias, dtype)}), shards of 2 × 2: "
+        f"{bits} mask bits off; worst |shard − unsharded| / max: "
+        + ", ".join(f"{key} {val:.2e}" for key, val in worst.items()))
+    over = {key: val for key, val in worst.items() if val > tol[key]}
+    if bits or over:
+        raise AssertionError(f"11a {name} {dtype_name}: {bits} mask bits "
+                             f"off, over tolerance {over}")
+    del q, k, v, bias, gate, dout, full
+    torch.cuda.empty_cache()
+    return dict(worst=worst, bits=bits)
+
+
+def phase_parallel_kernels(gen) -> dict:
+    """11a: the attention kernels on batch and head shards against the
+    unsharded call: K2 + K2b (WavLM's gated bias, D = 64, 12 heads), K1 +
+    K1b at the Conformer's [8, 2, 1499, 384] and at Whisper's [8, 8,
+    1500, 64] (wgmma64 in bf16, mma64 in f32), f32 and bf16, strict
+    dropout at 0.1, ragged kv_len."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kv = torch.tensor([T, 1001, 1499, 700, 1200, 1499, 64, 1333],
+                      dtype=torch.int32, device="cuda")
+    res = {}
+    for name, h, d, with_bias in (("K2+K2b", 12, 64, True),
+                                  ("K1+K1b Conformer", 2, 384, False),
+                                  ("K1+K1b Whisper", 8, 64, False)):
+        for dtype in ("f32", "bf16"):
+            res[(name, dtype)] = _par_case(name, gen, h, d, dtype, with_bias,
+                                           kv)
+    return res
+
+
+def rank_train(runs) -> None:
+    """One rank of the 11b world (run by ``torch.distributed.run``): first,
+    before any process group exists, the plain loop's first-step loss
+    (``plain_first_loss`` of the first config); then for each (config,
+    output) pair in turn, the train loop as ``python -m
+    wfl_asr_tpu_torch.train`` runs it — the first call joins the
+    launcher's NCCL group itself — with the launch counts set to 0 just
+    before and read just after; writes the step times, peak memory,
+    counts, the world and the plain loss to the output."""
+    import torch
+    import torch.distributed as dist
+    from wfl_asr_tpu_torch.config import Config
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import flash_attention, \
+        flash_attention_bwd
+    from wfl_asr_tpu_torch.train import loop
+    assert not dist.is_initialized()
+    plain = plain_first_loss(Config.load(runs[0]))
+    for cfg_path, out_path in zip(runs[::2], runs[1::2]):
+        marks = []
+
+        def on_update(step, batches):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loop.train(cfg_path, device="cuda", on_update=on_update)
+        counts = {"K2": flash_attention.launches,
+                  "K2b": flash_attention.bwd_launches,
+                  "K1": flash_attention_bwd.launches,
+                  "K1b": flash_attention_bwd.bwd_launches}
+        info = {"counts": counts, "step_ms": [
+            1e3 * (b - a) for a, b in zip([t0] + marks, marks)],
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "world": dist.get_world_size(), "backend": dist.get_backend(),
+            "plain": plain}
+        with open(out_path, "w") as f:
+            json.dump(info, f)
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def plain_first_loss(cfg) -> float:
+    """The plain loop's loss on the first batch of the loop's order: the
+    same seeded weights, loader and ``micro_step`` as ``loop.train``
+    without a process group."""
+    import torch
+    from wfl_asr_tpu_torch.data.dataset import BatchLoader, PhonemeDataset, \
+        split_dataset
+    from wfl_asr_tpu_torch.labels import load_phoneme_list
+    from wfl_asr_tpu_torch.models.tagger import TaggerArch, init_tagger
+    from wfl_asr_tpu_torch.train import loop
+    save = cfg.save_dir
+    labels = load_phoneme_list(os.path.join(save, "phonemes.txt"))
+    data = PhonemeDataset(os.path.join(save, "dataset.json"), labels,
+                          cfg.max_seq_len, cfg.augmentation, cfg.sample_rate)
+    train_idx, _ = split_dataset(len(data), cfg.num_val_files, cfg.seed)
+    batch = next(BatchLoader(data, train_idx, cfg.batch_size, seed=cfg.seed,
+                             shuffle=True, frame_duration=cfg.frame_duration
+                             ).epoch_batches(0))
+    model = init_tagger(TaggerArch.from_config(cfg, len(labels)),
+                        torch.Generator().manual_seed(cfg.seed),
+                        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    m, _, _ = loop.micro_step(model, batch, "cuda", 1, cfg.label_smoothing,
+                              cfg.subframe_loss_weight, generator=gen)
+    loss = float(m["loss"])
+    del model
+    torch.cuda.empty_cache()
+    return loss
+
+
+def phase_parallel_train(root: str) -> dict:
+    """11b: a ``python -m torch.distributed.run --nproc_per_node 1`` world
+    of one over NCCL on phase 6's corpus (WavLM-base-plus at full width,
+    its depth cut to PAR_LAYERS layers so that phase 11 stays near 60 s,
+    f32, PyTorch's default TF32 flags; the segmental metric off, so that
+    the logged loss is the step's), one rank running ``rank_train``:
+    PAR_STEPS steps with
+    DDP, then as many with ``training.fsdp`` plus ``sharded_validation``
+    (one validation). The first step's loss is held to the plain loop's
+    on the same batch, computed in that process before it joins the group,
+    and FSDP's second step's to DDP's (1e-5 relative each); step ms, peak
+    memory and K2/K2b launches printed for each."""
+    import yaml
+    from wfl_asr_tpu_torch.preprocess import preprocess
+    data_dir = os.path.join(root, "data")          # phase 6's, if it ran
+    if not os.path.isdir(data_dir):
+        write_corpus(data_dir)
+    res, runs, modes = {}, [], ("ddp", "fsdp")
+    raw = train_config(root)
+    raw["data"]["data_dir"] = data_dir
+    raw["model"]["segmental_loss_weight"] = 0.0
+    raw["model"]["encoder_arch_overrides"] = {"num_layers": PAR_LAYERS}
+    for mode, extra in zip(modes, ({"val_check_interval": 1000},
+                                   {"fsdp": True, "sharded_validation": True,
+                                    "val_check_interval": PAR_STEPS})):
+        run = os.path.join(root, f"par_{mode}")
+        raw["output"]["save_dir"] = run
+        raw["training"].update(max_steps=PAR_STEPS,
+                               log_dir=os.path.join(run, "logs"), **extra)
+        cfg_path = os.path.join(run, "config.yaml")
+        if mode == "ddp":
+            preprocess(data_dir, raw)
+        else:                   # the same artifacts, another config
+            shutil.copytree(os.path.join(root, "par_ddp"), run)
+            with open(cfg_path) as f:
+                written = yaml.safe_load(f)     # preprocess's, languages in
+            written["output"]["save_dir"] = run
+            written["training"].update(raw["training"])
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(written, f)
+        runs += [cfg_path, os.path.join(run, "rank0.json")]
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()), os.path.abspath(__file__),
+           "--rank-train", *runs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"11b: rc {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"[parallel] 11b world of one: {wall:.1f} s wall, both runs")
+    for mode, cfg_path, out in zip(modes, runs[::2], runs[1::2]):
+        run = os.path.dirname(cfg_path)
+        with open(out) as f:
+            info = json.load(f)
+        plain = info["plain"]
+        with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        losses = [e["loss"] for e in events if e["event"] == "train"]
+        vals = [e["loss"] for e in events if e["event"] == "val"]
+        rel = abs(losses[0] - plain) / abs(plain)
+        log(f"[parallel] 11b {mode} world of {info['world']} over "
+            f"{info['backend']}: losses {losses}, first step {rel:.2e} "
+            f"relative to the plain loop's {plain:.6f}; validation "
+            f"{vals}; step ms {[round(x, 1) for x in info['step_ms']]}; "
+            f"peak {info['peak_gb']:.2f} GiB; launches "
+            f"{json.dumps(info['counts'])}")
+        if info["world"] != 1 or info["backend"] != "nccl":
+            raise AssertionError(f"11b {mode}: world {info['world']} over "
+                                 f"{info['backend']}")
+        if len(losses) != PAR_STEPS or rel > 1e-5 \
+                or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"11b {mode}: losses {losses} against the "
+                                 f"plain first step {plain}")
+        if mode == "fsdp" and len(vals) != 1:
+            raise AssertionError(f"11b fsdp: validations {vals}")
+        if mode == "fsdp":
+            # the same first step: the second steps' losses agree too
+            # (run to run on the card they move by ~2e-7)
+            gap = abs(losses[1] - res["ddp"]["losses"][1]) / abs(losses[1])
+            log(f"[parallel] 11b fsdp against ddp, step 2: {gap:.2e} "
+                f"relative")
+            if gap > 1e-5:
+                raise AssertionError(f"11b: step 2 fsdp {losses[1]} against "
+                                     f"ddp {res['ddp']['losses'][1]}")
+        if min(info["counts"]["K2"], info["counts"]["K2b"]) < 1:
+            raise AssertionError(f"11b {mode}: K2/K2b launches "
+                                 f"{info['counts']}")
+        for name in ("last_model.pt",):
+            if not os.path.exists(os.path.join(run, name)):
+                raise AssertionError(f"11b {mode}: no {name}")
+        res[mode] = dict(info, losses=losses, rel=rel)
+        shutil.rmtree(run, ignore_errors=True)
+    return res
+
+
+def phase_parallel_serving(root: str, cfg, ckpt: str, wav_dir: str,
+                           ref_labs: str) -> dict:
+    """11c: ``infer_folder_batched(data_parallel=True)`` in an NCCL world of
+    one, on a fresh copy of phase 4's wavs (no cache), with the launch
+    counts set to 0 just before and read just after: its ``.lab`` files
+    must equal phase 4's byte for byte."""
+    import torch
+    import torch.distributed as dist
+    from wfl_asr_tpu_torch.infer import pipeline
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import conv_fused, flash_attention, \
+        flash_attention_bwd
+    wavs = os.path.join(root, "par_wavs")
+    os.makedirs(wavs)
+    for name in os.listdir(wav_dir):
+        if name.endswith(".wav"):
+            shutil.copy(os.path.join(wav_dir, name), wavs)
+    out_dir = os.path.join(root, "par_labs")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        pipeline.infer_folder_batched(wavs, cfg, ckpt, out_dir, lang_id=0,
+                                      confidence_threshold=0.0,
+                                      batch_files=8, device="cuda",
+                                      compute_dtype=torch.bfloat16,
+                                      data_parallel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"K2": flash_attention.launches,
+                  "K1": flash_attention_bwd.launches,
+                  "K5 layers": conv_fused.layer_launches}
+        mesh = [s.mesh.shape for s in pipeline._SESSION_CACHE.values()
+                if s.mesh is not None]
+    finally:
+        for key in [k for k, s in pipeline._SESSION_CACHE.items()
+                    if s.mesh is not None]:
+            del pipeline._SESSION_CACHE[key]
+        dist.destroy_process_group()
+    names = sorted(n for n in os.listdir(ref_labs) if n.endswith(".lab"))
+    same = [n for n in names if open(os.path.join(ref_labs, n), "rb").read()
+            == open(os.path.join(out_dir, n), "rb").read()]
+    log(f"[parallel] 11c infer_folder_batched(data_parallel=True), NCCL "
+        f"world of 1 (mesh {mesh}): {len(same)} of {len(names)} .lab files "
+        f"byte-identical to phase 4's; launches {json.dumps(counts)}; "
+        f"{wall:.2f} s")
+    if not mesh or len(same) != len(names) or not names:
+        raise AssertionError(f"11c: mesh {mesh}, {len(same)} of "
+                             f"{len(names)} .lab files equal")
+    if min(counts.values()) < 1:
+        raise AssertionError(f"11c: launches {counts}")
+    return dict(counts=counts, wall=wall)
+
+
+def parallel_phases(root: str, cfg=None, ckpt=None, wav_dir=None,
+                    ref_labs=None) -> dict:
+    """Phase 11 (``--only parallel``): 11a-11c; without phase 4's run it
+    makes one (the same ``make_run`` and ``infer_folder_batched`` call)."""
+    import torch
+    with lap("11a"):
+        kern = phase_parallel_kernels(
+            torch.Generator(device="cuda").manual_seed(11))
+    with lap("11b"):
+        train = phase_parallel_train(root)
+    with lap("11c"):
+        if cfg is None:
+            cfg, ckpt, wav_dir = make_run(root)
+            ref_labs = os.path.join(root, "labs")
+            from wfl_asr_tpu_torch.infer.pipeline import infer_folder_batched
+            infer_folder_batched(wav_dir, cfg, ckpt, ref_labs, lang_id=0,
+                                 confidence_threshold=0.0, batch_files=8,
+                                 device="cuda", compute_dtype=torch.bfloat16)
+        serving = phase_parallel_serving(root, cfg, ckpt, wav_dir, ref_labs)
+    return dict(kernels=kern, train=train, serving=serving)
+
+
 def k6_row(kern: dict, strict: dict) -> dict:
     """The strict attention dropout's row: K6 runs inside the four attention
     kernels, so its launches are the dropout launches of phase 6b's
@@ -4076,8 +4522,11 @@ def k6_row(kern: dict, strict: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "conv", "train", "whisper",
-                                       "modules", "optim"), default=None)
+                                       "modules", "optim", "parallel"),
+                    default=None)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--rank-train", nargs="+", metavar="CONFIG OUT",
+                    help="(run by phase 11b under torch.distributed.run)")
     args = ap.parse_args()
 
     import torch
@@ -4085,6 +4534,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.rank_train:
+        rank_train(args.rank_train)
+        return 0
     from wfl_asr_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
 
     card = card_line()
@@ -4123,11 +4575,14 @@ def main() -> int:
                        args.iters)
         log_laps()
         return 0
-    if args.only in ("train", "whisper", "modules", "optim"):  # iterating
+    if args.only in ("train", "whisper", "modules", "optim",
+                     "parallel"):           # iterating
         root = tempfile.mkdtemp(prefix="wfl_smoke_")
         try:
             if args.only == "train":        # phases 6-7b
                 train_phases(root)
+            elif args.only == "parallel":   # phase 11
+                parallel_phases(root)
             elif args.only == "optim":      # phases 10e-10f
                 with lap("10e"):
                     phase_optimizers(root, FLAGSHIP_LABELS)
@@ -4178,6 +4633,8 @@ def main() -> int:
             "wgmma128"]
         modules = module_phases(root, run["cfg"], run["ckpt"],
                                 FLAGSHIP_LABELS, args.iters)
+        par = parallel_phases(root, run["cfg"], run["ckpt"], run["wav_dir"],
+                              os.path.join(root, "labs"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log_laps()
@@ -4271,6 +4728,17 @@ def main() -> int:
         + "; phase 10f loop.train " + ", ".join(
             f"{n} {r['wall_s']:.1f} s" for n, r in
             modules["optim_train"].items()))
+    pt = par["train"]
+    log("[summary] phase 11: kernels on 2 × 2 batch/head shards, worst "
+        "|shard − unsharded| / max " + "; ".join(
+            f"{n} {dt} " + "/".join(f"{v:.1e}" for v in r["worst"].values())
+            for (n, dt), r in par["kernels"].items())
+        + "; NCCL worlds of one: " + ", ".join(
+            f"{m} step {r['step_ms'][-1]:.1f} ms, {r['peak_gb']:.2f} GiB, "
+            f"K2/K2b {r['counts']['K2']}/{r['counts']['K2b']}"
+            for m, r in pt.items())
+        + f"; data-parallel serving {par['serving']['wall']:.2f} s, .lab "
+        f"byte-identical")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

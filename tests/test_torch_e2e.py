@@ -183,8 +183,8 @@ def test_cli_folder_parity(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_no_jax():
-    """The port's package, pipeline, tagger, kernel, training and utility
-    modules import neither jax, optax nor wfl_asr_tpu."""
+    """The port's package, pipeline, tagger, kernel, training, parallel and
+    utility modules import neither jax, optax nor wfl_asr_tpu."""
     code = ("import sys\n"
             "import wfl_asr_tpu_torch, wfl_asr_tpu_torch.infer.pipeline\n"
             "import wfl_asr_tpu_torch.infer.cli\n"
@@ -202,6 +202,11 @@ def test_port_imports_no_jax():
             "import wfl_asr_tpu_torch.train.schedules\n"
             "import wfl_asr_tpu_torch.data.dataset\n"
             "import wfl_asr_tpu_torch.preprocess\n"
+            "import wfl_asr_tpu_torch.parallel\n"
+            "import wfl_asr_tpu_torch.parallel.mesh\n"
+            "import wfl_asr_tpu_torch.parallel.fsdp\n"
+            "import wfl_asr_tpu_torch.parallel.tp\n"
+            "import wfl_asr_tpu_torch.parallel.sp\n"
             "bad = [m for m in sys.modules if m in ('jax', 'optax') or "
             "m.startswith(('jax.', 'optax.', 'wfl_asr_tpu.')) or "
             "m == 'wfl_asr_tpu']\n"

@@ -538,14 +538,80 @@ def test_train_loop_end_to_end(prepped):
 
 def test_unported_options_raise(prepped):
     root, cfg = prepped
-    for section, key, val in (("training", "fsdp", True),
-                              ("training", "sequence_parallel", True),
-                              ("training", "model_parallel", 2)):
+    for section, key, val in (("training", "pipeline_parallel", 2),
+                              ("output", "checkpoint_format", "orbax")):
         raw = json.loads(json.dumps(cfg))
         raw[section][key] = val
         raw["model"]["num_languages"] = 2
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TLOOP.train(raw, device="cpu")
+
+
+@pytest.mark.parametrize("key,val,warning", [
+    ("fsdp", True, "training.fsdp ignored: single visible device"),
+    ("sequence_parallel", True, "training.sequence_parallel ignored"),
+    ("model_parallel", 2, "training.model_parallel=2 ignored"),
+])
+def test_parallel_options_warn_in_one_process(prepped, capsys, key, val,
+                                              warning):
+    """Without a process group (one device) the parallel options warn, as
+    the JAX loop does, and the run stays on one device."""
+    _, cfg = prepped
+    raw = json.loads(json.dumps(cfg))
+    raw["training"][key] = val
+    par = TLOOP.plan_parallel(Config(raw), "cpu")
+    assert par.mesh is None and not par.fsdp
+    assert warning in capsys.readouterr().out
+
+
+def test_parallel_option_errors(prepped):
+    """FSDP with model parallelism is the JAX loop's ValueError, even on one
+    device."""
+    _, cfg = prepped
+    raw = json.loads(json.dumps(cfg))
+    raw["training"].update(fsdp=True, model_parallel=2)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        TLOOP.plan_parallel(Config(raw), "cpu")
+
+
+@pytest.mark.parametrize("training,nodes,match", [
+    ({"remat": "auto"}, 1, "remat: auto is single-process only"),
+    ({"fsdp": True}, 2, "fsdp is not supported across nodes"),
+    ({"model_parallel": 2}, 2, "model_parallel > 1 is not supported across"),
+])
+def test_parallel_option_errors_of_a_world(prepped, monkeypatch, training,
+                                           nodes, match):
+    """In a world of two ranks (on two nodes where named), the JAX loop's
+    ValueErrors: remat auto with more than one rank, FSDP or model
+    parallelism across nodes."""
+    _, cfg = prepped
+    raw = json.loads(json.dumps(cfg))
+    raw["training"].update(training)
+    monkeypatch.setattr(TLOOP.pmesh, "world_size", lambda: 2)
+    monkeypatch.setattr(TLOOP.pmesh, "node_count", lambda env=None: nodes)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    with pytest.raises(ValueError, match=match):
+        TLOOP.plan_parallel(Config(raw), "cpu")
+
+
+def test_parallel_options_train_in_one_process(prepped, tmp_path, capsys):
+    """A config with fsdp, sequence_parallel and sharded_validation trains
+    in one process, warning for the first two."""
+    _, cfg = prepped
+    raw = json.loads(json.dumps(cfg))
+    raw["model"]["num_languages"] = 2
+    raw["training"].update(fsdp=True, sequence_parallel=True,
+                           sharded_validation=True, max_steps=2,
+                           log_dir=str(tmp_path / "logs"))
+    raw["output"]["save_dir"] = str(tmp_path)
+    for name in ("phonemes.txt", "dataset.json", "langs.txt"):
+        src = os.path.join(cfg["output"]["save_dir"], name)
+        with open(src, "rb") as f, open(tmp_path / name, "wb") as g:
+            g.write(f.read())
+    TLOOP.train(raw, device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("ignored") == 2
+    assert os.path.exists(tmp_path / "last_model.pt")
 
 
 def test_train_needs_cuda_unless_asked_for_the_cpu(prepped, monkeypatch):

@@ -86,14 +86,20 @@ def train_sidecar_path(model_path: str) -> str:
     return re.sub(r"\.pt$", "", model_path) + ".train.pt"
 
 
-def save_train_state(model_path: str, optimizer: torch.optim.Optimizer,
-                     step: int, generator: torch.Generator,
-                     scheduler_state: Optional[Dict] = None) -> None:
-    """Optimizer state, step, the dropout generator's state and the LR
-    scheduler's state beside ``model_path``."""
-    _atomic_save({"optimizer": optimizer.state_dict(), "step": int(step),
+def save_train_state(model_path: str, optimizer, step: int,
+                     generator: torch.Generator,
+                     scheduler_state: Optional[Dict] = None,
+                     extra: Optional[Dict] = None) -> None:
+    """Optimizer state (an optimizer, or its ``state_dict`` already taken),
+    step, the dropout generator's state and the LR scheduler's state beside
+    ``model_path``; ``extra``: more entries (a sharded run's per-rank
+    generator states)."""
+    opt_state = optimizer if isinstance(optimizer, dict) \
+        else optimizer.state_dict()
+    _atomic_save({"optimizer": opt_state, "step": int(step),
                   "generator": generator.get_state(),
-                  "scheduler": dict(scheduler_state or {})},
+                  "scheduler": dict(scheduler_state or {}),
+                  **dict(extra or {})},
                  train_sidecar_path(model_path))
 
 

@@ -137,6 +137,15 @@ def resample(samples: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
     return resample_poly(samples, new_sr // g, orig_sr // g, axis=0)
 
 
+def resampled_length(n: int, orig_sr: int, new_sr: int) -> int:
+    """Samples :func:`resample` returns for ``n`` (polyphase:
+    ⌈n·up/down⌉), from a header alone."""
+    if orig_sr == new_sr:
+        return n
+    g = gcd(int(orig_sr), int(new_sr))
+    return -(-n * (int(new_sr) // g) // (int(orig_sr) // g))
+
+
 def peak_normalize(samples: np.ndarray, eps: float = 0.0) -> np.ndarray:
     """Divide by peak absolute value; silence passes through unchanged
     (reference train.py:65-69; infer.py:234-235 adds 1e-8 via ``eps``)."""

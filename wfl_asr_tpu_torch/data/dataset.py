@@ -10,6 +10,16 @@ to 1 s multiples, labels to 50-frame multiples, offset targets to
 64-multiples) so the number of distinct batch shapes stays bounded; extra
 label frames carry −100 and are ignored by the loss. The split and the
 augmentation are seeded. A background thread prefetches batches.
+
+Under data parallelism every rank of a node walks the same seeded batch
+order and collates only its rows of each batch (``BatchLoader(rows=…)``),
+at the batch's padded lengths, which the loader takes from the metadata
+and the WAV headers of the whole batch: a rank's rows are then the rows
+of the one-process batch, padded alike (the Conformer's BatchNorm takes
+its statistics over padded frames too). Across nodes each node takes its
+share of the files (``shard_indices_for_process``) and the collated
+shapes are pinned to the dataset's maxima (``global_max_lengths``), as
+in the JAX package's multi-host input.
 """
 
 from __future__ import annotations
@@ -17,12 +27,13 @@ from __future__ import annotations
 import json
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..train.losses import offset_targets_from_segments
-from .audio import peak_normalize, read_wav, resample
+from .audio import peak_normalize, read_wav, resample, resampled_length, \
+    wav_duration
 
 AUDIO_BUCKET = 16000        # 1 s at 16 kHz
 LABEL_BUCKET = 50           # 1 s at 20 ms frames
@@ -54,6 +65,25 @@ class PhonemeDataset:
 
     def __len__(self) -> int:
         return len(self.samples)
+
+    def item_lengths(self, idx: int) -> Tuple[int, int, int]:
+        """(audio samples at the target rate, label frames, offset targets
+        before bucketing) of an item, from its metadata and WAV header
+        alone: what :func:`collate` pads to."""
+        sample = self.samples[idx]
+        n = resampled_length(*wav_duration(sample["wav_path"]),
+                             self.sample_rate)
+        if self.max_seq_len:
+            n = min(n, self.max_seq_len)
+        targets = sum(1 for seg in sample["phoneme_segments"]
+                      if isinstance(seg, (list, tuple)) and len(seg) == 3) * 2
+        return n, len(sample["bio_tags"]), targets
+
+    def global_max_lengths(self) -> Tuple[int, int, int]:
+        """The largest :meth:`item_lengths` over the dataset (multi-node
+        input pins the collated shapes to them)."""
+        lens = [self.item_lengths(i) for i in range(len(self.samples))]
+        return tuple(max((x[j] for x in lens), default=0) for j in range(3))
 
     def get_item(self, idx: int, rng: Optional[np.random.RandomState] = None
                  ) -> Dict:
@@ -96,15 +126,31 @@ def split_dataset(n: int, num_val: int, seed: int):
     return perm[num_val:].tolist(), perm[:num_val].tolist()
 
 
-def collate(items: List[Dict], frame_duration: float = 0.02) -> Dict:
+def shard_indices_for_process(indices, process_index: int,
+                              process_count: int):
+    """Disjoint equal-size contiguous shards of a (seeded-shuffled) index
+    list, one a node: ``floor(n / process_count)`` items each, so every
+    node runs as many batches an epoch (unequal shards would leave some
+    ranks waiting in a collective)."""
+    per = len(indices) // process_count
+    return list(indices[process_index * per:(process_index + 1) * per])
+
+
+def collate(items: List[Dict], frame_duration: float = 0.02,
+            fixed_audio_len: int = 0, fixed_label_len: int = 0,
+            fixed_targets_len: int = 0) -> Dict:
     """Bucket-padded batch: audio 0.0-padded, labels −100-padded
-    (reference collate_fn train.py:22-36), plus vectorized offset targets."""
+    (reference collate_fn train.py:22-36), plus vectorized offset targets.
+    ``fixed_*``: pad to at least these lengths (a rank's rows of a larger
+    batch, or the dataset's maxima across nodes)."""
     batch = len(items)
     label_lengths = np.array([len(it["label_ids"]) for it in items], np.int32)
     max_label_len = int(label_lengths.max()) if batch else 0
-    padded_label_len = _round_up(max_label_len, LABEL_BUCKET)
+    padded_label_len = _round_up(max(max_label_len, fixed_label_len),
+                                 LABEL_BUCKET)
     max_audio = max(len(it["audio"]) for it in items)
-    padded_audio_len = _round_up(max_audio, AUDIO_BUCKET)
+    padded_audio_len = _round_up(max(max_audio, fixed_audio_len),
+                                 AUDIO_BUCKET)
 
     audio = np.zeros((batch, padded_audio_len), np.float32)
     labels = np.full((batch, padded_label_len), -100, np.int64)
@@ -113,7 +159,8 @@ def collate(items: List[Dict], frame_duration: float = 0.02) -> Dict:
     max_targets = max((sum(1 for s in it["segments"]
                            if isinstance(s, (list, tuple)) and len(s) == 3) * 2
                        for it in items), default=1)
-    max_targets = _round_up(max(max_targets, 1), TARGET_BUCKET)
+    max_targets = _round_up(max(max_targets, fixed_targets_len, 1),
+                            TARGET_BUCKET)
     off_f = np.zeros((batch, max_targets), np.int32)
     off_c = np.zeros((batch, max_targets), np.int32)
     off_x = np.zeros((batch, max_targets), np.float32)
@@ -145,7 +192,16 @@ class BatchLoader:
     def __init__(self, dataset: PhonemeDataset, indices: Sequence[int],
                  batch_size: int, seed: int = 0, shuffle: bool = True,
                  frame_duration: float = 0.02, prefetch: int = 2,
-                 drop_last: bool = False):
+                 drop_last: bool = False,
+                 rows: Optional[Tuple[int, int]] = None,
+                 fixed_lengths: Tuple[int, int, int] = (0, 0, 0)):
+        """``rows`` (lo, hi): collate only rows lo:hi of each batch (a data
+        rank's share; the rows of a short last batch are split evenly), at
+        the padded lengths of the whole batch; a share left empty by a
+        short batch collates the batch's first row as a stand-in, marked
+        ``batch["stand_in"]`` (every rank runs as many forwards).
+        ``fixed_lengths``: (audio, labels, targets) to pad every batch to
+        at least."""
         self.dataset = dataset
         self.indices = list(indices)
         self.batch_size = batch_size
@@ -154,7 +210,31 @@ class BatchLoader:
         self.frame_duration = frame_duration
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.rows = rows
+        self.fixed_lengths = tuple(fixed_lengths)
         self.epoch = 0
+
+    def _collate(self, chunk, epoch: int) -> Dict:
+        fixed = self.fixed_lengths
+        if self.rows is not None:
+            lens = [self.dataset.item_lengths(i) for i in chunk]
+            fixed = tuple(max([f] + [x[j] for x in lens])
+                          for j, f in enumerate(fixed))
+            lo, hi = self.rows
+            if len(chunk) < self.batch_size:
+                lo = lo * len(chunk) // self.batch_size
+                hi = hi * len(chunk) // self.batch_size
+            stand_in = lo == hi
+            chunk = chunk[:1] if stand_in else chunk[lo:hi]
+        items = []
+        for idx in chunk:
+            rng = np.random.RandomState(
+                hash((self.seed, epoch, idx)) % (2 ** 31))
+            items.append(self.dataset.get_item(idx, rng))
+        batch = collate(items, self.frame_duration, *fixed)
+        if self.rows is not None:
+            batch["stand_in"] = stand_in
+        return batch
 
     def __len__(self) -> int:
         n = len(self.indices)
@@ -192,12 +272,7 @@ class BatchLoader:
                     chunk = order[start:start + self.batch_size]
                     if self.drop_last and len(chunk) < self.batch_size:
                         break
-                    items = []
-                    for j, idx in enumerate(chunk):
-                        rng = np.random.RandomState(
-                            hash((self.seed, epoch, idx)) % (2 ** 31))
-                        items.append(self.dataset.get_item(idx, rng))
-                    if not put(out_q, collate(items, self.frame_duration)):
+                    if not put(out_q, self._collate(chunk, epoch)):
                         return
             except Exception as exc:  # surface loader errors to the consumer
                 put(out_q, exc)

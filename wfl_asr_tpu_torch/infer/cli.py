@@ -103,6 +103,9 @@ def main(path, checkpoint, config, output, lang_id, sample, top_k, top_p,
         print("Predicted segments:")
         for start, end, ph in segments:
             print(f"({round(start, 2)}, {round(end, 2)}, {ph})")
+    import torch.distributed as dist
+    if dist.is_initialized():        # joined under torchrun
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

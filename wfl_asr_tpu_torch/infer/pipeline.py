@@ -23,8 +23,17 @@ device and moves segment arrays to the host once; the host multiplies
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device they raise. ``model.serving_quantization: int8`` swaps the
 encoder's large linears for W8A8-dynamic int8 ones at load
-(``models.layers.quantize_int8``). Pipeline and sequence parallelism are
-not ported and raise ``NotImplementedError``.
+(``models.layers.quantize_int8``).
+
+Under a launcher (``torchrun``, one process a GPU):
+``infer_folder_batched(data_parallel=None)`` spreads each batch of files
+over the ranks (on when the world has more than one rank): each rank serves
+a contiguous share of the batch's files, at the whole batch's bucket length,
+and writes their ``.lab`` and ``.wfl_cache`` files. ``InferenceSession(...,
+model_parallel=N)`` shards the weights for tensor-parallel serving
+(``parallel/tp.py``), with ``model.sequence_parallel`` as in training.
+Pipeline parallelism (``model.pipeline_parallel > 1``) is not ported and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,13 +47,15 @@ import torch
 
 from ..checkpoint import load_model_checkpoint
 from ..config import Config, as_config
-from ..data.audio import peak_normalize, read_wav, resample, wav_duration
+from ..data.audio import peak_normalize, read_wav, resample, \
+    resampled_length, wav_duration
 from ..labels import (Segment, align_phoneme_list, canonical_to_lang,
                       decode_bio_tags, load_langs, load_phoneme_list,
                       load_phoneme_merge_map, merge_adjacent_segments,
                       save_lab)
 from ..models.layers import quantize_int8
 from ..models.tagger import TaggerArch
+from ..parallel import mesh as pmesh
 from ..ops.postprocess import (bio_tables, confidence_gate_ids,
                                extract_segments_ids, median_filter_ids,
                                median_filter_ids_masked)
@@ -77,11 +88,19 @@ def split_audio(audio: np.ndarray, sr: int,
 
 
 class InferenceSession:
-    """A loaded tagger on one device, with the bucketed forward."""
+    """A loaded tagger on one device, with the bucketed forward.
+
+    ``model_parallel`` > 1 (under an initialized process group): the
+    weights sharded for tensor parallelism over a ``("data", "model")``
+    mesh of the world; every rank of a model group must then call the
+    forwards with the same rows. ``data_parallel``: a mesh over the world
+    (model dim 1) for :func:`infer_folder_batched` to spread files over;
+    the forwards stay rank-local."""
 
     def __init__(self, config: ConfigLike, checkpoint_path: str,
                  compute_dtype: torch.dtype = torch.float32,
-                 arch: Optional[TaggerArch] = None, device=None):
+                 arch: Optional[TaggerArch] = None, device=None,
+                 model_parallel: int = 1, data_parallel: bool = False):
         self.device = resolve_device(device)
         self.cfg = as_config(config)
         save_dir = self.cfg.save_dir
@@ -98,11 +117,14 @@ class InferenceSession:
         if quant not in ("none", "int8"):
             raise ValueError(f"model.serving_quantization={quant!r}: only "
                              f"'int8' or 'none' are supported")
-        if int(self.cfg.serving_pipeline_parallel) > 1 \
-                or self.cfg.serving_sequence_parallel:
+        if int(self.cfg.serving_pipeline_parallel) > 1:
             raise NotImplementedError(
-                "pipeline/sequence-parallel serving is not ported "
-                "(ROADMAP.md Queue 1: parallel/)")
+                "model.pipeline_parallel serving is not ported to "
+                "wfl_asr_tpu_torch yet (ROADMAP.md Queue 1)")
+        model_parallel = int(model_parallel)
+        if model_parallel > 1 and quant == "int8":
+            raise ValueError("model.serving_quantization: int8 and "
+                             "model_parallel > 1 do not combine")
         model = load_model_checkpoint(checkpoint_path, self.arch)
         self.quantized: List[str] = []
         if quant == "int8" and self.arch.encoder_type != "none":
@@ -112,6 +134,24 @@ class InferenceSession:
             print("[INFO] int8 serving: encoder linears quantized "
                   "(W8A8-dynamic, per-output-channel weights)")
         self.model = model.to(self.device)
+        self.mesh = None
+        if model_parallel > 1 or (data_parallel
+                                  and torch.distributed.is_initialized()):
+            from ..parallel import tp
+            self.mesh = pmesh.make_mesh(model_parallel, self.device)
+            if model_parallel > 1:
+                tp.shard_params_tp(self.model, self.mesh)
+                print(f"[INFO] tensor-parallel serving: mesh "
+                      f"{self.mesh.shape}")
+        # model.sequence_parallel: the encoder's time axis sharded between
+        # layers (parallel/sp.py); needs a mesh with model > 1
+        self.sequence_parallel = bool(self.cfg.serving_sequence_parallel
+                                      and model_parallel > 1)
+        if self.cfg.serving_sequence_parallel and not self.sequence_parallel:
+            print("[WARN] model.sequence_parallel ignored: the session has "
+                  "no mesh with a >1 'model' axis")
+        if self.sequence_parallel and self.arch.encoder_type != "none":
+            self.model.encoder.sequence_parallel = True
         self.compute_dtype = compute_dtype
         self.sr = self.cfg.sample_rate
         # Position-bias store: one buffer at the largest bucket length seen
@@ -229,11 +269,14 @@ class InferenceSession:
                 offsets[:, :t_ref].float().cpu().numpy())
 
     def _forward_many_device(self, audios: Sequence[np.ndarray],
-                             lang_ids_per_item: Sequence[Sequence[int]]):
+                             lang_ids_per_item: Sequence[Sequence[int]],
+                             bucket: Optional[int] = None):
         """One bucketed forward over every (item, language) row with per-row
-        masks; returns DEVICE outputs and each item's true frame count."""
+        masks; returns DEVICE outputs and each item's true frame count.
+        ``bucket``: the padded length (a share of a larger batch runs at
+        the batch's)."""
         s_true = [len(a) for a in audios]
-        bucket = self._bucket(max(s_true))
+        bucket = max(bucket or 0, self._bucket(max(s_true)))
         t_pad = self.num_frames_for(bucket)
         rows_audio, rows_lang, row_owner = [], [], []
         for i, (audio, langs) in enumerate(zip(audios, lang_ids_per_item)):
@@ -255,13 +298,15 @@ class InferenceSession:
         return logits, offsets, t_refs
 
     def forward_many(self, audios: Sequence[np.ndarray],
-                     lang_ids_per_item: Sequence[Sequence[int]]):
+                     lang_ids_per_item: Sequence[Sequence[int]],
+                     bucket: Optional[int] = None):
         """Batched multi-utterance forward; per item (logits [L_i, T_i, n],
-        offsets [L_i, T_i, 2]) as f32 numpy."""
+        offsets [L_i, T_i, 2]) as f32 numpy. ``bucket``: the padded length
+        to run at, at least."""
         if not audios:
             return []
         logits, offsets, t_refs = self._forward_many_device(
-            audios, lang_ids_per_item)
+            audios, lang_ids_per_item, bucket)
         logits = logits.float().cpu().numpy()
         offsets = offsets.float().cpu().numpy()
         out, row = [], 0
@@ -282,7 +327,8 @@ class InferenceSession:
 
     def forward_many_decoded(self, audios: Sequence[np.ndarray],
                              langs: Sequence[int],
-                             confidence_threshold: float, median_size: int):
+                             confidence_threshold: float, median_size: int,
+                             bucket: Optional[int] = None):
         """Batched forward + device-side language averaging, gate, masked
         median and BIO decode; one host transfer of segment arrays (plus the
         averaged logits/offsets the ``.wfl_cache`` needs). Every item uses
@@ -292,7 +338,7 @@ class InferenceSession:
             return []
         n_items, n_langs = len(audios), len(langs)
         logits, offsets, t_refs = self._forward_many_device(
-            audios, [list(langs)] * n_items)
+            audios, [list(langs)] * n_items, bucket)
         kind_t, ph_t, ph_names = self._bio()
         o_id = self.label2id["O"]
         with torch.inference_mode():
@@ -476,16 +522,23 @@ def _config_key(config: ConfigLike):
 
 
 def _get_session(config: ConfigLike, checkpoint_path: str, device=None,
-                 compute_dtype: torch.dtype = torch.float32
-                 ) -> InferenceSession:
-    """One cached session per (config, checkpoint, device, dtype)."""
+                 compute_dtype: torch.dtype = torch.float32,
+                 data_parallel: bool = False) -> InferenceSession:
+    """One cached session per (config, checkpoint, device, dtype, data
+    parallel). Joins the launcher's process group first, if there is one
+    (a plain run is untouched); ``data_parallel`` takes effect in a process
+    group (a world of one too)."""
+    pmesh.maybe_initialize_distributed(
+        device="cpu" if str(device) == "cpu" else "cuda")
     dev = resolve_device(device)
+    data_parallel = bool(data_parallel) and torch.distributed.is_initialized()
     key = (_config_key(config), os.path.abspath(checkpoint_path), str(dev),
-           compute_dtype)
+           compute_dtype, data_parallel)
     session = _SESSION_CACHE.get(key)
     if session is None:
         session = InferenceSession(config, checkpoint_path,
-                                   compute_dtype=compute_dtype, device=dev)
+                                   compute_dtype=compute_dtype, device=dev,
+                                   data_parallel=data_parallel)
         _SESSION_CACHE[key] = session
     return session
 
@@ -586,13 +639,27 @@ def infer_folder_batched(folder_path: str,
                          lang_id: Optional[int] = None,
                          confidence_threshold: float = 0.0,
                          batch_files: int = 8, device=None,
-                         compute_dtype: torch.dtype = torch.float32) -> None:
+                         compute_dtype: torch.dtype = torch.float32,
+                         data_parallel: Optional[bool] = None) -> None:
     """Throughput folder mode: ≤ 30 s files are batched into shared bucketed
     forwards via per-row masks, with outputs identical to per-file
     inference. Longer files take the chunked path; cached files skip the
-    forward."""
+    forward.
+
+    ``data_parallel`` (default: on when the launcher's world has more than
+    one rank): each rank serves a contiguous share of each batch's files,
+    at the whole batch's bucket length, and the longer and the cached
+    files in turn; each rank writes the ``.lab`` and ``.wfl_cache`` files of
+    what it serves. Which files are cached is decided by every rank before
+    any rank writes."""
+    pmesh.maybe_initialize_distributed(
+        device="cpu" if str(device) == "cpu" else "cuda")
+    if data_parallel is None:
+        data_parallel = pmesh.world_size() > 1
     session = _get_session(config_path, checkpoint_path, device,
-                           compute_dtype)
+                           compute_dtype, data_parallel=data_parallel)
+    mesh = session.mesh if data_parallel else None
+    ranks, me = (mesh.data_size, mesh.data_rank) if mesh else (1, 0)
     os.makedirs(output_dir, exist_ok=True)
     median_size = session.cfg.median_filter
     lang_suffix = f"_lang{lang_id}" if lang_id is not None else "_avg"
@@ -611,12 +678,27 @@ def infer_folder_batched(folder_path: str,
         save_lab(os.path.join(output_dir, name.replace(".wav", ".lab")),
                  segments)
 
+    def load(path):
+        audio, sr = read_wav(path)
+        if audio.ndim > 1:
+            audio = audio.mean(axis=1)
+        if sr != session.sr:
+            audio = resample(audio, sr, session.sr)
+        if len(audio) > 0:
+            audio = peak_normalize(audio, eps=1e-8)
+        return np.asarray(audio, np.float32)
+
     def flush(group):
+        bucket = session._bucket(max(g[2] for g in group))
+        group = group[me * len(group) // ranks:(me + 1) * len(group) // ranks]
+        if not group:
+            return
+        audios = [load(g[1]) for g in group]
         if session.cfg.device_decode:
             results = session.forward_many_decoded(
-                [g[1] for g in group], langs, confidence_threshold,
-                median_size)
-            for (name, _audio, logit_path, offset_path), \
+                audios, langs, confidence_threshold, median_size,
+                bucket=bucket)
+            for (name, _path, _n, logit_path, offset_path), \
                     (logits, offsets, segs) in zip(group, results):
                 _cache_save(logit_path, logits)
                 _cache_save(offset_path, offsets)
@@ -626,9 +708,9 @@ def infer_folder_batched(folder_path: str,
                             for s, e, ph in segs]
                 finish(name, segs)
             return
-        results = session.forward_many([g[1] for g in group],
-                                       [langs] * len(group))
-        for (name, _audio, logit_path, offset_path), (lg, off) in \
+        results = session.forward_many(audios, [langs] * len(group),
+                                       bucket=bucket)
+        for (name, _path, _n, logit_path, offset_path), (lg, off) in \
                 zip(group, results):
             logits = lg.mean(axis=0)
             offsets = off.mean(axis=0)
@@ -638,7 +720,10 @@ def infer_folder_batched(folder_path: str,
                                          confidence_threshold, median_size,
                                          lang_name))
 
-    pending = []  # (name, audio, logit_path, offset_path)
+    # every rank classifies every file before any rank writes a cache entry
+    cache_dir = os.path.join(folder_path, ".wfl_cache")
+    os.makedirs(cache_dir, exist_ok=True)
+    work = []
     for name in sorted(f for f in os.listdir(folder_path)
                        if f.lower().endswith(".wav")):
         path = os.path.join(folder_path, name)
@@ -646,36 +731,45 @@ def infer_folder_batched(folder_path: str,
         # path even if a stale short-file cache entry has its name
         n_samples, sr_hdr = wav_duration(path)
         if n_samples / sr_hdr > MAX_SEGMENT_DURATION:
-            infer_audio(path, config_path, checkpoint_path,
-                        os.path.join(output_dir, name.replace(".wav", ".lab")),
-                        device=device, lang_id=lang_id,
-                        confidence_threshold=confidence_threshold,
-                        compute_dtype=compute_dtype)
+            work.append(("long", name, path))
             continue
-        cache_dir = os.path.join(folder_path, ".wfl_cache")
-        os.makedirs(cache_dir, exist_ok=True)
         base = os.path.splitext(name)[0]
         logit_path = os.path.join(cache_dir, f"{base}{lang_suffix}_logits.pt")
         offset_path = os.path.join(cache_dir,
                                    f"{base}{lang_suffix}_offsets.pt")
         cached = _squeeze_batch(_cache_load(logit_path))
         if cached is not None:
+            work.append(("cached", name, cached, offset_path))
+            continue
+        work.append(("new", name, path,
+                     resampled_length(n_samples, sr_hdr, session.sr),
+                     logit_path, offset_path))
+    if mesh is not None:
+        torch.distributed.barrier()
+
+    pending = []  # (name, path, samples, logit_path, offset_path)
+    turn = 0      # the rank whose turn a long or cached file is
+    for kind, name, *rest in work:
+        if kind == "new":
+            pending.append((name, *rest))
+            if len(pending) >= batch_files:
+                flush(pending)
+                pending = []
+            continue
+        mine, turn = turn == me, (turn + 1) % ranks
+        if not mine:
+            continue
+        if kind == "long":
+            infer_audio(rest[0], config_path, checkpoint_path,
+                        os.path.join(output_dir, name.replace(".wav", ".lab")),
+                        device=device, lang_id=lang_id,
+                        confidence_threshold=confidence_threshold,
+                        compute_dtype=compute_dtype)
+        else:
+            cached, offset_path = rest
             finish(name, _decode_segment(
                 session, cached, _squeeze_batch(_cache_load(offset_path)),
                 confidence_threshold, median_size, lang_name))
-            continue
-        audio, sr = read_wav(path)
-        if audio.ndim > 1:
-            audio = audio.mean(axis=1)
-        if sr != session.sr:
-            audio = resample(audio, sr, session.sr)
-        if len(audio) > 0:
-            audio = peak_normalize(audio, eps=1e-8)
-        pending.append((name, np.asarray(audio, np.float32),
-                        logit_path, offset_path))
-        if len(pending) >= batch_files:
-            flush(pending)
-            pending = []
     if pending:
         flush(pending)
 

@@ -31,6 +31,8 @@ from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from ..ops.kernels.flash_attention_bwd import flash_attention_trainable
+from ..parallel.mesh import all_reduce_sum, shard_origin
+from ..parallel.tp import copy_to_model
 from . import layers
 from .layers import conv1d, dropout, gelu, layer_norm, linear
 
@@ -101,29 +103,51 @@ class PackedSelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        # the parallel.mesh.Mesh of a sharded run (parallel.tp): under
+        # tensor parallelism each rank attends with its heads, their rows of
+        # the q, k and v blocks of the (replicated) packed projection
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, kv_len=None,
                 dropout_rate: float = 0.0, dropout_seed=None) -> torch.Tensor:
         b, t, dim = x.shape
         d = dim // self.heads
-        w = self.in_proj_weight.to(x.dtype)
-        bias = self.in_proj_bias.to(x.dtype)
+        heads, h0, mesh = self.heads, 0, self.mesh
+        w, bias = self.in_proj_weight, self.in_proj_bias
+        if mesh is not None and mesh.model_size > 1:
+            heads = self.heads // mesh.model_size
+            h0 = mesh.model_rank * heads
+            # every rank's rows of the replicated projection get their
+            # gradient from this rank alone: sum them over the model group
+            x, w, bias = (copy_to_model(a, mesh.model_group)
+                          for a in (x, w, bias))
+        w, bias = w.to(x.dtype), bias.to(x.dtype)
 
         def proj(i):
-            h = F.linear(x, w[i * dim:(i + 1) * dim], bias[i * dim:(i + 1) * dim])
-            return h.reshape(b, t, self.heads, d).transpose(1, 2).contiguous()
+            lo = i * dim + h0 * d
+            h = F.linear(x, w[lo:lo + heads * d], bias[lo:lo + heads * d])
+            return h.reshape(b, t, heads, d).transpose(1, 2).contiguous()
 
-        attn = flash_attention_trainable(proj(0), proj(1), proj(2), kv_len,
-                                         dropout_rate, dropout_seed)
-        return linear(self.out_proj, attn.transpose(1, 2).reshape(b, t, dim))
+        attn = flash_attention_trainable(
+            proj(0), proj(1), proj(2), kv_len, dropout_rate, dropout_seed,
+            origin=shard_origin(mesh, b, h0))
+        return linear(self.out_proj,
+                      attn.transpose(1, 2).reshape(b, t, heads * d))
 
 
-def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor,
+               mesh=None) -> torch.Tensor:
     """BatchNorm over [B, C, T] in f32: running statistics in eval; in
     training the batch statistics, with the running ones updated in place
-    (``nn.BatchNorm1d``'s train-mode semantics)."""
+    (``nn.BatchNorm1d``'s train-mode semantics). With a ``mesh`` whose
+    data dim is > 1 the batch is the data ranks' rows together
+    (SyncBatchNorm's semantics): mean and variance reduced over the data
+    group, differentiably, and the running statistics updated with them,
+    the same on every rank."""
     if bn.training:
         bn.num_batches_tracked += 1
+        if mesh is not None and mesh.data_size > 1:
+            return _batch_norm_synced(bn, x, mesh).to(x.dtype)
         y = torch.nn.functional.batch_norm(
             x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
             training=True, momentum=bn.momentum, eps=bn.eps)
@@ -132,6 +156,25 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
         * torch.rsqrt(bn.running_var[None, :, None] + bn.eps)
     y = y * bn.weight[None, :, None] + bn.bias[None, :, None]
     return y.to(x.dtype)
+
+
+def _batch_norm_synced(bn: nn.BatchNorm1d, x: torch.Tensor,
+                       mesh) -> torch.Tensor:
+    """Train-mode BatchNorm over the rows of every data rank (equal shapes
+    on every rank): two-pass mean and biased variance through a
+    differentiable all-reduce, the running variance unbiased."""
+    xf = x.float()
+    n = xf.shape[0] * xf.shape[2] * mesh.data_size
+    mean = all_reduce_sum(xf.sum(dim=(0, 2)), mesh.data_group) / n
+    c = xf - mean[None, :, None]
+    var = all_reduce_sum((c * c).sum(dim=(0, 2)), mesh.data_group) / n
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1 - m).add_(var.detach() * (n / max(n - 1, 1)),
+                                        alpha=m)
+    y = c * torch.rsqrt(var + bn.eps)[None, :, None]
+    return y * bn.weight[None, :, None] + bn.bias[None, :, None]
 
 
 class ConformerBlock(nn.Module):
@@ -151,6 +194,9 @@ class ConformerBlock(nn.Module):
             nn.Conv1d(dim, 2 * dim, 1), nn.GLU(dim=1),
             nn.Conv1d(dim, dim, conv_kernel, padding=conv_kernel // 2),
             nn.BatchNorm1d(dim), nn.GELU(), nn.Conv1d(dim, dim, 1))
+        # the parallel.mesh.Mesh of a sharded run: the BatchNorm's data
+        # group
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator=None) -> torch.Tensor:
@@ -178,7 +224,7 @@ class ConformerBlock(nn.Module):
         if mask is not None:
             h = h * mask[:, None, :].to(h.dtype)
         h = conv1d(self.conv[2], h, padding=self.conv_kernel // 2)
-        h = gelu(batch_norm(self.conv[3], h))
+        h = gelu(batch_norm(self.conv[3], h, self.mesh))
         h = conv1d(self.conv[5], h).transpose(1, 2)
         x = x + drop(h)
         return x + 0.5 * self.ff2(x, generator)

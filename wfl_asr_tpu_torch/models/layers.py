@@ -15,7 +15,7 @@ statistics in f32 whatever the activation dtype.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,16 +27,58 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+class Generators(NamedTuple):
+    """The two draw streams of a step sharded over several ranks: ``local``
+    for element-wise dropout masks (one stream a data rank, so that the
+    ranks' masks do not repeat), ``shared`` for the whole-batch draws —
+    LayerDrop and the strict-dropout seeds — which every rank must draw
+    alike. One process passes a single ``torch.Generator``, which serves
+    as both."""
+    local: torch.Generator
+    shared: torch.Generator
+
+
+def local_generator(generator):
+    """The element-wise dropout stream of ``generator`` (a
+    :class:`Generators` pair or a single generator)."""
+    return generator.local if isinstance(generator, Generators) \
+        else generator
+
+
+def shared_generator(generator):
+    """The whole-batch stream of ``generator`` (LayerDrop, strict-dropout
+    seeds)."""
+    return generator.shared if isinstance(generator, Generators) \
+        else generator
+
+
+def generator_state(generator):
+    """The state of a generator or of both of a pair."""
+    if isinstance(generator, Generators):
+        return Generators(generator.local.get_state(),
+                          generator.shared.get_state())
+    return generator.get_state()
+
+
+def set_generator_state(generator, state) -> None:
+    if isinstance(generator, Generators):
+        generator.local.set_state(state.local)
+        generator.shared.set_state(state.shared)
+    else:
+        generator.set_state(state)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None,
             training: bool = True) -> torch.Tensor:
     """Inverted dropout whose keep mask is drawn from ``generator`` (torch's
-    default generator when None; it must live on ``x``'s device). The
-    identity outside training or at rate 0."""
+    default generator when None; it must live on ``x``'s device; of a
+    :class:`Generators` pair, the local stream). The identity outside
+    training or at rate 0."""
     if not training or rate <= 0.0:
         return x
     keep = torch.empty(x.shape, dtype=x.dtype, device=x.device).bernoulli_(
-        1.0 - rate, generator=generator)
+        1.0 - rate, generator=local_generator(generator))
     return x * keep / (1.0 - rate)
 
 
@@ -53,26 +95,33 @@ def checkpointed(fn, generator: Optional[torch.Generator], *args):
     from torch.utils.checkpoint import checkpoint
     if generator is None:
         return checkpoint(fn, *args, None, use_reentrant=False)
-    start = generator.get_state()
-    private = torch.Generator(device=generator.device)
+    start = generator_state(generator)
+    if isinstance(generator, Generators):
+        private = Generators(*(torch.Generator(device=g.device)
+                               for g in generator))
+    else:
+        private = torch.Generator(device=generator.device)
 
     def run(*inputs):
-        private.set_state(start)
+        set_generator_state(private, start)
         return fn(*inputs, private)
 
     out = checkpoint(run, *args, use_reentrant=False)
-    generator.set_state(private.get_state())
+    set_generator_state(generator, generator_state(private))
     return out
 
 
 def attention_dropout_seed(generator: Optional[torch.Generator],
                            device) -> torch.Tensor:
     """One attention call's dropout seed (K6): an int32 drawn from
-    ``generator`` on ``device``, as [1] — it stays on the device, so the
+    ``generator`` (of a pair, the shared stream: every rank of a sharded
+    step draws the same seed) on ``device``, as [1] — it stays on the
+    device, so the
     kernels read it by pointer and the host never waits. The JAX package
     draws it with ``jax.random.randint(key, (), -2**31, 2**31 - 1)``
     (wavlm.py:418, heads.py:252)."""
-    return torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=generator,
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
+                         generator=shared_generator(generator),
                          device=device, dtype=torch.int32)
 
 
@@ -81,9 +130,29 @@ def _cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
 
 
 def linear(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W.T + b`` in ``x``'s dtype. Under tensor parallelism (weights
+    placed by ``parallel.tp``) a column-parallel layer (weight sharded on
+    its output dim) takes the replicated ``x`` and returns this rank's
+    columns, its input gradient summed over the model group; a
+    row-parallel layer (sharded on its input dim) takes this rank's
+    columns of ``x`` and returns the sum over the model group plus the
+    replicated bias."""
     if isinstance(mod, Int8Linear):
         return linear_int8(mod, x)
-    return F.linear(x, _cast(mod.weight, x.dtype), _cast(mod.bias, x.dtype))
+    w, b = mod.weight, mod.bias
+    if type(w) is not nn.Parameter and type(w) is not torch.Tensor:
+        from ..parallel import tp
+        shard = tp.model_dim_shard(w)
+        if shard is not None:
+            dim, group = shard
+            w = w.to_local()
+            b = b.to_local() if b is not None else None
+            if dim == 0:
+                return F.linear(tp.copy_to_model(x, group),
+                                _cast(w, x.dtype), _cast(b, x.dtype))
+            y = tp.reduce_from_model(F.linear(x, _cast(w, x.dtype)), group)
+            return y + b.to(y.dtype) if b is not None else y
+    return F.linear(x, _cast(w, x.dtype), _cast(b, x.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,9 @@ from torch import nn
 from ..ops.kernels.conv_fused import MAX_CHAIN, fused_conv_chain, \
     pack_weights
 from ..ops.kernels.flash_attention import flash_attention
+from ..parallel.mesh import local_tensor, shard_origin
+from ..parallel.sp import gather_time, shard_time, sp_active
+from ..parallel.tp import copy_to_model
 from . import layers
 from .layers import channel_stats, checkpointed, conv1d, dropout, gelu, \
     group_norm, layer_norm, linear
@@ -271,6 +274,11 @@ class WavLMLayer(nn.Module):
         self.feed_forward = FeedForward(arch)
         self.final_layer_norm = nn.LayerNorm(arch.hidden_size)
 
+    def forward(self, run, *args):
+        """``run(self, *args)``: the encoder's layer function, called through
+        the module so that hooks on the layer run (FSDP's gathers)."""
+        return run(self, *args)
+
 
 class WavLMTransformer(nn.Module):
     """HF ``WavLMEncoder``: pos conv, LayerNorm and the layer stack."""
@@ -296,12 +304,29 @@ class WavLMEncoder(nn.Module):
         # bucket index matrices per (length, device): lengths come in 1 s
         # buckets, so this stays small, and a step skips the host's [T, T]
         self._buckets = {}
+        # the parallel.mesh.Mesh of a sharded run (set by parallel.tp):
+        # local heads, shard origins of the dropout seeds
+        self.mesh = None
+        # sequence parallelism between layers (parallel/sp.py)
+        self.sequence_parallel = False
+
+    def _heads(self):
+        """(local heads, first local head, model group or None): all heads
+        and no group unless the mesh's model dim is > 1."""
+        heads, mesh = self.arch.num_heads, self.mesh
+        if mesh is None or mesh.model_size == 1:
+            return heads, 0, None
+        local = heads // mesh.model_size
+        return local, mesh.model_rank * local, mesh.model_group
 
     # -- position bias -------------------------------------------------------
 
     def position_bias(self, length: int) -> torch.Tensor:
-        """Shared (ungated) relative position bias [H, T, T], f32."""
-        table = self.encoder.layers[0].attention.rel_attn_embed.weight
+        """Shared (ungated) relative position bias [H, T, T], f32; under
+        tensor parallelism this rank's heads, [H/mp, T, T], from its shard
+        of the bucket table."""
+        table = local_tensor(
+            self.encoder.layers[0].attention.rel_attn_embed.weight)
         key = (length, table.device)
         buckets = self._buckets.get(key)
         if buckets is None:
@@ -427,21 +452,31 @@ class WavLMEncoder(nn.Module):
 
     def _gate_values(self, att: WavLMAttention,
                      x: torch.Tensor) -> torch.Tensor:
-        """WavLM's per-query position-bias gate → [B, H, T] f32."""
+        """WavLM's per-query position-bias gate → [B, H, T] f32 (this
+        rank's heads under tensor parallelism)."""
         b, t, _ = x.shape
-        heads = self.arch.num_heads
-        xh = x.reshape(b, t, heads, -1).transpose(1, 2)          # [B,H,T,D]
-        proj = linear(att.gru_rel_pos_linear, xh)                # [B,H,T,8]
+        heads, h0, group = self._heads()
+        lin = att.gru_rel_pos_linear
+        w, bias = lin.weight, lin.bias
+        if group is not None:
+            # the replicated projection serves this rank's heads only: its
+            # gradient, as the input's, is summed over the model group
+            x, w, bias = (copy_to_model(a, group) for a in (x, w, bias))
+        xh = x.reshape(b, t, self.arch.num_heads, -1)[:, :, h0:h0 + heads]
+        xh = xh.transpose(1, 2)                                  # [B,H,T,D]
+        proj = F.linear(xh, w.to(xh.dtype), bias.to(xh.dtype))   # [B,H,T,8]
         proj = proj.reshape(b, heads, t, 2, 4).sum(-1)
         gates = torch.sigmoid(proj.float())
-        const = att.gru_rel_pos_const.float().reshape(1, heads, 1)
+        const = local_tensor(att.gru_rel_pos_const).float().reshape(
+            1, heads, 1)
         return gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
 
     def _attend(self, att: WavLMAttention, x: torch.Tensor,
                 pos_bias: torch.Tensor, kv_len, generator=None
                 ) -> torch.Tensor:
         b, t, hid = x.shape
-        heads = self.arch.num_heads
+        heads, h0, _ = self._heads()
+        hid = hid * heads // self.arch.num_heads        # this rank's width
 
         def split(h):
             return h.reshape(b, t, heads, hid // heads).transpose(1, 2) \
@@ -458,7 +493,8 @@ class WavLMEncoder(nn.Module):
             # strict attention dropout, in-kernel (torch semantics)
             drop = dict(dropout_rate=arch.attention_dropout,
                         dropout_seed=layers.attention_dropout_seed(
-                            generator, x.device))
+                            generator, x.device),
+                        origin=shard_origin(self.mesh, b, h0))
         out = flash_attention(q, k, v, bias=pos_bias, gate=gate,
                               kv_len=kv_len, **drop)
         return linear(att.out_proj, out.transpose(1, 2).reshape(b, t, hid))
@@ -523,16 +559,26 @@ class WavLMEncoder(nn.Module):
             pos_bias = pos_bias.to(compute_dtype)
         kv_len = (mask.to(torch.int32).sum(-1) if mask is not None else None)
         layerdrop = arch.layerdrop if self.training else 0.0
+        t = x.shape[1]
+        sp = sp_active(self.mesh, self.sequence_parallel)
+        if sp:
+            x = shard_time(x, self.mesh)
         for layer in self.encoder.layers:
             # the LayerDrop draw precedes the layer's own, remat or not
-            skip = (torch.rand((), generator=generator, device=x.device)
-                    < layerdrop) if layerdrop > 0.0 else None
+            skip = (torch.rand((), generator=layers.shared_generator(
+                generator), device=x.device) < layerdrop) \
+                if layerdrop > 0.0 else None
+            h = gather_time(x, self.mesh, t) if sp else x
             if remat:
-                y = checkpointed(self._layer, generator, layer, x, pos_bias,
+                y = checkpointed(layer, generator, self._layer, h, pos_bias,
                                  kv_len)
             else:
-                y = self._layer(layer, x, pos_bias, kv_len, generator)
+                y = layer(self._layer, h, pos_bias, kv_len, generator)
+            if sp:
+                y = shard_time(y, self.mesh)
             x = torch.where(skip, x, y) if skip is not None else y
+        if sp:
+            x = gather_time(x, self.mesh, t)
         if arch.do_stable_layer_norm:
             x = layer_norm(self.encoder.layer_norm, x, eps)
         return x

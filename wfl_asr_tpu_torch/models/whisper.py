@@ -32,8 +32,9 @@ import torch
 from torch import nn
 
 from ..ops.kernels.flash_attention_bwd import flash_attention_trainable
+from ..parallel.sp import gather_time, shard_time, sp_active
 from .layers import checkpointed, conv1d, dropout, gelu, layer_norm, \
-    linear
+    linear, shared_generator
 
 
 @dataclass(frozen=True)
@@ -128,6 +129,11 @@ class WhisperEncoderLayer(nn.Module):
         self.fc2 = nn.Linear(arch.ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d)
 
+    def forward(self, run, *args):
+        """``run(self, *args)``: the encoder's layer function, called through
+        the module so that hooks on the layer run (FSDP's gathers)."""
+        return run(self, *args)
+
 
 class WhisperEncoder(nn.Module):
     """HF ``WhisperEncoder``: log-mel [B, n_mels, 3000] → [B, 1500, D]."""
@@ -145,6 +151,10 @@ class WhisperEncoder(nn.Module):
         self.layers = nn.ModuleList(WhisperEncoderLayer(arch)
                                     for _ in range(arch.num_layers))
         self.layer_norm = nn.LayerNorm(d)
+        # the parallel.mesh.Mesh of a sharded run (set by parallel.tp), and
+        # sequence parallelism between layers (parallel/sp.py)
+        self.mesh = None
+        self.sequence_parallel = False
 
     def _layer(self, layer: WhisperEncoderLayer, x: torch.Tensor,
                generator) -> torch.Tensor:
@@ -152,16 +162,18 @@ class WhisperEncoder(nn.Module):
         arch = self.arch
         b, t, d = x.shape
         att = layer.self_attn
+        mp = self.mesh.model_size if self.mesh is not None else 1
+        heads = arch.num_heads // mp              # this rank's heads
 
         def split(h):
-            return h.reshape(b, t, arch.num_heads, -1).transpose(1, 2) \
-                .contiguous()
+            return h.reshape(b, t, heads, -1).transpose(1, 2).contiguous()
 
         h = layer_norm(layer.self_attn_layer_norm, x)
         attn = flash_attention_trainable(split(linear(att.q_proj, h)),
                                          split(linear(att.k_proj, h)),
                                          split(linear(att.v_proj, h)))
-        attn = linear(att.out_proj, attn.transpose(1, 2).reshape(b, t, d))
+        attn = linear(att.out_proj,
+                      attn.transpose(1, 2).reshape(b, t, d // mp))
         x = x + dropout(attn, arch.dropout, generator, self.training)
 
         h = gelu(linear(layer.fc1, layer_norm(layer.final_layer_norm, x)))
@@ -187,13 +199,23 @@ class WhisperEncoder(nn.Module):
                                                               :x.shape[1]]
         x = dropout(x, arch.dropout, generator, self.training)
         layerdrop = arch.layerdrop if self.training else 0.0
+        t = x.shape[1]
+        sp = sp_active(self.mesh, self.sequence_parallel)
+        if sp:
+            x = shard_time(x, self.mesh)
         for layer in self.layers:
             # the LayerDrop draw precedes the layer's own, remat or not
-            skip = (torch.rand((), generator=generator, device=x.device)
-                    < layerdrop) if layerdrop > 0.0 else None
+            skip = (torch.rand((), generator=shared_generator(generator),
+                               device=x.device) < layerdrop) \
+                if layerdrop > 0.0 else None
+            h = gather_time(x, self.mesh, t) if sp else x
             if remat:
-                y = checkpointed(self._layer, generator, layer, x)
+                y = checkpointed(layer, generator, self._layer, h)
             else:
-                y = self._layer(layer, x, generator)
+                y = layer(self._layer, h, generator)
+            if sp:
+                y = shard_time(y, self.mesh)
             x = torch.where(skip, x, y) if skip is not None else y
+        if sp:
+            x = gather_time(x, self.mesh, t)
         return layer_norm(self.layer_norm, x)

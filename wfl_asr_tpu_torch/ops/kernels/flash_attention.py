@@ -58,7 +58,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .dropout_mask import check_rate, keep_scale, keep_threshold, mask_grid
+from .dropout_mask import C_B, C_H, check_rate, keep_scale, \
+    keep_threshold, mask_grid
 
 NEG_INF = -1e30
 
@@ -870,32 +871,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     gate: Optional[torch.Tensor] = None,
                     kv_len=None, dropout_rate: float = 0.0,
-                    dropout_seed=None) -> torch.Tensor:
+                    dropout_seed=None, origin=(0, 0)) -> torch.Tensor:
     """q, k, v: [B, H, T, D] → [B, H, T, D]. bias: [H, T, T] or None;
     gate: [B, H, T] or None (requires bias); kv_len: [B] or None (= T).
 
     ``dropout_rate`` in [0, 1) and ``dropout_seed`` (a Python int, or an
     int32 tensor of one element on q's device): strict attention dropout
     with torch semantics (K6), its mask a hash of (seed, b, h, q, k).
+    ``origin`` (b0, h0): the global index of this call's first row and
+    first head when it runs on a shard of a larger batch or of the heads
+    (:func:`shard_seed`), so that its mask is the shard of the unsharded
+    call's.
 
     A CUDA tensor runs the kernels, a CPU tensor the plain twins; both are
     differentiable in every tensor argument but ``kv_len``. Any head width
     (:func:`pad_head_dim`)."""
     q, k, v, d, scale = pad_head_dim(q, k, v)
-    rate, seed = check_entry(q, k, v, bias, gate, dropout_rate, dropout_seed)
+    rate, seed = check_entry(q, k, v, bias, gate, dropout_rate, dropout_seed,
+                             origin)
     return _FlashAttention.apply(q, k, v, bias, gate, kv_len, rate, seed,
                                  scale)[..., :d]
 
 
-def check_entry(q, k, v, bias, gate, dropout_rate: float, dropout_seed):
+def shard_seed(seed: torch.Tensor, origin) -> torch.Tensor:
+    """The seed of a shard whose first row and head are ``origin`` =
+    (b0, h0) in the unsharded call: seed + b0·C_B + h0·C_H in uint32
+    wraparound (the JAX ``core``'s offset, flash_attention.py:707-721). The
+    hash's pre-mix is linear in b and h (``dropout_mask.uniform24``), so a
+    shard's local indices then hash as the global ones do, on the kernels
+    and on the plain twins alike."""
+    b0, h0 = (int(o) for o in origin)
+    if not b0 and not h0:
+        return seed
+    off = (b0 * C_B + h0 * C_H) & 0xFFFFFFFF
+    u = (seed.to(torch.int64) + off) & 0xFFFFFFFF
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+
+
+def check_entry(q, k, v, bias, gate, dropout_rate: float, dropout_seed,
+                origin=(0, 0)):
     """The checks of both entry points: shapes, dtype, device, the dropout
     rate in [0, 1) with a seed when it is above 0. Returns (rate, the seed
-    as an int32 tensor of one element on q's device, or None at rate 0)."""
+    as an int32 tensor of one element on q's device, offset by the shard
+    ``origin`` (:func:`shard_seed`), or None at rate 0)."""
     rate = check_rate(dropout_rate)
     if rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     _check(q, k, v, bias, gate)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    return rate, (_seed_tensor(dropout_seed, q.device) if rate > 0.0
-                  else None)
+    if rate == 0.0:
+        return rate, None
+    return rate, shard_seed(_seed_tensor(dropout_seed, q.device), origin)

@@ -61,14 +61,18 @@ class _FlashAttentionTrainable(torch.autograd.Function):
 def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, kv_len=None,
                               dropout_rate: float = 0.0,
-                              dropout_seed=None) -> torch.Tensor:
+                              dropout_seed=None, origin=(0, 0)
+                              ) -> torch.Tensor:
     """q, k, v: [B, H, T, D] → [B, H, T, D]; kv_len: [B] or None (= T).
     ``dropout_rate``/``dropout_seed``: strict attention dropout (K6), as
-    :func:`~.flash_attention.flash_attention` takes them. A CUDA tensor
+    :func:`~.flash_attention.flash_attention` takes them, with the shard
+    ``origin`` (b0, h0) of a call on a shard of the batch or the heads
+    (``flash_attention.shard_seed``). A CUDA tensor
     runs the kernels, a CPU tensor the plain twins; both are differentiable
     in q, k and v. Any head width: others than multiples of 16 are
     zero-padded (``flash_attention.pad_head_dim``)."""
     q, k, v, d, scale = pad_head_dim(q, k, v)
-    rate, seed = check_entry(q, k, v, None, None, dropout_rate, dropout_seed)
+    rate, seed = check_entry(q, k, v, None, None, dropout_rate, dropout_seed,
+                             origin)
     return _FlashAttentionTrainable.apply(q, k, v, kv_len, rate, seed,
                                           scale)[..., :d]

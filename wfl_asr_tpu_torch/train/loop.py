@@ -41,16 +41,42 @@ CE + subframe_weight · offset (+ the optional soft-IoU term), backward
 through the hand-written attention kernels, and the optimizer. The
 segmental term is a value-only metric on the host, as in the reference.
 
+Under a launcher (``torchrun --nproc_per_node N``, one process a GPU;
+:func:`plan_parallel` keeps the JAX loop's warnings and errors for each
+combination, loop.py:640-750):
+
+- data parallelism (``training.data_parallel``, on by default): the model
+  in DDP over the mesh's data group (``no_sync`` on every micro-step of an
+  accumulation but the last); each rank collates its contiguous rows of
+  each global batch at the batch's padded lengths; the CE's and the
+  soft-IoU's counts, the Conformer's BatchNorm statistics and the logged
+  metrics are reduced over the data group, so the step is the unsharded
+  step; LayerDrop and the strict-dropout seeds come from a generator all
+  ranks share, element-wise dropout from one a data rank;
+- ``training.fsdp``: FSDP2 over the data group (``parallel/fsdp.py``),
+  the optimizer's step on full tensors (``FullTensorStep``);
+- ``training.model_parallel``: tensor parallelism (``parallel/tp.py``),
+  with ``training.sequence_parallel`` (``parallel/sp.py``), gradients
+  averaged over the data group;
+- ``training.sharded_validation``: each data rank evaluates its rows of
+  each validation batch and the metric sums are reduced, so every rank
+  gets the one-process validation metrics;
+- across nodes, each node reads its share of the training files;
+- rank 0 alone writes metrics.jsonl, TensorBoard, figures and checkpoints:
+  the canonical ``.pt`` and sidecar of a one-process run, gathered from
+  the shards (the sidecar adds each rank's dropout-generator state).
+
 Not ported (a config that asks for one raises ``NotImplementedError``
-naming ROADMAP.md): data/tensor/pipeline parallelism, FSDP, sequence
-parallelism, multi-host and sharded validation, the orbax format.
-Validation runs in eval mode, without dropout.
+naming ROADMAP.md): pipeline parallelism, the orbax format. Validation
+runs in eval mode, without dropout.
 
     python -m wfl_asr_tpu_torch.train CONFIG [--device cuda|cpu]
+    torchrun --nproc_per_node N -m wfl_asr_tpu_torch.train CONFIG
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -58,7 +84,7 @@ import os
 import pickle
 import time
 import zipfile
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,14 +94,19 @@ from ..checkpoint import (find_resume_checkpoints, load_train_state,
                           restore_jax_train_state, save_model_checkpoint,
                           save_train_state)
 from ..config import Config, as_config
-from ..data.dataset import BatchLoader, PhonemeDataset, split_dataset
+from ..data.dataset import BatchLoader, PhonemeDataset, \
+    shard_indices_for_process, split_dataset
 from ..infer.pipeline import resolve_device
 from ..labels import (canonical_to_lang, clean_lab, decode_bio_tags,
                       load_langs, load_phoneme_list, load_phoneme_merge_map,
                       merge_adjacent_segments)
 from ..metrics import framewise_accuracy, phoneme_error_rate, \
     timing_error_rate
+from ..models import layers
 from ..models.tagger import BIOPhonemeTagger, TaggerArch, init_tagger
+from ..parallel import fsdp as pfsdp
+from ..parallel import mesh as pmesh
+from ..parallel import tp as ptp
 from ..utils.profiling import maybe_trace
 from .losses import (cross_entropy, offset_loss, segmental_loss_value,
                      soft_iou_segmental_loss)
@@ -88,23 +119,108 @@ BATCH_KEYS = ("audio", "labels", "lang_ids", "off_frames", "off_channels",
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to wfl_asr_tpu_torch yet (ROADMAP.md Queue 1:"
-        f" training leftovers)")
+        f"{what} is not ported to wfl_asr_tpu_torch yet (ROADMAP.md Queue 1)")
 
 
 def check_supported(cfg: Config) -> None:
     """Raise for the JAX-only training options."""
     t = cfg._sec("training")
-    if int(t.get("model_parallel", 1)) > 1:
-        raise _not_ported("training.model_parallel (tensor parallelism)")
     if int(t.get("pipeline_parallel", 1)) > 1:
         raise _not_ported("training.pipeline_parallel")
-    for key in ("fsdp", "sequence_parallel", "sharded_validation"):
-        if bool(t.get(key, False)):
-            raise _not_ported(f"training.{key}")
     fmt = str(cfg._sec("output").get("checkpoint_format", "pt"))
     if fmt != "pt":
         raise _not_ported(f"output.checkpoint_format {fmt!r}")
+
+
+@dataclasses.dataclass
+class Parallel:
+    """How a run is spread over its ranks (:func:`plan_parallel`)."""
+    mesh: Optional[pmesh.Mesh] = None
+    fsdp: bool = False
+    model_parallel: int = 1
+    sequence_parallel: bool = False
+    sharded_validation: bool = False
+    # FSDP's replicated leaves, whose gradients the loop averages itself
+    replicated: Sequence = ()
+
+    @property
+    def ddp(self) -> bool:
+        return (self.mesh is not None and not self.fsdp
+                and self.model_parallel == 1)
+
+    @property
+    def main(self) -> bool:
+        """This rank writes the run's files."""
+        return pmesh.rank() == 0
+
+    @property
+    def sharded_params(self) -> bool:
+        return self.fsdp or self.model_parallel > 1
+
+
+def plan_parallel(cfg: Config, device) -> Parallel:
+    """The run's parallel layout, with the JAX loop's warnings and errors
+    (loop.py:640-750): sequence parallelism without model parallelism
+    warns and is ignored; FSDP without a process group (one device) warns
+    and is ignored; FSDP with model or pipeline parallelism, FSDP across
+    nodes and model parallelism across nodes raise ``ValueError``, as do a
+    world that ``model_parallel`` does not divide, a batch that the data
+    size does not divide, and ``training.remat: auto`` with more than one
+    rank (an out-of-memory flip on one rank would leave the others
+    waiting in the gradient all-reduce). A process group (a launcher, or
+    the caller) puts the run on a mesh unless ``training.data_parallel`` is
+    false and nothing else asks for one."""
+    t = cfg._sec("training")
+    mp = int(t.get("model_parallel", 1))
+    sp = bool(t.get("sequence_parallel", False))
+    fsdp = bool(t.get("fsdp", False))
+    grouped = torch.distributed.is_initialized()
+    nodes = pmesh.node_count()
+    if sp and mp <= 1:
+        print("[WARN] training.sequence_parallel ignored: it shards the "
+              "time axis over the 'model' mesh axis, which requires "
+              "training.model_parallel > 1")
+        sp = False
+    if remat_mode(cfg) == "auto" and pmesh.world_size() > 1:
+        raise ValueError(
+            "training.remat: auto is single-process only (the OOM fallback "
+            "would desynchronize the ranks' steps); set training.remat "
+            "true/false explicitly")
+    if fsdp:
+        if mp > 1:
+            raise ValueError(
+                "training.fsdp is mutually exclusive with model_parallel/"
+                "pipeline_parallel (different parameter placements)")
+        if nodes > 1:
+            raise ValueError(
+                "training.fsdp is not supported across nodes: validation/"
+                "checkpointing need node-local parameters. Use plain data "
+                "parallelism across nodes and FSDP within one.")
+        if not grouped:
+            print("[WARN] training.fsdp ignored: single visible device")
+            fsdp = False
+    if mp > 1 and not grouped:
+        print(f"[WARN] training.model_parallel={mp} ignored: single "
+              f"visible device")
+        mp, sp = 1, False
+    use_mesh = grouped and (mp > 1 or fsdp
+                            or bool(t.get("data_parallel", True)))
+    if not use_mesh:
+        return Parallel()
+    if nodes > 1 and mp > 1:
+        raise ValueError(
+            "model_parallel > 1 is not supported across nodes: validation/"
+            "checkpointing need node-local (replicated) parameters. Use "
+            "data parallelism across nodes and TP within one node.")
+    mesh = pmesh.make_mesh(mp, device)
+    if cfg.batch_size % mesh.data_size:
+        raise ValueError(f"batch_size {cfg.batch_size} must be divisible by "
+                         f"the {mesh.data_size}-way data axis")
+    print(f"[INFO] Parallel over {pmesh.world_size()} ranks (mesh "
+          f"{mesh.shape}{', FSDP' if fsdp else ''}"
+          f"{', sequence parallel' if sp else ''})")
+    return Parallel(mesh, fsdp, mp, sp,
+                    bool(t.get("sharded_validation", False)))
 
 
 def remat_mode(cfg: Config) -> str:
@@ -140,10 +256,12 @@ def micro_step(model: BIOPhonemeTagger, batch: Dict, device, n_micro: int,
                label_smoothing: float, subframe_weight: float,
                compute_dtype=torch.float32, seg_diff_weight: float = 0.0,
                generator: Optional[torch.Generator] = None,
-               remat: bool = False):
+               remat: bool = False, mean_count: Optional[Callable] = None):
     """Forward (training mode) and backward of one micro-batch, its loss
     scaled by 1/n_micro so that the gradients summed over n_micro
-    micro-batches are their mean; ``remat`` checkpoints the encoder layers.
+    micro-batches are their mean; ``remat`` checkpoints the encoder layers;
+    ``mean_count`` reduces the losses' counts over the data ranks
+    (``Mesh.mean_count``) when the batch is a rank's rows.
     Returns ({loss, ce, offset_loss} as detached device scalars, pred_ids,
     offsets)."""
     arrays = to_device(batch, device)
@@ -152,13 +270,14 @@ def micro_step(model: BIOPhonemeTagger, batch: Dict, device, n_micro: int,
                             max_label_len=batch["max_label_len"],
                             compute_dtype=compute_dtype, generator=generator,
                             remat=remat)
-    ce = cross_entropy(logits, arrays["labels"], label_smoothing)
+    ce = cross_entropy(logits, arrays["labels"], label_smoothing,
+                       mean_count=mean_count)
     ol = offset_loss(offsets, arrays["off_frames"], arrays["off_channels"],
                      arrays["off_fracs"], arrays["off_valid"])
     loss = ce + subframe_weight * ol
     if seg_diff_weight:
         loss = loss + seg_diff_weight * soft_iou_segmental_loss(
-            logits, arrays["labels"])
+            logits, arrays["labels"], mean_count=mean_count)
     (loss / n_micro).backward()
     metrics = {"loss": loss.detach(), "ce": ce.detach(),
                "offset_loss": ol.detach()}
@@ -197,18 +316,31 @@ class RematStep:
 
     def __init__(self, mode: str, model: BIOPhonemeTagger,
                  generator: Optional[torch.Generator] = None,
-                 on_flip: Optional[Callable[[], None]] = None):
+                 on_flip: Optional[Callable[[], None]] = None,
+                 sync: Optional[Callable[[bool], object]] = None,
+                 after_backward: Optional[Callable[[], None]] = None):
+        """``sync(last)``: a context for each micro-batch's forward and
+        backward (DDP's ``no_sync`` on all but the last);
+        ``after_backward()``: called once the update's gradients are in,
+        before the optimizer (the data-group averages DDP does not do)."""
         if mode not in ("on", "off", "auto"):
             raise ValueError(f"remat mode {mode!r}: on, off or auto")
         self.model, self.generator, self.on_flip = model, generator, on_flip
+        self.sync, self.after_backward = sync, after_backward
         self.auto = mode == "auto"
         self.remat = mode == "on"
         self.oom = None          # the message of the OOM that flipped it
 
     def _grads(self, batches, device, kwargs):
-        outs = [micro_step(self.model, b, device, len(batches),
-                           generator=self.generator, remat=self.remat,
-                           **kwargs) for b in batches]
+        outs = []
+        for i, b in enumerate(batches):
+            with (self.sync(i == len(batches) - 1) if self.sync is not None
+                  else contextlib.nullcontext()):
+                outs.append(micro_step(self.model, b, device, len(batches),
+                                       generator=self.generator,
+                                       remat=self.remat, **kwargs))
+        if self.after_backward is not None:
+            self.after_backward()
         metrics = {k: sum(m[k] for m, _, _ in outs) / len(outs)
                    for k in outs[0][0]}
         return metrics, [(p, o, b) for (_, p, o), b in zip(outs, batches)]
@@ -222,7 +354,7 @@ class RematStep:
         if self.remat or not self.auto:
             out = self._grads(batches, device, kwargs)
         else:
-            gen_state = (self.generator.get_state()
+            gen_state = (layers.generator_state(self.generator)
                          if self.generator is not None else None)
             buffers = [(b, b.detach().clone())
                        for b in self.model.buffers()]
@@ -235,7 +367,7 @@ class RematStep:
                 if torch.cuda.is_available():
                     torch.cuda.empty_cache()
                 if gen_state is not None:
-                    self.generator.set_state(gen_state)
+                    layers.set_generator_state(self.generator, gen_state)
                 with torch.no_grad():
                     for b, saved in buffers:
                         b.copy_(saved)
@@ -352,23 +484,40 @@ def _draw_prediction(writer, cfg: Config, batch, j: int, count: int,
 def evaluate(model: BIOPhonemeTagger, val_loader: BatchLoader, label_list,
              cfg: Config, device, writer=None, step: int = 0,
              id2lang: Optional[Dict[int, str]] = None,
-             merge_map=None) -> float:
+             merge_map=None, mesh: Optional[pmesh.Mesh] = None) -> float:
     """Reference evaluate() (train.py:456-545) in eval mode: the mean of
     batch CEs, frame accuracy, PER and TER over median-filtered, BIO-decoded
     and merged segments. With a writer, and matplotlib, the first
     ``num_vis_samples`` samples are drawn as figures. Returns the mean
-    CE."""
+    CE.
+
+    With ``mesh`` (sharded validation: ``val_loader`` collates this data
+    rank's rows of each validation batch, at the batch's padded lengths)
+    the metric sums are reduced over the data group, as the JAX
+    ``evaluate(cross_host=True)`` does (loop.py:520-535): each batch's CE
+    from its ranks' token-weighted sums, then the mean of the batch CEs,
+    so every rank gets the one-process metrics. A rank whose share of a
+    short batch is empty runs the forward on a stand-in row and counts
+    nothing (FSDP's gathers need every rank of the data group)."""
     id2label = dict(enumerate(label_list))
     id2lang = id2lang or {}
     draw = writer is not None and _has_matplotlib()
     model.eval()
     losses, acc, per, ter, count = [], 0.0, 0.0, 0.0, 0
+    tokens = []
     for batch in val_loader.epoch_batches(epoch=0):
         arrays = to_device(batch, device)
         logits, offsets = model(arrays["audio"], arrays["lang_ids"],
                                 max_label_len=batch["max_label_len"])
+        if batch.get("stand_in"):
+            losses.append(0.0)
+            tokens.append(0.0)
+            continue
         losses.append(float(cross_entropy(logits, arrays["labels"],
                                           cfg.label_smoothing)))
+        if mesh is not None:
+            tokens.append(float((np.asarray(batch["labels"]) != -100).sum()))
+            losses[-1] *= tokens[-1]
         pred_ids = logits.argmax(-1).cpu().numpy()
         offsets = offsets.float().cpu().numpy()
         labels = np.asarray(batch["labels"])
@@ -388,6 +537,13 @@ def evaluate(model: BIOPhonemeTagger, val_loader: BatchLoader, label_list,
             if draw and count <= cfg.num_vis_samples:
                 _draw_prediction(writer, cfg, batch, j, count, step, segs,
                                  gt, id2lang, merge_map)
+    if mesh is not None:
+        n = len(losses)
+        sums = mesh.sum_over_data(losses + tokens + [acc, per, ter, count])
+        losses = [s / t if t else 0.0 for s, t in zip(sums[:n],
+                                                       sums[n:2 * n])]
+        acc, per, ter, count = sums[2 * n:]
+        count = int(round(count))
     avg_loss = float(np.mean(losses)) if losses else 0.0
     avg = [x / count if count else 0.0 for x in (acc, per, ter)]
     if writer is not None:
@@ -408,15 +564,151 @@ def _compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if name in ("bfloat16", "bf16") else torch.float32
 
 
+def _local_seed(seed: int, data_rank: int) -> int:
+    """The element-wise dropout seed of a data rank."""
+    return int(np.random.SeedSequence((seed, 1 + data_rank))
+               .generate_state(1)[0])
+
+
+def _train_loaders(cfg: Config, dataset: PhonemeDataset, train_idx, val_idx,
+                   par: Parallel):
+    """(train loader, validation loader) for this rank: on a mesh, this
+    data rank's rows of each global batch (at the batch's padded lengths),
+    the last partial batch dropped as the JAX loop drops it; across nodes,
+    this node's share of the files at the dataset's maximal lengths; with
+    sharded validation, this data rank's rows of each validation batch."""
+    mesh = par.mesh
+    rows, fixed, batch, drop_last = None, (0, 0, 0), cfg.batch_size, False
+    if mesh is not None:
+        drop_last = True
+        nodes = mesh.nodes
+        if nodes > 1:
+            if cfg.batch_size % nodes:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} (global) must be "
+                    f"divisible by the {nodes} nodes")
+            node = pmesh.rank() // (pmesh.world_size() // nodes)
+            batch = cfg.batch_size // nodes
+            train_idx = shard_indices_for_process(train_idx, node, nodes)
+            fixed = dataset.global_max_lengths()
+            print(f"[INFO] Multi-node input: node {node}/{nodes}, "
+                  f"{len(train_idx)} files, node batch {batch}, pinned "
+                  f"shapes (audio {fixed[0]}, labels {fixed[1]}, targets "
+                  f"{fixed[2]})")
+        per_node = mesh.data_size // nodes
+        per = batch // per_node
+        d = mesh.data_rank % per_node
+        rows = (d * per, (d + 1) * per)
+    train_loader = BatchLoader(dataset, train_idx, batch, seed=cfg.seed,
+                               shuffle=True, frame_duration=cfg.frame_duration,
+                               drop_last=drop_last, rows=rows,
+                               fixed_lengths=fixed)
+    val_rows = None
+    if par.sharded_validation:
+        per = cfg.batch_size // mesh.data_size
+        val_rows = (mesh.data_rank * per, (mesh.data_rank + 1) * per)
+        print(f"[INFO] Sharded validation: data rank {mesh.data_rank} "
+              f"evaluates rows {val_rows[0]}:{val_rows[1]} of each batch")
+    val_loader = BatchLoader(dataset, val_idx, cfg.batch_size, seed=cfg.seed,
+                             shuffle=False, frame_duration=cfg.frame_duration,
+                             rows=val_rows)
+    return train_loader, val_loader
+
+
+def _shard_model(model: BIOPhonemeTagger, par: Parallel, device):
+    """Place ``model`` as ``par`` says, in place: tensor parallelism
+    (+ sequence parallelism), FSDP, or the mesh alone for DDP. Returns the
+    module the steps call (DDP's wrapper, or the model)."""
+    mesh = par.mesh
+    if mesh is None:
+        return model
+    if par.model_parallel > 1:
+        ptp.shard_params_tp(model, mesh)
+        if par.sequence_parallel and hasattr(model, "encoder"):
+            model.encoder.sequence_parallel = True
+        return model
+    ptp.attach_mesh(model, mesh)
+    if par.fsdp:
+        par.replicated = tuple(pfsdp.shard_params_fsdp(model, mesh))
+        return model
+    from torch.nn.parallel import DistributedDataParallel
+    return DistributedDataParallel(
+        model, device_ids=[device.index if device.index is not None
+                           else torch.cuda.current_device()]
+        if device.type == "cuda" else None,
+        process_group=mesh.data_group, broadcast_buffers=False)
+
+
+def _gradient_hooks(net, model: BIOPhonemeTagger, par: Parallel):
+    """(sync, after_backward) for :class:`RematStep`: DDP's ``no_sync`` or
+    FSDP's gradient-sync switch on every micro-batch but the last; after
+    the backward, the data-group averages of the gradients that neither
+    takes (FSDP's replicated leaves; every gradient under tensor
+    parallelism)."""
+    if par.mesh is None:
+        return None, None
+    if par.ddp:
+        return (lambda last: contextlib.nullcontext() if last
+                else net.no_sync()), None
+
+    @contextlib.contextmanager
+    def fsdp_sync(last):
+        model.set_requires_gradient_sync(last)
+        yield
+
+    if par.fsdp:
+        return fsdp_sync, lambda: par.mesh.average_grads(par.replicated)
+    return None, lambda: par.mesh.average_grads(model.parameters())
+
+
+def _save_checkpoint(path: str, model: BIOPhonemeTagger, par: Parallel
+                     ) -> None:
+    """The canonical ``.pt`` of ``model`` (gathered from its shards: every
+    rank calls this; rank 0 writes)."""
+    if not par.sharded_params:
+        if par.main:
+            save_model_checkpoint(path, model)
+        return
+    full = pfsdp.full_state_dict(model)
+    if par.main:
+        canonical = BIOPhonemeTagger(model.arch)
+        canonical.load_state_dict({k: v.cpu() for k, v in full.items()},
+                                  strict=True)
+        save_model_checkpoint(path, canonical)
+
+
+def _save_train_state(path: str, optimizer, step: int, generator,
+                      scheduler, par: Parallel) -> None:
+    """The sidecar beside ``path`` (every rank calls this; rank 0 writes):
+    the full optimizer state, the shared generator's state as
+    ``generator`` and, on a mesh, every rank's element-wise dropout
+    generator's as ``local_generators``."""
+    opt_state = optimizer.state_dict()
+    extra = {}
+    if isinstance(generator, layers.Generators):
+        states = [None] * pmesh.world_size()
+        torch.distributed.all_gather_object(states,
+                                            generator.local.get_state())
+        extra["local_generators"] = states
+    if par.main:
+        save_train_state(path, opt_state, step,
+                         layers.shared_generator(generator),
+                         scheduler.state_dict(), extra=extra)
+
+
 def train(config="config.yaml", device=None, segmental_metric: bool = True,
           on_update: Optional[Callable[[int, List[Dict]], None]] = None
           ) -> BIOPhonemeTagger:
     """Train from ``config`` (a YAML path, a dict or a ``Config``) on
     ``device`` (CUDA unless "cpu" is asked for). Returns the model.
     ``on_update(step, batches)``, when given, is called after each
-    optimizer update with the update's micro-batches."""
+    optimizer update with the update's micro-batches (this rank's rows).
+    Under a launcher (or a process group the caller made) the run spreads
+    over the world as the module docstring says."""
     cfg = as_config(config)
     check_supported(cfg)
+    pmesh.maybe_initialize_distributed(
+        device="cpu" if str(device) == "cpu" else "cuda")
     device = resolve_device(device)
     save_dir = cfg.save_dir
     os.makedirs(save_dir, exist_ok=True)
@@ -435,13 +727,14 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
         raise ValueError(
             f"num_val_files={cfg.num_val_files} leaves no training samples "
             f"(dataset has {len(dataset)})")
-    train_loader = BatchLoader(dataset, train_idx, cfg.batch_size,
-                               seed=cfg.seed, shuffle=True,
-                               frame_duration=cfg.frame_duration)
-    val_loader = BatchLoader(dataset, val_idx, cfg.batch_size, seed=cfg.seed,
-                             shuffle=False, frame_duration=cfg.frame_duration)
+    par = plan_parallel(cfg, device)
+    mesh = par.mesh
+    train_loader, val_loader = _train_loaders(cfg, dataset, train_idx,
+                                              val_idx, par)
 
     arch = TaggerArch.from_config(cfg, len(label_list))
+    if par.model_parallel > 1:
+        ptp.check_divisible(arch, par.model_parallel)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     model = init_tagger(arch, torch.Generator().manual_seed(cfg.seed),
                         device=device)
@@ -449,28 +742,23 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
         finetune_surgery(model, arch, cfg, label_list, generator)
     if arch.freeze_encoder and arch.encoder_type != "none":
         model.encoder.requires_grad_(False)
-    optimizer = make_optimizer(
-        cfg, [p for p in model.parameters() if p.requires_grad],
-        model.jax_leaf_blocks())
+
+    def new_optimizer():
+        return make_optimizer(
+            cfg, [p for p in model.parameters() if p.requires_grad],
+            model.jax_leaf_blocks())
+
+    optimizer = new_optimizer()
     base_lr = cfg.learning_rate
     scheduler = get_scheduler(cfg.scheduler, cfg.scheduler_params,
                               base_lr=base_lr)
-
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(cfg.log_dir)
-    except ImportError:
-        writer = None
-    os.makedirs(cfg.log_dir, exist_ok=True)
-    metrics_log = open(os.path.join(cfg.log_dir, "metrics.jsonl"), "a")
-
-    def log_event(kind: str, step_: int, **fields) -> None:
-        metrics_log.write(json.dumps(
-            {"event": kind, "step": step_, "time": time.time(), **fields})
-            + "\n")
-        metrics_log.flush()
+    if mesh is not None and mesh.data_size > 1:
+        generator = layers.Generators(
+            torch.Generator(device=device).manual_seed(
+                _local_seed(cfg.seed, mesh.data_rank)), generator)
 
     best_loss, checkpoint_paths = float("inf"), []
+    # resume into the unsharded model; the shards are cut from it after
     step = _resume(model, optimizer, generator, scheduler, save_dir)
     if step:
         checkpoint_paths = [p for p, _ in sorted(
@@ -478,6 +766,29 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
         ][-cfg.max_checkpoints:]
     else:
         print("Training start")
+    net = _shard_model(model, par, device)
+    if par.sharded_params:
+        state = optimizer.state_dict()
+        optimizer = pfsdp.FullTensorStep(new_optimizer())
+        if state["state"]:
+            optimizer.load_state_dict(state)
+
+    writer = None
+    if par.main:
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(cfg.log_dir)
+        except ImportError:
+            writer = None
+    os.makedirs(cfg.log_dir, exist_ok=True)
+    metrics_log = (open(os.path.join(cfg.log_dir, "metrics.jsonl"), "a")
+                   if par.main else open(os.devnull, "w"))
+
+    def log_event(kind: str, step_: int, **fields) -> None:
+        metrics_log.write(json.dumps(
+            {"event": kind, "step": step_, "time": time.time(), **fields})
+            + "\n")
+        metrics_log.flush()
 
     compute_dtype = _compute_dtype(cfg)
     accum = int(cfg._sec("training").get("grad_accumulation", 1))
@@ -490,8 +801,10 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
     elif remat == "auto":
         print("[INFO] training.remat: auto — gradient checkpointing will "
               "engage only if the train step overflows device memory")
-    update = RematStep(remat, model, generator, on_flip=lambda: log_event(
-        "remat_auto_flip", step, remat=True))
+    sync, after_backward = _gradient_hooks(net, model, par)
+    update = RematStep(remat, net, generator, on_flip=lambda: log_event(
+        "remat_auto_flip", step, remat=True), sync=sync,
+        after_backward=after_backward)
     restart_loader = bool(cfg._sec("training").get(
         "restart_loader_on_validation", False))
     id2label = dict(enumerate(label_list))
@@ -499,6 +812,9 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
                        subframe_weight=cfg.subframe_loss_weight,
                        compute_dtype=compute_dtype,
                        seg_diff_weight=cfg.differentiable_segmental_weight)
+    if mesh is not None and mesh.data_size > 1:
+        step_kwargs["mean_count"] = mesh.mean_count
+    val_kwargs = {"mesh": mesh} if par.sharded_validation else {}
 
     # One-step-delayed readback: step N's metrics are read on the host
     # while step N+1 runs on the device (drained before every validation).
@@ -527,6 +843,9 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
                         segs, _gt_segments(batch["segments_gt"][i]),
                         cfg.segmental_loss_weights)
                 n_samples += len(batch["label_lengths"])
+            if mesh is not None:
+                seg_total, n_samples = mesh.sum_over_data(
+                    [seg_total, n_samples])
             loss_val += (cfg.segmental_loss_weight * seg_total
                          / max(n_samples, 1))
         if writer is not None:
@@ -554,6 +873,8 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
                 set_lr(optimizer, lr_used)
                 metrics, update_micro = update(optimizer, micro, device,
                                                **step_kwargs)
+                if mesh is not None:
+                    metrics = mesh.average_scalars(metrics)
                 micro = []
                 if cfg.scheduler_step_on_update:
                     scheduler.step()
@@ -568,19 +889,22 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
                     drain_pending()
                     val_loss = evaluate(model, val_loader, label_list, cfg,
                                         device, writer, step, id2lang,
-                                        merge_map)
+                                        merge_map, **val_kwargs)
                     log_event("val", step, loss=val_loss)
                     model_path = os.path.join(save_dir, f"model_step{step}.pt")
-                    save_model_checkpoint(model_path, model)
-                    save_train_state(model_path, optimizer, step, generator,
-                                     scheduler.state_dict())
+                    _save_checkpoint(model_path, model, par)
+                    _save_train_state(model_path, optimizer, step, generator,
+                                      scheduler, par)
                     checkpoint_paths.append(model_path)
                     if len(checkpoint_paths) > cfg.max_checkpoints:
-                        remove_checkpoint(checkpoint_paths.pop(0))
+                        old = checkpoint_paths.pop(0)
+                        if par.main:
+                            remove_checkpoint(old)
                     if val_loss < best_loss:
                         best_loss = val_loss
-                        save_model_checkpoint(
-                            os.path.join(save_dir, "best_model.pt"), model)
+                        _save_checkpoint(
+                            os.path.join(save_dir, "best_model.pt"), model,
+                            par)
                         print(f"\nSaved best model with loss = {val_loss:.4f}")
                     if not cfg.scheduler_step_on_update:
                         if type(scheduler).__name__ == "ReduceLROnPlateau":
@@ -601,7 +925,7 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
                     f"train samples, batch_size {cfg.batch_size})")
             epoch += 1
 
-    save_model_checkpoint(os.path.join(save_dir, "last_model.pt"), model)
+    _save_checkpoint(os.path.join(save_dir, "last_model.pt"), model, par)
     metrics_log.close()
     if writer is not None:
         writer.close()
@@ -613,6 +937,18 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
 # unpickler raises IndexError or KeyError on a cut stream)
 _TORN = (EOFError, pickle.UnpicklingError, zipfile.BadZipFile, ValueError,
          OSError, RuntimeError, IndexError, KeyError)
+
+
+def _restore_generators(generator, state: dict) -> None:
+    """The sidecar's generator state into ``generator``; of a pair, into
+    its shared stream, and this rank's element-wise stream from
+    ``local_generators`` when the sidecar has one for as many ranks (else
+    that stream keeps its seed)."""
+    layers.shared_generator(generator).set_state(state["generator"])
+    if isinstance(generator, layers.Generators):
+        states = state.get("local_generators") or []
+        if len(states) == pmesh.world_size():
+            generator.local.set_state(states[pmesh.rank()])
 
 
 def _resume(model, optimizer, generator, scheduler, save_dir: str) -> int:
@@ -650,7 +986,7 @@ def _resume(model, optimizer, generator, scheduler, save_dir: str) -> int:
             state = None
         if state is not None:
             optimizer.load_state_dict(state["optimizer"])
-            generator.set_state(state["generator"])
+            _restore_generators(generator, state)
             if state["scheduler"]:
                 scheduler.load_state_dict(state["scheduler"])
             print("[INFO] Restored optimizer, generator and scheduler state")
@@ -682,12 +1018,17 @@ def _resume(model, optimizer, generator, scheduler, save_dir: str) -> int:
 def main(argv=None) -> None:
     import argparse
     parser = argparse.ArgumentParser(
-        description="Train the WFL model with a config file (PyTorch port)")
+        description="Train the WFL model with a config file (PyTorch port); "
+                    "torchrun --nproc_per_node N runs it on N ranks")
     parser.add_argument("config", type=str, help="Path to the config.yaml")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    train(args.config, device=args.device)
+    try:
+        train(args.config, device=args.device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -10,11 +10,18 @@
   (``model.differentiable_segmental_weight``).
 - ``segmental_loss_value``: the reference's segmental loss, value-only (it
   is detached in the reference, so it carries no gradient), on the host.
+
+On a batch sharded over data ranks, the two means over a count that
+differs from rank to rank (the CE's valid labels, the soft-IoU's present
+tags) take ``mean_count`` (``parallel.Mesh.mean_count``): the count over
+every rank, as this rank's share, so that the average of the ranks'
+losses is the unsharded loss. The offset loss is a mean over samples,
+exact as it is because every rank holds as many rows.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,9 +31,12 @@ Segment = Tuple[float, float, str]
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   label_smoothing: float = 0.0,
-                  ignore_index: int = -100) -> torch.Tensor:
+                  ignore_index: int = -100,
+                  mean_count: Optional[Callable] = None) -> torch.Tensor:
     """logits [N, C] (or [B, T, C]), labels [N] int — mean over labels !=
-    ignore_index, with uniform label smoothing (torch semantics), in f32."""
+    ignore_index, with uniform label smoothing (torch semantics), in f32.
+    ``mean_count``: the count's reduction over data ranks (module
+    docstring)."""
     if logits.dim() == 3:
         logits = logits.reshape(-1, logits.shape[-1])
         labels = labels.reshape(-1)
@@ -40,6 +50,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     else:
         loss = nll
     loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if mean_count is not None:
+        return loss.sum() / mean_count(valid.sum())
     return loss.sum() / valid.sum().clamp_min(1)
 
 
@@ -93,10 +105,13 @@ def offset_loss(offsets: torch.Tensor, frames: torch.Tensor,
 
 
 def soft_iou_segmental_loss(logits: torch.Tensor, labels: torch.Tensor,
-                            ignore_index: int = -100) -> torch.Tensor:
+                            ignore_index: int = -100,
+                            mean_count: Optional[Callable] = None
+                            ) -> torch.Tensor:
     """Soft Jaccard over tag posteriors: per (sample, tag)
     iou = Σ_t p·g / Σ_t (p + g − p·g), averaged over tags present in the
-    GT; loss = 1 − mean iou."""
+    GT; loss = 1 − mean iou. ``mean_count``: as for
+    :func:`cross_entropy`."""
     c = logits.shape[-1]
     valid = (labels != ignore_index)[..., None].float()
     probs = torch.softmax(logits.float(), dim=-1) * valid
@@ -108,6 +123,8 @@ def soft_iou_segmental_loss(logits: torch.Tensor, labels: torch.Tensor,
     present = g.sum(dim=1) > 0
     iou = torch.where(present, inter / union.clamp_min(1e-6),
                       torch.zeros_like(inter))
+    if mean_count is not None:
+        return 1.0 - iou.sum() / mean_count(present.sum())
     n = present.sum().clamp_min(1)
     return 1.0 - iou.sum() / n
 
