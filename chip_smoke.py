@@ -8,6 +8,8 @@
     python3 chip_smoke.py --only modules  # build + phases 10a-10f only
     python3 chip_smoke.py --only optim    # build + phases 10e-10f only
     python3 chip_smoke.py --only parallel # build + phase 11 only
+    python3 chip_smoke.py --only pp       # build + phase 11d only
+    python3 chip_smoke.py --only remat-det  # build + 10a deterministic
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -153,7 +155,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    FSDP's second within 1e-5 of DDP's, step ms, peak memory and K2/K2b launches (counts 0 just before the run, read
    just after); 11c. ``infer_folder_batched(data_parallel=True)`` in an
    NCCL world of one, its ``.lab`` files byte-identical to phase 4's, with
-   its K2/K1/K5 launches;
+   its K2/K1/K5 launches; 11d. pipeline parallelism: a ``python -m
+   torch.distributed.run --nproc_per_node 2`` world over ``gloo`` on the
+   one card (NCCL refuses two ranks on one device; the layers and kernels
+   run on ``cuda:0`` in both ranks, activations move through host
+   buffers), each rank running ``--rank-pp`` under this process's TF32
+   flags (the plain loop's reference loss is taken meanwhile in this
+   process): ``loop.train`` on phase 6's
+   corpus with ``training.pipeline_parallel: 2`` and ``pp_microbatches:
+   4`` (WavLM-base-plus at full width, its depth cut to PP_LAYERS layers,
+   f32, B = 8, 2 steps, every dropout rate and LayerDrop at 0 so that the
+   steps are comparable), its first loss within 1e-5 of the plain loop's
+   on the same batch and its second within 1e-5 of a DDP world of one's
+   (run by rank 0 after the pipeline, on the same config without
+   ``pipeline_parallel``), each rank's step ms, peak memory and parameter
+   bytes against the whole model's, its K2/K2b launches equal to its
+   layers × 4 microbatches × 2 steps (no warm-up or drain ticks) and its
+   K1/K1b of the replicated Conformer heads, the replicated parameters
+   equal on both ranks; then ``infer_folder_batched`` with
+   ``model.pipeline_parallel: 2`` on phase 4's wavs and model, its ``.lab``
+   files byte-identical to phase 4's or each differing line listed, with
+   its K5 and K2 launches per rank;
 12. a ``[time]`` line (wall seconds by phase), a ``{"kernels": [...]}``
    line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -3361,6 +3383,41 @@ def phase_remat(root: str) -> dict:
     return out
 
 
+def phase_remat_deterministic(root: str) -> dict:
+    """``--only remat-det``: phase 10a's remat pair once more with
+    ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
+    set before cuBLAS starts, in ``main``). An op without a deterministic
+    CUDA implementation raises: its message is logged, and the pair runs
+    again with ``warn_only=True``, every op that warns listed; then the
+    gap between the two steps is logged as 10a logs it."""
+    import warnings
+    import torch
+    raised = None
+    torch.use_deterministic_algorithms(True)
+    try:
+        res = phase_remat(root)
+        warned = []
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0]
+        log(f"[remat-det] deterministic mode raised: {raised}")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = phase_remat(root)
+        warned = sorted({str(w.message).splitlines()[0] for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for what, r in res.items():
+        log(f"[remat-det] 10a {what} dropout, deterministic algorithms "
+            f"(CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}"
+            f"): loss rel {r['loss_rel']:.2e}, gradients {r['grad_rel']:.2e} "
+            f"× max|g|, bit-identical {r['identical']}")
+    for msg in warned:
+        log(f"[remat-det] nondeterministic op: {msg}")
+    return dict(res, raised=raised, warned=warned)
+
+
 def phase_remat_auto(labels: int) -> dict:
     """10b: ``training.remat: auto`` on phase 9c's configuration (the
     ``large-v3`` preset at full width, 32 layers of 1280, the Conformer at
@@ -4083,6 +4140,9 @@ KERNEL_ROWS = [
 PAR_RATE = 0.1          # strict dropout rate of 11a
 PAR_STEPS = 2           # train steps of each 11b world
 PAR_LAYERS = 4          # WavLM-base-plus cut to 4 of its 12 layers in 11b
+PP_LAYERS = 4           # and in 11d's pipeline (2 layers a stage)
+PP_MICRO = 4            # 11d's pp_microbatches
+PP_TIMEOUT_S = 300      # 11d's world, start to end
 
 
 def _par_mask_bits(d: int, h: int, dtype, with_bias: bool, kv) -> int:
@@ -4478,9 +4538,273 @@ def phase_parallel_serving(root: str, cfg, ckpt: str, wav_dir: str,
     return dict(counts=counts, wall=wall)
 
 
+NO_DROPOUT = {"hidden_dropout": 0.0, "activation_dropout": 0.0,
+              "feat_proj_dropout": 0.0, "attention_dropout": 0.0,
+              "layerdrop": 0.0}
+
+
+def rank_pp(args) -> None:
+    """One rank of 11d's pipeline world (run by ``torch.distributed.run``
+    with ``WFL_DIST_BACKEND=gloo``): ``loop.train`` on the PP config
+    (joining the group itself) with the launch counts set to 0 just before
+    and read just after; the replicated parameters gathered from
+    both ranks; ``infer_folder_batched`` on the PP serving config, the
+    counts set to 0 just before and read just after; finally rank 0 alone
+    trains the DDP config in a world of one over NCCL. Each rank writes
+    ``rank{r}.json`` to the output directory."""
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    from wfl_asr_tpu_torch.infer import pipeline
+    from wfl_asr_tpu_torch.ops import kernels
+    from wfl_asr_tpu_torch.ops.kernels import conv_fused, flash_attention, \
+        flash_attention_bwd
+    from wfl_asr_tpu_torch.parallel import pp
+    from wfl_asr_tpu_torch.train import loop
+    pp_cfg, ddp_cfg, out_dir, serve_cfg, ckpt, wavs, labs = args
+    rank = int(os.environ["RANK"])
+    # the parent's TF32 flags (phase 4 served under them)
+    matmul, cudnn = (bool(int(x)) for x in
+                     os.environ["WFL_SMOKE_TF32"].split(","))
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+    # a rank still running this close to the phase's limit shows its stack
+    faulthandler.dump_traceback_later(PP_TIMEOUT_S - 60, exit=False)
+
+    def say(msg):
+        print(f"[pp rank {rank}] {time.strftime('%H:%M:%S')} {msg}",
+              flush=True)
+
+    info = {}
+    marks = []
+
+    def on_update(step, batches):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        say(f"step {step}")
+
+    def counts():
+        return {"K2": flash_attention.launches,
+                "K2b": flash_attention.bwd_launches,
+                "K1": flash_attention_bwd.launches,
+                "K1b": flash_attention_bwd.bwd_launches,
+                "K5 layers": conv_fused.layer_launches}
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = loop.train(pp_cfg, device="cuda", on_update=on_update)
+    say("trained")
+    info["counts"] = counts()
+    info["step_ms"] = [1e3 * (b - a) for a, b in zip([t0] + marks, marks)]
+    info["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    info["world"], info["backend"] = dist.get_world_size(), \
+        dist.get_backend()
+    info["layers"] = list(model.encoder.pipeline.local)
+    info["devices"] = sorted({str(p.device) for p in model.parameters()})
+    named = dict(model.named_parameters())
+    info["param_bytes"] = sum(p.numel() * p.element_size()
+                              for p in named.values())
+    info["layer_bytes"] = sum(p.numel() * p.element_size()
+                              for n, p in named.items()
+                              if pp.pp_spec(n) == "stage")
+    replicas = {n: p.detach().cpu() for n, p in named.items()
+                if pp.pp_spec(n) == "replicated"}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, replicas)
+    info["replica_gap"] = max(float((r[n] - replicas[n]).abs().max())
+                              for r in every for n in replicas)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    say("serving")
+    t0 = time.perf_counter()
+    pipeline.infer_folder_batched(wavs, serve_cfg, ckpt, labs, lang_id=0,
+                                  confidence_threshold=0.0, batch_files=8,
+                                  device="cuda",
+                                  compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    info["serve_s"] = time.perf_counter() - t0
+    info["serve_counts"] = counts()
+    pipeline._SESSION_CACHE.clear()
+    dist.barrier()
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # the same config without pipeline parallelism, in a DDP world of
+        # one (the group made here, on a store of its own: under the
+        # launcher a tcp:// rendezvous would wait for the agent's store)
+        store = dist.TCPStore("127.0.0.1", _free_port(), 1, True)
+        dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+        say("DDP world of one")
+        loop.train(ddp_cfg, device="cuda")
+        info["ddp_backend"] = dist.get_backend()
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    faulthandler.cancel_dump_traceback_later()
+    say("done")
+
+
+def phase_pipeline(root: str, cfg, ckpt: str, wav_dir: str,
+                   ref_labs: str) -> dict:
+    """11d (see the module docstring): the two-rank pipeline world on the
+    one card, training then serving, and its checks."""
+    import torch
+    import yaml
+    from wfl_asr_tpu_torch.preprocess import preprocess
+    data_dir = os.path.join(root, "data")          # phase 6's, if it ran
+    if not os.path.isdir(data_dir):
+        write_corpus(data_dir)
+    raw = train_config(root)
+    raw["data"]["data_dir"] = data_dir
+    raw["model"]["segmental_loss_weight"] = 0.0
+    raw["model"]["conformer_dropout"] = 0.0
+    raw["model"]["encoder_arch_overrides"] = dict(NO_DROPOUT,
+                                                  num_layers=PP_LAYERS)
+    paths = {}
+    for mode, extra in (("pp", {"pipeline_parallel": 2,
+                                "pp_microbatches": PP_MICRO}),
+                        ("ddp", {})):
+        run = os.path.join(root, f"pp_{mode}")
+        raw["output"]["save_dir"] = run
+        raw["training"].update(max_steps=2, val_check_interval=1000,
+                               log_dir=os.path.join(run, "logs"))
+        raw["training"].pop("pipeline_parallel", None)
+        raw["training"].pop("pp_microbatches", None)
+        raw["training"].update(extra)
+        preprocess(data_dir, raw)
+        cfg_path = os.path.join(run, "config.yaml")
+        with open(cfg_path) as f:
+            written = yaml.safe_load(f)     # preprocess's, languages in
+        written["training"].update(raw["training"])
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(written, f)
+        paths[mode] = cfg_path
+    serve_raw = json.loads(json.dumps(cfg.raw))
+    serve_raw["model"]["pipeline_parallel"] = 2
+    serve_cfg = os.path.join(root, "pp_serve.yaml")
+    with open(serve_cfg, "w") as f:
+        yaml.safe_dump(serve_raw, f)
+    wavs = os.path.join(root, "pp_wavs")
+    os.makedirs(wavs)
+    for name in os.listdir(wav_dir):
+        if name.endswith(".wav"):
+            shutil.copy(os.path.join(wav_dir, name), wavs)
+    out_dir = os.path.join(root, "pp_out")
+    labs = os.path.join(root, "pp_labs")
+    os.makedirs(out_dir)
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()), os.path.abspath(__file__),
+           "--rank-pp", paths["pp"], paths["ddp"], out_dir, serve_cfg, ckpt,
+           wavs, labs]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    env = dict(os.environ, WFL_DIST_BACKEND="gloo",
+               WFL_SMOKE_TF32=",".join(str(int(x)) for x in tf32))
+    rank_log = os.path.join(out_dir, "ranks.log")
+    t0 = time.perf_counter()
+    with open(rank_log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+        from wfl_asr_tpu_torch.config import Config
+        try:
+            # the plain loop's first loss on the same batch, here while the
+            # ranks start up (this process has no group)
+            plain = plain_first_loss(Config.load(paths["pp"]))
+            rc = proc.wait(timeout=max(PP_TIMEOUT_S - (time.perf_counter()
+                                                       - t0), 1))
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)      # the launcher and its ranks
+                proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(rank_log) as f:
+            text = f.read()
+        raise AssertionError(f"11d: rc {rc} after {wall:.1f} s\n"
+                             f"{text[-12000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    def losses(mode):
+        with open(os.path.join(root, f"pp_{mode}", "logs",
+                               "metrics.jsonl")) as f:
+            return [e["loss"] for e in map(json.loads, f)
+                    if e["event"] == "train"]
+
+    pp_losses, ddp_losses = losses("pp"), losses("ddp")
+    first = abs(pp_losses[0] - plain) / abs(plain)
+    second = abs(pp_losses[1] - ddp_losses[1]) / abs(ddp_losses[1])
+    log(f"[pp] 11d two ranks on one card over {ranks[0]['backend']} "
+        f"(devices {ranks[0]['devices']} and {ranks[1]['devices']}; TF32 "
+        f"matmul/cuDNN {tf32[0]}/{tf32[1]}, as this process): "
+        f"{wall:.1f} s wall; losses {pp_losses} against the plain loop's "
+        f"first {plain:.6f} ({first:.2e} relative) and a DDP world of one's "
+        f"{ddp_losses} (step 2 {second:.2e} relative, "
+        f"{ranks[0]['ddp_backend']})")
+    for r, info in enumerate(ranks):
+        log(f"[pp] 11d rank {r}: layers {info['layers']}, parameters "
+            f"{info['param_bytes'] / 2 ** 20:.1f} MiB of which its layers "
+            f"{info['layer_bytes'] / 2 ** 20:.1f} MiB; step ms "
+            f"{[round(x, 1) for x in info['step_ms']]}; peak "
+            f"{info['peak_gb']:.2f} GiB; training launches "
+            f"{json.dumps(info['counts'])}; replicas differ by "
+            f"{info['replica_gap']:.3e}; serving {info['serve_s']:.2f} s, "
+            f"launches {json.dumps(info['serve_counts'])}")
+    names = sorted(n for n in os.listdir(ref_labs) if n.endswith(".lab"))
+    differing = []
+    for n in names:
+        a = open(os.path.join(ref_labs, n)).read().splitlines()
+        b = open(os.path.join(labs, n)).read().splitlines()
+        if a != b:
+            differing.append((n, len(a), len(b),
+                              [(x, y) for x, y in zip(a, b) if x != y][:4]))
+    log(f"[pp] 11d serving: {len(names) - len(differing)} of {len(names)} "
+        f".lab files byte-identical to phase 4's"
+        + "".join(f"; {n}: {la} against {lb} lines, first differing "
+                  f"{d}" for n, la, lb, d in differing))
+    expect = len(ranks[0]["layers"]) * PP_MICRO * 2
+    for r, info in enumerate(ranks):
+        c = info["counts"]
+        if info["world"] != 2 or info["devices"] != ["cuda:0"]:
+            raise AssertionError(f"11d rank {r}: world {info['world']}, "
+                                 f"devices {info['devices']}")
+        if c["K2"] != expect or c["K2b"] != expect or min(
+                c["K1"], c["K1b"]) < 1:
+            raise AssertionError(f"11d rank {r}: launches {c}, K2/K2b "
+                                 f"expected {expect}")
+        if min(info["serve_counts"]["K2"],
+               info["serve_counts"]["K5 layers"]) < 1:
+            raise AssertionError(f"11d rank {r}: serving launches "
+                                 f"{info['serve_counts']}")
+        if info["replica_gap"] != 0.0:
+            raise AssertionError(f"11d rank {r}: replicas differ by "
+                                 f"{info['replica_gap']}")
+    if len(pp_losses) != 2 or first > 1e-5 or second > 1e-5 \
+            or not np.all(np.isfinite(pp_losses)):
+        raise AssertionError(f"11d: losses {pp_losses}, plain {plain}, DDP "
+                             f"{ddp_losses}")
+    if not names or len(differing) == len(names):
+        raise AssertionError(f"11d: {len(differing)} of {len(names)} .lab "
+                             f"files differ")
+    for mode in ("pp_pp", "pp_ddp"):
+        shutil.rmtree(os.path.join(root, mode), ignore_errors=True)
+    return dict(ranks=ranks, losses=pp_losses, ddp=ddp_losses, first=first,
+                second=second, wall=wall, differing=differing)
+
+
 def parallel_phases(root: str, cfg=None, ckpt=None, wav_dir=None,
                     ref_labs=None) -> dict:
-    """Phase 11 (``--only parallel``): 11a-11c; without phase 4's run it
+    """Phase 11 (``--only parallel``): 11a-11d; without phase 4's run it
     makes one (the same ``make_run`` and ``infer_folder_batched`` call)."""
     import torch
     with lap("11a"):
@@ -4497,7 +4821,9 @@ def parallel_phases(root: str, cfg=None, ckpt=None, wav_dir=None,
                                  confidence_threshold=0.0, batch_files=8,
                                  device="cuda", compute_dtype=torch.bfloat16)
         serving = phase_parallel_serving(root, cfg, ckpt, wav_dir, ref_labs)
-    return dict(kernels=kern, train=train, serving=serving)
+    with lap("11d"):
+        pipe = phase_pipeline(root, cfg, ckpt, wav_dir, ref_labs)
+    return dict(kernels=kern, train=train, serving=serving, pipeline=pipe)
 
 
 def k6_row(kern: dict, strict: dict) -> dict:
@@ -4522,13 +4848,19 @@ def k6_row(kern: dict, strict: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "conv", "train", "whisper",
-                                       "modules", "optim", "parallel"),
+                                       "modules", "optim", "parallel", "pp",
+                                       "remat-det"),
                     default=None)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--rank-train", nargs="+", metavar="CONFIG OUT",
                     help="(run by phase 11b under torch.distributed.run)")
+    ap.add_argument("--rank-pp", nargs=7, metavar="ARG",
+                    help="(run by phase 11d under torch.distributed.run)")
     args = ap.parse_args()
 
+    if args.only == "remat-det":
+        # read when cuBLAS starts: before any CUDA work
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4536,6 +4868,9 @@ def main() -> int:
         return 2
     if args.rank_train:
         rank_train(args.rank_train)
+        return 0
+    if args.rank_pp:
+        rank_pp(args.rank_pp)
         return 0
     from wfl_asr_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
 
@@ -4576,13 +4911,27 @@ def main() -> int:
         log_laps()
         return 0
     if args.only in ("train", "whisper", "modules", "optim",
-                     "parallel"):           # iterating
+                     "parallel", "pp", "remat-det"):     # iterating
         root = tempfile.mkdtemp(prefix="wfl_smoke_")
         try:
             if args.only == "train":        # phases 6-7b
                 train_phases(root)
             elif args.only == "parallel":   # phase 11
                 parallel_phases(root)
+            elif args.only == "remat-det":  # phase 10a, deterministic
+                with lap("10a-det"):
+                    phase_remat_deterministic(root)
+            elif args.only == "pp":         # phase 11d
+                cfg, ckpt, wav_dir = make_run(root)
+                ref_labs = os.path.join(root, "labs")
+                from wfl_asr_tpu_torch.infer.pipeline import \
+                    infer_folder_batched
+                infer_folder_batched(wav_dir, cfg, ckpt, ref_labs, lang_id=0,
+                                     confidence_threshold=0.0, batch_files=8,
+                                     device="cuda",
+                                     compute_dtype=torch.bfloat16)
+                with lap("11d"):
+                    phase_pipeline(root, cfg, ckpt, wav_dir, ref_labs)
             elif args.only == "optim":      # phases 10e-10f
                 with lap("10e"):
                     phase_optimizers(root, FLAGSHIP_LABELS)

@@ -1,9 +1,10 @@
 """Checkpoint interchange with the JAX package on the CPU: a ``.pt.npz``
 (what a torch-less JAX run writes, ``save_pytree_npz`` of the
-``export_tagger`` dict) serves and resumes in the port, and a JAX Prodigy
-``.train.npz`` sidecar resumes the port's Prodigy so that the next step
-agrees with the JAX run's; the port's own ``.train.pt`` wins when both
-exist; another optimizer's JAX state starts the port fresh.
+``export_tagger`` dict) serves and resumes in the port, and a JAX
+``.train.npz`` sidecar of Prodigy or of any of the 26 optax names (and a
+JAX PP run's stacked one) resumes the port's optimizer of that name so that
+the next step agrees with the JAX run's; the port's own ``.train.pt`` wins
+when both exist; another optimizer's JAX state starts the port fresh.
 
     python -m pytest tests/test_torch_checkpoint_npz.py -q
 """
@@ -29,6 +30,7 @@ from wfl_asr_tpu_torch.config import Config
 from wfl_asr_tpu_torch.models import tagger as PT
 from wfl_asr_tpu_torch.models.convert import export_tagger
 from wfl_asr_tpu_torch.train import loop as TLOOP
+from wfl_asr_tpu_torch.train import optimizers as TOPT
 from wfl_asr_tpu_torch.train.schedules import get_scheduler
 
 from tests.test_torch_e2e import LABELS, make_run
@@ -215,25 +217,178 @@ def test_port_sidecar_wins_over_jax(jax_run, tmp_path):
 
 
 def test_other_jax_optimizer_starts_fresh(tmp_path, capsys):
-    """A JAX AdamW sidecar cannot map onto the port: logged, and the
-    optimizer left fresh; so is a Prodigy sidecar under a port AdamW."""
+    """A JAX AdamW sidecar restores a port AdamW (every parameter's state
+    filled, the count and the live learning rate taken), but cannot map
+    onto a port Prodigy: logged, and that optimizer left fresh; so is a
+    JAX Prodigy sidecar under a port AdamW."""
     from wfl_asr_tpu.checkpoint import save_model_checkpoint
     from wfl_asr_tpu.train import loop as JLOOP
     arch = graft._flagship_arch(tiny=True)
     params, state = init_tagger(jax.random.PRNGKey(0), arch)
     adamw = {"training": {"optimizer": "AdamW", "learning_rate": 1e-3}}
-    tx = JLOOP.make_optimizer(JaxConfig(adamw))
-    path = str(tmp_path / "model_step5.pt")
-    save_model_checkpoint(path, params, state, arch)
-    save_train_state(path, tx.init(params), 5,
-                     np.asarray(jax.random.PRNGKey(0)))
-    for raw in (_opt_raw(), adamw):
+    for sidecar, raw, maps in (("AdamW", adamw, True),
+                               ("AdamW", _opt_raw(), False),
+                               ("Prodigy", adamw, False)):
+        root = tmp_path / f"{sidecar}_{raw['training']['optimizer']}"
+        root.mkdir()
+        tx = JLOOP.make_optimizer(JaxConfig(
+            adamw if sidecar == "AdamW" else _opt_raw()))
+        path = str(root / "model_step5.pt")
+        save_model_checkpoint(path, params, state, arch)
+        save_train_state(path, tx.init(params), 5,
+                         np.asarray(jax.random.PRNGKey(0)))
         model = PT.BIOPhonemeTagger(port_arch(arch))
         opt = TLOOP.make_optimizer(Config(raw), model.parameters())
         assert TLOOP._resume(model, opt, torch.Generator(),
                              get_scheduler("ConstantLR", {}, base_lr=1.0),
-                             str(tmp_path)) == 5
+                             str(root)) == 5
         printed = capsys.readouterr().out
+        if maps:
+            assert "restored the JAX run's AdamW state" in printed
+            assert len(opt.state) == len(list(model.parameters()))
+            assert all(int(st["step"]) == 0 for st in opt.state.values())
+            assert opt.param_groups[0]["lr"] == pytest.approx(1e-3)
+            continue
         assert "does not map onto the port's" in printed
         assert "optimizer starts fresh" in printed
         assert len(opt.state) == 0
+
+
+OPTAX_NAMES = sorted(TOPT.OPTIMIZERS)
+
+
+def _synthetic_grads(params, k: int):
+    """Seeded gradients shaped as ``params`` (numpy, the same every run)."""
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    rng = np.random.RandomState(100 + k)
+    return jax.tree_util.tree_unflatten(tree, [
+        (rng.randn(*np.shape(x)) * 0.1).astype(np.float32) for x in leaves])
+
+
+def _sidecar_case(tmp_path, name, stack=False):
+    """Two eager optax updates of ``name`` (JLOOP.make_optimizer) on the
+    tiny tagger from seeded gradients, saved as ``model_step2.pt`` with its
+    ``.train.npz`` (the state stacked as a JAX PP run saves it when
+    ``stack``); returns the raw config, the third update's gradients and
+    the parameters before and after it, exported to torch keys."""
+    from wfl_asr_tpu.checkpoint import save_model_checkpoint
+    from wfl_asr_tpu.parallel import pp as JPP
+    from wfl_asr_tpu.train import loop as JLOOP
+    arch = graft._flagship_arch(tiny=True)
+    params, state = init_tagger(jax.random.PRNGKey(0), arch)
+    lr = 1.0 if name.lower() in ("prodigy", "dadaptadamw", "adadelta") \
+        else 1e-2
+    # adafactor factors leaves from 16 on (the tiny tagger has none of
+    # 128); dadaptadamw's and Prodigy's d start at 1e-2 and 1e-3, so that
+    # three updates move the parameters
+    extra = {"adafactor": {"min_dim_size_to_factor": 16},
+             "dadaptadamw": {"estim_lr0": 1e-2},
+             "Prodigy": {"d0": 1e-3}}.get(name, {})
+    raw = {"training": {"optimizer": name, "learning_rate": lr,
+                        "weight_decay": 1e-5, "optimizer_params": {
+                            "betas": [0.9, 0.999], "eps": 1e-8, **extra}}}
+
+    def stacked(tree):
+        if not stack:
+            return tree
+        tree = dict(tree)
+        enc = dict(tree["encoder"])
+        enc["layers"] = JPP.stack_layers(enc["layers"])
+        tree["encoder"] = enc
+        return tree
+
+    def export(tree):
+        return export_tagger(jax.tree_util.tree_map(np.asarray, tree),
+                             jax.tree_util.tree_map(np.asarray, state),
+                             "wavlm")
+
+    tx = JLOOP.make_optimizer(JaxConfig(raw))
+    p = stacked(params)
+    ostate = tx.init(p)
+    update = jax.jit(tx.update)
+    for k in range(2):
+        u, ostate = update(stacked(_synthetic_grads(params, k)), ostate, p)
+        p = jax.tree_util.tree_map(lambda a, b: a + b, p, u)
+    path = str(tmp_path / "model_step2.pt")
+    unstacked = dict(p)
+    if stack:
+        enc = dict(p["encoder"])
+        enc["layers"] = JPP.unstack_layers(enc["layers"])
+        unstacked["encoder"] = enc
+    save_model_checkpoint(path, unstacked, state, arch)
+    save_train_state(path, ostate, 2, np.asarray(jax.random.PRNGKey(0)))
+    grads = _synthetic_grads(params, 2)
+    u, _ = update(stacked(grads), ostate, p)
+    after = jax.tree_util.tree_map(lambda a, b: a + b, p, u)
+    if stack:
+        after = dict(after)
+        enc = dict(after["encoder"])
+        enc["layers"] = JPP.unstack_layers(enc["layers"])
+        after["encoder"] = enc
+    return dict(raw=raw, arch=arch, grads=export(grads),
+                before=export(unstacked), after=export(after))
+
+
+def _resume_and_step(tmp_path, case, capsys):
+    """The port resumes the case's checkpoint (``loop._resume``) and takes
+    the third update; returns (its parameters by state key, the log)."""
+    model = PT.BIOPhonemeTagger(port_arch(case["arch"]))
+    opt = TLOOP.make_optimizer(Config(case["raw"]), list(model.parameters()),
+                               model.jax_leaf_blocks())
+    lr = case["raw"]["training"]["learning_rate"]
+    assert TLOOP._resume(model, opt, torch.Generator(),
+                         get_scheduler("ConstantLR", {}, base_lr=lr),
+                         str(tmp_path)) == 2
+    printed = capsys.readouterr().out
+    for n, q in model.named_parameters():
+        q.grad = torch.from_numpy(np.array(
+            case["grads"][CK._state_dict_key(n)], np.float32)
+        ).reshape(q.shape)
+    opt.step()
+    return model.state_dict(), printed
+
+
+def _assert_third_update(got, case):
+    """Every parameter within test_torch_optimizers' tolerance (1e-6) of
+    optax's third update, which moved them by far more."""
+    moved = 0.0
+    for k, w in case["after"].items():
+        if k.endswith(("num_batches_tracked", "running_mean", "running_var",
+                       "original0")):
+            continue
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[k].numpy(), w, atol=1e-6, rtol=0,
+                                   err_msg=k)
+        moved = max(moved, float(np.abs(w - case["before"][k]).max()))
+    assert moved > 1e-4, "the update moved nothing: the check is vacuous"
+
+
+@pytest.mark.parametrize("name", OPTAX_NAMES)
+def test_jax_optax_sidecar_resumes(tmp_path, capsys, name):
+    """A JAX run's sidecar of each optax name (two eager updates of the
+    tiny tagger) resumes the port's optimizer of that name through
+    ``loop._resume``, and the port's next update on the same gradients is
+    optax's third (per-leaf states — adafactor's factored moments, here
+    with leaves factored from 16 on, sm3's accumulators, novograd's
+    moment — mapped leaf by leaf, in_proj's three leaves on its rows)."""
+    case = _sidecar_case(tmp_path, name)
+    got, printed = _resume_and_step(tmp_path, case, capsys)
+    assert "restored the JAX run's" in printed, printed
+    _assert_third_update(got, case)
+
+
+@pytest.mark.parametrize("name", ["AdamW", "Prodigy", "sm3"])
+def test_stacked_jax_sidecar_resumes(tmp_path, capsys, name):
+    """A JAX PP run's sidecar (the encoder's layers one stacked ``[L]``
+    leaf each) resumes a port run without pipeline parallelism: AdamW's
+    and Prodigy's states unstack along [L] and the next update is the JAX
+    run's; sm3's accumulators span the stacked leaf's layers, so it starts
+    fresh, logged."""
+    case = _sidecar_case(tmp_path, name, stack=True)
+    got, printed = _resume_and_step(tmp_path, case, capsys)
+    if name == "sm3":
+        assert "does not map onto the port's SM3" in printed
+        assert "optimizer starts fresh" in printed
+        return
+    assert "restored the JAX run's" in printed, printed
+    _assert_third_update(got, case)

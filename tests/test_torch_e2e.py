@@ -207,6 +207,7 @@ def test_port_imports_no_jax():
             "import wfl_asr_tpu_torch.parallel.fsdp\n"
             "import wfl_asr_tpu_torch.parallel.tp\n"
             "import wfl_asr_tpu_torch.parallel.sp\n"
+            "import wfl_asr_tpu_torch.parallel.pp\n"
             "bad = [m for m in sys.modules if m in ('jax', 'optax') or "
             "m.startswith(('jax.', 'optax.', 'wfl_asr_tpu.')) or "
             "m == 'wfl_asr_tpu']\n"

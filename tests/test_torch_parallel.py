@@ -558,8 +558,10 @@ def test_valueerror_degrades_only_for_a_hint(fresh_guard):
 
 
 def test_serving_pipeline_parallel_raises_and_sp_warns(worlds, capsys):
-    """``model.pipeline_parallel > 1`` still raises (ROADMAP); without a
-    model dim ``model.sequence_parallel`` warns as the JAX session does."""
+    """``model.pipeline_parallel: 2`` in one process is the JAX session's
+    ``ValueError`` (2 stages do not divide the one visible rank; PP serving
+    itself runs in tests/test_torch_pp.py); without a model dim
+    ``model.sequence_parallel`` warns as the JAX session does."""
     from wfl_asr_tpu_torch.infer.pipeline import InferenceSession
     ref, _ = worlds
     serve = os.path.join(ref["root"], "serve")
@@ -572,7 +574,8 @@ def test_serving_pipeline_parallel_raises_and_sp_warns(worlds, capsys):
         cfg = json.loads(json.dumps(raw))
         cfg["model"][key] = val
         if key == "pipeline_parallel":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(ValueError, match="does not divide the 1 "
+                                                 "visible devices"):
                 InferenceSession(cfg, os.path.join(serve, "model.pt"),
                                  arch=arch, device="cpu")
         else:

@@ -537,13 +537,19 @@ def test_train_loop_end_to_end(prepped):
 
 
 def test_unported_options_raise(prepped):
+    """The orbax format raises ``NotImplementedError`` naming ROADMAP.md;
+    pipeline parallelism in one process is the JAX loop's ``ValueError``
+    (it needs several ranks)."""
     root, cfg = prepped
-    for section, key, val in (("training", "pipeline_parallel", 2),
-                              ("output", "checkpoint_format", "orbax")):
+    for section, key, val, err, match in (
+            ("training", "pipeline_parallel", 2, ValueError,
+             "needs multiple visible devices"),
+            ("output", "checkpoint_format", "orbax", NotImplementedError,
+             "ROADMAP")):
         raw = json.loads(json.dumps(cfg))
         raw[section][key] = val
         raw["model"]["num_languages"] = 2
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(err, match=match):
             TLOOP.train(raw, device="cpu")
 
 

@@ -304,11 +304,11 @@ class Config:
 
     @property
     def serving_pipeline_parallel(self) -> int:
-        """TPU addition: GPipe-pipeline the encoder's transformer stack
-        over S stages at session load (parallel/pp.py) — each device holds
-        layers/S of the encoder, so models up to S× single-chip HBM serve
-        without weight-sharding the matmuls. 0/1 disables. Needs
-        visible_devices % S == 0 and encoder layers % S == 0."""
+        """GPipe-pipeline the encoder's transformer stack over S stages at
+        session load (parallel/pp.py) — each rank holds layers/S of the
+        encoder, so models up to S× one card's memory serve without
+        weight-sharding the matmuls. 0/1 disables. Needs a world that S
+        divides and encoder layers % S == 0."""
         return int(self._sec("model").get("pipeline_parallel", 0))
 
     @property

@@ -32,8 +32,11 @@ a contiguous share of the batch's files, at the whole batch's bucket length,
 and writes their ``.lab`` and ``.wfl_cache`` files. ``InferenceSession(...,
 model_parallel=N)`` shards the weights for tensor-parallel serving
 (``parallel/tp.py``), with ``model.sequence_parallel`` as in training.
-Pipeline parallelism (``model.pipeline_parallel > 1``) is not ported and
-raises ``NotImplementedError``.
+``model.pipeline_parallel: S`` pipelines the encoder's layers over a
+``(data, stage)`` mesh of the world (``parallel/pp.py``, one row a
+microbatch, as the JAX session runs it); every stage of a pipeline calls
+the forwards with the same rows, the heads run on every stage, and the
+pipeline's first stage alone writes ``.lab`` and ``.wfl_cache`` files.
 """
 
 from __future__ import annotations
@@ -95,7 +98,10 @@ class InferenceSession:
     mesh of the world; every rank of a model group must then call the
     forwards with the same rows. ``data_parallel``: a mesh over the world
     (model dim 1) for :func:`infer_folder_batched` to spread files over;
-    the forwards stay rank-local."""
+    the forwards stay rank-local. ``model.pipeline_parallel: S`` (the
+    config's): the encoder's layers over S stages of a ``(data, stage)``
+    mesh of the world, each stage holding its share (``parallel/pp.py``);
+    ``writes`` is then true on each pipeline's first stage only."""
 
     def __init__(self, config: ConfigLike, checkpoint_path: str,
                  compute_dtype: torch.dtype = torch.float32,
@@ -117,11 +123,22 @@ class InferenceSession:
         if quant not in ("none", "int8"):
             raise ValueError(f"model.serving_quantization={quant!r}: only "
                              f"'int8' or 'none' are supported")
-        if int(self.cfg.serving_pipeline_parallel) > 1:
-            raise NotImplementedError(
-                "model.pipeline_parallel serving is not ported to "
-                "wfl_asr_tpu_torch yet (ROADMAP.md Queue 1)")
+        pp_stages = int(self.cfg.serving_pipeline_parallel)
+        if pp_stages > 1 and self.arch.encoder_type not in ("wavlm",
+                                                            "whisper"):
+            raise ValueError("model.pipeline_parallel needs a layered "
+                             "encoder (wavlm or whisper)")
         model_parallel = int(model_parallel)
+        if pp_stages > 1:
+            if model_parallel > 1:
+                raise ValueError(
+                    "model.pipeline_parallel needs a ('data','stage') "
+                    "mesh; the session was given one without a 'stage' "
+                    "axis")
+            if pmesh.world_size() % pp_stages:
+                raise ValueError(
+                    f"model.pipeline_parallel={pp_stages} does not divide "
+                    f"the {pmesh.world_size()} visible devices")
         if model_parallel > 1 and quant == "int8":
             raise ValueError("model.serving_quantization: int8 and "
                              "model_parallel > 1 do not combine")
@@ -135,7 +152,16 @@ class InferenceSession:
                   "(W8A8-dynamic, per-output-channel weights)")
         self.model = model.to(self.device)
         self.mesh = None
-        if model_parallel > 1 or (data_parallel
+        self.writes = True
+        if pp_stages > 1:
+            from ..parallel import pp
+            self.mesh = pp.make_pp_mesh(pp_stages, self.device)
+            pp.shard_params_pp(self.model, self.mesh)
+            self.writes = self.mesh.first
+            print(f"[INFO] pipeline-parallel serving: encoder layers over "
+                  f"{pp_stages} stages (mesh {self.mesh.shape}, transport "
+                  f"{self.mesh.transport})")
+        elif model_parallel > 1 or (data_parallel
                                   and torch.distributed.is_initialized()):
             from ..parallel import tp
             self.mesh = pmesh.make_mesh(model_parallel, self.device)
@@ -456,7 +482,7 @@ def _predict_segment(session: InferenceSession, segment: np.ndarray,
         batched_logits, batched_offsets = session.forward(segment, lang_ids)
         logits = batched_logits.mean(axis=0)
         offsets = batched_offsets.mean(axis=0)
-        if logit_path is not None:
+        if logit_path is not None and session.writes:
             _cache_save(logit_path, logits)
             _cache_save(offset_path, offsets)
     return logits, offsets
@@ -527,11 +553,14 @@ def _get_session(config: ConfigLike, checkpoint_path: str, device=None,
     """One cached session per (config, checkpoint, device, dtype, data
     parallel). Joins the launcher's process group first, if there is one
     (a plain run is untouched); ``data_parallel`` takes effect in a process
-    group (a world of one too)."""
+    group (a world of one too), and is on under pipeline parallelism (whose
+    session is one per world)."""
     pmesh.maybe_initialize_distributed(
         device="cpu" if str(device) == "cpu" else "cuda")
     dev = resolve_device(device)
-    data_parallel = bool(data_parallel) and torch.distributed.is_initialized()
+    data_parallel = (bool(data_parallel) or as_config(
+        config).serving_pipeline_parallel > 1) \
+        and torch.distributed.is_initialized()
     key = (_config_key(config), os.path.abspath(checkpoint_path), str(dev),
            compute_dtype, data_parallel)
     session = _SESSION_CACHE.get(key)
@@ -597,7 +626,7 @@ def infer_audio(audio_path: str, config_path: ConfigLike = "config.yaml",
             segments_pred, mode=session.cfg.merge_segments)
     if forced is not None:
         segments_pred = _apply_forced_alignment(segments_pred, forced)
-    if output_lab_path:
+    if output_lab_path and session.writes:
         dir_path = os.path.dirname(output_lab_path)
         if dir_path:
             os.makedirs(dir_path, exist_ok=True)
@@ -651,7 +680,9 @@ def infer_folder_batched(folder_path: str,
     at the whole batch's bucket length, and the longer and the cached
     files in turn; each rank writes the ``.lab`` and ``.wfl_cache`` files of
     what it serves. Which files are cached is decided by every rank before
-    any rank writes."""
+    any rank writes. Under ``model.pipeline_parallel`` the data ranks share
+    the files so, every stage of a pipeline runs its data rank's forwards,
+    and the pipeline's first stage writes."""
     pmesh.maybe_initialize_distributed(
         device="cpu" if str(device) == "cpu" else "cuda")
     if data_parallel is None:
@@ -700,6 +731,8 @@ def infer_folder_batched(folder_path: str,
                 bucket=bucket)
             for (name, _path, _n, logit_path, offset_path), \
                     (logits, offsets, segs) in zip(group, results):
+                if not session.writes:
+                    continue
                 _cache_save(logit_path, logits)
                 _cache_save(offset_path, offsets)
                 if session.merge_map and lang_name:
@@ -712,6 +745,8 @@ def infer_folder_batched(folder_path: str,
                                        bucket=bucket)
         for (name, _path, _n, logit_path, offset_path), (lg, off) in \
                 zip(group, results):
+            if not session.writes:
+                continue
             logits = lg.mean(axis=0)
             offsets = off.mean(axis=0)
             _cache_save(logit_path, logits)
@@ -765,7 +800,7 @@ def infer_folder_batched(folder_path: str,
                         device=device, lang_id=lang_id,
                         confidence_threshold=confidence_threshold,
                         compute_dtype=compute_dtype)
-        else:
+        elif session.writes:
             cached, offset_path = rest
             finish(name, _decode_segment(
                 session, cached, _squeeze_batch(_cache_load(offset_path)),

@@ -48,6 +48,7 @@ from torch import nn
 from ..ops.kernels.conv_fused import MAX_CHAIN, fused_conv_chain, \
     pack_weights
 from ..ops.kernels.flash_attention import flash_attention
+from ..parallel import pp
 from ..parallel.mesh import local_tensor, shard_origin
 from ..parallel.sp import gather_time, shard_time, sp_active
 from ..parallel.tp import copy_to_model
@@ -309,6 +310,8 @@ class WavLMEncoder(nn.Module):
         self.mesh = None
         # sequence parallelism between layers (parallel/sp.py)
         self.sequence_parallel = False
+        # pipeline parallelism over the layers (parallel/pp.py)
+        self.pipeline = None
 
     def _heads(self):
         """(local heads, first local head, model group or None): all heads
@@ -472,8 +475,8 @@ class WavLMEncoder(nn.Module):
         return gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
 
     def _attend(self, att: WavLMAttention, x: torch.Tensor,
-                pos_bias: torch.Tensor, kv_len, generator=None
-                ) -> torch.Tensor:
+                pos_bias: torch.Tensor, kv_len, generator=None,
+                row0: Optional[int] = None) -> torch.Tensor:
         b, t, hid = x.shape
         heads, h0, _ = self._heads()
         hid = hid * heads // self.arch.num_heads        # this rank's width
@@ -494,12 +497,25 @@ class WavLMEncoder(nn.Module):
             drop = dict(dropout_rate=arch.attention_dropout,
                         dropout_seed=layers.attention_dropout_seed(
                             generator, x.device),
-                        origin=shard_origin(self.mesh, b, h0))
+                        origin=shard_origin(self.mesh, b, h0)
+                        if row0 is None else (row0, h0))
         out = flash_attention(q, k, v, bias=pos_bias, gate=gate,
                               kv_len=kv_len, **drop)
         return linear(att.out_proj, out.transpose(1, 2).reshape(b, t, hid))
 
-    def _layer(self, layer: WavLMLayer, x, pos_bias, kv_len, generator):
+    def _layer_draws(self, generator) -> None:
+        """A layer's whole-batch draws from the shared stream, as
+        :meth:`_attend` makes them in training: the strict-dropout seed."""
+        arch = self.arch
+        if (self.training and arch.strict_attention_dropout
+                and arch.attention_dropout > 0.0):
+            layers.attention_dropout_seed(
+                generator, layers.shared_generator(generator).device)
+
+    def _layer(self, layer: WavLMLayer, x, pos_bias, kv_len, generator,
+               row0: Optional[int] = None):
+        """One layer; ``row0``: the global index of ``x``'s first row when
+        it is a pipeline microbatch (the strict-dropout origin)."""
         arch = self.arch
         eps = arch.layer_norm_eps
         ff = layer.feed_forward
@@ -515,11 +531,11 @@ class WavLMEncoder(nn.Module):
         if arch.do_stable_layer_norm:            # pre-LN (wavlm-large)
             xn = layer_norm(layer.layer_norm, x, eps)
             x = x + hidden_drop(self._attend(layer.attention, xn, pos_bias,
-                                             kv_len, generator))
+                                             kv_len, generator, row0))
             return x + feed_forward(layer_norm(layer.final_layer_norm, x,
                                                eps))
         x = x + hidden_drop(self._attend(layer.attention, x, pos_bias,
-                                         kv_len, generator))
+                                         kv_len, generator, row0))
         x = layer_norm(layer.layer_norm, x, eps)
         return layer_norm(layer.final_layer_norm, x + feed_forward(x), eps)
 
@@ -558,6 +574,16 @@ class WavLMEncoder(nn.Module):
             # the JAX package's do.
             pos_bias = pos_bias.to(compute_dtype)
         kv_len = (mask.to(torch.int32).sum(-1) if mask is not None else None)
+        if self.pipeline is not None:
+            x = pp.pipelined_layers(
+                self, x, lambda layer, h, rows, shr, gen, row0: layer(
+                    self._layer, h, shr[0], rows[0] if rows else None, gen,
+                    row0), generator, remat,
+                per_row=(kv_len,) if kv_len is not None else (),
+                shared=(pos_bias,), layer_draws=self._layer_draws)
+            if arch.do_stable_layer_norm:
+                x = layer_norm(self.encoder.layer_norm, x, eps)
+            return x
         layerdrop = arch.layerdrop if self.training else 0.0
         t = x.shape[1]
         sp = sp_active(self.mesh, self.sequence_parallel)

@@ -16,9 +16,12 @@ it frozen). In training mode (``module.train()``) dropout, activation
 dropout and LayerDrop follow whisper.py:177-272, drawing from the
 ``generator`` passed in; LayerDrop computes every layer and selects.
 With ``remat`` each layer runs under ``layers.checkpointed``
-(whisper.py:204-222), its draws the same as without. Pipeline and
-sequence parallelism are not ported (ROADMAP.md Queue 1). Parameters stay
-f32 and are cast to the compute dtype at use.
+(whisper.py:204-222), its draws the same as without. Under pipeline
+parallelism (``self.pipeline``, set by ``parallel.pp.shard_params_pp``)
+the layers run through ``parallel.pp.pipelined_layers`` (whisper.py:161-
+202); sequence parallelism shards the time axis between layers
+(``parallel/sp.py``). Parameters stay f32 and are cast to the compute
+dtype at use.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels.flash_attention_bwd import flash_attention_trainable
+from ..parallel import pp
 from ..parallel.sp import gather_time, shard_time, sp_active
 from .layers import checkpointed, conv1d, dropout, gelu, layer_norm, \
     linear, shared_generator
@@ -155,6 +159,8 @@ class WhisperEncoder(nn.Module):
         # sequence parallelism between layers (parallel/sp.py)
         self.mesh = None
         self.sequence_parallel = False
+        # pipeline parallelism over the layers (parallel/pp.py)
+        self.pipeline = None
 
     def _layer(self, layer: WhisperEncoderLayer, x: torch.Tensor,
                generator) -> torch.Tensor:
@@ -198,6 +204,11 @@ class WhisperEncoder(nn.Module):
         x = x + self.embed_positions.weight.to(compute_dtype)[None,
                                                               :x.shape[1]]
         x = dropout(x, arch.dropout, generator, self.training)
+        if self.pipeline is not None:
+            x = pp.pipelined_layers(
+                self, x, lambda layer, h, rows, shr, gen, row0: layer(
+                    self._layer, h, gen), generator, remat)
+            return layer_norm(self.layer_norm, x)
         layerdrop = arch.layerdrop if self.training else 0.0
         t = x.shape[1]
         sp = sp_active(self.mesh, self.sequence_parallel)

@@ -49,6 +49,11 @@ _HINT_RANKS = {"SLURM_NTASKS": "SLURM_PROCID",
 # How long a collective may wait for its peers before the group raises
 DEFAULT_TIMEOUT_S = 1800
 
+# The process group's backend when set ("gloo" puts several ranks on one
+# card: NCCL refuses two ranks on the same device); else NCCL on the card,
+# gloo on the CPU
+BACKEND_VAR = "WFL_DIST_BACKEND"
+
 _dist_initialized = False
 
 
@@ -94,8 +99,9 @@ def maybe_initialize_distributed(env=None, _initialize=None,
                                  ) -> bool:
     """Join the process group iff the environment marks a launch of several
     processes (or ``torchrun``'s world of one), exactly once: NCCL when
-    ``device`` is CUDA (each rank on ``cuda:LOCAL_RANK``), ``gloo`` on the
-    CPU. No-op for a plain one-process run. Returns True when the group was
+    ``device`` is CUDA (each rank on ``cuda:LOCAL_RANK``, modulo the card
+    count), ``gloo`` on the CPU, or the backend ``WFL_DIST_BACKEND`` names.
+    No-op for a plain one-process run. Returns True when the group was
     joined by this call.
 
     ``env``/``_initialize`` are injectable for unit tests."""
@@ -108,11 +114,13 @@ def maybe_initialize_distributed(env=None, _initialize=None,
         return False
     cuda = torch.device(device).type == "cuda"
     if cuda and _initialize is None and torch.cuda.is_available():
-        torch.cuda.set_device(_int(env, "LOCAL_RANK", 0))
+        # more ranks than cards (a gloo world on one card) share the cards
+        torch.cuda.set_device(_int(env, "LOCAL_RANK", 0)
+                              % torch.cuda.device_count())
+    backend = env.get(BACKEND_VAR) or ("nccl" if cuda else "gloo")
     init = _initialize if _initialize is not None else _default_initialize
     try:
-        init(**_init_kwargs(env, signal, "nccl" if cuda else "gloo",
-                            timeout_s))
+        init(**_init_kwargs(env, signal, backend, timeout_s))
     except RuntimeError as e:
         # Only a double init is benign. A rendezvous or connection failure
         # must propagate: swallowing it would let N processes train as N

@@ -58,6 +58,14 @@ combination, loop.py:640-750):
 - ``training.model_parallel``: tensor parallelism (``parallel/tp.py``),
   with ``training.sequence_parallel`` (``parallel/sp.py``), gradients
   averaged over the data group;
+- ``training.pipeline_parallel: S``: GPipe over a ``(data, stage)`` mesh
+  (``parallel/pp.py``): each stage holds L/S of the encoder's layers and
+  runs ``training.pp_microbatches`` microbatches through them (clamped as
+  the JAX encoders clamp it); the batch is sharded over data only; the
+  optimizer takes its statistics over the JAX package's stacked leaves;
+  the replicated parameters' gradients are averaged over the data group
+  and kept equal over the stages; composes with gradient accumulation,
+  remat and sharded validation;
 - ``training.sharded_validation``: each data rank evaluates its rows of
   each validation batch and the metric sums are reduced, so every rank
   gets the one-process validation metrics;
@@ -66,9 +74,9 @@ combination, loop.py:640-750):
   the canonical ``.pt`` and sidecar of a one-process run, gathered from
   the shards (the sidecar adds each rank's dropout-generator state).
 
-Not ported (a config that asks for one raises ``NotImplementedError``
-naming ROADMAP.md): pipeline parallelism, the orbax format. Validation
-runs in eval mode, without dropout.
+Not ported (a config that asks for it raises ``NotImplementedError``
+naming ROADMAP.md): the orbax format. Validation runs in eval mode,
+without dropout.
 
     python -m wfl_asr_tpu_torch.train CONFIG [--device cuda|cpu]
     torchrun --nproc_per_node N -m wfl_asr_tpu_torch.train CONFIG
@@ -110,7 +118,7 @@ from ..parallel import tp as ptp
 from ..utils.profiling import maybe_trace
 from .losses import (cross_entropy, offset_loss, segmental_loss_value,
                      soft_iou_segmental_loss)
-from .optimizers import make_optimizer  # noqa: F401  (re-exported)
+from .optimizers import STACKED_STATE, make_optimizer
 from .schedules import get_scheduler
 
 BATCH_KEYS = ("audio", "labels", "lang_ids", "off_frames", "off_channels",
@@ -119,14 +127,12 @@ BATCH_KEYS = ("audio", "labels", "lang_ids", "off_frames", "off_channels",
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to wfl_asr_tpu_torch yet (ROADMAP.md Queue 1)")
+        f"{what} is not ported to wfl_asr_tpu_torch: a deliberate "
+        f"difference (ROADMAP.md)")
 
 
 def check_supported(cfg: Config) -> None:
     """Raise for the JAX-only training options."""
-    t = cfg._sec("training")
-    if int(t.get("pipeline_parallel", 1)) > 1:
-        raise _not_ported("training.pipeline_parallel")
     fmt = str(cfg._sec("output").get("checkpoint_format", "pt"))
     if fmt != "pt":
         raise _not_ported(f"output.checkpoint_format {fmt!r}")
@@ -142,11 +148,20 @@ class Parallel:
     sharded_validation: bool = False
     # FSDP's replicated leaves, whose gradients the loop averages itself
     replicated: Sequence = ()
+    pipeline: int = 1
+    pp_microbatches: int = 0
+    # under pipeline parallelism: the one-process model's trainable
+    # parameter names, in order (the canonical optimizer state's)
+    full_names: Sequence[str] = ()
+
+    @property
+    def pp(self) -> bool:
+        return self.pipeline > 1
 
     @property
     def ddp(self) -> bool:
         return (self.mesh is not None and not self.fsdp
-                and self.model_parallel == 1)
+                and self.model_parallel == 1 and not self.pp)
 
     @property
     def main(self) -> bool:
@@ -167,13 +182,16 @@ def plan_parallel(cfg: Config, device) -> Parallel:
     world that ``model_parallel`` does not divide, a batch that the data
     size does not divide, and ``training.remat: auto`` with more than one
     rank (an out-of-memory flip on one rank would leave the others
-    waiting in the gradient all-reduce). A process group (a launcher, or
-    the caller) puts the run on a mesh unless ``training.data_parallel`` is
-    false and nothing else asks for one."""
+    waiting in the gradient all-reduce). Pipeline parallelism raises with
+    model parallelism, across nodes, for an encoder other than wavlm or
+    whisper, and with one rank (loop.py:684-701, 745-747). A process group
+    (a launcher, or the caller) puts the run on a mesh unless
+    ``training.data_parallel`` is false and nothing else asks for one."""
     t = cfg._sec("training")
     mp = int(t.get("model_parallel", 1))
     sp = bool(t.get("sequence_parallel", False))
     fsdp = bool(t.get("fsdp", False))
+    stages = int(t.get("pipeline_parallel", 1))
     grouped = torch.distributed.is_initialized()
     nodes = pmesh.node_count()
     if sp and mp <= 1:
@@ -186,8 +204,21 @@ def plan_parallel(cfg: Config, device) -> Parallel:
             "training.remat: auto is single-process only (the OOM fallback "
             "would desynchronize the ranks' steps); set training.remat "
             "true/false explicitly")
-    if fsdp:
+    if stages > 1:
         if mp > 1:
+            raise ValueError("training.pipeline_parallel and "
+                             "training.model_parallel are mutually "
+                             "exclusive (different mesh layouts)")
+        if nodes > 1:
+            raise ValueError(
+                "pipeline_parallel > 1 is not supported across nodes: "
+                "checkpointing needs node-local stages. Use data "
+                "parallelism across nodes and PP within one node.")
+        if cfg.encoder_type not in ("wavlm", "whisper"):
+            raise ValueError("training.pipeline_parallel needs a layered "
+                             "encoder (wavlm or whisper)")
+    if fsdp:
+        if mp > 1 or stages > 1:
             raise ValueError(
                 "training.fsdp is mutually exclusive with model_parallel/"
                 "pipeline_parallel (different parameter placements)")
@@ -203,7 +234,10 @@ def plan_parallel(cfg: Config, device) -> Parallel:
         print(f"[WARN] training.model_parallel={mp} ignored: single "
               f"visible device")
         mp, sp = 1, False
-    use_mesh = grouped and (mp > 1 or fsdp
+    if stages > 1 and pmesh.world_size() <= 1:
+        raise ValueError("training.pipeline_parallel needs multiple "
+                         "visible devices")
+    use_mesh = grouped and (mp > 1 or fsdp or stages > 1
                             or bool(t.get("data_parallel", True)))
     if not use_mesh:
         return Parallel()
@@ -212,7 +246,11 @@ def plan_parallel(cfg: Config, device) -> Parallel:
             "model_parallel > 1 is not supported across nodes: validation/"
             "checkpointing need node-local (replicated) parameters. Use "
             "data parallelism across nodes and TP within one node.")
-    mesh = pmesh.make_mesh(mp, device)
+    if stages > 1:
+        from ..parallel import pp
+        mesh = pp.make_pp_mesh(stages, device)
+    else:
+        mesh = pmesh.make_mesh(mp, device)
     if cfg.batch_size % mesh.data_size:
         raise ValueError(f"batch_size {cfg.batch_size} must be divisible by "
                          f"the {mesh.data_size}-way data axis")
@@ -220,7 +258,9 @@ def plan_parallel(cfg: Config, device) -> Parallel:
           f"{mesh.shape}{', FSDP' if fsdp else ''}"
           f"{', sequence parallel' if sp else ''})")
     return Parallel(mesh, fsdp, mp, sp,
-                    bool(t.get("sharded_validation", False)))
+                    bool(t.get("sharded_validation", False)),
+                    pipeline=stages,
+                    pp_microbatches=int(t.get("pp_microbatches", 0)))
 
 
 def remat_mode(cfg: Config) -> str:
@@ -622,6 +662,17 @@ def _shard_model(model: BIOPhonemeTagger, par: Parallel, device):
     mesh = par.mesh
     if mesh is None:
         return model
+    if par.pp:
+        from ..parallel import pp
+        pp.shard_params_pp(model, mesh, par.pp_microbatches)
+        local = model.encoder.pipeline.local
+        print(f"[INFO] Pipeline parallel: stage {mesh.stage_rank} of "
+              f"{mesh.stage_size} holds encoder layers {local[0]}-"
+              f"{local[-1]}, data rank {mesh.data_rank} of "
+              f"{mesh.data_size}, microbatches "
+              f"{par.pp_microbatches or 'one a row'}, transport "
+              f"{mesh.transport}")
+        return model
     if par.model_parallel > 1:
         ptp.shard_params_tp(model, mesh)
         if par.sequence_parallel and hasattr(model, "encoder"):
@@ -658,13 +709,31 @@ def _gradient_hooks(net, model: BIOPhonemeTagger, par: Parallel):
 
     if par.fsdp:
         return fsdp_sync, lambda: par.mesh.average_grads(par.replicated)
+    if par.pp:
+        from ..parallel import pp
+        params = [p for p in model.parameters() if p.requires_grad]
+        replicas = [p for n, p in model.named_parameters()
+                    if p.requires_grad and pp.pp_spec(n) == "replicated"]
+
+        def after():
+            par.mesh.average_grads(params)
+            pp.sync_replicas([p.grad for p in replicas], par.mesh)
+        return None, after
     return None, lambda: par.mesh.average_grads(model.parameters())
 
 
 def _save_checkpoint(path: str, model: BIOPhonemeTagger, par: Parallel
                      ) -> None:
-    """The canonical ``.pt`` of ``model`` (gathered from its shards: every
-    rank calls this; rank 0 writes)."""
+    """The canonical ``.pt`` of ``model`` (gathered from its shards or
+    stages: every rank calls this; rank 0 writes)."""
+    if par.pp:
+        from ..parallel import pp
+        full = pp.gather_state_dict(model, par.mesh)
+        if par.main:
+            canonical = BIOPhonemeTagger(model.arch)
+            canonical.load_state_dict(full, strict=True)
+            save_model_checkpoint(path, canonical)
+        return
     if not par.sharded_params:
         if par.main:
             save_model_checkpoint(path, model)
@@ -678,13 +747,21 @@ def _save_checkpoint(path: str, model: BIOPhonemeTagger, par: Parallel
 
 
 def _save_train_state(path: str, optimizer, step: int, generator,
-                      scheduler, par: Parallel) -> None:
+                      scheduler, par: Parallel, model=None) -> None:
     """The sidecar beside ``path`` (every rank calls this; rank 0 writes):
-    the full optimizer state, the shared generator's state as
-    ``generator`` and, on a mesh, every rank's element-wise dropout
-    generator's as ``local_generators``."""
-    opt_state = optimizer.state_dict()
+    the full optimizer state (under pipeline parallelism gathered from the
+    stages, with their count as ``pipeline_stages``), the shared
+    generator's state as ``generator`` and, on a mesh, every rank's
+    element-wise dropout generator's as ``local_generators``."""
     extra = {}
+    if par.pp:
+        from ..parallel import pp
+        names = {p: n for n, p in model.named_parameters()}
+        opt_state = pp.gather_optimizer_state(optimizer, names,
+                                              par.full_names, par.mesh)
+        extra["pipeline_stages"] = par.pipeline
+    else:
+        opt_state = optimizer.state_dict()
     if isinstance(generator, layers.Generators):
         states = [None] * pmesh.world_size()
         torch.distributed.all_gather_object(states,
@@ -752,22 +829,42 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
     base_lr = cfg.learning_rate
     scheduler = get_scheduler(cfg.scheduler, cfg.scheduler_params,
                               base_lr=base_lr)
-    if mesh is not None and mesh.data_size > 1:
+    if mesh is not None and (mesh.data_size > 1 or par.pp):
+        # element-wise dropout: a stream a data rank (a rank under
+        # pipeline parallelism, whose stages run different layers)
         generator = layers.Generators(
-            torch.Generator(device=device).manual_seed(
-                _local_seed(cfg.seed, mesh.data_rank)), generator)
+            torch.Generator(device=device).manual_seed(_local_seed(
+                cfg.seed, pmesh.rank() if par.pp else mesh.data_rank)),
+            generator)
 
     best_loss, checkpoint_paths = float("inf"), []
     # resume into the unsharded model; the shards are cut from it after
-    step = _resume(model, optimizer, generator, scheduler, save_dir)
+    step = _resume(model, optimizer, generator, scheduler, save_dir,
+                   stages=par.pipeline)
     if step:
         checkpoint_paths = [p for p, _ in sorted(
             find_resume_checkpoints(save_dir), key=lambda c: c[1])
         ][-cfg.max_checkpoints:]
     else:
         print("Training start")
+    if par.pp:
+        par.full_names = [n for n, p in model.named_parameters()
+                          if p.requires_grad]
+        full_state = optimizer.state_dict()
     net = _shard_model(model, par, device)
-    if par.sharded_params:
+    if par.pp:
+        from ..parallel import pp
+        named = {n: p for n, p in model.named_parameters()
+                 if p.requires_grad}
+        optimizer = make_optimizer(
+            cfg, list(named.values()), model.jax_leaf_blocks(),
+            stacked=pp.StackedLeaves(named, mesh,
+                                     model.encoder.pipeline.num_layers))
+        if full_state["state"]:
+            optimizer.load_state_dict(pp.stage_optimizer_state(
+                full_state, par.full_names, list(named)))
+        del full_state
+    elif par.sharded_params:
         state = optimizer.state_dict()
         optimizer = pfsdp.FullTensorStep(new_optimizer())
         if state["state"]:
@@ -894,7 +991,7 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
                     model_path = os.path.join(save_dir, f"model_step{step}.pt")
                     _save_checkpoint(model_path, model, par)
                     _save_train_state(model_path, optimizer, step, generator,
-                                      scheduler, par)
+                                      scheduler, par, model)
                     checkpoint_paths.append(model_path)
                     if len(checkpoint_paths) > cfg.max_checkpoints:
                         old = checkpoint_paths.pop(0)
@@ -951,13 +1048,16 @@ def _restore_generators(generator, state: dict) -> None:
             generator.local.set_state(states[pmesh.rank()])
 
 
-def _resume(model, optimizer, generator, scheduler, save_dir: str) -> int:
+def _resume(model, optimizer, generator, scheduler, save_dir: str,
+            stages: int = 1) -> int:
     """Load the newest readable ``model_step{N}.pt`` or ``.pt.npz`` and its
-    sidecar — the port's ``.train.pt``, else a JAX ``.train.npz`` (Prodigy
-    only); returns its step, or 0 when there is none. A torn file falls back to
-    the next older one; a readable checkpoint that does not fit the model
-    (the config changed) raises, as does a save_dir whose checkpoints are
-    all unreadable."""
+    sidecar — the port's ``.train.pt``, else a JAX ``.train.npz``; returns
+    its step, or 0 when there is none. A torn file falls back to the next
+    older one; a readable checkpoint that does not fit the model (the
+    config changed) raises, as does a save_dir whose checkpoints are all
+    unreadable. ``stages``: the run's pipeline stages; an optimizer state
+    kept per stacked leaf (sm3's, novograd's) that was saved under another
+    stage count starts fresh."""
     candidates = find_resume_checkpoints(save_dir)
     errors = []
     for path, step in candidates:
@@ -984,6 +1084,17 @@ def _resume(model, optimizer, generator, scheduler, save_dir: str) -> int:
             print(f"[WARN] Unreadable train-state sidecar, starting the "
                   f"optimizer fresh: {e}")
             state = None
+        saved_stages = int((state or {}).get("pipeline_stages", 1))
+        if state is not None and (saved_stages > 1) != (stages > 1) \
+                and getattr(optimizer, "optax_name", "") in STACKED_STATE:
+            print(f"[INFO] {os.path.basename(path)}: the "
+                  f"{type(optimizer).__name__} state was saved with "
+                  f"{saved_stages} pipeline stage(s) and does not map onto "
+                  f"a run with {stages}; the optimizer starts fresh")
+            _restore_generators(generator, state)
+            if state["scheduler"]:
+                scheduler.load_state_dict(state["scheduler"])
+            return step
         if state is not None:
             optimizer.load_state_dict(state["optimizer"])
             _restore_generators(generator, state)
@@ -992,7 +1103,8 @@ def _resume(model, optimizer, generator, scheduler, save_dir: str) -> int:
             print("[INFO] Restored optimizer, generator and scheduler state")
             return step
         try:
-            state = restore_jax_train_state(path, model, optimizer)
+            state = restore_jax_train_state(path, model, optimizer,
+                                            pipeline=stages > 1)
         except _TORN as e:
             print(f"[WARN] Unreadable JAX train-state sidecar, starting the "
                   f"optimizer fresh: {e}")

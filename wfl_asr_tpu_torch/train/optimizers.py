@@ -39,6 +39,15 @@ function step for step:
   adafactor factors the two largest axes, whose row and column factors are
   symmetric under a transpose, and sm3's per-axis maxima commute with a
   permutation of the axes;
+- under pipeline parallelism (``stacked``, a ``parallel.pp.StackedLeaves``)
+  the JAX package's optimizer sees each encoder parameter name as one
+  stacked ``[L, ...]`` leaf, so those statistics span every layer of the
+  name, on every stage: the norms, the factored moments' block and
+  parameter RMS, sm3's accumulators (one over the layer axis, each other
+  axis's the maximum over all layers) and novograd's moment are taken over
+  the stacked leaf, reduced over the stage group; Prodigy's and
+  dadaptadamw's global sums add the stage-local leaves over the stages and
+  count the replicated ones once;
 - elementwise algebra runs as multi-tensor (``torch._foreach_*``) ops;
   per-leaf statistics run a few ops per leaf.
 """
@@ -52,7 +61,7 @@ import numpy as np
 import torch
 
 from .norms import leaf_norms
-from .prodigy import Prodigy
+from .prodigy import Prodigy, global_sum
 
 f32 = np.float32
 
@@ -118,6 +127,11 @@ OPTAX_KWARGS: Dict[str, Dict] = {
 }
 
 _MASKS = ("mask", "weight_decay_mask", "trust_ratio_mask")
+
+# The names whose state under pipeline parallelism is kept per stacked leaf
+# (sm3's layer-axis and shared axis accumulators, novograd's moment of the
+# stacked leaf): it does not carry over to a run without, or vice versa
+STACKED_STATE = ("sm3", "novograd")
 _DTYPES = {"float32": torch.float32, "f32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float16": torch.float16, "f16": torch.float16}
@@ -193,7 +207,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
     optax_name = ""
 
     def __init__(self, params: Iterable, lr: float = 1e-3,
-                 leaf_blocks: Optional[Dict] = None, **kwargs):
+                 leaf_blocks: Optional[Dict] = None, stacked=None,
+                 **kwargs):
         table = OPTAX_KWARGS[self.optax_name]
         unknown = sorted(set(kwargs) - set(table))
         if unknown:
@@ -210,6 +225,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
         for group in self.param_groups:
             group.setdefault("initial_lr", group["lr"])
         self.leaf_blocks = dict(leaf_blocks or {})
+        self.stacked = stacked
 
     # -- leaves ------------------------------------------------------------
 
@@ -234,6 +250,30 @@ class OptaxOptimizer(torch.optim.Optimizer):
 
     def _leaf_views(self, ps, ts) -> List[torch.Tensor]:
         return [v for p, t in zip(ps, ts) for v in self._leaves(p, t)]
+
+    def _is_stacked(self, p) -> bool:
+        """``p`` is a layer's slice of a stacked leaf (pipeline parallelism)."""
+        return self.stacked is not None and p in self.stacked
+
+    def _owners(self, ps) -> List[torch.Tensor]:
+        """The parameter of each leaf view of ``ps``, in view order."""
+        return [p for p in ps for _ in self._blocks(p)]
+
+    def _combined(self, ps, values: torch.Tensor) -> torch.Tensor:
+        """Per-view sums (one per leaf view of ``ps``) as sums over each
+        view's whole JAX leaf: a stacked leaf's over its layers on every
+        stage."""
+        if self.stacked is None:
+            return values
+        return self.stacked.combine(self._owners(ps), values)
+
+    def _leaf_norms(self, ps, ts) -> torch.Tensor:
+        """The L2 norm of each leaf view of ``ts`` (shaped as ``ps``), taken
+        over its JAX leaf."""
+        norms = leaf_norms(self._leaf_views(ps, ts))
+        if self.stacked is None:
+            return norms
+        return self._combined(ps, norms * norms).sqrt()
 
     # -- the step ----------------------------------------------------------
 
@@ -374,25 +414,25 @@ class Lamb(Adam):
         us = self._direction(group, gs, sts, count)
         _decay_(us, ps, group)
         self._per_leaf_scale_(ps, us, _trust_ratios(
-            self._leaf_views(ps, ps), self._leaf_views(ps, us)))
+            self._leaf_norms(ps, ps), self._leaf_norms(ps, us)))
         torch._foreach_mul_(us, -lr)
         return us
 
 
-def _safe_norms(xs, min_norm: float) -> torch.Tensor:
-    """optax ``safe_norm`` of each tensor: its norm, or ``min_norm`` where
-    the norm is ≤ min_norm."""
-    norms = leaf_norms(xs)
+def _safe_norms(norms: torch.Tensor, min_norm: float) -> torch.Tensor:
+    """optax ``safe_norm`` of each leaf: its norm, or ``min_norm`` where the
+    norm is ≤ min_norm."""
     return torch.where(norms <= min_norm, torch.full_like(norms, min_norm),
                        norms)
 
 
-def _trust_ratios(p_leaves, u_leaves, min_norm: float = 0.0,
+def _trust_ratios(p_norms, u_norms, min_norm: float = 0.0,
                   coefficient: float = 1.0, eps: float = 0.0):
-    """optax ``scale_by_trust_ratio``'s factor for each leaf:
-    coefficient·‖p‖/(‖u‖ + eps), 1 where either norm is 0."""
-    pn = _safe_norms(p_leaves, min_norm)
-    un = _safe_norms(u_leaves, min_norm)
+    """optax ``scale_by_trust_ratio``'s factor for each leaf, from the
+    leaves' norms: coefficient·‖p‖/(‖u‖ + eps), 1 where either norm is
+    0."""
+    pn = _safe_norms(p_norms, min_norm)
+    un = _safe_norms(u_norms, min_norm)
     ratio = coefficient * pn / (un + eps)
     ratio = torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(ratio),
                         ratio)
@@ -813,7 +853,7 @@ class Lars(OptaxOptimizer):
         _decay_(us, ps, group, key="weight_decay_mask")
         if group["trust_ratio_mask"] in (None, True):
             self._per_leaf_scale_(ps, us, _trust_ratios(
-                self._leaf_views(ps, ps), self._leaf_views(ps, us),
+                self._leaf_norms(ps, ps), self._leaf_norms(ps, us),
                 coefficient=group["trust_coefficient"], eps=group["eps"]))
         torch._foreach_mul_(us, -lr)
         return _trace_(us, sts, group["momentum"], group["nesterov"])
@@ -830,7 +870,7 @@ class Fromage(OptaxOptimizer):
         mult = f32(1) / np.sqrt(f32(1) + lr32 * lr32)
         us = [g.clone() for g in gs]
         self._per_leaf_scale_(ps, us, _trust_ratios(
-            self._leaf_views(ps, ps), self._leaf_views(ps, us),
+            self._leaf_norms(ps, ps), self._leaf_norms(ps, us),
             min_norm=group["min_norm"]))
         torch._foreach_mul_(us, float(f32(-1) * (lr32 * mult)))
         torch._foreach_add_(us, [p.detach() for p in ps],
@@ -851,7 +891,7 @@ class NovoGrad(OptaxOptimizer):
 
     def _updates(self, group, ps, gs, sts, count, lr):
         b1, b2 = group["b1"], group["b2"]
-        norms = leaf_norms(self._leaf_views(ps, gs))
+        norms = self._leaf_norms(ps, gs)
         sq = norms * norms
         nus = torch.cat([st["nu"] for st in sts])
         nus = sq if count == 0 else (1.0 - b2) * sq + b2 * nus
@@ -899,13 +939,31 @@ class Adafactor(OptaxOptimizer):
 
     optax_name = "adafactor"
 
+    def _dims(self, group, p, shape):
+        """The factored axes of a leaf view of ``p``; a stacked parameter's
+        are the stacked ``[L, ...]`` leaf's, which must not factor the layer
+        axis (a per-layer moment then spans layers, not ported)."""
+        if not self._is_stacked(p):
+            return _factored_dims(shape, group["factored"],
+                                  group["min_dim_size_to_factor"])
+        dims = _factored_dims((self.stacked.num_layers,) + tuple(shape),
+                              group["factored"],
+                              group["min_dim_size_to_factor"])
+        if dims is None:
+            return None
+        if 0 in dims:
+            raise ValueError(
+                f"adafactor under pipeline parallelism: the stacked leaf "
+                f"[{self.stacked.num_layers}, {list(shape)}] factors its "
+                f"layer axis, which is not ported")
+        return dims[0] - 1, dims[1] - 1
+
     def _init(self, group, p, st):
         def z(shape):
             return torch.zeros(shape, dtype=torch.float32, device=p.device)
         rows, cols, full = [], [], []
         for shape in self._leaf_shapes(p):
-            dims = _factored_dims(shape, group["factored"],
-                                  group["min_dim_size_to_factor"])
+            dims = self._dims(group, p, shape)
             if dims is not None:
                 d1, d0 = dims
                 rows.append(z([s for i, s in enumerate(shape) if i != d0]))
@@ -919,13 +977,12 @@ class Adafactor(OptaxOptimizer):
         if group["momentum"] is not None:
             st["ema"] = _zeros(p, _dtype(group["dtype_momentum"]))
 
-    def _leaf_update(self, group, g, v_row, v_col, v, decay):
-        """The factored-RMS update of one leaf; updates its moments."""
+    def _leaf_update(self, group, g, v_row, v_col, v, decay, dims):
+        """The factored-RMS update of one leaf (factored over ``dims``);
+        updates its moments."""
         one_minus = float(f32(1) - decay)
         decay = float(decay)
         eps = group["eps"]
-        dims = _factored_dims(g.shape, group["factored"],
-                              group["min_dim_size_to_factor"])
         gsq = g * g + eps
         if dims is None:
             v.mul_(decay).add_(gsq, alpha=one_minus)
@@ -939,37 +996,45 @@ class Adafactor(OptaxOptimizer):
         col_factor = v_col.pow(-0.5)
         return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
 
+    def _rms(self, ps, views) -> List[torch.Tensor]:
+        """The RMS of each leaf view, over its JAX leaf (a stacked leaf's
+        over its layers on every stage)."""
+        if self.stacked is None:
+            return [torch.sqrt(torch.mean(v * v)) for v in views]
+        sums = torch.stack([(v * v).sum() for v in views])
+        sizes = torch.tensor([float(v.numel()) for v in views],
+                             device=sums.device)
+        return list(torch.sqrt(self._combined(ps, sums)
+                               / self._combined(ps, sizes)).unbind())
+
     def _updates(self, group, ps, gs, sts, count, lr):
         t = f32(count - group["decay_offset"] + 1)
         decay = f32(1) - t ** f32(-group["decay_rate"])
         clip = group["clipping_threshold"]
-        us = []
+        raw = []
         for p, g, st in zip(ps, gs, sts):
-            pieces = []
-            for j, (gl, pl) in enumerate(zip(self._leaves(p, g),
-                                             self._leaves(p, p.detach()))):
-                u = self._leaf_update(group, gl, st["v_row"][j],
-                                      st["v_col"][j], st["v"][j], decay)
-                if clip is not None:
-                    rms = torch.sqrt(torch.mean(u * u))
-                    u = u / torch.clamp(rms / clip, min=1.0)
-                u = u * lr
-                if group["multiply_by_parameter_scale"]:
-                    u = u * _safe_rms(pl, 1e-3)
-                pieces.append(u)
-            us.append(pieces[0] if len(pieces) == 1 else torch.cat(pieces))
+            for j, gl in enumerate(self._leaves(p, g)):
+                raw.append(self._leaf_update(
+                    group, gl, st["v_row"][j], st["v_col"][j], st["v"][j],
+                    decay, self._dims(group, p, gl.shape)))
+        if clip is not None:
+            raw = [u / torch.clamp(rms / clip, min=1.0)
+                   for u, rms in zip(raw, self._rms(ps, raw))]
+        raw = [u * lr for u in raw]
+        if group["multiply_by_parameter_scale"]:
+            scales = self._rms(ps, self._leaf_views(ps, ps))
+            raw = [u * torch.where(r <= 1e-3, torch.full_like(r, 1e-3), r)
+                   for u, r in zip(raw, scales)]
+        us, at = [], 0
+        for p in ps:
+            n = len(self._blocks(p))
+            us.append(raw[at] if n == 1 else torch.cat(raw[at:at + n]))
+            at += n
         if group["momentum"] is not None:
             us = _ema(us, sts, group["momentum"])
         _decay_(us, ps, group, key="weight_decay_mask",
                 wd_key="weight_decay_rate")
         return torch._foreach_neg(us)
-
-
-def _safe_rms(x: torch.Tensor, min_rms: float) -> torch.Tensor:
-    """optax ``safe_root_mean_squares``: the RMS, or ``min_rms`` where it is
-    ≤ min_rms."""
-    rms = torch.sqrt(torch.mean(x * x))
-    return torch.where(rms <= min_rms, torch.full_like(rms, min_rms), rms)
 
 
 def _ema(us, sts, decay: float):
@@ -990,37 +1055,69 @@ class SM3(OptaxOptimizer):
     optax_name = "sm3"
 
     def _init(self, group, p, st):
-        st["accumulators"] = [
-            [torch.zeros(s, dtype=torch.float32, device=p.device)
-             for s in shape] if len(shape) >= 2 else
-            [torch.zeros(shape, dtype=torch.float32, device=p.device)]
-            for shape in self._leaf_shapes(p)]
+        def z(s):
+            return torch.zeros(s, dtype=torch.float32, device=p.device)
+        if self._is_stacked(p):
+            # one [L]-axis accumulator (this layer's entry), then one per
+            # axis of the layer's tensor
+            st["accumulators"] = [[z(1)] + [z(s) for s in p.shape]]
+        else:
+            st["accumulators"] = [
+                [z(s) for s in shape] if len(shape) >= 2 else [z(shape)]
+                for shape in self._leaf_shapes(p)]
         st["nu"] = _zeros(p)
 
+    @staticmethod
+    def _accumulate(g, acc):
+        """a = g² + the minimum of the axes' accumulators (broadcast), and
+        each axis's maximum of a over the other axes."""
+        nd = g.dim()
+        low = acc[0].reshape([-1] + [1] * (nd - 1))
+        for i in range(1, nd):
+            shape = [1] * nd
+            shape[i] = -1
+            low = torch.minimum(low, acc[i].reshape(shape))
+        a = g * g + low
+        return a, [a.amax(dim=[d for d in range(nd) if d != i])
+                   for i in range(nd)]
+
     def _updates(self, group, ps, gs, sts, count, lr):
-        ups = []
+        ups, shared = [], {}
         for p, g, st in zip(ps, gs, sts):
             pieces = []
             for j, gl in enumerate(self._leaves(p, g)):
                 acc = st["accumulators"][j]
-                if gl.dim() < 2:
+                if self._is_stacked(p):
+                    # a layer of the stacked leaf: the other axes' maxima
+                    # span the leaf's layers on every stage
+                    a, maxima = self._accumulate(gl.unsqueeze(0), acc)
+                    acc[0] = maxima[0]
+                    shared.setdefault(self.stacked.key[p], []).append(
+                        (acc, maxima[1:]))
+                    a = a[0]
+                elif gl.dim() < 2:
                     a = gl * gl + acc[0]
                     acc[0] = a
                 else:
-                    nd = gl.dim()
-                    low = acc[0].reshape([-1] + [1] * (nd - 1))
-                    for i in range(1, nd):
-                        shape = [1] * nd
-                        shape[i] = -1
-                        low = torch.minimum(low, acc[i].reshape(shape))
-                    a = gl * gl + low
-                    for i in range(nd):
-                        others = [d for d in range(nd) if d != i]
-                        acc[i] = a.amax(dim=others)
+                    a, acc[:] = self._accumulate(gl, acc)
                 inv = torch.where(a > 0, torch.rsqrt(a + 1e-8),
                                   torch.zeros_like(a))
                 pieces.append(gl * inv)
             ups.append(pieces[0] if len(pieces) == 1 else torch.cat(pieces))
+        if shared:
+            # per stacked leaf, per axis: the maximum over this stage's
+            # layers, then over the stages (one flat reduction)
+            parts = [torch.stack([m[i] for _, m in views]).amax(0)
+                     for views in shared.values()
+                     for i in range(len(views[0][1]))]
+            flat = self.stacked.max(torch.cat(parts))
+            at = 0
+            for views in shared.values():
+                for i in range(len(views[0][1])):
+                    n = views[0][1][i].numel()
+                    for acc, _ in views:
+                        acc[i + 1] = flat[at:at + n].clone()
+                    at += n
         nu = [st["nu"] for st in sts]
         _moment_(nu, ups, group["momentum"])
         return torch._foreach_mul(nu, -lr)
@@ -1104,8 +1201,8 @@ class DAdaptAdamW(OptaxOptimizer):
         den = torch._foreach_sqrt(eas)
         torch._foreach_add_(den, eps)
         weighted = torch._foreach_div(gsum, den)
-        numerator = torch.stack([x.sum() for x in
-                                 torch._foreach_mul(gs, weighted)]).sum()
+        numerator = global_sum(self.stacked, params, torch.stack(
+            [x.sum() for x in torch._foreach_mul(gs, weighted)]))
         torch._foreach_mul_(ea, b1)
         torch._foreach_add_(ea, torch._foreach_mul(gs, (1 - b1) * dlr))
         torch._foreach_mul_(eas, b2)
@@ -1113,7 +1210,7 @@ class DAdaptAdamW(OptaxOptimizer):
             torch._foreach_mul(gs, 1 - b2), gs))
         torch._foreach_mul_(gsum, sb2)
         torch._foreach_add_(gsum, torch._foreach_mul(gs, (1 - sb2) * dlr))
-        l1 = leaf_norms(gsum, 1).sum()
+        l1 = global_sum(self.stacked, params, leaf_norms(gsum, 1))
         nw = sb2 * lead["numerator_weighted"] + (1 - sb2) * dlr * numerator
         estim_lr = torch.maximum(lead["estim_lr"], nw / ((1 - sb2) * l1))
         den = torch._foreach_sqrt(eas)
@@ -1140,30 +1237,31 @@ OPTIMIZERS: Dict[str, type] = {
         NovoGrad, Yogi, Fromage, AMSGrad, SM3, DAdaptAdamW, AdEMAMix, ADOPT)}
 
 
-def make_optimizer(cfg, params, leaf_blocks: Optional[Dict] = None
-                   ) -> torch.optim.Optimizer:
+def make_optimizer(cfg, params, leaf_blocks: Optional[Dict] = None,
+                   stacked=None) -> torch.optim.Optimizer:
     """The optimizer by name, kwargs filtered as the JAX package filters
     them by signature (loop.py:100-138): ``training.weight_decay`` joins the
     kwargs as ``weight_decay``; ``betas`` become ``b1``/``b2`` where the
     factory has ``b1`` and are dropped where it takes neither; anything the
     factory does not take is dropped. ``leaf_blocks`` maps a parameter that
     stacks several JAX leaves to their row blocks (for the per-leaf
-    statistics)."""
+    statistics); ``stacked`` (a ``parallel.pp.StackedLeaves``) the stacked
+    leaves of a pipeline-parallel run."""
     name = cfg.optimizer
     kwargs = dict(cfg.optimizer_params)
     if cfg.weight_decay is not None:
         kwargs["weight_decay"] = cfg.weight_decay
     if name.lower() == "prodigy":
-        cls, extra = Prodigy, {}
-        accepted = set(inspect.signature(Prodigy).parameters) - {"params",
-                                                                 "lr"}
+        cls, extra = Prodigy, dict(stacked=stacked)
+        accepted = set(inspect.signature(Prodigy).parameters) - {
+            "params", "lr", "stacked"}
     else:
         cls = OPTIMIZERS.get(name.lower())
         if cls is None:
             raise ValueError(f"Optimizer '{name}' not found. Available: "
                              f"Prodigy, {sorted(OPTIMIZERS)}")
         accepted, extra = set(OPTAX_KWARGS[cls.optax_name]), dict(
-            leaf_blocks=leaf_blocks)
+            leaf_blocks=leaf_blocks, stacked=stacked)
     if "betas" in kwargs and "betas" not in accepted:
         if "b1" in accepted:
             kwargs["b1"], kwargs["b2"] = kwargs.pop("betas")

@@ -14,8 +14,10 @@ by default.
     p ← p − d_lr·m/(√v + d·ε) − d_lr·weight_decay·p
 
 - The numerator's Σ⟨g, p0 − p⟩ and the denominator Σ|s| are global sums
-  over every parameter of every group; the hyperparameters that enter them
-  (lr, betas, d0, ...) are the first group's.
+  over every parameter of every group (under pipeline parallelism,
+  ``stacked``, the stage-local parameters added over the stages, the
+  replicated ones counted once); the hyperparameters that enter them (lr,
+  betas, d0, ...) are the first group's.
 - While Σ|s| is 0 (all-zero gradients so far) or lr ≤ 0, ``d`` does not
   change and the parameter update is skipped (the moments still update).
 - ``p0`` is a real f32 copy of the parameters at the first step; all state
@@ -38,19 +40,32 @@ import torch
 from .norms import leaf_norms
 
 
+def global_sum(stacked, params, values: torch.Tensor) -> torch.Tensor:
+    """Σ values (one per parameter) over the whole JAX tree: under pipeline
+    parallelism the stage-local leaves added over the stages, the
+    replicated ones counted once."""
+    if stacked is None:
+        return values.sum()
+    return stacked.split_sums(params, values)
+
+
 class Prodigy(torch.optim.Optimizer):
     def __init__(self, params: Iterable, lr: float = 1.0,
                  betas: tuple = (0.9, 0.999), beta3: Optional[float] = None,
                  eps: float = 1e-8, weight_decay: float = 0.0,
                  decouple: bool = True, use_bias_correction: bool = False,
                  safeguard_warmup: bool = False, d0: float = 1e-6,
-                 d_coef: float = 1.0, growth_rate: float = float("inf")):
+                 d_coef: float = 1.0, growth_rate: float = float("inf"),
+                 stacked=None):
         defaults = dict(lr=lr, betas=tuple(betas), beta3=beta3, eps=eps,
                         weight_decay=weight_decay, decouple=decouple,
                         use_bias_correction=use_bias_correction,
                         safeguard_warmup=safeguard_warmup, d0=d0,
                         d_coef=d_coef, growth_rate=growth_rate)
         super().__init__(params, defaults)
+        # a pipeline-parallel run's stacked leaves (parallel.pp): the global
+        # sums add the stage-local parameters over the stages
+        self.stacked = stacked
 
     def _params(self):
         return [p for g in self.param_groups for p in g["params"]]
@@ -106,8 +121,8 @@ class Prodigy(torch.optim.Optimizer):
         # one multi-tensor op per line of the algorithm, in the optax
         # version's order of operations (scalar factors first)
         diff = torch._foreach_sub([st["p0"] for st in sts], ps)
-        dot = torch.stack([x.sum() for x in
-                           torch._foreach_mul(grads, diff)]).sum()
+        dot = global_sum(self.stacked, params, torch.stack(
+            [x.sum() for x in torch._foreach_mul(grads, diff)]))
         d_numerator = beta3 * lead["d_numerator"] + (d / d0) * d_lr * dot
         s_alpha = (d / d0) * (d if hp["safeguard_warmup"] else d_lr)
         torch._foreach_mul_(m, beta1)
@@ -118,7 +133,7 @@ class Prodigy(torch.optim.Optimizer):
         torch._foreach_add_(v, gg)
         torch._foreach_mul_(s_, beta3)
         torch._foreach_add_(s_, torch._foreach_mul(grads, s_alpha))
-        d_denom = leaf_norms(s_, 1).sum()
+        d_denom = global_sum(self.stacked, params, leaf_norms(s_, 1))
 
         do_update = (d_denom > 0.0) & (lr > 0.0)
         d_hat = hp["d_coef"] * d_numerator / d_denom
