@@ -1,50 +1,17 @@
-"""The port's ``utils/profiling.py`` against the JAX package's on the CPU:
-``StepTimer`` on the same clock readings, ``maybe_trace`` as a no-op
-without ``WFL_PROFILE_DIR`` and a ``torch.profiler`` trace with it, and
-the train loop's ``train`` trace.
+"""The port's ``utils/profiling.maybe_trace`` on the CPU: a no-op without
+``WFL_PROFILE_DIR`` and a ``torch.profiler`` trace with it (the JAX
+package's printed line), and the train loop's ``train`` trace. Its spans:
+``tests/test_torch_tracing.py``.
 
     python -m pytest tests/test_torch_profiling.py -q
 """
 
 import json
 import os
-import time
 
-import pytest
 import torch
 
-from wfl_asr_tpu.utils import profiling as JP
 from wfl_asr_tpu_torch.utils import profiling as TP
-
-
-def test_step_timer_rtfx():
-    t = TP.StepTimer(ema=0.5)
-    for _ in range(3):
-        t.start()
-        time.sleep(0.01)
-        t.stop(audio_seconds=1.0)
-    assert t.avg is not None and t.avg >= 0.009
-    assert 0 < t.rtfx < 120  # ~1s audio per 10ms wall
-    assert t.steps_per_sec > 0
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    """Both timers on the same perf_counter readings: the same EMA, audio
-    and wall seconds, RTFx and steps/s; both refuse an unpaired stop()."""
-    clock = iter([0.0, 0.5, 1.0, 1.25, 2.0, 2.125, 3.0, 3.75] * 2)
-    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-    timers = [JP.StepTimer(ema=0.8), TP.StepTimer(ema=0.8)]
-    for t in timers:
-        assert (t.rtfx, t.steps_per_sec) == (0.0, 0.0)
-        for audio in (2.0, 0.5, 3.0, 1.0):
-            t.start()
-            t.stop(audio_seconds=audio)
-        with pytest.raises(RuntimeError, match="without a matching"):
-            t.stop()
-    j, p = timers
-    assert (p.avg, p.audio_seconds, p.wall_seconds, p.rtfx,
-            p.steps_per_sec) == (j.avg, j.audio_seconds, j.wall_seconds,
-                                 j.rtfx, j.steps_per_sec)
 
 
 def test_maybe_trace_noop(monkeypatch, tmp_path, capsys):
@@ -70,7 +37,8 @@ def test_maybe_trace_writes_a_trace(monkeypatch, tmp_path, capsys):
 
 def test_train_loop_runs_inside_the_trace(monkeypatch, tmp_path):
     """The train loop's updates run inside maybe_trace("train") (JAX
-    loop.py:1127-1129, 1266): the trace holds the optimizer's steps."""
+    loop.py:1127-1129, 1266): the trace holds the optimizer's steps and
+    the program's update spans."""
     from tests.test_torch_train import make_config, make_data
     from wfl_asr_tpu_torch.preprocess import preprocess
     from wfl_asr_tpu_torch.train import loop as TLOOP
@@ -87,4 +55,5 @@ def test_train_loop_runs_inside_the_trace(monkeypatch, tmp_path):
     names = {e.get("name") for e in
              json.loads(trace.read_text())["traceEvents"]}
     assert "Optimizer.step#Lamb.step" in names
+    assert {"wfl.update", "wfl.forward_backward", "wfl.optimizer"} <= names
     assert any(n and n.startswith("aten::_foreach_") for n in names)

@@ -32,6 +32,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..train.losses import offset_targets_from_segments
+from ..utils.profiling import span
 from .audio import peak_normalize, read_wav, resample, resampled_length, \
     wav_duration
 
@@ -272,7 +273,9 @@ class BatchLoader:
                     chunk = order[start:start + self.batch_size]
                     if self.drop_last and len(chunk) < self.batch_size:
                         break
-                    if not put(out_q, self._collate(chunk, epoch)):
+                    with span("wfl.collate"):
+                        batch = self._collate(chunk, epoch)
+                    if not put(out_q, batch):
                         return
             except Exception as exc:  # surface loader errors to the consumer
                 put(out_q, exc)
@@ -283,7 +286,8 @@ class BatchLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with span("wfl.loader_wait"):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, Exception):

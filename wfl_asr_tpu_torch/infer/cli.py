@@ -1,7 +1,10 @@
 """Inference CLI — the flags of ``wfl_asr_tpu/infer/cli.py`` (the
 reference's click interface, infer.py:359-454), with ``--device``
 defaulting to ``cuda``. ``--device cpu`` runs on the CPU; with no CUDA
-device and no ``--device cpu`` the run raises.
+device and no ``--device cpu`` the run raises. With ``WFL_PROFILE_DIR``
+set, the run records a ``torch.profiler`` trace into
+``$WFL_PROFILE_DIR/infer/trace.json`` (``utils.profiling.maybe_trace``),
+with the program's ``wfl.*`` spans as ranges.
 
     python -m wfl_asr_tpu_torch.infer PATH -ckpt best_model.pt -c config.yaml
 """
@@ -78,31 +81,36 @@ def main(path, checkpoint, config, output, lang_id, sample, top_k, top_p,
     if lang_id is not None and lang_id <= -1:
         lang_id = None
 
+    from ..utils.profiling import maybe_trace
     from .pipeline import infer_audio, infer_folder, infer_folder_batched
-    if inf_path.is_dir():
-        if batch_size > 1:
-            infer_folder_batched(
-                folder_path=str(inf_path), config_path=str(config),
-                checkpoint_path=str(checkpoint), output_dir=str(output_path),
-                lang_id=lang_id, confidence_threshold=confidence_threshold,
-                batch_files=batch_size, device=device)
+    with maybe_trace("infer"):
+        if inf_path.is_dir():
+            if batch_size > 1:
+                infer_folder_batched(
+                    folder_path=str(inf_path), config_path=str(config),
+                    checkpoint_path=str(checkpoint),
+                    output_dir=str(output_path), lang_id=lang_id,
+                    confidence_threshold=confidence_threshold,
+                    batch_files=batch_size, device=device)
+            else:
+                infer_folder(
+                    folder_path=str(inf_path), config_path=str(config),
+                    checkpoint_path=str(checkpoint),
+                    output_dir=str(output_path), device=device,
+                    lang_id=lang_id, sample=sample, top_k=top_k,
+                    top_p=top_p, temperature=temperature,
+                    confidence_threshold=confidence_threshold)
         else:
-            infer_folder(folder_path=str(inf_path), config_path=str(config),
-                         checkpoint_path=str(checkpoint),
-                         output_dir=str(output_path), device=device,
-                         lang_id=lang_id, sample=sample, top_k=top_k,
-                         top_p=top_p, temperature=temperature,
-                         confidence_threshold=confidence_threshold)
-    else:
-        segments = infer_audio(
-            audio_path=str(inf_path), config_path=str(config),
-            checkpoint_path=str(checkpoint),
-            output_lab_path=str(output_path), device=device, lang_id=lang_id,
-            sample=sample, top_k=top_k, top_p=top_p, temperature=temperature,
-            confidence_threshold=confidence_threshold)
-        print("Predicted segments:")
-        for start, end, ph in segments:
-            print(f"({round(start, 2)}, {round(end, 2)}, {ph})")
+            segments = infer_audio(
+                audio_path=str(inf_path), config_path=str(config),
+                checkpoint_path=str(checkpoint),
+                output_lab_path=str(output_path), device=device,
+                lang_id=lang_id, sample=sample, top_k=top_k, top_p=top_p,
+                temperature=temperature,
+                confidence_threshold=confidence_threshold)
+            print("Predicted segments:")
+            for start, end, ph in segments:
+                print(f"({round(start, 2)}, {round(end, 2)}, {ph})")
     import torch.distributed as dist
     if dist.is_initialized():        # joined under torchrun
         dist.destroy_process_group()

@@ -59,9 +59,11 @@ from ..labels import (Segment, align_phoneme_list, canonical_to_lang,
 from ..models.layers import quantize_int8
 from ..models.tagger import TaggerArch
 from ..parallel import mesh as pmesh
+from ..ops.frontend import WHISPER_N_SAMPLES
 from ..ops.postprocess import (bio_tables, confidence_gate_ids,
                                extract_segments_ids, median_filter_ids,
                                median_filter_ids_masked)
+from ..utils.profiling import span
 
 FRAME_DURATION = 0.02          # reference infer.py:12
 MAX_SEGMENT_DURATION = 30.0    # reference infer.py:13
@@ -226,16 +228,24 @@ class InferenceSession:
         compute dtype. audio [R, S] f32 (rows from :meth:`_row`), lang_ids
         [R]; masks or None; ``t_pad`` the bucket's frames."""
         with torch.inference_mode():
+            with span("wfl.stage"):
+                x = self._to_device(audio.astype(np.float32))
+                ids = self._to_device(np.asarray(lang_ids, np.int64))
+                if sample_mask is not None:
+                    sample_mask = self._to_device(sample_mask)
+                if frame_mask is not None:
+                    frame_mask = self._to_device(frame_mask)
             return self.model(
-                self._to_device(audio.astype(np.float32)),
-                self._to_device(np.asarray(lang_ids, np.int64)),
-                sample_mask=(self._to_device(sample_mask)
-                             if sample_mask is not None else None),
-                frame_mask=(self._to_device(frame_mask)
-                            if frame_mask is not None else None),
+                x, ids, sample_mask=sample_mask, frame_mask=frame_mask,
                 compute_dtype=self.compute_dtype,
                 pos_bias=self._pos_bias_for(t_pad),
                 precentered=self.arch.encoder_type == "none")
+
+    def samples_run(self, bucket: int) -> int:
+        """Samples the encoder computes on a row of a ``bucket``-sample
+        batch: the bucket; Whisper's front end pads every row to 30 s."""
+        return (WHISPER_N_SAMPLES if self.arch.encoder_type == "whisper"
+                else bucket)
 
     def num_frames_for(self, num_samples: int) -> int:
         """Frames the reference model emits for this exact length: Whisper
@@ -280,19 +290,23 @@ class InferenceSession:
             return (np.zeros((n, 0, self.arch.num_labels), np.float32),
                     np.zeros((n, 0, 2), np.float32))
         bucket = self._bucket(s_true)
-        buf = self._row(audio, bucket)
-        batch = np.broadcast_to(buf, (n, len(buf)))
-        t_pad = self.num_frames_for(bucket)
-        sample_mask = np.broadcast_to(np.arange(bucket) < s_true, (n, bucket))
-        frame_mask = np.broadcast_to(np.arange(t_pad) < t_ref, (n, t_pad))
-        # Whisper pads every row to 30 s itself and runs unmasked
-        masked = self.arch.encoder_type != "whisper" and s_true != bucket
-        logits, offsets = self.run_batch(
-            batch, np.asarray(lang_ids, np.int64),
-            sample_mask if masked else None, frame_mask if masked else None,
-            t_pad)
-        return (logits[:, :t_ref].float().cpu().numpy(),
-                offsets[:, :t_ref].float().cpu().numpy())
+        with span("wfl.forward", rows=n, samples_true=n * s_true,
+                  samples_run=n * self.samples_run(bucket)):
+            buf = self._row(audio, bucket)
+            batch = np.broadcast_to(buf, (n, len(buf)))
+            t_pad = self.num_frames_for(bucket)
+            sample_mask = np.broadcast_to(np.arange(bucket) < s_true,
+                                          (n, bucket))
+            frame_mask = np.broadcast_to(np.arange(t_pad) < t_ref, (n, t_pad))
+            # Whisper pads every row to 30 s itself and runs unmasked
+            masked = self.arch.encoder_type != "whisper" and s_true != bucket
+            logits, offsets = self.run_batch(
+                batch, np.asarray(lang_ids, np.int64),
+                sample_mask if masked else None,
+                frame_mask if masked else None, t_pad)
+        with span("wfl.readback"):
+            return (logits[:, :t_ref].float().cpu().numpy(),
+                    offsets[:, :t_ref].float().cpu().numpy())
 
     def _forward_many_device(self, audios: Sequence[np.ndarray],
                              lang_ids_per_item: Sequence[Sequence[int]],
@@ -303,24 +317,30 @@ class InferenceSession:
         the batch's)."""
         s_true = [len(a) for a in audios]
         bucket = max(bucket or 0, self._bucket(max(s_true)))
-        t_pad = self.num_frames_for(bucket)
-        rows_audio, rows_lang, row_owner = [], [], []
-        for i, (audio, langs) in enumerate(zip(audios, lang_ids_per_item)):
-            buf = self._row(audio, bucket)
-            for lang in langs:
-                rows_audio.append(buf)
-                rows_lang.append(lang)
-                row_owner.append(i)
-        t_refs = [self.num_frames_for(s) for s in s_true]
-        sample_mask = (np.arange(bucket)[None, :]
-                       < np.array([s_true[o] for o in row_owner])[:, None])
-        frame_mask = (np.arange(t_pad)[None, :]
-                      < np.array([t_refs[o] for o in row_owner])[:, None])
-        masked = self.arch.encoder_type != "whisper"
-        logits, offsets = self.run_batch(
-            np.stack(rows_audio), np.array(rows_lang, np.int64),
-            sample_mask if masked else None, frame_mask if masked else None,
-            t_pad)
+        rows = sum(len(langs) for langs in lang_ids_per_item)
+        with span("wfl.forward", rows=rows,
+                  samples_true=sum(s * len(langs) for s, langs in
+                                   zip(s_true, lang_ids_per_item)),
+                  samples_run=rows * self.samples_run(bucket)):
+            t_pad = self.num_frames_for(bucket)
+            rows_audio, rows_lang, row_owner = [], [], []
+            for i, (audio, langs) in enumerate(zip(audios,
+                                                   lang_ids_per_item)):
+                buf = self._row(audio, bucket)
+                for lang in langs:
+                    rows_audio.append(buf)
+                    rows_lang.append(lang)
+                    row_owner.append(i)
+            t_refs = [self.num_frames_for(s) for s in s_true]
+            sample_mask = (np.arange(bucket)[None, :]
+                           < np.array([s_true[o] for o in row_owner])[:, None])
+            frame_mask = (np.arange(t_pad)[None, :]
+                          < np.array([t_refs[o] for o in row_owner])[:, None])
+            masked = self.arch.encoder_type != "whisper"
+            logits, offsets = self.run_batch(
+                np.stack(rows_audio), np.array(rows_lang, np.int64),
+                sample_mask if masked else None,
+                frame_mask if masked else None, t_pad)
         return logits, offsets, t_refs
 
     def forward_many(self, audios: Sequence[np.ndarray],
@@ -333,8 +353,9 @@ class InferenceSession:
             return []
         logits, offsets, t_refs = self._forward_many_device(
             audios, lang_ids_per_item, bucket)
-        logits = logits.float().cpu().numpy()
-        offsets = offsets.float().cpu().numpy()
+        with span("wfl.readback"):
+            logits = logits.float().cpu().numpy()
+            offsets = offsets.float().cpu().numpy()
         out, row = [], 0
         for i, langs in enumerate(lang_ids_per_item):
             n = len(langs)
@@ -367,7 +388,7 @@ class InferenceSession:
             audios, [list(langs)] * n_items, bucket)
         kind_t, ph_t, ph_names = self._bio()
         o_id = self.label2id["O"]
-        with torch.inference_mode():
+        with span("wfl.decode"), torch.inference_mode():
             lg = logits.float().reshape((n_items, n_langs)
                                         + logits.shape[1:]).mean(dim=1)
             off = offsets.float().reshape((n_items, n_langs)
@@ -382,17 +403,18 @@ class InferenceSession:
                 decoded.append(extract_segments_ids(ids_i, off[i], t_refs[i],
                                                     kind_t, ph_t))
             # the single host transfer
-            b, e, p, so, eo, cnt = (torch.stack(x).cpu().numpy()
-                                    for x in zip(*decoded))
-            mlg, moff = lg.cpu().numpy(), off.cpu().numpy()
-        out = []
-        for i in range(n_items):
-            segs = []
-            for k in range(int(cnt[i])):
-                st = (int(b[i, k]) + float(so[i, k])) * FRAME_DURATION
-                en = (int(e[i, k]) + float(eo[i, k])) * FRAME_DURATION
-                segs.append((st, en, ph_names[int(p[i, k])]))
-            out.append((mlg[i, :t_refs[i]], moff[i, :t_refs[i]], segs))
+            with span("wfl.readback"):
+                b, e, p, so, eo, cnt = (torch.stack(x).cpu().numpy()
+                                        for x in zip(*decoded))
+                mlg, moff = lg.cpu().numpy(), off.cpu().numpy()
+            out = []
+            for i in range(n_items):
+                segs = []
+                for k in range(int(cnt[i])):
+                    st = (int(b[i, k]) + float(so[i, k])) * FRAME_DURATION
+                    en = (int(e[i, k]) + float(eo[i, k])) * FRAME_DURATION
+                    segs.append((st, en, ph_names[int(p[i, k])]))
+                out.append((mlg[i, :t_refs[i]], moff[i, :t_refs[i]], segs))
         return out
 
     def postprocess_ids(self, logits: np.ndarray,
@@ -412,6 +434,7 @@ class InferenceSession:
 # Cache (reference .wfl_cache layout)
 # ---------------------------------------------------------------------------
 
+@span("wfl.cache_save")
 def _cache_save(path: str, arr: np.ndarray) -> None:
     """A torch-format entry: the reference's cache read is a bare
     ``torch.load`` (infer.py:127-131, 246-249)."""
@@ -488,6 +511,7 @@ def _predict_segment(session: InferenceSession, segment: np.ndarray,
     return logits, offsets
 
 
+@span("wfl.decode")
 def _decode_segment(session: InferenceSession, logits: np.ndarray,
                     offsets: Optional[np.ndarray],
                     confidence_threshold: float, median_size: int,
@@ -572,6 +596,7 @@ def _get_session(config: ConfigLike, checkpoint_path: str, device=None,
     return session
 
 
+@span("wfl.job")
 def infer_audio(audio_path: str, config_path: ConfigLike = "config.yaml",
                 checkpoint_path: str = "best_model.pt",
                 output_lab_path: Optional[str] = None,
@@ -589,20 +614,22 @@ def infer_audio(audio_path: str, config_path: ConfigLike = "config.yaml",
     lang_name = _lang_name_for(session, lang_id)
     forced = _load_forced_list(audio_path)
 
-    audio, sr = read_wav(audio_path)
-    if audio.ndim > 1:
-        audio = audio.mean(axis=1)
-    if sr != session.sr:
-        audio = resample(audio, sr, session.sr)
-        sr = session.sr
-    audio = np.asarray(audio, np.float64)
+    with span("wfl.read_wav") as sp:
+        audio, sr = read_wav(audio_path)
+        if audio.ndim > 1:
+            audio = audio.mean(axis=1)
+        if sr != session.sr:
+            audio = resample(audio, sr, session.sr)
+            sr = session.sr
+        audio = np.asarray(audio, np.float64)
+        if len(audio) > 0:
+            audio = peak_normalize(audio, eps=1e-8)
+        sp.set(samples=len(audio))
 
     base_name = os.path.splitext(os.path.basename(audio_path))[0]
     cache_dir = os.path.join(os.path.dirname(audio_path), ".wfl_cache")
     os.makedirs(cache_dir, exist_ok=True)
     lang_suffix = f"_lang{lang_id}" if lang_id is not None else "_avg"
-    if len(audio) > 0:
-        audio = peak_normalize(audio, eps=1e-8)
 
     median_size = session.cfg.median_filter
     if len(audio) / sr > MAX_SEGMENT_DURATION:
@@ -630,7 +657,8 @@ def infer_audio(audio_path: str, config_path: ConfigLike = "config.yaml",
         dir_path = os.path.dirname(output_lab_path)
         if dir_path:
             os.makedirs(dir_path, exist_ok=True)
-        save_lab(output_lab_path, segments_pred)
+        with span("wfl.lab_write"):
+            save_lab(output_lab_path, segments_pred)
         print(f"Predictions saved to: {output_lab_path}")
     return segments_pred
 
@@ -661,6 +689,7 @@ def _apply_forced_alignment(segments_pred: List[Segment],
     return aligned
 
 
+@span("wfl.job")
 def infer_folder_batched(folder_path: str,
                          config_path: ConfigLike = "config.yaml",
                          checkpoint_path: str = "best_model.pt",
@@ -699,6 +728,7 @@ def infer_folder_batched(folder_path: str,
     langs = ([lang_id] if lang_id is not None
              else sorted(session.lang2id.values()) or [0])
 
+    @span("wfl.lab_write")
     def finish(name, segments):
         if session.cfg.merge_segments != "none":
             segments = merge_adjacent_segments(
@@ -710,14 +740,16 @@ def infer_folder_batched(folder_path: str,
                  segments)
 
     def load(path):
-        audio, sr = read_wav(path)
-        if audio.ndim > 1:
-            audio = audio.mean(axis=1)
-        if sr != session.sr:
-            audio = resample(audio, sr, session.sr)
-        if len(audio) > 0:
-            audio = peak_normalize(audio, eps=1e-8)
-        return np.asarray(audio, np.float32)
+        with span("wfl.read_wav") as sp:
+            audio, sr = read_wav(path)
+            if audio.ndim > 1:
+                audio = audio.mean(axis=1)
+            if sr != session.sr:
+                audio = resample(audio, sr, session.sr)
+            if len(audio) > 0:
+                audio = peak_normalize(audio, eps=1e-8)
+            sp.set(samples=len(audio))
+            return np.asarray(audio, np.float32)
 
     def flush(group):
         bucket = session._bucket(max(g[2] for g in group))
@@ -736,9 +768,10 @@ def infer_folder_batched(folder_path: str,
                 _cache_save(logit_path, logits)
                 _cache_save(offset_path, offsets)
                 if session.merge_map and lang_name:
-                    segs = [(s, e, canonical_to_lang(ph, lang_name,
-                                                     session.merge_map))
-                            for s, e, ph in segs]
+                    with span("wfl.decode"):
+                        segs = [(s, e, canonical_to_lang(ph, lang_name,
+                                                         session.merge_map))
+                                for s, e, ph in segs]
                 finish(name, segs)
             return
         results = session.forward_many(audios, [langs] * len(group),
@@ -747,8 +780,9 @@ def infer_folder_batched(folder_path: str,
                 zip(group, results):
             if not session.writes:
                 continue
-            logits = lg.mean(axis=0)
-            offsets = off.mean(axis=0)
+            with span("wfl.decode"):     # the languages' average first
+                logits = lg.mean(axis=0)
+                offsets = off.mean(axis=0)
             _cache_save(logit_path, logits)
             _cache_save(offset_path, offsets)
             finish(name, _decode_segment(session, logits, offsets,
@@ -759,26 +793,29 @@ def infer_folder_batched(folder_path: str,
     cache_dir = os.path.join(folder_path, ".wfl_cache")
     os.makedirs(cache_dir, exist_ok=True)
     work = []
-    for name in sorted(f for f in os.listdir(folder_path)
-                       if f.lower().endswith(".wav")):
-        path = os.path.join(folder_path, name)
-        # duration gate first (header only): a >30 s file takes the chunked
-        # path even if a stale short-file cache entry has its name
-        n_samples, sr_hdr = wav_duration(path)
-        if n_samples / sr_hdr > MAX_SEGMENT_DURATION:
-            work.append(("long", name, path))
-            continue
-        base = os.path.splitext(name)[0]
-        logit_path = os.path.join(cache_dir, f"{base}{lang_suffix}_logits.pt")
-        offset_path = os.path.join(cache_dir,
-                                   f"{base}{lang_suffix}_offsets.pt")
-        cached = _squeeze_batch(_cache_load(logit_path))
-        if cached is not None:
-            work.append(("cached", name, cached, offset_path))
-            continue
-        work.append(("new", name, path,
-                     resampled_length(n_samples, sr_hdr, session.sr),
-                     logit_path, offset_path))
+    with span("wfl.list") as sp:
+        for name in sorted(f for f in os.listdir(folder_path)
+                           if f.lower().endswith(".wav")):
+            path = os.path.join(folder_path, name)
+            # duration gate first (header only): a >30 s file takes the chunked
+            # path even if a stale short-file cache entry has its name
+            n_samples, sr_hdr = wav_duration(path)
+            if n_samples / sr_hdr > MAX_SEGMENT_DURATION:
+                work.append(("long", name, path))
+                continue
+            base = os.path.splitext(name)[0]
+            logit_path = os.path.join(cache_dir,
+                                      f"{base}{lang_suffix}_logits.pt")
+            offset_path = os.path.join(cache_dir,
+                                       f"{base}{lang_suffix}_offsets.pt")
+            cached = _squeeze_batch(_cache_load(logit_path))
+            if cached is not None:
+                work.append(("cached", name, cached, offset_path))
+                continue
+            work.append(("new", name, path,
+                         resampled_length(n_samples, sr_hdr, session.sr),
+                         logit_path, offset_path))
+        sp.set(files=len(work))
     if mesh is not None:
         torch.distributed.barrier()
 

@@ -34,6 +34,7 @@ from torch import nn
 
 from ..ops.frontend import mel_spectrogram, wav2vec2_normalize, \
     wav2vec2_normalize_masked, whisper_log_mel
+from ..utils.profiling import span
 from . import heads as H
 from .layers import linear
 from .wavlm import WavLMArch, WavLMEncoder
@@ -301,26 +302,30 @@ class BIOPhonemeTagger(nn.Module):
         ``generator``: the dropout draws in training mode (on the
         model's device). ``precentered``, ``remat``: see :meth:`encode`."""
         arch = self.arch
-        hidden = self.encode(audio, sample_mask, frame_mask, compute_dtype,
-                             pos_bias, generator, precentered, remat)
-        if max_label_len is not None:
-            hidden = _trim_or_pad(hidden, int(max_label_len))
-            if frame_mask is not None:
-                frame_mask = _trim_or_pad(frame_mask, int(max_label_len))
-        if lang_id is not None:
-            hidden = H.lang_conditioning(self.lang_emb, self.lang_proj,
-                                         hidden, lang_id)
-        if arch.enable_bilstm:
-            hidden = H.bilstm(self.bilstm, hidden, mask=frame_mask)
-        out = hidden
-        for block in self.conformer_layers:
-            out = block(out, mask=frame_mask, generator=generator)
-        if arch.enable_dilated_conv:
-            out = H.dilated_stack(self.dilated_conv_stack, out,
-                                  arch.dilated_kernel, mask=frame_mask)
-        logits = linear(self.classifier, out)
-        offsets = H.offset_head(self.boundary_offset_head, out,
-                                mask=frame_mask)
+        with span("wfl.encoder"):
+            hidden = self.encode(audio, sample_mask, frame_mask,
+                                 compute_dtype, pos_bias, generator,
+                                 precentered, remat)
+        with span("wfl.heads"):
+            if max_label_len is not None:
+                hidden = _trim_or_pad(hidden, int(max_label_len))
+                if frame_mask is not None:
+                    frame_mask = _trim_or_pad(frame_mask, int(max_label_len))
+            if lang_id is not None:
+                hidden = H.lang_conditioning(self.lang_emb, self.lang_proj,
+                                             hidden, lang_id)
+            if arch.enable_bilstm:
+                with span("wfl.bilstm"):
+                    hidden = H.bilstm(self.bilstm, hidden, mask=frame_mask)
+            out = hidden
+            for block in self.conformer_layers:
+                out = block(out, mask=frame_mask, generator=generator)
+            if arch.enable_dilated_conv:
+                out = H.dilated_stack(self.dilated_conv_stack, out,
+                                      arch.dilated_kernel, mask=frame_mask)
+            logits = linear(self.classifier, out)
+            offsets = H.offset_head(self.boundary_offset_head, out,
+                                    mask=frame_mask)
         return logits, offsets
 
 

@@ -115,7 +115,7 @@ from ..models.tagger import BIOPhonemeTagger, TaggerArch, init_tagger
 from ..parallel import fsdp as pfsdp
 from ..parallel import mesh as pmesh
 from ..parallel import tp as ptp
-from ..utils.profiling import maybe_trace
+from ..utils.profiling import maybe_trace, span
 from .losses import (cross_entropy, offset_loss, segmental_loss_value,
                      soft_iou_segmental_loss)
 from .optimizers import STACKED_STATE, make_optimizer
@@ -304,29 +304,35 @@ def micro_step(model: BIOPhonemeTagger, batch: Dict, device, n_micro: int,
     (``Mesh.mean_count``) when the batch is a rank's rows.
     Returns ({loss, ce, offset_loss} as detached device scalars, pred_ids,
     offsets)."""
-    arrays = to_device(batch, device)
-    model.train()
-    logits, offsets = model(arrays["audio"], arrays["lang_ids"],
-                            max_label_len=batch["max_label_len"],
-                            compute_dtype=compute_dtype, generator=generator,
-                            remat=remat)
-    ce = cross_entropy(logits, arrays["labels"], label_smoothing,
-                       mean_count=mean_count)
-    ol = offset_loss(offsets, arrays["off_frames"], arrays["off_channels"],
-                     arrays["off_fracs"], arrays["off_valid"])
-    loss = ce + subframe_weight * ol
-    if seg_diff_weight:
-        loss = loss + seg_diff_weight * soft_iou_segmental_loss(
-            logits, arrays["labels"], mean_count=mean_count)
-    (loss / n_micro).backward()
-    metrics = {"loss": loss.detach(), "ce": ce.detach(),
-               "offset_loss": ol.detach()}
-    return metrics, logits.detach().argmax(-1), offsets.detach()
+    wavs = batch.get("wavs")     # the unpadded rows, where collated
+    with span("wfl.forward_backward", rows=len(batch["audio"]),
+              samples_true=(sum(map(len, wavs)) if wavs is not None
+                            else int(np.size(batch["audio"])))):
+        arrays = to_device(batch, device)
+        model.train()
+        logits, offsets = model(arrays["audio"], arrays["lang_ids"],
+                                max_label_len=batch["max_label_len"],
+                                compute_dtype=compute_dtype,
+                                generator=generator, remat=remat)
+        ce = cross_entropy(logits, arrays["labels"], label_smoothing,
+                           mean_count=mean_count)
+        ol = offset_loss(offsets, arrays["off_frames"],
+                         arrays["off_channels"], arrays["off_fracs"],
+                         arrays["off_valid"])
+        loss = ce + subframe_weight * ol
+        if seg_diff_weight:
+            loss = loss + seg_diff_weight * soft_iou_segmental_loss(
+                logits, arrays["labels"], mean_count=mean_count)
+        (loss / n_micro).backward()
+        metrics = {"loss": loss.detach(), "ce": ce.detach(),
+                   "offset_loss": ol.detach()}
+        return metrics, logits.detach().argmax(-1), offsets.detach()
 
 
 def apply_update(optimizer: torch.optim.Optimizer) -> None:
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
+    with span("wfl.optimizer"):
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
 
 
 def train_step(model, optimizer, batch, device, label_smoothing: float,
@@ -924,36 +930,40 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
             return
         p_step, p_metrics, p_micro, p_lr = pending
         pending = None
-        loss_val = float(p_metrics["loss"])
-        offset_val = float(p_metrics["offset_loss"])
+        with span("wfl.readback"):
+            loss_val = float(p_metrics["loss"])
+            offset_val = float(p_metrics["offset_loss"])
         if segmental_metric and cfg.segmental_loss_weight != 0.0:
-            seg_total, n_samples = 0.0, 0
-            for pred, off, batch in p_micro:
-                pred, off = pred.cpu().numpy(), off.float().cpu().numpy()
-                for i, ll in enumerate(batch["label_lengths"]):
-                    ll = int(ll)
-                    segs = decode_bio_tags(
-                        [id2label[int(p)] for p in pred[i, :ll]],
-                        frame_duration=cfg.frame_duration,
-                        offsets=off[i, :ll])
-                    seg_total += segmental_loss_value(
-                        segs, _gt_segments(batch["segments_gt"][i]),
-                        cfg.segmental_loss_weights)
-                n_samples += len(batch["label_lengths"])
-            if mesh is not None:
-                seg_total, n_samples = mesh.sum_over_data(
-                    [seg_total, n_samples])
-            loss_val += (cfg.segmental_loss_weight * seg_total
-                         / max(n_samples, 1))
-        if writer is not None:
-            writer.add_scalar("train/loss", loss_val, p_step)
-            writer.add_scalar("train/offset_loss", offset_val, p_step)
-        log_event("train", p_step, loss=loss_val, offset_loss=offset_val,
-                  lr=p_lr)
-        now = time.time()
-        print(f"[train] step {p_step} loss {loss_val:.4f} offset_loss "
-              f"{offset_val:.4f} lr {p_lr:g} "
-              f"({1.0 / max(now - last_log, 1e-9):.2f} it/s)", flush=True)
+            with span("wfl.host_metric"):
+                seg_total, n_samples = 0.0, 0
+                for pred, off, batch in p_micro:
+                    pred, off = pred.cpu().numpy(), off.float().cpu().numpy()
+                    for i, ll in enumerate(batch["label_lengths"]):
+                        ll = int(ll)
+                        segs = decode_bio_tags(
+                            [id2label[int(p)] for p in pred[i, :ll]],
+                            frame_duration=cfg.frame_duration,
+                            offsets=off[i, :ll])
+                        seg_total += segmental_loss_value(
+                            segs, _gt_segments(batch["segments_gt"][i]),
+                            cfg.segmental_loss_weights)
+                    n_samples += len(batch["label_lengths"])
+                if mesh is not None:
+                    seg_total, n_samples = mesh.sum_over_data(
+                        [seg_total, n_samples])
+                loss_val += (cfg.segmental_loss_weight * seg_total
+                             / max(n_samples, 1))
+        with span("wfl.log"):
+            if writer is not None:
+                writer.add_scalar("train/loss", loss_val, p_step)
+                writer.add_scalar("train/offset_loss", offset_val, p_step)
+            log_event("train", p_step, loss=loss_val,
+                      offset_loss=offset_val, lr=p_lr)
+            now = time.time()
+            print(f"[train] step {p_step} loss {loss_val:.4f} offset_loss "
+                  f"{offset_val:.4f} lr {p_lr:g} "
+                  f"({1.0 / max(now - last_log, 1e-9):.2f} it/s)",
+                  flush=True)
         last_log = now
 
     with maybe_trace("train"):
@@ -966,21 +976,22 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
                 micro.append(batch)
                 if len(micro) < accum:
                     continue
-                lr_used = base_lr * scheduler.factor
-                set_lr(optimizer, lr_used)
-                metrics, update_micro = update(optimizer, micro, device,
-                                               **step_kwargs)
-                if mesh is not None:
-                    metrics = mesh.average_scalars(metrics)
-                micro = []
-                if cfg.scheduler_step_on_update:
-                    scheduler.step()
-                step += 1
-                if on_update is not None:
-                    on_update(step, [b for _, _, b in update_micro])
+                with span("wfl.update", step=step + 1):
+                    lr_used = base_lr * scheduler.factor
+                    set_lr(optimizer, lr_used)
+                    metrics, update_micro = update(optimizer, micro, device,
+                                                   **step_kwargs)
+                    if mesh is not None:
+                        metrics = mesh.average_scalars(metrics)
+                    micro = []
+                    if cfg.scheduler_step_on_update:
+                        scheduler.step()
+                    step += 1
+                    if on_update is not None:
+                        on_update(step, [b for _, _, b in update_micro])
 
-                drain_pending()
-                pending = (step, metrics, update_micro, lr_used)
+                    drain_pending()
+                    pending = (step, metrics, update_micro, lr_used)
 
                 if step % cfg.val_check_interval == 0:
                     drain_pending()

@@ -1,2 +1,2 @@
-"""Host utilities: validation figures (viz) and training traces
-(profiling)."""
+"""Host utilities: validation figures (viz), and the profiler traces and
+spans of host work (profiling)."""
