@@ -28,6 +28,11 @@ import pytest
 REFERENCE_DIR = "/root/reference"
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one")
+
+
 def _stub_module(name, **attrs):
     if name in sys.modules:
         return sys.modules[name]

@@ -247,7 +247,11 @@ def served(tmp_path_factory):
 def test_folder_job_spans(served):
     """One listing, one ``wfl.forward`` a batch with the bucket arithmetic,
     one ``wfl.read_wav`` and ``wfl.lab_write`` a file, two decode spans
-    and two cache entries a file; all under the one ``wfl.job``."""
+    and two cache entries a file; all under the one ``wfl.job``. Every
+    group after the first was read and assembled ahead, in the shadow of
+    the forward before it: one ``wfl.shadow`` a forward, inside it between
+    the encoder's launch and the heads', before its readback, holding the
+    next group's reads and the previous group's decode and writes."""
     recs, _names, _outs = served
     by = by_name(recs)
     (job,) = by["wfl.job"]
@@ -256,10 +260,29 @@ def test_folder_job_spans(served):
               for i in range(0, len(lens), BATCH_FILES)]
     fwd = sorted(by["wfl.forward"], key=lambda r: r.start_ns)
     assert len(fwd) == len(groups)
-    for r, g in zip(fwd, groups):
+    for k, (r, g) in enumerate(zip(fwd, groups)):
         bucket = int(np.ceil(max(g) / SR)) * SR
         assert r.attrs == {"rows": 2 * len(g), "samples_true": 2 * sum(g),
-                           "samples_run": 2 * len(g) * bucket}
+                           "samples_run": 2 * len(g) * bucket,
+                           "ahead": int(k > 0)}
+    shadows = sorted(by["wfl.shadow"], key=lambda r: r.start_ns)
+    assert len(shadows) == len(groups) > 2
+    for f, sh, enc, head, back in zip(
+            fwd, shadows, *(sorted(by[n], key=lambda r: r.start_ns)
+                            for n in ("wfl.encoder", "wfl.heads",
+                                      "wfl.readback"))):
+        assert sh.parent == f.id
+        assert enc.end_ns <= sh.start_ns and sh.end_ns <= head.start_ns
+        assert f.end_ns <= back.start_ns
+    inside = collections.Counter(
+        (shadows.index(s), r.name) for r in recs for s in shadows
+        if r.parent == s.id)
+    for k, g in enumerate(groups):
+        nxt = groups[k + 1] if k + 1 < len(groups) else []
+        prev = groups[k - 1] if k else []
+        assert inside[(k, "wfl.read_wav")] == len(nxt)
+        assert inside[(k, "wfl.lab_write")] == len(prev)
+        assert inside[(k, "wfl.cache_save")] == 2 * len(prev)
     assert sorted(r.attrs["samples"] for r in by["wfl.read_wav"]) == \
         sorted(lens)
     (listing,) = by["wfl.list"]

@@ -20,6 +20,17 @@ language averaging, gate, masked median and the BIO state machine on the
 device and moves segment arrays to the host once; the host multiplies
 ``(idx + offset) * Δ`` in float64 (``.lab`` truncation parity).
 
+The batched folder mode launches ahead, on one thread: a group's encoder
+is launched with no wait for the card (rows copied from a pinned buffer
+without blocking, masks built on the device), and while the card runs it
+the host writes the previous group's cache entries and ``.lab`` files
+(the host decode's gate and median on a stream of their own) and reads
+and assembles the next group's rows; then the heads run (the BiLSTM waits
+for the encoder) and the outputs are read back. Each rank's device work
+keeps its order, the files' bytes are those of the serial order, and a
+read that fails in the shadow is raised once the group in flight is
+written, as the serial order would.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device they raise. ``model.serving_quantization: int8`` swaps the
 encoder's large linears for W8A8-dynamic int8 ones at load
@@ -43,7 +54,8 @@ from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -90,6 +102,56 @@ def split_audio(audio: np.ndarray, sr: int,
     samples_per_segment = int(max_duration * sr)
     return [audio[start:start + samples_per_segment]
             for start in range(0, len(audio), samples_per_segment)]
+
+
+class Rows(NamedTuple):
+    """A bucketed forward's rows as :meth:`InferenceSession.assemble`
+    wrote them: ``audio`` [R, W] f32, one row an (item, language) pair;
+    ``meta`` [3, R] int64, each row's language id, samples and frames;
+    both views of the session's staging buffer. ``t_pad``: the bucket's
+    frames; ``masked``: the forward takes per-row masks; ``t_refs``: each
+    item's frames."""
+    audio: torch.Tensor
+    meta: torch.Tensor
+    bucket: int
+    t_pad: int
+    masked: bool
+    t_refs: List[int]
+
+
+class _Staging:
+    """The host side of the forwards' inputs: one buffer, pinned on CUDA
+    (plain memory on the CPU), that a batch's rows are written into. It is
+    written again only once an event says its last copy to the card is
+    done; a forward's copy is the first work queued for it, so rows
+    assembled while that forward runs seldom wait."""
+
+    def __init__(self, device: torch.device):
+        self.pin = device.type == "cuda"
+        self.audio: Optional[torch.Tensor] = None
+        self.meta: Optional[torch.Tensor] = None
+        self.copied: Optional[torch.cuda.Event] = None
+
+    def take(self, rows: int, width: int):
+        """(audio [rows, width] f32, meta [3, rows] int64): the buffer, once
+        its last copy is done, grown to fit."""
+        if self.copied is not None:
+            self.copied.synchronize()
+            self.copied = None
+        if self.audio is None or self.audio.numel() < rows * width:
+            self.audio = torch.empty(rows * width, dtype=torch.float32,
+                                     pin_memory=self.pin)
+        if self.meta is None or self.meta.numel() < 3 * rows:
+            self.meta = torch.empty(3 * rows, dtype=torch.int64,
+                                    pin_memory=self.pin)
+        return (self.audio[:rows * width].view(rows, width),
+                self.meta[:3 * rows].view(3, rows))
+
+    def sent(self) -> None:
+        """Marks the buffer's copies as issued on the current stream."""
+        if self.pin:
+            self.copied = torch.cuda.Event()
+            self.copied.record()
 
 
 class InferenceSession:
@@ -190,6 +252,11 @@ class InferenceSession:
         self._pos_bias_slices: "OrderedDict[int, torch.Tensor]" = OrderedDict()
         self._pos_bias_slice_cap = 4
         self._bio_cache = None
+        self._staging = _Staging(self.device)
+        # the host decode's gate and median run on a stream of their own, so
+        # that their readback does not wait for a forward in flight
+        self._decode_stream = (torch.cuda.Stream(self.device)
+                               if self.device.type == "cuda" else None)
 
     # -- forward --------------------------------------------------------------
 
@@ -221,25 +288,76 @@ class InferenceSession:
             self._pos_bias_slices.move_to_end(t_pad)
         return self._pos_bias_slices[t_pad]
 
-    def run_batch(self, audio: np.ndarray, lang_ids: np.ndarray,
-                  sample_mask: Optional[np.ndarray],
-                  frame_mask: Optional[np.ndarray], t_pad: int):
-        """One forward over bucketed rows → DEVICE (logits, offsets) at the
-        compute dtype. audio [R, S] f32 (rows from :meth:`_row`), lang_ids
-        [R]; masks or None; ``t_pad`` the bucket's frames."""
+    def assemble(self, audios: Sequence[np.ndarray],
+                 lang_ids_per_item: Sequence[Sequence[int]],
+                 bucket: Optional[int] = None,
+                 masked: Optional[bool] = None) -> Rows:
+        """Every (item, language) row of one bucketed forward, written into
+        the session's staging buffer: the item's audio zero-filled to
+        the bucket (``bucket``: the padded length, at least; a share of a
+        larger batch runs at the batch's); for the mel front end first
+        reflect-padded by 200 at its exact length (the centring the device
+        STFT then skips), so the tail frames equal an exact-length run
+        (pipeline.py:339-348). ``masked`` (default: every encoder but
+        Whisper, which pads each row to 30 s itself): the forward takes
+        per-row sample and frame masks. Rows assembled earlier are
+        overwritten: launch them first."""
+        s_true = [len(a) for a in audios]
+        bucket = max(bucket or 0, self._bucket(max(s_true)))
+        mel = self.arch.encoder_type == "none"
+        width = bucket + 2 * MEL_CENTER_PAD if mel else bucket
+        n_rows = sum(len(langs) for langs in lang_ids_per_item)
+        audio, meta = self._staging.take(n_rows, width)
+        rows, info = audio.numpy(), meta.numpy()
+        t_refs = [self.num_frames_for(s) for s in s_true]
+        r = 0
+        for a, langs, t_ref in zip(audios, lang_ids_per_item, t_refs):
+            n_samples = len(a)
+            if mel:
+                a = np.pad(np.asarray(a, np.float32), MEL_CENTER_PAD,
+                           mode="reflect")
+            rows[r:r + len(langs), :len(a)] = a
+            rows[r:r + len(langs), len(a):] = 0.0
+            info[0, r:r + len(langs)] = langs
+            info[1:, r:r + len(langs)] = [[n_samples], [t_ref]]
+            r += len(langs)
+        if masked is None:
+            masked = self.arch.encoder_type != "whisper"
+        return Rows(audio, meta, bucket, self.num_frames_for(bucket), masked,
+                    t_refs)
+
+    def launch(self, rows: Rows,
+               shadow: Optional[Callable[[], None]] = None):
+        """One forward over assembled rows → DEVICE (logits, offsets) at the
+        compute dtype. The rows are copied to the device without blocking
+        the host (into tensors of their own: the staging buffer may be
+        written again once the copy is done) and the masks are built there.
+        ``shadow``, host work done while the forward is in flight, runs
+        between the encoder's launch and the heads': the BiLSTM waits for
+        the card (its lengths' read back, then cuDNN's call, which returns
+        once the card has run it), so work put there overlaps the encoder."""
+        dev = self.device
         with torch.inference_mode():
             with span("wfl.stage"):
-                x = self._to_device(audio.astype(np.float32))
-                ids = self._to_device(np.asarray(lang_ids, np.int64))
-                if sample_mask is not None:
-                    sample_mask = self._to_device(sample_mask)
-                if frame_mask is not None:
-                    frame_mask = self._to_device(frame_mask)
-            return self.model(
-                x, ids, sample_mask=sample_mask, frame_mask=frame_mask,
-                compute_dtype=self.compute_dtype,
-                pos_bias=self._pos_bias_for(t_pad),
-                precentered=self.arch.encoder_type == "none")
+                x = rows.audio.to(dev, non_blocking=True, copy=True)
+                meta = rows.meta.to(dev, non_blocking=True, copy=True)
+                self._staging.sent()
+                sample_mask = frame_mask = None
+                if rows.masked:
+                    sample_mask = (torch.arange(rows.bucket, device=dev)
+                                   < meta[1, :, None])
+                    frame_mask = (torch.arange(rows.t_pad, device=dev)
+                                  < meta[2, :, None])
+            with span("wfl.encoder"):
+                hidden = self.model.encode(
+                    x, sample_mask, frame_mask, self.compute_dtype,
+                    self._pos_bias_for(rows.t_pad),
+                    precentered=self.arch.encoder_type == "none")
+        if shadow is not None:
+            with span("wfl.shadow"):
+                shadow()
+        with torch.inference_mode():
+            return self.model.heads(hidden, meta[0], frame_mask=frame_mask)
 
     def samples_run(self, bucket: int) -> int:
         """Samples the encoder computes on a row of a ``bucket``-sample
@@ -259,21 +377,6 @@ class InferenceSession:
         hop = int(self.arch.frame_duration * self.sr)
         return num_samples // hop + 1 if num_samples > 0 else 0
 
-    def _row(self, audio: np.ndarray, bucket: int) -> np.ndarray:
-        """One row of a bucketed batch: the audio zero-filled to the bucket;
-        for the mel front end first reflect-padded by 200 at its exact
-        length (the centring the device STFT then skips), so the tail
-        frames equal an exact-length run (pipeline.py:339-348)."""
-        if self.arch.encoder_type == "none":
-            buf = np.zeros(bucket + 2 * MEL_CENTER_PAD, np.float32)
-            centered = np.pad(np.asarray(audio, np.float32), MEL_CENTER_PAD,
-                              mode="reflect")
-        else:
-            buf = np.zeros(bucket, np.float32)
-            centered = audio
-        buf[:len(centered)] = centered
-        return buf
-
     def _bucket(self, num_samples: int) -> int:
         unit = int(BUCKET_SECONDS * self.sr)
         return max(int(np.ceil(num_samples / unit)), 1) * unit
@@ -292,67 +395,52 @@ class InferenceSession:
         bucket = self._bucket(s_true)
         with span("wfl.forward", rows=n, samples_true=n * s_true,
                   samples_run=n * self.samples_run(bucket)):
-            buf = self._row(audio, bucket)
-            batch = np.broadcast_to(buf, (n, len(buf)))
-            t_pad = self.num_frames_for(bucket)
-            sample_mask = np.broadcast_to(np.arange(bucket) < s_true,
-                                          (n, bucket))
-            frame_mask = np.broadcast_to(np.arange(t_pad) < t_ref, (n, t_pad))
             # Whisper pads every row to 30 s itself and runs unmasked
             masked = self.arch.encoder_type != "whisper" and s_true != bucket
-            logits, offsets = self.run_batch(
-                batch, np.asarray(lang_ids, np.int64),
-                sample_mask if masked else None,
-                frame_mask if masked else None, t_pad)
+            logits, offsets = self.launch(self.assemble(
+                [audio], [list(lang_ids)], bucket, masked))
         with span("wfl.readback"):
             return (logits[:, :t_ref].float().cpu().numpy(),
                     offsets[:, :t_ref].float().cpu().numpy())
 
     def _forward_many_device(self, audios: Sequence[np.ndarray],
                              lang_ids_per_item: Sequence[Sequence[int]],
-                             bucket: Optional[int] = None):
+                             bucket: Optional[int] = None,
+                             rows: Optional[Rows] = None,
+                             shadow: Optional[Callable[[], None]] = None):
         """One bucketed forward over every (item, language) row with per-row
         masks; returns DEVICE outputs and each item's true frame count.
         ``bucket``: the padded length (a share of a larger batch runs at
-        the batch's)."""
+        the batch's); ``rows``: the items' rows assembled ahead;
+        ``shadow``: as :meth:`launch`'s."""
         s_true = [len(a) for a in audios]
         bucket = max(bucket or 0, self._bucket(max(s_true)))
-        rows = sum(len(langs) for langs in lang_ids_per_item)
-        with span("wfl.forward", rows=rows,
+        n_rows = sum(len(langs) for langs in lang_ids_per_item)
+        with span("wfl.forward", rows=n_rows,
                   samples_true=sum(s * len(langs) for s, langs in
                                    zip(s_true, lang_ids_per_item)),
-                  samples_run=rows * self.samples_run(bucket)):
-            t_pad = self.num_frames_for(bucket)
-            rows_audio, rows_lang, row_owner = [], [], []
-            for i, (audio, langs) in enumerate(zip(audios,
-                                                   lang_ids_per_item)):
-                buf = self._row(audio, bucket)
-                for lang in langs:
-                    rows_audio.append(buf)
-                    rows_lang.append(lang)
-                    row_owner.append(i)
-            t_refs = [self.num_frames_for(s) for s in s_true]
-            sample_mask = (np.arange(bucket)[None, :]
-                           < np.array([s_true[o] for o in row_owner])[:, None])
-            frame_mask = (np.arange(t_pad)[None, :]
-                          < np.array([t_refs[o] for o in row_owner])[:, None])
-            masked = self.arch.encoder_type != "whisper"
-            logits, offsets = self.run_batch(
-                np.stack(rows_audio), np.array(rows_lang, np.int64),
-                sample_mask if masked else None,
-                frame_mask if masked else None, t_pad)
-        return logits, offsets, t_refs
+                  samples_run=n_rows * self.samples_run(bucket),
+                  ahead=int(rows is not None)):
+            if rows is None:
+                rows = self.assemble(audios, lang_ids_per_item, bucket)
+            logits, offsets = self.launch(rows, shadow)
+        return logits, offsets, rows.t_refs
 
     def forward_many(self, audios: Sequence[np.ndarray],
                      lang_ids_per_item: Sequence[Sequence[int]],
-                     bucket: Optional[int] = None):
+                     bucket: Optional[int] = None,
+                     rows: Optional[Rows] = None,
+                     shadow: Optional[Callable[[], None]] = None):
         """Batched multi-utterance forward; per item (logits [L_i, T_i, n],
         offsets [L_i, T_i, 2]) as f32 numpy. ``bucket``: the padded length
-        to run at, at least."""
+        to run at, at least. ``rows``: the items' rows, assembled ahead
+        (:meth:`assemble`). ``shadow``: host work run while the forward is
+        in flight, after the encoder's launch and before the heads' and the
+        readback (:meth:`launch`)."""
         if not audios:
             return []
         logits, offsets, t_refs = self._forward_many_device(
-            audios, lang_ids_per_item, bucket)
+            audios, lang_ids_per_item, bucket, rows, shadow)
         with span("wfl.readback"):
             logits = logits.float().cpu().numpy()
             offsets = offsets.float().cpu().numpy()
@@ -375,17 +463,20 @@ class InferenceSession:
     def forward_many_decoded(self, audios: Sequence[np.ndarray],
                              langs: Sequence[int],
                              confidence_threshold: float, median_size: int,
-                             bucket: Optional[int] = None):
+                             bucket: Optional[int] = None,
+                             rows: Optional[Rows] = None,
+                             shadow: Optional[Callable[[], None]] = None):
         """Batched forward + device-side language averaging, gate, masked
         median and BIO decode; one host transfer of segment arrays (plus the
         averaged logits/offsets the ``.wfl_cache`` needs). Every item uses
-        the language list ``langs``. Returns per item
+        the language list ``langs``. ``rows``, ``shadow``: as
+        :meth:`forward_many`'s. Returns per item
         ``(mean_logits [T_i, n], mean_offsets [T_i, 2], segments)``."""
         if not audios:
             return []
         n_items, n_langs = len(audios), len(langs)
         logits, offsets, t_refs = self._forward_many_device(
-            audios, [list(langs)] * n_items, bucket)
+            audios, [list(langs)] * n_items, bucket, rows, shadow)
         kind_t, ph_t, ph_names = self._bio()
         o_id = self.label2id["O"]
         with span("wfl.decode"), torch.inference_mode():
@@ -420,8 +511,10 @@ class InferenceSession:
     def postprocess_ids(self, logits: np.ndarray,
                         confidence_threshold: float,
                         median_size: int) -> np.ndarray:
-        """Device-side confidence gate + median filter → label ids [T]."""
-        with torch.inference_mode():
+        """Device-side confidence gate + median filter → label ids [T], on
+        the session's decode stream: the readback waits for these kernels,
+        not for a forward in flight."""
+        with torch.inference_mode(), torch.cuda.stream(self._decode_stream):
             ids = confidence_gate_ids(self._to_device(logits),
                                       confidence_threshold,
                                       self.label2id["O"])
@@ -751,43 +844,45 @@ def infer_folder_batched(folder_path: str,
             sp.set(samples=len(audio))
             return np.asarray(audio, np.float32)
 
-    def flush(group):
-        bucket = session._bucket(max(g[2] for g in group))
-        group = group[me * len(group) // ranks:(me + 1) * len(group) // ranks]
-        if not group:
-            return
-        audios = [load(g[1]) for g in group]
+    def forward(audios, bucket, rows, shadow):
+        """A group's forward, ``shadow`` run while it is in flight."""
         if session.cfg.device_decode:
-            results = session.forward_many_decoded(
+            return session.forward_many_decoded(
                 audios, langs, confidence_threshold, median_size,
-                bucket=bucket)
-            for (name, _path, _n, logit_path, offset_path), \
-                    (logits, offsets, segs) in zip(group, results):
-                if not session.writes:
-                    continue
-                _cache_save(logit_path, logits)
-                _cache_save(offset_path, offsets)
-                if session.merge_map and lang_name:
-                    with span("wfl.decode"):
-                        segs = [(s, e, canonical_to_lang(ph, lang_name,
-                                                         session.merge_map))
-                                for s, e, ph in segs]
-                finish(name, segs)
+                bucket=bucket, rows=rows, shadow=shadow)
+        return session.forward_many(audios, [langs] * len(audios),
+                                    bucket=bucket, rows=rows, shadow=shadow)
+
+    def write(group, results):
+        """A group's cache entries and ``.lab`` files, from its forward's
+        results (the host decode's language average and decode first)."""
+        if not session.writes:
             return
-        results = session.forward_many(audios, [langs] * len(group),
-                                       bucket=bucket)
-        for (name, _path, _n, logit_path, offset_path), (lg, off) in \
+        for (name, _path, _n, logit_path, offset_path), result in \
                 zip(group, results):
-            if not session.writes:
-                continue
-            with span("wfl.decode"):     # the languages' average first
-                logits = lg.mean(axis=0)
-                offsets = off.mean(axis=0)
+            if session.cfg.device_decode:
+                logits, offsets, segs = result
+            else:
+                with span("wfl.decode"):     # the languages' average first
+                    logits = result[0].mean(axis=0)
+                    offsets = result[1].mean(axis=0)
             _cache_save(logit_path, logits)
             _cache_save(offset_path, offsets)
-            finish(name, _decode_segment(session, logits, offsets,
-                                         confidence_threshold, median_size,
-                                         lang_name))
+            if not session.cfg.device_decode:
+                segs = _decode_segment(session, logits, offsets,
+                                       confidence_threshold, median_size,
+                                       lang_name)
+            elif session.merge_map and lang_name:
+                with span("wfl.decode"):
+                    segs = [(s, e, canonical_to_lang(ph, lang_name,
+                                                     session.merge_map))
+                            for s, e, ph in segs]
+            finish(name, segs)
+
+    def read(group, bucket):
+        """A group's wavs and their rows, assembled for its forward."""
+        audios = [load(g[1]) for g in group]
+        return audios, session.assemble(audios, [langs] * len(group), bucket)
 
     # every rank classifies every file before any rank writes a cache entry
     cache_dir = os.path.join(folder_path, ".wfl_cache")
@@ -819,31 +914,85 @@ def infer_folder_batched(folder_path: str,
     if mesh is not None:
         torch.distributed.barrier()
 
+    # this rank's steps in order: its share of each group of new files (at
+    # the whole group's bucket), and the long and cached files whose turn
+    # is its own
+    steps = []
     pending = []  # (name, path, samples, logit_path, offset_path)
     turn = 0      # the rank whose turn a long or cached file is
+
+    def close_group():
+        bucket = session._bucket(max(g[2] for g in pending))
+        share = pending[me * len(pending) // ranks:
+                        (me + 1) * len(pending) // ranks]
+        if share:
+            steps.append(("group", (share, bucket)))
+
     for kind, name, *rest in work:
         if kind == "new":
             pending.append((name, *rest))
             if len(pending) >= batch_files:
-                flush(pending)
+                close_group()
                 pending = []
             continue
         mine, turn = turn == me, (turn + 1) % ranks
-        if not mine:
-            continue
-        if kind == "long":
-            infer_audio(rest[0], config_path, checkpoint_path,
-                        os.path.join(output_dir, name.replace(".wav", ".lab")),
-                        device=device, lang_id=lang_id,
-                        confidence_threshold=confidence_threshold,
-                        compute_dtype=compute_dtype)
-        elif session.writes:
-            cached, offset_path = rest
-            finish(name, _decode_segment(
-                session, cached, _squeeze_batch(_cache_load(offset_path)),
-                confidence_threshold, median_size, lang_name))
+        if mine:
+            steps.append((kind, (name, *rest)))
     if pending:
-        flush(pending)
+        close_group()
+
+    # Launch ahead: while group k's forward runs on the card, the host writes
+    # group k-1's files and reads and assembles group k+1's rows. A long or
+    # cached file first writes the group read back before it.
+    done = None    # (group, results): the group last read back, unwritten
+    ahead = None   # (audios, rows): the next group's, read in a shadow
+    for i, (kind, item) in enumerate(steps):
+        if kind != "group":
+            if done is not None:
+                write(*done)
+                done = None
+            if kind == "long":
+                name, path = item
+                infer_audio(path, config_path, checkpoint_path,
+                            os.path.join(output_dir,
+                                         name.replace(".wav", ".lab")),
+                            device=device, lang_id=lang_id,
+                            confidence_threshold=confidence_threshold,
+                            compute_dtype=compute_dtype)
+            elif session.writes:
+                name, cached, offset_path = item
+                finish(name, _decode_segment(
+                    session, cached, _squeeze_batch(_cache_load(offset_path)),
+                    confidence_threshold, median_size, lang_name))
+            continue
+        group, bucket = item
+        if ahead is None:
+            audios, rows = [load(g[1]) for g in group], None
+        else:
+            (audios, rows), ahead = ahead, None
+        prev, done = done, None
+        nxt = steps[i + 1][1] if i + 1 < len(steps) \
+            and steps[i + 1][0] == "group" else None
+        failed = None  # the next group's reads' error, raised once this
+                       # group is written, as the serial order would
+
+        def shadow():
+            nonlocal ahead, failed
+            if prev is not None:
+                write(*prev)
+            if nxt is not None:
+                try:
+                    ahead = read(*nxt)
+                except Exception as err:
+                    failed = err
+        done = (group, forward(audios, bucket, rows,
+                               None if prev is None and nxt is None
+                               else shadow))
+        if failed is not None:
+            write(*done)
+            raise failed
+    if done is not None:
+        write(*done)
 
 
 def infer_folder(folder_path: str, config_path: ConfigLike = "config.yaml",

@@ -301,11 +301,20 @@ class BIOPhonemeTagger(nn.Module):
         inference with exact-length numerics on valid frames.
         ``generator``: the dropout draws in training mode (on the
         model's device). ``precentered``, ``remat``: see :meth:`encode`."""
-        arch = self.arch
         with span("wfl.encoder"):
             hidden = self.encode(audio, sample_mask, frame_mask,
                                  compute_dtype, pos_bias, generator,
                                  precentered, remat)
+        return self.heads(hidden, lang_id, max_label_len, frame_mask,
+                          generator)
+
+    def heads(self, hidden: torch.Tensor, lang_id: Optional[torch.Tensor],
+              max_label_len: Optional[int] = None,
+              frame_mask: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None):
+        """Language conditioning through the offset head over the encoder's
+        hidden states [B, T_enc, H] → (logits, offsets), as :meth:`forward`'s."""
+        arch = self.arch
         with span("wfl.heads"):
             if max_label_len is not None:
                 hidden = _trim_or_pad(hidden, int(max_label_len))

@@ -31,8 +31,16 @@ producer is a second thread):
                               rows to the outputs on the device (``rows``;
                               ``samples_true``: Σ the rows' own samples;
                               ``samples_run``: rows × the samples the encoder
-                              computes on — the bucket, or Whisper's 30 s)
-``wfl.stage``                 the forward's host-to-device copies
+                              computes on — the bucket, or Whisper's 30 s;
+                              in folder mode ``ahead``: 1 where the rows were
+                              read and assembled in the previous forward's
+                              shadow, so the span holds only the launch)
+``wfl.stage``                 the forward's host-to-device copies (issued
+                              without blocking) and its masks
+``wfl.shadow``                the host work done while a folder job's forward
+                              is in flight, between its encoder's launch and
+                              its heads': the previous group's decode and
+                              writes, the next group's reads and rows
 ``wfl.encoder``               the encoder's forward (launches; in training the
                               graph is recorded too)
 ``wfl.heads``                 language conditioning through the offset head
