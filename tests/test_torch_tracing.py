@@ -340,11 +340,13 @@ def trained(tmp_path_factory):
 def test_train_update_spans(trained):
     """One ``wfl.update`` a step, each the root of its micro-batch's
     forward and backward and of the optimizer's step, and from the second
-    step on of the previous step's readback and log."""
+    step on of the previous step's readback and log; without remat no
+    layer is recomputed."""
     recs, _root = trained
     by = by_name(recs)
     updates = sorted(by["wfl.update"], key=lambda r: r.start_ns)
-    assert [u.attrs for u in updates] == [{"step": s} for s in (1, 2, 3)]
+    assert [u.attrs for u in updates] == [{"step": s, "recomputed": 0}
+                                          for s in (1, 2, 3)]
     under = collections.defaultdict(list)
     for r in recs:
         if r.root != r.id:

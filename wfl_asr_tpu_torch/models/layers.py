@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import recompute
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
@@ -82,7 +84,8 @@ def dropout(x: torch.Tensor, rate: float,
     return x * keep / (1.0 - rate)
 
 
-def checkpointed(fn, generator: Optional[torch.Generator], *args):
+def checkpointed(fn, generator: Optional[torch.Generator], *args,
+                 layer: Optional[int] = None):
     """``fn(*args, generator)`` under ``torch.utils.checkpoint`` (remat):
     only its inputs are saved, and the backward pass recomputes it. Its
     draws from ``generator`` are the same in the first pass, in the
@@ -91,10 +94,21 @@ def checkpointed(fn, generator: Optional[torch.Generator], *args):
     ``generator`` takes the private one's end state. (``checkpoint``
     restores only the default CPU/CUDA generators, never an explicit one.)
     With no generator, the default generators' states are what it
-    restores."""
+    restores. Each run after the first (the recompute, on the thread that
+    runs the backward) is a ``wfl.recompute`` span with ``layer``."""
     from torch.utils.checkpoint import checkpoint
+    first = True
+
+    def traced(*inputs):
+        nonlocal first
+        if first:
+            first = False
+            return fn(*inputs)
+        with recompute(layer):
+            return fn(*inputs)
+
     if generator is None:
-        return checkpoint(fn, *args, None, use_reentrant=False)
+        return checkpoint(traced, *args, None, use_reentrant=False)
     start = generator_state(generator)
     if isinstance(generator, Generators):
         private = Generators(*(torch.Generator(device=g.device)
@@ -104,7 +118,7 @@ def checkpointed(fn, generator: Optional[torch.Generator], *args):
 
     def run(*inputs):
         set_generator_state(private, start)
-        return fn(*inputs, private)
+        return traced(*inputs, private)
 
     out = checkpoint(run, *args, use_reentrant=False)
     set_generator_state(generator, generator_state(private))

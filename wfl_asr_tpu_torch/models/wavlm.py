@@ -589,7 +589,7 @@ class WavLMEncoder(nn.Module):
         sp = sp_active(self.mesh, self.sequence_parallel)
         if sp:
             x = shard_time(x, self.mesh)
-        for layer in self.encoder.layers:
+        for i, layer in enumerate(self.encoder.layers):
             # the LayerDrop draw precedes the layer's own, remat or not
             skip = (torch.rand((), generator=layers.shared_generator(
                 generator), device=x.device) < layerdrop) \
@@ -597,7 +597,7 @@ class WavLMEncoder(nn.Module):
             h = gather_time(x, self.mesh, t) if sp else x
             if remat:
                 y = checkpointed(layer, generator, self._layer, h, pos_bias,
-                                 kv_len)
+                                 kv_len, layer=i)
             else:
                 y = layer(self._layer, h, pos_bias, kv_len, generator)
             if sp:

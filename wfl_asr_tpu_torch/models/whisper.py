@@ -214,14 +214,14 @@ class WhisperEncoder(nn.Module):
         sp = sp_active(self.mesh, self.sequence_parallel)
         if sp:
             x = shard_time(x, self.mesh)
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             # the LayerDrop draw precedes the layer's own, remat or not
             skip = (torch.rand((), generator=shared_generator(generator),
                                device=x.device) < layerdrop) \
                 if layerdrop > 0.0 else None
             h = gather_time(x, self.mesh, t) if sp else x
             if remat:
-                y = checkpointed(layer, generator, self._layer, h)
+                y = checkpointed(layer, generator, self._layer, h, layer=i)
             else:
                 y = layer(self._layer, h, generator)
             if sp:

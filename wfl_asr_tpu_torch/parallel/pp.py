@@ -482,7 +482,8 @@ def pipelined_layers(encoder: nn.Module, x: torch.Tensor, call: Callable,
             def one(h_, g_, layer=layer):
                 return call(layer, h_, rows, shr, g_, row0)
 
-            y = checkpointed(one, gen, h) if remat else one(h, gen)
+            y = checkpointed(one, gen, h, layer=idx) if remat \
+                else one(h, gen)
             h = torch.where(skip, h, y) if skip is not None else y
         return h
 

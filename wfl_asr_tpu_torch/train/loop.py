@@ -115,7 +115,7 @@ from ..models.tagger import BIOPhonemeTagger, TaggerArch, init_tagger
 from ..parallel import fsdp as pfsdp
 from ..parallel import mesh as pmesh
 from ..parallel import tp as ptp
-from ..utils.profiling import maybe_trace, span
+from ..utils.profiling import maybe_trace, recomputed, span
 from .losses import (cross_entropy, offset_loss, segmental_loss_value,
                      soft_iou_segmental_loss)
 from .optimizers import STACKED_STATE, make_optimizer
@@ -976,11 +976,13 @@ def train(config="config.yaml", device=None, segmental_metric: bool = True,
                 micro.append(batch)
                 if len(micro) < accum:
                     continue
-                with span("wfl.update", step=step + 1):
+                with span("wfl.update", step=step + 1) as upd:
                     lr_used = base_lr * scheduler.factor
                     set_lr(optimizer, lr_used)
+                    recomputed_before = recomputed()
                     metrics, update_micro = update(optimizer, micro, device,
                                                    **step_kwargs)
+                    upd.set(recomputed=recomputed() - recomputed_before)
                     if mesh is not None:
                         metrics = mesh.average_scalars(metrics)
                     micro = []

@@ -18,7 +18,8 @@ events in Unix nanoseconds. ``record.start_ns + clock_offset_ns()`` puts a
 span on the profiler's timeline.
 
 The spans the port opens (one thread launches; the training loader's
-producer is a second thread):
+producer is a second thread; a backward on the card runs on the autograd
+engine's thread, where ``wfl.recompute`` is a root span):
 
 ============================  ================================================
 ``wfl.job``                   one ``infer_folder_batched`` or ``infer_audio``
@@ -56,10 +57,18 @@ producer is a second thread):
                               alignment, write)
 ``wfl.update``                one optimizer update of the training loop
                               (``step``), with the previous update's readback
-                              and log, which the loop does one step late
+                              and log, which the loop does one step late;
+                              ``recomputed``: the ``wfl.recompute`` spans
+                              opened during its micro-batches (0 without
+                              remat)
 ``wfl.forward_backward``      one micro-batch's forward, losses and backward
                               (``rows``; ``samples_true``: Σ its wavs'
                               samples, or its padded rows' without wavs)
+``wfl.recompute``             a checkpointed layer run again inside the
+                              backward (``layers.checkpointed`` under
+                              ``training.remat``; ``layer``: its index in the
+                              encoder), on the thread that runs the backward;
+                              the first pass has no span
 ``wfl.optimizer``             the optimizer's step and ``zero_grad``
 ``wfl.host_metric``           the segmental metric's BIO decode on the host
 ``wfl.log``                   the metrics' log line, file and tensorboard
@@ -127,6 +136,8 @@ class _Tracer:
         self.ids = itertools.count(1)
         self.local = threading.local()      # .open: this thread's spans
         self.offset_ns: Optional[int] = None
+        self.recomputed = 0                 # wfl.recompute spans opened
+        self.lock = threading.Lock()
 
 
 _TRACER = _Tracer()
@@ -220,6 +231,24 @@ def span(name: str, **attrs):
         return noop if noop is not None else _NOOPS.setdefault(
             name, _Noop(name))
     return _Span(name, attrs)
+
+
+def recompute(layer: Optional[int]):
+    """The ``wfl.recompute`` span of a checkpointed layer's re-run in the
+    backward (``layer``: its index), counted by :func:`recomputed`. Like
+    :func:`span`, a shared no-op while no profiler records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return span("wfl.recompute")
+    with _TRACER.lock:
+        _TRACER.recomputed += 1
+    return _Span("wfl.recompute", {"layer": layer})
+
+
+def recomputed() -> int:
+    """The ``wfl.recompute`` spans opened in the process so far (while a
+    profiler recorded): the difference of two readings counts the layers
+    recomputed between them."""
+    return _TRACER.recomputed
 
 
 def spans() -> List[SpanRecord]:
